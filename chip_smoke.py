@@ -1,16 +1,20 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``tpurpc_torch``) on one CUDA card.
 
-Run from the root of a checkout: ``python3 chip_smoke.py``. Phases, each of
-which fails the run (non-zero exit, no result line) on any error:
+Run from the root of a checkout: ``python3 chip_smoke.py``
+(``python3 chip_smoke.py --kernels`` runs phases 1 and 2 only and ends with
+the kernels line and the card's name and power limit). Phases, each of which
+fails the run (non-zero exit, no result line) on any error:
 
 1. build the CUDA kernels from ``tpurpc_torch/csrc`` (one nvcc per source,
-   started together);
+   started together) and print ptxas's registers, shared memory and spills;
 2. hold each kernel against its plain PyTorch version on the card, byte for
-   byte, on a 16 MiB ring at the main path's span size and at odd offsets and
-   sizes, wrapped and unwrapped; time kernel, plain version and one PyTorch
-   library call over 50 launches each with CUDA events (L2 flushed between
-   launches);
+   byte, on a 16 MiB ring at the main path's span size, at odd offsets and
+   sizes, and at every start residue mod 16, wrapped and unwrapped. Then
+   time each kernel, its plain version and its one-call PyTorch yardstick
+   at the main span, 16-byte aligned and skewed (``DeviceTimer``: R
+   launches back to back over rotating cold buffer sets behind a leading
+   sleep; ROUNDS rounds in turns), and each wrapper's host cost per call;
 3. drive the main path: a tpurpc_torch ``Server`` on the device-ring
    platform (``GRPC_PLATFORM_TYPE=TPU``) serving full-width ResNet-50 (1000
    classes, random weights from a seed, float32, TF32 off) through
@@ -25,6 +29,7 @@ which fails the run (non-zero exit, no result line) on any error:
    one-line result JSON.
 """
 
+import argparse
 import json
 import os
 import subprocess
@@ -36,9 +41,18 @@ RING = 16 << 20
 BATCH, SIZE = 8, 224
 SPAN = BATCH * SIZE * SIZE * 3 * 4   # 4,816,896 bytes: one request's images
 REQUESTS = 8
-REPS = 50
-WARMUP = 20
 HBM_BYTES_PER_MS = 3.35e12 / 1e3      # H100 SXM memory bandwidth, bytes/ms
+#: the timed spans: one request across the wrap, 16-byte aligned as the
+#: smoke's traffic lands it, and skewed as a landing after an odd-sized leaf;
+#: and 32 bytes across the wrap, whose time is a launch's fixed cost
+SPANS = {"aligned": (RING - SPAN // 3, SPAN),
+         "skewed": (RING - SPAN // 3 + 3, SPAN + 5),
+         "tiny": (RING - 16, 32)}
+R = 200          # launches per timed run
+SETS = 8         # rotating buffer sets: 8 x (16 MiB + SPAN) = 173 MB
+ROUNDS = 5
+ORDER = ("kernel", "plain", "library", "library", "plain", "kernel")
+HOST_CALLS = 1000
 #: reply vs direct model run: same weights, same input, same card, float32
 #: with TF32 off — they differ only by cuDNN's choice of algorithm per call
 REPLY_TOL = 1e-3
@@ -65,31 +79,170 @@ def build_kernels():
     print(f"build: {secs:.2f} s for {sorted(_build.KERNELS)}", flush=True)
     for name, log in sorted(logs.items()):
         for line in log.splitlines():
-            if "ptxas info" in line and ("registers" in line or "Used" in line):
+            if ("ptxas info" in line and "Used" in line) or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
 
 # -- phase 2 -----------------------------------------------------------------
 
-def _time_ms(fn, flush) -> float:
-    """Mean device time of ``fn`` over REPS launches, L2 flushed before each
-    (outside the timed region), after WARMUP untimed launches."""
+class DeviceTimer:
+    """Device time per launch, with the wrapper's host cost left out.
+
+    One timed run is R launches back to back, each on the next of SETS
+    buffer sets (SETS x (RING + SPAN) bytes > twice the 50 MB L2, so every
+    launch finds its bytes cold), between two CUDA events. A
+    ``torch.cuda._sleep`` enqueued before the first event keeps the card
+    busy while the host enqueues the R launches, so the card runs them
+    without a gap. The sleep is checked, not assumed: the host's enqueue
+    of the R launches must end before the sleep does, or the run is made
+    again with a sleep twice as long."""
+
+    def __init__(self):
+        import torch
+
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        cycles = 20_000_000
+        torch.cuda._sleep(cycles)                      # clocks up
+        a.record()
+        torch.cuda._sleep(cycles)
+        b.record()
+        b.synchronize()
+        self.cycles_per_ms = cycles / a.elapsed_time(b)
+        self.cover = 0.0    # largest enqueue / sleep over the timed runs
+
+    def _enqueue(self, fn, sets) -> float:
+        t = time.perf_counter()
+        for i in range(R):
+            fn(sets[i % len(sets)])
+        return (time.perf_counter() - t) * 1e3
+
+    def ms(self, fn, sets) -> float:
+        import torch
+
+        sleep_ms = 2 * self._enqueue(fn, sets) + 1.0   # untimed pass sizes it
+        torch.cuda.synchronize()
+        for _ in range(4):
+            pre, start, end = (torch.cuda.Event(enable_timing=True)
+                               for _ in range(3))
+            pre.record()
+            torch.cuda._sleep(int(sleep_ms * self.cycles_per_ms))
+            start.record()
+            enqueue_ms = self._enqueue(fn, sets)
+            end.record()
+            end.synchronize()
+            slept = pre.elapsed_time(start)
+            if enqueue_ms < slept:
+                self.cover = max(self.cover, enqueue_ms / slept)
+                return start.elapsed_time(end) / R
+            sleep_ms *= 2
+        fail(f"the host's enqueue of {R} launches outlasted a "
+             f"{sleep_ms / 2:.2f} ms sleep four times")
+
+
+def host_us(fn, s) -> float:
+    """Host µs per call of ``fn`` over HOST_CALLS calls: enqueue only, one
+    synchronize after the clock stops. The card needs less time per call
+    than the host takes, so the queue never fills and the clock reads the
+    wrapper's host cost alone."""
     import torch
 
-    for _ in range(WARMUP):
-        flush.zero_()
-        fn()
-    total = 0.0
-    for _ in range(REPS):
-        flush.zero_()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        total += start.elapsed_time(end)
-    return total / REPS
+    for _ in range(20):
+        fn(s)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(HOST_CALLS):
+        fn(s)
+    us = (time.perf_counter() - t) * 1e6 / HOST_CALLS
+    torch.cuda.synchronize()
+    return us
+
+
+def _variants(name: str, start: int, n: int, dev):
+    """kernel, plain version and one-call yardstick of one kernel at one
+    span, each a function of a buffer set."""
+    import torch
+
+    from tpurpc_torch.ops.ring_scatter import ring_scatter, ring_scatter_plain
+    from tpurpc_torch.ops.ring_window import ring_window, ring_window_plain
+
+    p = start % RING
+    first = min(n, RING - p)
+    if name == "ring_scatter":
+        idx = (start + torch.arange(n, device=dev)) % RING
+
+        def library(s):
+            s["ring"].index_copy_(0, idx, s["payload"][n])
+
+        return {"kernel": lambda s: ring_scatter(s["ring"], s["payload"][n],
+                                                 start),
+                "plain": lambda s: ring_scatter_plain(s["ring"],
+                                                      s["payload"][n], start),
+                "library": library}
+
+    def kernel(s):
+        s["out"] = ring_window(s["ring"], start, n)
+
+    def plain(s):
+        s["out"] = ring_window_plain(s["ring"], start, n)
+
+    def library(s):
+        s["out"] = torch.cat([s["ring"][p:p + first], s["ring"][:n - first]])
+
+    return {"kernel": kernel, "plain": plain, "library": library}
+
+
+def time_kernels(dev, g):
+    """Phase 2's timing: each kernel, its plain version and its one-call
+    yardstick at the aligned and the skewed main span, in turns (ORDER) for
+    ROUNDS rounds; and each wrapper's host cost per call."""
+    import statistics
+
+    import torch
+
+    n_max = max(n for _, n in SPANS.values())
+    sets = []
+    for _ in range(SETS):
+        payload = torch.randint(0, 256, (n_max,), dtype=torch.uint8,
+                                device=dev, generator=g)
+        sets.append({"ring": torch.randint(0, 256, (RING,), dtype=torch.uint8,
+                                           device=dev, generator=g),
+                     "payload": {n: payload[:n] for _, n in SPANS.values()},
+                     "out": None})
+    timer = DeviceTimer()
+    out = {}
+    for name in ("ring_scatter", "ring_window"):
+        res = out[name] = {}
+        for span, (start, n) in SPANS.items():
+            fns = _variants(name, start, n, dev)
+            samples = {v: [] for v in fns}
+            hosts = {"host_us": [], "plain_host_us": []}
+            for _ in range(ROUNDS):
+                for v in ORDER:
+                    samples[v].append(timer.ms(fns[v], sets))
+                if span == "aligned":
+                    hosts["host_us"].append(host_us(fns["kernel"], sets[0]))
+                    hosts["plain_host_us"].append(host_us(fns["plain"],
+                                                          sets[0]))
+            samples = {f"{span}_{v}": xs for v, xs in samples.items()}
+            for key, xs in (*samples.items(), *hosts.items()):
+                if xs:
+                    res[key] = (statistics.median(xs), min(xs), max(xs))
+        for s in sets:
+            s["out"] = None
+        for key, (med, lo, hi) in sorted(res.items()):
+            if key.endswith("host_us"):
+                print(f"  {name} {key}: median {med:.3f} us per call, min "
+                      f"{lo:.3f}, max {hi:.3f}", flush=True)
+                continue
+            start, n = SPANS[key.split("_")[0]]
+            print(f"  {name} {key}: median {med:.5f} ms, min {lo:.5f}, max "
+                  f"{hi:.5f} (max/min {hi / lo:.3f}); bound "
+                  f"{2 * n / HBM_BYTES_PER_MS:.5f} ms (start {start}, "
+                  f"{n} bytes)", flush=True)
+    print(f"timing: {R} launches per run over {SETS} buffer sets, "
+          f"{ROUNDS} rounds of {'/'.join(ORDER)}; the host's enqueue took "
+          f"at most {timer.cover:.3f} of the leading sleep", flush=True)
+    return out
 
 
 def check_kernels(dev):
@@ -105,6 +258,8 @@ def check_kernels(dev):
              (3, 1001), (RING - 7, 13), (RING - 1, 2), (RING - 1, 1),
              (0, RING), (12345, RING), (RING - 4093, SPAN + 5),
              (SPAN + 1, 4 * 4096 + 3), (RING - 17, 33)]
+    # every start residue mod 16, unwrapped and across the wrap
+    cases += [(RING - 6144 + r, n) for r in range(16) for n in (4099, 8197)]
     err = {"ring_scatter": 0, "ring_window": 0}
     for start, n in cases:
         payload = torch.randint(0, 256, (n,), dtype=torch.uint8, device=dev,
@@ -124,30 +279,7 @@ def check_kernels(dev):
     torch.cuda.synchronize()
     print(f"kernels: {len(cases)} cases byte-equal to their plain versions",
           flush=True)
-
-    # timing at the main path's shape: one request span across the wrap
-    start = RING - SPAN // 3
-    payload = torch.randint(0, 256, (SPAN,), dtype=torch.uint8, device=dev,
-                            generator=g)
-    idx = (start + torch.arange(SPAN, device=dev)) % RING  # outside timing
-    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
-    scratch = ring.clone()
-    bound = 2 * SPAN / HBM_BYTES_PER_MS
-    timings = {
-        "ring_scatter": (
-            _time_ms(lambda: ring_scatter(scratch, payload, start), flush),
-            _time_ms(lambda: ring_scatter_plain(scratch, payload, start), flush),
-            _time_ms(lambda: scratch.index_copy_(0, idx, payload), flush)),
-        "ring_window": (
-            _time_ms(lambda: ring_window(ring, start, SPAN), flush),
-            _time_ms(lambda: ring_window_plain(ring, start, SPAN), flush),
-            _time_ms(lambda: torch.take(ring, idx), flush)),
-    }
-    for name, (ms, plain_ms, lib_ms) in timings.items():
-        print(f"  {name}: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, "
-              f"{lib_ms:.4f} ms library, bound {bound:.4f} ms "
-              f"({SPAN} bytes)", flush=True)
-    return err, timings, bound
+    return err, time_kernels(dev, g)
 
 
 # -- phase 3 -----------------------------------------------------------------
@@ -287,6 +419,10 @@ def main_path(dev):
 
 
 def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernels", action="store_true",
+                    help="run phases 1 and 2 only; end with the kernels line")
+    kernels_only = ap.parse_args().kernels
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
     try:
@@ -302,26 +438,43 @@ def main() -> None:
     dev = torch.device("cuda", 0)
 
     build_kernels()
-    err, timings, bound = check_kernels(dev)
-    launches = main_path(dev)
+    err, timings = check_kernels(dev)
+    launches = ({"ring_scatter": None, "ring_window": None} if kernels_only
+                else main_path(dev))
 
     sources = {"ring_scatter": "tpurpc/ops/ring_scatter.py:133",
                "ring_window": "tpurpc/ops/ring_window.py:138"}
     kernels = []
     for name in ("ring_scatter", "ring_window"):
-        ms, plain_ms, lib_ms = timings[name]
+        t = timings[name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"tpurpc_torch/csrc/{name}.cu",
             "replaces": sources[name], "launches": launches[name],
-            "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_by": "bytes", "library_ms": lib_ms})
+            "max_abs_err": err[name],
+            "ms": t["aligned_kernel"][0], "ms_min": t["aligned_kernel"][1],
+            "ms_max": t["aligned_kernel"][2],
+            "skewed_ms": t["skewed_kernel"][0],
+            "skewed_ms_min": t["skewed_kernel"][1],
+            "skewed_ms_max": t["skewed_kernel"][2],
+            "plain_ms": t["aligned_plain"][0],
+            "skewed_plain_ms": t["skewed_plain"][0],
+            "library_ms": t["aligned_library"][0],
+            "skewed_library_ms": t["skewed_library"][0],
+            "bound_ms": 2 * SPANS["aligned"][1] / HBM_BYTES_PER_MS,
+            "skewed_bound_ms": 2 * SPANS["skewed"][1] / HBM_BYTES_PER_MS,
+            "bound_by": "bytes",
+            "launch_floor_ms": t["tiny_kernel"][0],
+            "host_us": t["host_us"][0],
+            "plain_host_us": t["plain_host_us"][0]})
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
     print(smi.stdout.strip().splitlines()[0], flush=True)
+    if kernels_only:
+        return
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -24,6 +24,8 @@ CAP = 16384
 SPANS = [(0, 4096), (4 * 37, 4096), (CAP - 2048, 8192), (CAP - 400, 4096),
          (4 * 77, CAP), (CAP - 4096, 4096), (3, 1001), (CAP - 1, 2),
          (CAP - 1, 1), (CAP - 7, 13), (5, CAP), (CAP - 4093, 4099), (1, 0)]
+#: every start residue mod 16, unwrapped (4099) and across the wrap (8192+5)
+SKEWED = [(CAP - 6144 + r, n) for r in range(16) for n in (4099, 8192 + 5)]
 
 
 @pytest.fixture
@@ -34,7 +36,7 @@ def dev():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("start,n", SPANS)
+@pytest.mark.parametrize("start,n", SPANS + SKEWED)
 def test_kernels_match_plain_on_card(dev, start, n):
     g = torch.Generator(device=dev).manual_seed(start + n)
     ring = torch.randint(0, 256, (CAP,), dtype=torch.uint8, device=dev,

@@ -17,18 +17,25 @@ import threading
 import time
 from typing import Dict, Iterable, List, Tuple
 
+import torch
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
 
 _P = ctypes.c_void_p
-_I = ctypes.c_int64
+_U = ctypes.c_uint32
+#: one segment of a span plan (ops/_span.py Segment): dst, src, head,
+#: words, tail, skew, chunks
+_SEG = [_P, _P, _U, _U, _U, _U, _U]
 
-#: kernel → (C symbol, argtypes). Pointers and the stream are c_void_p,
-#: sizes and offsets c_int64; every entry returns cudaGetLastError().
+#: kernel → (C symbol, argtypes). Both take a span plan of ``_span`` (two
+#: segments, then chunk_words) and the stream;
+#: pointers and the stream are c_void_p. Every entry returns
+#: cudaGetLastError().
 KERNELS: Dict[str, Tuple[str, list]] = {
-    "ring_scatter": ("tpr_ring_scatter", [_P, _I, _P, _I, _I, _P]),
-    "ring_window": ("tpr_ring_window", [_P, _I, _I, _I, _P, _P]),
+    "ring_scatter": ("tpr_ring_scatter", _SEG + _SEG + [_U, _P]),
+    "ring_window": ("tpr_ring_window", _SEG + _SEG + [_U, _P]),
 }
 
 _lock = threading.Lock()
@@ -95,7 +102,11 @@ def build(names: Iterable[str] = tuple(KERNELS), verbose: bool = False
 
 
 def load(name: str):
-    """The kernel's C entry point (building the library first if needed)."""
+    """The kernel's C entry point (building the library first if needed).
+    Once loaded, it is returned without taking the lock."""
+    fn = _loaded.get(name)
+    if fn is not None:
+        return fn
     with _lock:
         fn = _loaded.get(name)
         if fn is None:
@@ -109,7 +120,15 @@ def load(name: str):
         return fn
 
 
-def check(name: str, err: int) -> None:
-    """Raise on a non-zero cudaGetLastError() from a launch."""
+def launch(name: str, args: tuple, device: torch.device) -> None:
+    """Call kernel ``name``'s C entry with ``args`` and the current stream
+    of ``device``; enters the device only when it is not the current one.
+    Raises on a non-zero cudaGetLastError() from the launch."""
+    fn = load(name)
+    if device.index == torch.cuda.current_device():
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")

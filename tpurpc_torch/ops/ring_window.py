@@ -7,9 +7,14 @@ Replaces the Pallas kernel ``tpurpc/ops/ring_window.py`` (``_kernel``,
 hand-written kernel ``csrc/ring_window.cu`` into a fresh ``torch.empty``
 output or raises; on a CPU tensor it runs :func:`ring_window_plain`.
 
-Bound on an H100: 2·n bytes at 3.35 TB/s (about 2.9 µs for a 4,816,896-byte
-span). No (8,128) tiles, nine-row DMA windows or flat rolls: those existed
-for the TPU's layout. Any byte offset and length are taken.
+Bound on an H100: 2·n bytes at 3.35 TB/s, 0.002876 ms for a 4,816,896-byte
+span. The wrapper plans the span on the host (``_span.window_plan``) and
+passes the plan to the kernel, which spreads the chunks of both segments
+over one grid, keeps eight 16-byte loads in flight per lane and realigns a
+ring offset that is not a multiple of 16 in registers
+(``csrc/ring_copy.cuh``). No (8,128) tiles, nine-row DMA windows or flat
+rolls: those existed for the TPU's layout. Any byte offset and length are
+taken.
 """
 
 from __future__ import annotations
@@ -17,7 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tpurpc_torch.ops import _build
+from tpurpc_torch.ops import _build, _span
 
 #: launches of the CUDA kernel (the CPU path does not count)
 launches = 0
@@ -33,13 +38,17 @@ def _check(ring: torch.Tensor, n: int) -> None:
 
 
 def ring_window_plain(ring: torch.Tensor, head: int, n: int) -> torch.Tensor:
-    """The kernel's function in plain PyTorch: ``torch.cat`` of two slices."""
+    """The kernel's function in plain PyTorch: two slice copies into a new
+    tensor, one per segment as the kernel splits the span."""
     cap = ring.numel()
+    out = torch.empty(n, dtype=torch.uint8, device=ring.device)
     if n == 0:
-        return torch.empty(0, dtype=torch.uint8, device=ring.device)
+        return out
     p = head % cap
     first = min(n, cap - p)
-    return torch.cat([ring[p:p + first], ring[:n - first]])
+    out[:first].copy_(ring[p:p + first])
+    out[first:].copy_(ring[:n - first])
+    return out
 
 
 def ring_window(ring: torch.Tensor, head: int, n: int) -> torch.Tensor:
@@ -55,12 +64,9 @@ def ring_window(ring: torch.Tensor, head: int, n: int) -> torch.Tensor:
     out = torch.empty(n, dtype=torch.uint8, device=ring.device)
     if n == 0:
         return out
-    fn = _build.load("ring_window")
-    with torch.cuda.device(ring.device):
-        stream = torch.cuda.current_stream(ring.device).cuda_stream
-        err = fn(ring.data_ptr(), ring.numel(), head, n, out.data_ptr(),
-                 stream)
-    _build.check("ring_window", err)
+    plan = _span.window_plan(ring.data_ptr(), ring.numel(), head, n,
+                             out.data_ptr())
+    _build.launch("ring_window", plan, ring.device)
     launches += 1
     return out
 
