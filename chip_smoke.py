@@ -25,7 +25,20 @@ fails the run (non-zero exit, no result line) on any error:
    16 MiB ring), the ring must never move, and unwrapped views must be
    ledgered ``zero_copy``. The model alone and the device landing alone are
    then timed at the request's shape, to split a request's latency;
-4. print the kernels line, the card's name and power limit, and last the
+4. fan-in serving, as ``bench.py``'s serving leg runs it, on the port's
+   default (TCP) platform: a device serialization check (one D2H out, one
+   H2D back, bytes equal to the codec's), then (a) full-width ResNet-50 in
+   bfloat16 behind ``FanInBatcher(max_batch=8, max_delay_s=0.005,
+   fixed_bucket=True, transfer_dtype=torch.bfloat16)`` on a
+   ``Server(max_workers=64)``, 8 clients, each its own connection and a
+   pipeline of depth 4 (``TensorClient.pipeline``), 16 single-image float32
+   [1,224,224,3] requests each; (b) the same in float32 (TF32 off) through
+   ``serve_torch(batching=True, max_batch=8)`` (depth-aware flush); (c)
+   ``serve_torch(batching=True, batch_shards=2)`` with 32 requests. Every
+   reply is checked against the same model run directly on its image,
+   padded with zero rows to the bucket shape [8,224,224,3]; batches must
+   stack rows across connections. Skipped under ``--kernels``;
+5. print the kernels line, the card's name and power limit, and last the
    one-line result JSON.
 """
 
@@ -55,9 +68,33 @@ ORDER = ("kernel", "plain", "library", "library", "plain", "kernel")
 HOST_CALLS = 1000
 #: reply vs direct model run: same weights, same input, same card, float32
 #: with TF32 off — they differ only by cuDNN's choice of algorithm per call
+#: shape. Phase 4 takes it of the direct run's largest |logit|, phase 3 of
+#: the larger of that and 1
 REPLY_TOL = 1e-3
 #: card vs CPU on one 64x64 image: float32 both, sums in another order
 CPU_TOL = 1e-3
+#: phase 4: bench.py's serving leg — 8 clients, one connection and a
+#: pipeline of depth 4 each, single-image float32 requests (602,112 bytes)
+CLIENTS, DEPTH, PER_CLIENT = 8, 4, 16
+MAX_BATCH = 8
+SHARD_PER_CLIENT = 4           # (c): 32 requests over 2 batcher shards
+#: workers: a request parks one inside the batcher until its batch is done,
+#: so fewer than CLIENTS x DEPTH would keep batches from filling
+WORKERS = 64
+#: bf16 reply vs the same bf16 model run directly on the card at the same
+#: call shape [8,224,224,3]: the same kernels, the image at another row.
+#: The replies have come out bit-equal (0.0); one bf16 rounding landing the
+#: other way in a convolution would move the logits by a bf16 ulp or two
+#: (2^-8..2^-7 of their largest); 2^-6 allows that and no more. The scale
+#: is the direct run's largest |logit| (about 0.056 with random weights,
+#: where the head's bias dominates), so a neighbour's logits, which differ
+#: from an image's own by far less than the scale, can pass this check:
+#: _check_replies also holds each reply nearest to its own image's run.
+BF16_TOL = 2 ** -6
+BF16_TOP1_MISS = 2
+SER_SHAPE = (1024, 1024)       # serialization check: a 4 MiB float32 tensor
+#: environment that phase 3 sets and phase 4 restores
+RING_ENV = ("GRPC_PLATFORM_TYPE", "TPURPC_HBM_RING_SIZE_KB")
 
 
 def fail(msg: str) -> None:
@@ -284,7 +321,7 @@ def check_kernels(dev):
 
 # -- phase 3 -----------------------------------------------------------------
 
-def _host_ms(fn, reps: int = 5) -> float:
+def host_ms(fn, reps: int = 5) -> float:
     """Mean host-clock time of ``fn`` followed by a device synchronize."""
     import torch
 
@@ -402,7 +439,7 @@ def main_path(dev):
     # where a request's time goes: the model alone and the device landing
     # alone (staging copy, landing write, view) at the request's shape
     x = torch.from_numpy(images[0]).to(dev)
-    model_ms = _host_ms(lambda: infer(x))
+    model_ms = host_ms(lambda: infer(x))
     ring2 = HbmRing(RING, device=dev)
     payload = images[0].reshape(-1).view(np.uint8)
 
@@ -411,11 +448,292 @@ def main_path(dev):
         ring2.view(off, n, dtype=torch.float32,
                    shape=(BATCH, SIZE, SIZE, 3)).release()
 
-    land_ms = _host_ms(land)
+    land_ms = host_ms(land)
     print(f"breakdown ms: request p50 {p50:.2f} = model {model_ms:.2f} + "
           f"device landing {land_ms:.2f} + rest (codec, transport, framing, "
           f"reply) {p50 - model_ms - land_ms:.2f}", flush=True)
     return launches
+
+
+# -- phase 4 -----------------------------------------------------------------
+
+def check_serialization(dev):
+    """``serialize_from_device`` of a CUDA tensor: one D2H into pinned
+    memory, bytes equal to the codec's encoding of its CPU copy; and
+    ``deserialize_to_device`` gives it back with one H2D."""
+    import torch
+
+    from tpurpc_torch.torchshim import codec
+    from tpurpc_torch.tpu import ledger
+    from tpurpc_torch.tpu.serialize import (deserialize_to_device,
+                                            serialize_from_device)
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randn(SER_SHAPE, device=dev, generator=g)
+    n = x.numel() * x.element_size()
+    with ledger.track() as w:
+        segs = serialize_from_device(x)
+    buf = b"".join(bytes(memoryview(s).cast("B")) for s in segs)
+    check(buf == codec.encode_tensor_bytes(x.cpu()),
+          "serialize_from_device bytes differ from the codec's")
+    check(w["dma_d2h_ops"] == 1 and w["dma_d2h"] == n and w["host_copy"] == 0,
+          f"serialize_from_device ledger: {w.delta}")
+    with ledger.track() as w2:
+        y, end = deserialize_to_device(buf, device=dev)
+    check(end == len(buf) and y.device == x.device and torch.equal(y, x),
+          "deserialize_to_device did not give the tensor back")
+    check(w2["dma_h2d_ops"] == 1 and w2["dma_h2d"] == n,
+          f"deserialize_to_device ledger: {w2.delta}")
+    print(f"serialize: float32 {list(SER_SHAPE)} ({n} bytes) out in one "
+          f"D2H, back in one H2D, bytes equal to the codec's", flush=True)
+
+
+def drive_clients(port: int, images, per_client: int, batcher):
+    """CLIENTS pipelined clients, each its own Channel and a depth-DEPTH
+    pipeline, as bench.py's serving leg: one warm call each, then, from a
+    common start, ``per_client`` requests each (client c sends
+    ``images[c * per_client:(c + 1) * per_client]``). Returns the replies,
+    each request's latency in ms (``call_async`` to completion), the wall
+    time in s of the timed part, and the batcher's (rows_run, batches_run)
+    at the start: every warm call has completed by then."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from tpurpc_torch.rpc.channel import Channel
+    from tpurpc_torch.torchshim.service import TensorClient
+
+    n = CLIENTS * per_client
+    replies, lat = [None] * n, [None] * n
+    errors = []
+    start = threading.Barrier(CLIENTS + 1, timeout=300)
+    done = threading.Barrier(CLIENTS + 1, timeout=600)
+
+    def client(c):
+        try:
+            with Channel(f"127.0.0.1:{port}") as ch:
+                cli = TensorClient(ch, depth=DEPTH)
+                warm = np.zeros_like(images[0])
+                cli.call("Infer", {"x": torch.from_numpy(warm)}, timeout=300)
+                pl = cli.pipeline("Infer")
+                start.wait()
+                inflight = []
+                for i in range(c * per_client, (c + 1) * per_client):
+                    while len(inflight) >= DEPTH:
+                        j, fut = inflight.pop(0)
+                        replies[j] = fut.result(timeout=300)
+                    t0 = time.perf_counter()
+                    fut = pl.call_async({"x": torch.from_numpy(images[i])},
+                                        timeout=300)
+                    fut.add_done_callback(
+                        lambda _f, i=i, t0=t0: lat.__setitem__(
+                            i, (time.perf_counter() - t0) * 1e3))
+                    inflight.append((i, fut))
+                for j, fut in inflight:
+                    replies[j] = fut.result(timeout=300)
+        except Exception as exc:  # surfaced after the join
+            errors.append(f"client {c}: {exc!r}")
+            start.abort()
+        finally:
+            try:
+                done.wait()
+            except threading.BrokenBarrierError:
+                pass
+
+    ts = [threading.Thread(target=client, args=(c,), daemon=True)
+          for c in range(CLIENTS)]
+    for t in ts:
+        t.start()
+    try:
+        start.wait()
+    except threading.BrokenBarrierError:
+        pass
+    t0 = time.perf_counter()
+    before = (batcher.rows_run, batcher.batches_run)
+    try:
+        done.wait()
+    except threading.BrokenBarrierError:
+        pass
+    wall = time.perf_counter() - t0
+    for t in ts:
+        t.join(60)
+    check(not errors, "; ".join(errors))
+    deadline = time.monotonic() + 10   # done-callbacks run after result()
+    while None in lat and time.monotonic() < deadline:
+        time.sleep(0.01)
+    check(not any(t.is_alive() for t in ts), "a client did not finish")
+    check(all(r is not None for r in replies) and None not in lat,
+          "a request got no reply")
+    return replies, lat, wall, before
+
+
+def _direct(infer, image, dev):
+    """The model run directly on one image, padded with zero rows to the
+    bucket shape [MAX_BATCH,224,224,3]: row 0 of the logits, on the host."""
+    import torch
+
+    x = torch.zeros((MAX_BATCH, *image.shape[1:]), dtype=torch.float32)
+    x[:1] = torch.from_numpy(image)
+    return infer(x.to(dev))[:1].float().cpu()
+
+
+def _check_replies(label, replies, images, infer, dev, tol, top1_min):
+    """Each reply against the direct run of its own image, within ``tol``
+    of that run's largest |logit|, and strictly nearer to it than to the
+    direct run of any other image of the run (so a reply delivered to the
+    wrong caller, or rows split off by one, fails). Returns (max |diff| /
+    scale, the least distance to another image's run / scale, top-1
+    agreements)."""
+    import torch
+
+    wants = torch.cat([_direct(infer, img, dev) for img in images])
+    for i, r in enumerate(replies):
+        got = r["logits"]
+        check(tuple(got.shape) == (1, 1000) and got.dtype == torch.float32,
+              f"{label} reply {i}: logits {tuple(got.shape)} {got.dtype}")
+        check(bool(torch.isfinite(got).all()), f"{label} reply {i} non-finite")
+    got = torch.cat([r["logits"] for r in replies])
+    scale = wants.abs().amax(dim=1)
+    # dist[i, j]: max |diff| of reply i against image j's direct run
+    dist = (got[:, None, :] - wants[None, :, :]).abs().amax(dim=2)
+    own = dist.diagonal()
+    others = dist + torch.diag(torch.full_like(own, float("inf")))
+    nearest_other = others.amin(dim=1)
+    for i in range(len(replies)):
+        check(own[i] <= tol * scale[i], f"{label} reply {i} differs from the "
+              f"direct run by {own[i].item()} (scale {scale[i].item()}, "
+              f"tolerance {tol} x scale)")
+        check(own[i] < nearest_other[i], f"{label} reply {i} is no nearer its "
+              f"own image's run ({own[i].item()}) than image "
+              f"{others[i].argmin().item()}'s ({nearest_other[i].item()})")
+    agree = int((got.argmax(1) == wants.argmax(1)).sum())
+    check(agree >= top1_min, f"{label}: top-1 agrees on {agree} of "
+          f"{len(replies)} replies, want at least {top1_min}")
+    return ((own / scale).max().item(), (nearest_other / scale).min().item(),
+            agree)
+
+
+def _stats(label, batcher, before, replies, lat, wall, card):
+    import numpy as np
+
+    rows = batcher.rows_run - before[0]
+    batches = batcher.batches_run - before[1]
+    n = len(replies)
+    check(rows == n, f"{label}: rows_run {rows} != requests {n}")
+    check(batches < n, f"{label}: {batches} batches for {n} requests: no "
+          f"stacking across connections")
+    p50, p99 = np.percentile(lat, [50, 99])
+    print(f"{label}: {n} requests from {CLIENTS} clients at depth {DEPTH}: "
+          f"{batches} batches, mean rows {rows / batches}, images/s "
+          f"{n / wall}, latency ms p50 {p50} p99 {p99} ({card})", flush=True)
+
+
+def fanin_serving(dev, card: str, saved_env: dict) -> None:
+    import numpy as np
+    import torch
+
+    from tpurpc_torch.models.resnet import make_infer_fn, resnet50
+    from tpurpc_torch.rpc.server import Server
+    from tpurpc_torch.torchshim.service import (FanInBatcher,
+                                                add_tensor_method,
+                                                serve_torch)
+    from tpurpc_torch.utils import config
+
+    for key, val in saved_env.items():   # off phase 3's device-ring platform
+        if val is None:
+            os.environ.pop(key, None)
+        else:
+            os.environ[key] = val
+    config.set_config(None)
+    print(f"fan-in platform: {config.get_config().platform.value}",
+          flush=True)
+    check_serialization(dev)
+
+    rng = np.random.default_rng(SEED)
+    images = [rng.standard_normal((1, SIZE, SIZE, 3)).astype(np.float32)
+              for _ in range(CLIENTS * PER_CLIENT)]
+
+    # (a) bench configuration: bf16 ResNet-50 behind a fixed-bucket batcher
+    torch.manual_seed(SEED)
+    infer16 = make_infer_fn(resnet50(dtype=torch.bfloat16).to(dev))
+    x8 = torch.zeros(MAX_BATCH, SIZE, SIZE, 3, device=dev)
+    infer16(x8)
+    torch.cuda.synchronize()
+    batcher = FanInBatcher(lambda t: {"logits": infer16(t["x"])},
+                           max_batch=MAX_BATCH, max_delay_s=0.005,
+                           fixed_bucket=True, transfer_dtype=torch.bfloat16,
+                           device=dev)
+    srv = Server(max_workers=WORKERS)
+    add_tensor_method(srv, "Infer", batcher)
+    srv.start()
+    port = srv.add_insecure_port("127.0.0.1:0")
+    try:
+        replies, lat, wall, before = drive_clients(port, images, PER_CLIENT,
+                                                   batcher)
+    finally:
+        srv.stop()
+        batcher.close()
+    worst, apart, agree = _check_replies(
+        "bf16", replies, images, infer16, dev, BF16_TOL,
+        len(replies) - BF16_TOP1_MISS)
+    _stats("fan-in bf16", batcher, before, replies, lat, wall, card)
+    model_ms = host_ms(lambda: infer16(x8))
+    scale = max(r["logits"].abs().max().item() for r in replies)
+    top1 = len({r["logits"].argmax().item() for r in replies})
+    print(f"fan-in bf16: replies vs direct runs max |diff| / scale {worst}, "
+          f"nearest other image's run {apart} x scale (scale up to {scale}); "
+          f"top-1 equal on {agree} of {len(replies)} ({top1} distinct "
+          f"classes); the bf16 model alone "
+          f"at [{MAX_BATCH},{SIZE},{SIZE},3] {model_ms} ms by host clock "
+          f"({card})", flush=True)
+    bf16_logits = [r["logits"] for r in replies]
+
+    # (b) exactness: float32 (TF32 off) through serve_torch, depth-aware
+    # flush, buckets by power of two; (c) the same over two batcher shards
+    torch.manual_seed(SEED)   # the same weights as the bf16 model's
+    infer32 = make_infer_fn(resnet50().to(dev))
+    infer32(x8)
+    shapes = []
+
+    def classify(t):
+        shapes.append(int(t["x"].shape[0]))
+        return {"logits": infer32(t["x"])}
+
+    for label, shards, per_client in (("fan-in float32", 1, PER_CLIENT),
+                                      ("fan-in float32 2 shards", 2,
+                                       SHARD_PER_CLIENT)):
+        shapes.clear()
+        srv, port, batcher = serve_torch(
+            classify, name="Infer", batching=True, max_batch=MAX_BATCH,
+            max_workers=WORKERS, batch_shards=shards)
+        sub = images[:CLIENTS * per_client]
+        try:
+            replies, lat, wall, before = drive_clients(port, sub, per_client,
+                                                       batcher)
+        finally:
+            srv.stop()
+            batcher.close()
+        worst, apart, _ = _check_replies(label, replies, sub, infer32, dev,
+                                         REPLY_TOL, len(replies))
+        _stats(label, batcher, before, replies, lat, wall, card)
+        print(f"{label}: dispatched batch sizes {sorted(set(shapes))}; "
+              f"replies vs direct runs max |diff| / scale {worst}, nearest "
+              f"other image's run {apart} x scale", flush=True)
+        if shards == 1:
+            gap = max((a - r["logits"]).abs().max().item()
+                      for a, r in zip(bf16_logits, replies))
+            print(f"bf16 vs float32 replies, same weights: max |diff| {gap}",
+                  flush=True)
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
+    return smi.stdout.strip().splitlines()[0]
 
 
 def main() -> None:
@@ -437,10 +755,15 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
 
+    card = card_line()
     build_kernels()
     err, timings = check_kernels(dev)
-    launches = ({"ring_scatter": None, "ring_window": None} if kernels_only
-                else main_path(dev))
+    if kernels_only:
+        launches = {"ring_scatter": None, "ring_window": None}
+    else:
+        saved_env = {k: os.environ.get(k) for k in RING_ENV}
+        launches = main_path(dev)
+        fanin_serving(dev, card, saved_env)
 
     sources = {"ring_scatter": "tpurpc/ops/ring_scatter.py:133",
                "ring_window": "tpurpc/ops/ring_window.py:138"}
@@ -468,11 +791,7 @@ def main() -> None:
             "host_us": t["host_us"][0],
             "plain_host_us": t["plain_host_us"][0]})
     print(json.dumps({"kernels": kernels}), flush=True)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
-    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(card, flush=True)
     if kernels_only:
         return
     print(json.dumps({"ok": True, "device": {

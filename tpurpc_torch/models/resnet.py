@@ -9,7 +9,15 @@ stride-2 3x3 conv or max-pool on an even input pads (0, 1), not (1, 1). Each
 conv and the pool pad explicitly (the pool with −inf); the 7x7 stem pads
 (3, 3) as the reference does.
 
-Precision: a float32 convolution runs through cuDNN in TF32 when
+Precision: ``dtype`` is the compute type of the convolutions and batch
+norms, as flax's ``dtype``; the parameters stay float32 at rest (flax's
+``param_dtype``) and each conv casts its kernel per call. A batch norm takes
+its ``dtype`` input with float32 statistics, computes in float32 and rounds
+once to ``dtype``, as flax's does; the global average pools in float32 and
+rounds to ``dtype``, and the head (``Dense``) computes in float32, as
+flax's ``nn.Dense(..., dtype=jnp.float32)``.
+
+A float32 convolution runs through cuDNN in TF32 when
 ``torch.backends.cudnn.allow_tf32`` is True (PyTorch's default), and the
 Dense layer in TF32 when ``torch.backends.cuda.matmul.allow_tf32`` is True
 (default False). The module sets neither; a caller that needs full float32
@@ -39,11 +47,21 @@ def _same_pad(size: int, k: int, s: int) -> Tuple[int, int]:
     return total // 2, total - total // 2
 
 
-class _ConvSame(nn.Conv2d):
-    """Bias-free conv with flax ``SAME`` padding computed per input."""
+class _Conv(nn.Conv2d):
+    """Bias-free conv computing in its input's dtype (float32 kernel at
+    rest, cast per call)."""
 
-    def __init__(self, cin: int, cout: int, k: int, stride: int = 1):
-        super().__init__(cin, cout, k, stride=stride, bias=False)
+    def __init__(self, cin: int, cout: int, k: int, stride: int = 1,
+                 padding: int = 0):
+        super().__init__(cin, cout, k, stride=stride, padding=padding,
+                         bias=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(x, self.weight.to(x.dtype), None)
+
+
+class _ConvSame(_Conv):
+    """Bias-free conv with flax ``SAME`` padding computed per input."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         k, s = self.kernel_size[0], self.stride[0]
@@ -51,7 +69,7 @@ class _ConvSame(nn.Conv2d):
         pw = _same_pad(x.shape[3], k, s)
         if any(ph) or any(pw):
             x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
-        return F.conv2d(x, self.weight, None, self.stride)
+        return F.conv2d(x, self.weight.to(x.dtype), None, self.stride)
 
 
 def _bn(ch: int) -> nn.BatchNorm2d:
@@ -82,14 +100,15 @@ class BottleneckBlock(nn.Module):
 
 
 class ResNet(nn.Module):
-    """NHWC float32 images → logits (inference mode)."""
+    """NHWC images → float32 logits (inference mode), computing in
+    ``dtype``."""
 
     def __init__(self, stage_sizes: Sequence[int], num_classes: int = 1000,
-                 num_filters: int = 64):
+                 num_filters: int = 64, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.stage_sizes = tuple(stage_sizes)
-        self.conv_init = nn.Conv2d(3, num_filters, 7, stride=2, padding=3,
-                                   bias=False)
+        self.dtype = dtype
+        self.conv_init = _Conv(3, num_filters, 7, stride=2, padding=3)
         self.bn_init = _bn(num_filters)
         blocks = []
         cin = num_filters
@@ -103,7 +122,7 @@ class ResNet(nn.Module):
         self.dense = nn.Linear(cin, num_classes)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.to(torch.float32).permute(0, 3, 1, 2)  # NHWC → NCHW view
+        x = x.to(self.dtype).permute(0, 3, 1, 2)  # NHWC → NCHW view
         x = F.relu(self.bn_init(self.conv_init(x)))
         ph = _same_pad(x.shape[2], 3, 2)
         pw = _same_pad(x.shape[3], 3, 2)
@@ -111,16 +130,21 @@ class ResNet(nn.Module):
         x = F.max_pool2d(x, 3, stride=2)
         for block in self.blocks:
             x = block(x)
-        return self.dense(x.mean(dim=(2, 3)))
+        pooled = x.mean(dim=(2, 3), dtype=torch.float32).to(self.dtype)
+        return self.dense(pooled.float())
 
 
-def resnet50(num_classes: int = 1000) -> ResNet:
-    return ResNet(stage_sizes=(3, 4, 6, 3), num_classes=num_classes)
+def resnet50(num_classes: int = 1000,
+             dtype: torch.dtype = torch.float32) -> ResNet:
+    return ResNet(stage_sizes=(3, 4, 6, 3), num_classes=num_classes,
+                  dtype=dtype)
 
 
-def resnet18_thin(num_classes: int = 1000) -> ResNet:
+def resnet18_thin(num_classes: int = 1000,
+                  dtype: torch.dtype = torch.float32) -> ResNet:
     """Small stand-in with the same code path for fast tests."""
-    return ResNet(stage_sizes=(1, 1), num_classes=num_classes, num_filters=8)
+    return ResNet(stage_sizes=(1, 1), num_classes=num_classes, num_filters=8,
+                  dtype=dtype)
 
 
 def make_infer_fn(model: ResNet) -> Callable[[torch.Tensor], torch.Tensor]:

@@ -1,8 +1,8 @@
 """Client channel: multiplexed calls over one endpoint, with reconnect.
 
 A trimmed copy of ``tpurpc/rpc/channel.py`` (one address, no resolver, load
-balancing, retries, hedging, pipelining, compression or native fast path; a
-dedicated reader thread per connection):
+balancing, retries, hedging, compression or native fast path; a dedicated
+reader thread per connection):
 
 * ``Channel`` owns one subchannel that (re)connects with exponential
   backoff and maps transport failure to ``UNAVAILABLE``;
@@ -11,11 +11,15 @@ dedicated reader thread per connection):
   stream ids;
 * ``UnaryUnary`` / ``UnaryStream`` / ``StreamStream`` mirror grpcio's
   multicallables; ``Call.device_ring`` is the ring of the connection the
-  call ran on.
+  call ran on;
+* ``PipelinedUnary`` keeps many unary calls in flight on one connection,
+  each resolved as a future by the reader thread (no REFUSED-replay
+  migration, stall watchdog, pump mode or latency histograms).
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import queue
 import random
 import threading
@@ -41,6 +45,10 @@ class _ClientStream:
         self.initial_metadata: Optional[List[Tuple[str, "str | bytes"]]] = None
         self.assembly = fr.Assembly()
         self.done = False  # trailers or failure delivered
+        #: pipelined-call completion hook: invoked (on the delivering thread)
+        #: AFTER the terminal event is queued — PipelinedUnary resolves its
+        #: future here instead of parking a thread on the event queue
+        self.on_terminal: Optional[Callable[[], None]] = None
         #: backpressure: bounded completed-but-unconsumed responses
         self._credits = threading.BoundedSemaphore(max(1, queue_depth))
 
@@ -76,8 +84,16 @@ class _ClientStream:
         return None
 
     def deliver_trailers(self, code: StatusCode, details: str, md) -> None:
-        self.done = True
+        # queue first: a pipelined caller that sees ``done`` drains the
+        # events at once and must find the trailers there
         self.events.put(("trailers", code, details, md))
+        self.done = True
+        cb = self.on_terminal
+        if cb is not None:
+            try:
+                cb()
+            except Exception:  # a completion hook bug must not kill the
+                pass           # reader thread (every stream rides it)
 
     def deliver_failure(self, code: StatusCode, details: str) -> None:
         self.deliver_trailers(code, details, [])
@@ -385,19 +401,27 @@ class Call:
         platform); never dials."""
         return device_ring_of(self._conn.endpoint)
 
+    def _expire(self) -> None:
+        """The deadline passed: RST the server and finish the stream."""
+        self._code = StatusCode.DEADLINE_EXCEEDED
+        self._details = "deadline exceeded"
+        try:
+            self._conn.writer.send(fr.RST, 0, self._st.stream_id,
+                                   fr.rst_payload(StatusCode.DEADLINE_EXCEEDED,
+                                                  "deadline exceeded"))
+        except (EndpointError, OSError):
+            pass
+        self._conn.close_stream(self._st)
+
+    def _finish(self, code: StatusCode, details: str, md) -> None:
+        self._code, self._details, self._trailing = code, details, md
+        self._conn.close_stream(self._st)
+
     def _next_event(self):
         try:
             return self._st.events.get(timeout=self.time_remaining())
         except queue.Empty:
-            self._code = StatusCode.DEADLINE_EXCEEDED
-            self._details = "deadline exceeded"
-            try:
-                self._conn.writer.send(fr.RST, 0, self._st.stream_id,
-                                       fr.rst_payload(StatusCode.DEADLINE_EXCEEDED,
-                                                      "deadline exceeded"))
-            except (EndpointError, OSError):
-                pass
-            self._conn.close_stream(self._st)
+            self._expire()
             raise RpcError(StatusCode.DEADLINE_EXCEEDED,
                            "deadline exceeded awaiting response") from None
 
@@ -412,8 +436,7 @@ class Call:
                 yield _deserialize(self._deser, ev[1])
                 continue
             _, code, details, md = ev
-            self._code, self._details, self._trailing = code, details, md
-            self._conn.close_stream(self._st)
+            self._finish(code, details, md)
             if code is not StatusCode.OK:
                 raise RpcError(code, details, md)
             return
@@ -510,6 +533,155 @@ class UnaryUnary(_MultiCallable):
         if not got:
             raise RpcError(StatusCode.INTERNAL, "unary call received no response")
         return response, call
+
+    def future(self, request, timeout: Optional[float] = None,
+               metadata: Optional[Metadata] = None
+               ) -> "concurrent.futures.Future":
+        """Minimal future: runs the call on a daemon thread."""
+        fut: "concurrent.futures.Future" = concurrent.futures.Future()
+
+        def run():
+            if not fut.set_running_or_notify_cancel():
+                return
+            try:
+                fut.set_result(self(request, timeout, metadata))
+            except BaseException as exc:
+                fut.set_exception(exc)
+
+        threading.Thread(target=run, daemon=True,
+                         name="tpurpc-unary-future").start()
+        return fut
+
+    def pipeline(self, depth: int = 16) -> "PipelinedUnary":
+        """A bounded-window pipelined caller for this method: many unary
+        calls in flight on ONE connection, demuxed by stream id — no
+        thread waits on a reply (contrast :meth:`future`, which spawns one
+        per call); a deadline costs a timer thread per call."""
+        return PipelinedUnary(self, depth=depth)
+
+
+class PipelinedUnary:
+    """Multi-in-flight unary calls over one connection (the serving
+    pipeline's client half).
+
+    ``call_async`` sends the fused HEADERS+MESSAGE immediately and returns
+    a ``concurrent.futures.Future``; the connection's reader thread demuxes
+    completions by stream id and resolves each future in place, so N
+    in-flight calls cost N streams, not N threads waiting on replies. A
+    call with a deadline does start one ``threading.Timer`` thread, which
+    sleeps until the deadline and is cancelled when the call ends. The bounded
+    window (``depth``) backpressures callers: the depth+1'th ``call_async``
+    blocks until a completion frees a slot, which is what keeps a fast
+    client from ballooning server-side queues.
+
+    Completion (including response deserialization) runs on the reader
+    thread — keep deserializers cheap (the tensor codec's zero-copy decode
+    qualifies). Out-of-order completion across streams is the point: a
+    slow call does not head-of-line-block its siblings' futures.
+    """
+
+    def __init__(self, mc: UnaryUnary, depth: int = 16):
+        self._mc = mc
+        self.depth = max(1, int(depth))
+        self._window = threading.BoundedSemaphore(self.depth)
+        self._lock = threading.Lock()
+
+    def call_async(self, request, timeout: Optional[float] = None,
+                   metadata: Optional[Metadata] = None
+                   ) -> "concurrent.futures.Future":
+        """One pipelined call; returns a Future of the deserialized
+        response. Blocks only for a window slot (backpressure), never for
+        the response."""
+        deadline = None if timeout is None else time.monotonic() + timeout
+        if not self._window.acquire(timeout=timeout):
+            raise RpcError(StatusCode.DEADLINE_EXCEEDED,
+                           "deadline exceeded waiting for pipeline window")
+        fut: "concurrent.futures.Future" = concurrent.futures.Future()
+        state = {"claimed": False, "fired": False, "timer": None}
+
+        def claim() -> bool:
+            """Once-only: the terminal or the deadline resolves the call."""
+            with self._lock:
+                if state["claimed"]:
+                    return False
+                state["claimed"] = True
+            self._window.release()
+            timer = state["timer"]
+            if timer is not None:
+                timer.cancel()
+            return True
+
+        try:
+            remaining = (None if deadline is None
+                         else max(0.0, deadline - time.monotonic()))
+            _, st, call = self._mc._start(metadata, remaining,
+                                          first_request=request)
+        except BaseException:
+            self._window.release()
+            raise
+
+        def complete():
+            with self._lock:
+                if state["fired"]:
+                    return  # hook + done-fallback both ran: once only
+                state["fired"] = True
+            msgs = []
+            code, details, md = None, "", []
+            while True:
+                try:
+                    ev = st.events.get_nowait()
+                except queue.Empty:
+                    break
+                if ev[0] == "message":
+                    st.release_credit()  # the reader may commit the next
+                    msgs.append(ev[1])
+                elif ev[0] == "trailers":
+                    _, code, details, md = ev
+            if code is None:  # terminal hook without a queued trailer
+                code, details = StatusCode.INTERNAL, "terminal without status"
+            if not claim():
+                return  # the deadline already failed the future
+            call._finish(code, details, md)
+            if not fut.set_running_or_notify_cancel():
+                return  # the caller cancelled the future; drop the result
+            if code is not StatusCode.OK:
+                fut.set_exception(RpcError(code, details, md))
+            elif len(msgs) != 1:
+                fut.set_exception(RpcError(
+                    StatusCode.INTERNAL,
+                    "unary call received no response" if not msgs
+                    else "unary call received multiple responses"))
+            else:
+                try:
+                    fut.set_result(_deserialize(self._mc._deser, msgs[0]))
+                except BaseException as exc:  # a raising deserializer
+                    fut.set_exception(exc)    # fails, never hangs
+
+        if deadline is not None:
+            # No thread waits on this call, so the deadline needs its own
+            # timer: expire RSTs the stream and fails the future.
+            def expire():
+                if not claim():
+                    return
+                call._expire()
+                if fut.set_running_or_notify_cancel():
+                    fut.set_exception(RpcError(
+                        StatusCode.DEADLINE_EXCEEDED,
+                        "deadline exceeded awaiting pipelined response"))
+
+            timer = threading.Timer(max(0.0, deadline - time.monotonic()),
+                                    expire)
+            timer.daemon = True
+            state["timer"] = timer
+            timer.start()
+        # Hook AFTER the send: the terminal may already have been delivered
+        # (fast server + slow caller), in which case st.done is set and the
+        # hook will never fire — complete from here instead. state["fired"]
+        # makes the two funnels once-only.
+        st.on_terminal = complete
+        if st.done:
+            complete()
+        return fut
 
 
 class UnaryStream(_MultiCallable):

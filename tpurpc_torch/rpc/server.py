@@ -541,3 +541,14 @@ class Server:
 
     def wait_for_termination(self, timeout: Optional[float] = None) -> bool:
         return self._stopped.wait(timeout)
+
+    def inflight_requests(self) -> int:
+        """Number of currently open inbound streams across connections —
+        requests admitted (HEADERS seen) whose response hasn't finished.
+        The FanInBatcher's depth-aware flush probe (serve_torch wiring):
+        when its queue holds this many, no further arrival can happen until
+        responses go out, so it flushes instead of waiting out max_delay_s.
+        A snapshot, not a fence — callers must tolerate staleness."""
+        with self._lock:
+            conns = list(self._connections)
+        return sum(len(c._streams) for c in conns)

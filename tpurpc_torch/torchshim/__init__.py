@@ -2,8 +2,8 @@
 
 * :mod:`tpurpc_torch.torchshim.codec` — tensor/pytree wire format,
   zero-copy decode.
-* :mod:`tpurpc_torch.torchshim.service` — tensor services and
-  ``serve_torch``.
+* :mod:`tpurpc_torch.torchshim.service` — tensor services, fan-in
+  batching, ``serve_torch``.
 """
 
 from tpurpc_torch.torchshim.codec import (decode_tensor, decode_tree,
@@ -11,12 +11,14 @@ from tpurpc_torch.torchshim.codec import (decode_tensor, decode_tree,
                                           encode_tree, encode_tree_bytes,
                                           to_torch, tree_deserializer,
                                           tree_serializer)
-from tpurpc_torch.torchshim.service import (TensorClient, add_tensor_method,
-                                            serve_torch)
+from tpurpc_torch.torchshim.service import (DeviceMerger, FanInBatcher,
+                                            ShardedFanIn, TensorClient,
+                                            add_tensor_method, serve_torch)
 
 __all__ = [
     "decode_tensor", "decode_tree", "encode_tensor", "encode_tensor_bytes",
     "encode_tree", "encode_tree_bytes", "to_torch", "tree_deserializer",
     "tree_serializer",
-    "TensorClient", "add_tensor_method", "serve_torch",
+    "FanInBatcher", "ShardedFanIn", "DeviceMerger", "TensorClient",
+    "add_tensor_method", "serve_torch",
 ]

@@ -1,23 +1,44 @@
 """Tensor services: serve torch callables over tpurpc_torch.
 
-The port of ``tpurpc/jaxshim/service.py`` (this slice: no fan-in batching,
-device merging, sharding or pipelining):
+The port of ``tpurpc/jaxshim/service.py``:
 
 * :func:`add_tensor_method` / :class:`TensorClient` — unary, server-streaming
-  and bidi tensor RPCs. With ``device=True`` on the TPU platform the request
-  payloads land in the connection's device ring and the handler gets
-  lease-backed device tensors.
-* :func:`serve_torch` — one call that stands a tensor server up.
+  and bidi tensor RPCs, and pipelined unary calls (``call_async``). With
+  ``device=True`` on the TPU platform the request payloads land in the
+  connection's device ring and the handler gets lease-backed device tensors.
+* :class:`FanInBatcher` — cross-connection request batching: requests
+  landing on independent connections are stacked into one leading batch
+  axis, moved to the device in ONE host→device copy, and dispatched as a
+  single model call; replies leave in ONE device→host copy per output leaf.
+* :class:`DeviceMerger` / :class:`ShardedFanIn` — independent batcher shards
+  that meet only at the device boundary, through a lock-free handoff ring.
+* :func:`serve_torch` — one call that stands a tensor server up, batched or
+  not.
+
+Not here: the reference's metrics, flush-reason counters, trace spans and
+flight events, the native channel's pipeline, and ``serve_jax_sharded``
+(per-core worker processes).
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Iterator, Optional
+import itertools
+import json
+import queue
+import threading
+import time
+from collections import deque
+from typing import Any, Callable, Iterator, List, Optional, Sequence
 
+import torch
+
+from tpurpc_torch.core.handoff import HandoffRing
 from tpurpc_torch.rpc.server import (Server, stream_stream_rpc_method_handler,
                                      unary_stream_rpc_method_handler,
                                      unary_unary_rpc_method_handler)
 from tpurpc_torch.torchshim import codec
+from tpurpc_torch.tpu import ledger, serialize
+from tpurpc_torch.utils.config import resolve_device
 
 TENSOR_SERVICE = "tpurpc.Tensor"
 
@@ -129,15 +150,44 @@ def add_tensor_method(server: Server, name: str,
 
 
 class TensorClient:
-    """Client for tensor methods over a :class:`tpurpc_torch.rpc.channel.Channel`."""
+    """Client for tensor methods over a :class:`tpurpc_torch.rpc.channel.Channel`.
 
-    def __init__(self, channel):
+    ``depth`` bounds the per-method in-flight window ``call_async`` uses —
+    the serving pipeline's client half: one connection sustains ``depth``
+    outstanding unary calls, demuxed by stream id, which is what lets the
+    server's :class:`FanInBatcher` see real batches instead of a lockstep of
+    ones."""
+
+    def __init__(self, channel, depth: int = 16):
         self._channel = channel
+        self.depth = max(1, depth)
+        self._pipelines: dict = {}
+        self._pl_lock = threading.Lock()
 
     def call(self, name: str, tree: Any, timeout: Optional[float] = None) -> Any:
         mc = self._channel.unary_unary(
             _method_path(name), codec.tree_serializer, codec.tree_deserializer)
         return mc(tree, timeout=timeout)
+
+    def pipeline(self, name: str, depth: Optional[int] = None):
+        """A bounded multi-in-flight caller for ``name``: a
+        :class:`~tpurpc_torch.rpc.channel.PipelinedUnary`, whose
+        ``call_async(tree, timeout=None)`` returns a Future."""
+        depth = self.depth if depth is None else max(1, depth)
+        mc = self._channel.unary_unary(
+            _method_path(name), codec.tree_serializer, codec.tree_deserializer)
+        return mc.pipeline(depth)
+
+    def call_async(self, name: str, tree: Any,
+                   timeout: Optional[float] = None):
+        """Pipelined unary call: returns a Future of the response tree.
+        At most ``depth`` calls per method are in flight; the next
+        ``call_async`` blocks until a slot frees (window backpressure)."""
+        with self._pl_lock:
+            pl = self._pipelines.get(name)
+            if pl is None:
+                pl = self._pipelines[name] = self.pipeline(name)
+        return pl.call_async(tree, timeout=timeout)
 
     def call_device(self, name: str, tree: Any,
                     timeout: Optional[float] = None):
@@ -172,15 +222,678 @@ class TensorClient:
         return mc(trees, timeout=timeout)
 
 
+# ---------------------------------------------------------------------------
+# Fan-in batching
+# ---------------------------------------------------------------------------
+
+def _as_tensor(x) -> torch.Tensor:
+    return x if isinstance(x, torch.Tensor) else torch.as_tensor(x)
+
+
+def _rows(leaves: Sequence, treedef, s: slice) -> Any:
+    """The tree of leading-axis rows ``s`` of every leaf (views)."""
+    return codec.tree_unflatten(treedef, [x[s] for x in leaves])
+
+
+def _bind_thread(device: torch.device) -> None:
+    """The current CUDA device is per thread: a batcher's own threads run
+    on the batcher's device."""
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+
+
+class _Pending:
+    __slots__ = ("tree", "event", "result", "error")
+
+    def __init__(self, tree):
+        self.tree = tree
+        self.event = threading.Event()
+        self.result = None
+        self.error: Optional[Exception] = None
+
+
+class FanInBatcher:
+    """Stack concurrent requests from many connections into one model call.
+
+    ``fn`` must accept tensors with a leading batch axis. Batches are padded
+    to a bucket (the next power of two ≤ ``max_batch``, or always
+    ``max_batch`` with ``fixed_bucket``), so the model sees few distinct
+    shapes. Each request contributes leading-axis rows; replies are split
+    back out.
+
+    Dispatch fires when ``max_batch`` rows are waiting, when ``max_delay_s``
+    elapsed since the first queued request, or — with ``inflight_fn`` —
+    when every request the transport has admitted is already queued.
+
+    Requests arrive from the wire as CPU tensors aliasing receive buffers:
+    they are concatenated and padded on the host, into a pinned staging
+    tensor when ``device`` is a card (cast to ``transfer_dtype`` if set), and
+    moved in ONE non-blocking host→device copy. Device-resident inputs are
+    concatenated on the device.
+
+    Reply delivery is a two-stage pipeline: the batcher thread only
+    *dispatches* — stacks, copies, calls ``fn`` (CUDA work is enqueued, not
+    waited for) and enqueues each output leaf's device→host copy into
+    pinned memory behind a recorded event — and hands the in-flight batch
+    to a completion thread, which waits for the event and splits replies as
+    host views. So there is one D2H per output leaf per batch, batch N+1's
+    stacking overlaps batch N's device time, and ``d2h_workers`` completion
+    threads retire batches concurrently (bounded: backpressure still reaches
+    callers).
+
+    ``device`` (resolved by :func:`~tpurpc_torch.utils.config.resolve_device`)
+    is where batches run; a CUDA device with no card raises.
+    """
+
+    #: lock map (the reference linter's rule `lock`) + shard contract (rule
+    #: `shard`): the request queue and close flag are SHARD-LOCAL — only
+    #: this batcher's own threads mutate them; cross-shard access is
+    #: confined to the device merger's declared ``_MERGE_BOUNDARY``
+    _GUARDED_BY = {"_queue": "_lock", "_closed": "_lock"}
+
+    def __init__(self, fn: Callable[[Any], Any], max_batch: int = 8,
+                 max_delay_s: float = 0.002, pad_to_bucket: bool = True,
+                 fixed_bucket: bool = False, d2h_workers: int = 4,
+                 transfer_dtype: Optional[torch.dtype] = None,
+                 inflight_fn: Optional[Callable[[], int]] = None,
+                 device=None):
+        self._device = resolve_device(device)
+        #: depth-aware flush: how many requests are in flight at the
+        #: transport (Server.inflight_requests). When every one is already
+        #: queued here, no further arrival can happen until responses go
+        #: out, so waiting out max_delay_s is pure latency: flush now.
+        self._inflight_fn = inflight_fn
+        #: recent dispatched batch sizes — the depth-aware flush's
+        #: hysteresis floor is their max (see _drained_inflight)
+        self._recent_batches: "deque[int]" = deque(maxlen=8)
+        #: cast host-side batches to this dtype before the H2D (e.g.
+        #: ``torch.bfloat16`` when the model computes in bf16 anyway): it
+        #: halves the transfer. None = ship requests in their wire dtype.
+        self.transfer_dtype = transfer_dtype
+        self._fn = fn
+        self.max_batch = max_batch
+        self.max_delay_s = max_delay_s
+        self.pad_to_bucket = pad_to_bucket
+        #: always pad to max_batch: ONE batch shape for single-row requests.
+        #: A dispatch whose requests total MORE than max_batch rows still
+        #: pads to that larger total.
+        self.fixed_bucket = fixed_bucket
+        self._lock = threading.Lock()
+        self._queue: List[_Pending] = []
+        self._kick = threading.Condition(self._lock)
+        self._closed = False
+        self.batches_run = 0
+        self.rows_run = 0
+        #: host seconds per stage, summed over batches: ``stack`` (concat,
+        #: cast, pad, H2D enqueue), ``model`` (``fn``'s call: on a card, its
+        #: dispatch), ``d2h`` (the replies' D2H enqueue) on the batcher
+        #: thread; ``split`` (the wait for the D2H excluded: the replies'
+        #: views) on the completion threads
+        self.stage_s = dict.fromkeys(("stack", "model", "d2h", "split"), 0.0)
+        #: in-flight (dispatched, not yet materialized) batches; the bound is
+        #: the pipeline depth — blocking put() backpressures the batcher
+        #: thread, and through it the callers, when the device falls behind
+        self._inflight: "queue.Queue" = queue.Queue(maxsize=max(2, d2h_workers))
+        self._reaped = False  # set by close() after the workers are gone
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name="tpurpc-batcher")
+        self._completers = [
+            threading.Thread(target=self._complete_loop, daemon=True,
+                             name=f"tpurpc-batcher-d2h-{i}")
+            for i in range(max(1, d2h_workers))]
+        self._thread.start()
+        for c in self._completers:
+            c.start()
+
+    def queue_depth(self) -> int:
+        """Requests parked behind the transport (queued here + dispatched
+        batches not yet materialized)."""
+        with self._lock:
+            queued = len(self._queue)
+        return queued + self._inflight.qsize()
+
+    def close(self) -> None:
+        with self._lock:
+            self._closed = True
+            self._kick.notify_all()
+        self._thread.join(timeout=5)
+        for _ in self._completers:   # one sentinel per completion worker,
+            try:                      # after the last dispatched batch.
+                # Generous timeout: a merely-backlogged (healthy) queue
+                # drains and takes the sentinel; only a truly wedged
+                # consumer set makes us give up so close() stays bounded.
+                self._inflight.put(None, timeout=10)
+            except queue.Full:
+                break
+        for c in self._completers:
+            c.join(timeout=5)
+        if any(c.is_alive() for c in self._completers):
+            # Workers are wedged in device work but still hold the queue's
+            # consumer role — if they ever unwedge they will drain the
+            # remaining batches, so failing those now would be both
+            # premature and racy. Leave the daemon threads to their fate.
+            return
+        self._reaped = True  # a still-blocked dispatch put now fails its batch
+        # Shutdown race sweep: if the batcher thread outlived its join
+        # timeout its final batch can land after the workers exited on
+        # sentinels — fail those callers instead of stranding them on
+        # p.event forever. (A put racing this sweep is covered by the
+        # _reaped check in the dispatch loop: either the sweep sees the
+        # item, or the put times out and fails the batch itself.)
+        while True:
+            try:
+                item = self._inflight.get_nowait()
+            except queue.Empty:
+                break
+            if item is None:
+                continue
+            for p in item[0]:
+                p.error = RuntimeError("batcher closed")
+                p.event.set()
+
+    def __call__(self, tree: Any) -> Any:
+        p = _Pending(tree)
+        with self._lock:
+            if self._closed:
+                raise RuntimeError("batcher closed")
+            self._queue.append(p)
+            self._kick.notify_all()
+        p.event.wait()
+        if p.error is not None:
+            raise p.error
+        return p.result
+
+    # -- batcher thread ------------------------------------------------------
+
+    def _loop(self) -> None:
+        _bind_thread(self._device)
+        while True:
+            with self._lock:
+                while not self._queue and not self._closed:
+                    self._kick.wait()
+                if self._closed and not self._queue:
+                    return
+                deadline = time.monotonic() + self.max_delay_s
+                while (len(self._queue) < self.max_batch and not self._closed):
+                    if self._drained_inflight():
+                        break  # nobody else is coming
+                    left = deadline - time.monotonic()
+                    if left <= 0:
+                        break
+                    self._kick.wait(timeout=left)
+                batch, self._queue = (self._queue[:self.max_batch],
+                                      self._queue[self.max_batch:])
+                if batch:
+                    self._recent_batches.append(len(batch))
+            if batch:
+                self._run(batch)
+
+    def _drained_inflight(self) -> bool:
+        """True when the transport says every arrived-and-unanswered
+        request is already in our queue — the depth-aware flush signal
+        (runs under self._lock via the _loop wait).
+
+        Hysteresis: the early flush also requires the queue to have
+        reached the max RECENT batch size. "Every in-flight request is
+        queued" is trivially true in the stagger gap of a closed-loop
+        client set (responses written, next requests still on the wire) —
+        flushing there degenerates to batches of one. Demanding
+        recently-proven occupancy first keeps steady-state batching intact;
+        the max over a sliding window (not just the last batch) means one
+        small ramp-up batch can't drag the floor into a sticky batch-of-one
+        fixed point, while a genuinely quiet batcher decays to immediate
+        flushes within a window. A stale snapshot only flushes early or
+        late; it never hangs."""
+        if self._inflight_fn is None or not self._queue:
+            return False
+        try:
+            pending = self._inflight_fn()
+        except Exception:
+            return False  # a broken probe degrades to the timer, never hangs
+        q = len(self._queue)
+        floor = min(self.max_batch, max(self._recent_batches, default=1))
+        return q >= max(1, pending) and q >= floor
+
+    def _split_compatible(self, batch: List[_Pending]) -> List[_Pending]:
+        """Fail (individually) requests whose pytree structure or leaf
+        row-shape/dtype can't stack with the batch's first valid row —
+        one bad request must not poison its siblings' futures."""
+        good: List[_Pending] = []
+        ref = None
+        for p in batch:
+            err: Optional[Exception] = None
+            sig = None
+            try:
+                leaves, treedef = codec.tree_flatten(p.tree)
+                if not leaves:
+                    raise ValueError("empty request tree")
+                leaves = [_as_tensor(x) for x in leaves]
+                for x in leaves:
+                    if x.dim() < 1:
+                        raise ValueError(
+                            "batched request leaves need a leading batch axis")
+                sig = (treedef, tuple((tuple(x.shape[1:]), x.dtype)
+                                      for x in leaves))
+            except Exception as exc:
+                err = exc
+            if err is None:
+                if ref is None or sig == ref:
+                    ref = ref or sig
+                    good.append(p)
+                    continue
+                err = ValueError(
+                    "request incompatible with batch: leaf shapes/dtypes "
+                    f"{sig[1]} vs {ref[1]} (or differing tree structure)")
+            p.error = err
+            p.event.set()
+        return good
+
+    def _bucket(self, n: int) -> int:
+        if self.fixed_bucket:
+            return self.max_batch
+        if not self.pad_to_bucket:
+            return n
+        b = 1
+        while b < n:
+            b <<= 1
+        return min(b, self.max_batch)
+
+    def _run(self, batch: List[_Pending]) -> None:
+        """Stage 1 (batcher thread): stack, pad, copy, dispatch, start the
+        D2H, enqueue in-flight. Does NOT wait for the device."""
+        batch = self._split_compatible(batch)
+        if not batch:
+            return
+        #: pinned staging tensors of the non-blocking H2D: held with the
+        #: in-flight batch until its event proves the copies done
+        staged: list = []
+        try:
+            t0 = time.perf_counter()
+            flat = [codec.tree_flatten(p.tree) for p in batch]
+            sizes = [int(_as_tensor(leaves[0]).shape[0]) for leaves, _ in flat]
+            total = sum(sizes)
+            bucket = max(self._bucket(total), total)
+            cols = zip(*(leaves for leaves, _ in flat))
+            stacked = codec.tree_unflatten(
+                flat[0][1], [self._concat_pad(xs, bucket, staged)
+                             for xs in cols])
+            t1 = time.perf_counter()
+            out = self._fn(stacked)
+            t2 = time.perf_counter()
+            host = serialize.start_host_copy(out)
+            t3 = time.perf_counter()
+            with self._lock:
+                self.stage_s["stack"] += t1 - t0
+                self.stage_s["model"] += t2 - t1
+                self.stage_s["d2h"] += t3 - t2
+        except Exception as e:  # deliver failure to every caller in the batch
+            for p in batch:
+                p.error = e
+                p.event.set()
+            return
+
+        # Bounded-backpressure put that stays shutdown-safe: once close()
+        # has reaped the completion workers (_reaped), nobody will ever
+        # drain the queue — fail this batch's callers instead of parking
+        # them behind a put that can no longer complete.
+        def fail_batch(b):
+            for p in b:
+                p.error = RuntimeError("batcher closed")
+                p.event.set()
+
+        while True:
+            if self._reaped:
+                fail_batch(batch)
+                return
+            try:
+                self._inflight.put((batch, sizes, total, host, staged),
+                                   timeout=0.25)
+                break
+            except queue.Full:
+                continue
+        if self._reaped:
+            # Reaping raced our successful put and close()'s sweep may have
+            # already drained: self-sweep so no batch is ever stranded.
+            while True:
+                try:
+                    item = self._inflight.get_nowait()
+                except queue.Empty:
+                    return
+                if item is not None:
+                    fail_batch(item[0])
+
+    def _complete_loop(self) -> None:
+        """Stage 2: wait for the whole-batch D2H, split replies as views."""
+        _bind_thread(self._device)
+        while True:
+            item = self._inflight.get()
+            if item is None:
+                return
+            batch, sizes, total, (leaves, treedef, event), _staged = item
+            try:
+                if event is not None:
+                    event.synchronize()
+                t0 = time.perf_counter()
+                with self._lock:
+                    self.batches_run += 1
+                    self.rows_run += total
+                off = 0
+                for p, n in zip(batch, sizes):
+                    p.result = _rows(leaves, treedef, slice(off, off + n))
+                    off += n
+                    p.event.set()
+                with self._lock:
+                    self.stage_s["split"] += time.perf_counter() - t0
+            except Exception as e:
+                for p in batch:
+                    p.error = e
+                    p.event.set()
+
+    def _concat_pad(self, xs: Sequence, bucket: int, staged: list):
+        ts = [_as_tensor(x) for x in xs]
+        rows = sum(t.shape[0] for t in ts)
+        if all(t.device.type == "cpu" for t in ts):
+            # Host rows (from the wire): concatenate, cast and pad into one
+            # staging tensor — pinned when bound for a card — and ship the
+            # batch in ONE copy. N per-request H2Ds plus a device concat
+            # would turn one bulk transfer into N small ones and a launch.
+            dtype = ts[0].dtype
+            if self.transfer_dtype is not None and dtype.is_floating_point:
+                dtype = self.transfer_dtype
+            card = self._device.type == "cuda"
+            cat = torch.empty((max(bucket, rows), *ts[0].shape[1:]),
+                              dtype=dtype, pin_memory=card)
+            torch.cat(ts, dim=0, out=cat[:rows])  # casts as it writes
+            cat[rows:].zero_()
+            if self._device.type == "cpu":
+                return cat
+            staged.append(cat)
+            ledger.dma_h2d(cat.numel() * cat.element_size())
+            return cat.to(self._device, non_blocking=True)
+        # device-resident inputs (in-process callers): keep them on device
+        cat = torch.cat([t.to(self._device) for t in ts], dim=0)
+        if bucket > rows:
+            cat = torch.cat([cat, cat.new_zeros((bucket - rows,
+                                                 *cat.shape[1:]))])
+        return cat
+
+
+# ---------------------------------------------------------------------------
+# Device-boundary merge
+# ---------------------------------------------------------------------------
+
+class _SubBatch:
+    """One shard's stacked-and-padded batch, in flight across the merge
+    boundary. The shard's batcher thread parks on ``done`` while the merger
+    dispatches; ``out``/``err`` come back resolved."""
+
+    __slots__ = ("stacked", "rows", "done", "out", "err")
+
+    #: shard contract (rule `shard`): a sub-batch belongs to ITS shard; its
+    #: out/err may only be written across the shard boundary inside the
+    #: merger's declared ``_MERGE_BOUNDARY`` functions
+    _GUARDED_BY = {"out": "done", "err": "done"}
+
+    def __init__(self, stacked, rows: int):
+        self.stacked = stacked
+        self.rows = rows
+        self.done = threading.Event()
+        self.out = None
+        self.err: Optional[Exception] = None
+
+
+class DeviceMerger:
+    """Gather compatible sub-batches from per-shard batchers into ONE
+    device dispatch.
+
+    Shards batch independently — each :class:`FanInBatcher` keeps its own
+    lock, queue and flush policy — and meet the single device only here:
+    sub-batches are published through a lock-free
+    :class:`~tpurpc_torch.core.handoff.HandoffRing`, and the one merger
+    thread gathers whatever the other shards already committed,
+    concatenates shape-compatible sub-batches along the batch axis (on the
+    device, where they already are), and dispatches once.
+
+    Failure isolation: a merged dispatch that fails is retried per
+    sub-batch, so a mis-shaped (or poisoned) sub-batch fails ALONE — its
+    siblings' requests complete. Incompatible signatures never co-dispatch
+    in the first place (grouped by pytree structure + row shape/dtype).
+
+    Merging two bucket-B sub-batches dispatches 2B rows, a new batch shape;
+    callers who need one shape keep one shard (plain FanInBatcher).
+    """
+
+    #: the ONLY functions allowed to mutate another shard's `_GUARDED_BY`
+    #: state (rule `shard`): the merge loop and its resolve/fail arms
+    _MERGE_BOUNDARY = ("_merge_loop", "_dispatch_group", "_resolve_sub",
+                       "_fail_sub")
+
+    def __init__(self, fn: Callable[[Any], Any], capacity: int = 64,
+                 max_merge_subs: int = 8, gather_window_s: float = 0.0005,
+                 device=None):
+        self._device = resolve_device(device)
+        self._fn = fn
+        self.max_merge_subs = max(1, max_merge_subs)
+        self.gather_window_s = gather_window_s
+        self._ring = HandoffRing(capacity)
+        self._closed = False
+        self.dispatches = 0
+        self.subs_merged = 0
+        self._thread = threading.Thread(target=self._merge_loop, daemon=True,
+                                        name="tpurpc-merge")
+        self._thread.start()
+
+    # -- shard-facing ---------------------------------------------------------
+
+    def entry(self) -> Callable[[Any], Any]:
+        """An ``fn``-shaped callable for one shard's FanInBatcher: publishes
+        the stacked sub-batch across the boundary and parks until the
+        merger resolves it. Returns HOST-side results (the merger owns the
+        D2H), so the shard's completion stage only splits."""
+
+        def dispatch(stacked):
+            leaves, _ = codec.tree_flatten(stacked)
+            sub = _SubBatch(stacked, int(_as_tensor(leaves[0]).shape[0]))
+            if not self._ring.publish(sub):
+                raise RuntimeError("device merger closed")
+            sub.done.wait()
+            if sub.err is not None:
+                raise sub.err
+            return sub.out
+
+        return dispatch
+
+    def close(self) -> None:
+        self._closed = True
+        self._ring.close()
+        self._thread.join(timeout=5)
+
+    # -- the merge boundary (single consumer thread) --------------------------
+
+    def _merge_loop(self) -> None:
+        _bind_thread(self._device)
+        while True:
+            first = self._ring.take(timeout=0.25)
+            if first is None:
+                if self._closed:
+                    return
+                continue
+            group = [first]
+            # gather pass: drain what the other shards ALREADY committed,
+            # then one brief window for shards mid-publish — bounded so a
+            # lone sub-batch never waits on shards with nothing to say
+            deadline = time.monotonic() + self.gather_window_s
+            while len(group) < self.max_merge_subs:
+                nxt = self._ring.take_ready()
+                if nxt is not None:
+                    group.append(nxt)
+                    continue
+                if time.monotonic() >= deadline:
+                    break
+                time.sleep(self.gather_window_s / 4)
+            for sig_group in self._partition(group):
+                self._dispatch_group(sig_group)
+
+    @staticmethod
+    def _signature(sub: _SubBatch):
+        leaves, treedef = codec.tree_flatten(sub.stacked)
+        return (json.dumps(treedef),
+                tuple((tuple(_as_tensor(x).shape[1:]),
+                       str(_as_tensor(x).dtype)) for x in leaves))
+
+    def _partition(self, group: List[_SubBatch]) -> List[List[_SubBatch]]:
+        """Group sub-batches that can legally concatenate (same pytree
+        structure, row shape, dtype); order-preserving within a group."""
+        buckets: dict = {}
+        order: List[List[_SubBatch]] = []
+        for sub in group:
+            try:
+                sig = self._signature(sub)
+            except Exception:
+                sig = ("bad", id(sub))
+            lst = buckets.get(sig)
+            if lst is None:
+                lst = buckets[sig] = []
+                order.append(lst)
+            lst.append(sub)
+        return order
+
+    def _dispatch_group(self, group: List[_SubBatch]) -> None:
+        self.dispatches += 1
+        if len(group) == 1:
+            sub = group[0]
+            try:
+                self._resolve_sub(sub, self._run_one(sub.stacked))
+            except Exception as exc:
+                self._fail_sub(sub, exc)
+            return
+        try:
+            flat = [codec.tree_flatten(s.stacked) for s in group]
+            merged = codec.tree_unflatten(
+                flat[0][1], [self._concat(xs)
+                             for xs in zip(*(leaves for leaves, _ in flat))])
+            leaves, treedef = codec.tree_flatten(self._run_one(merged))
+            self.subs_merged += len(group)
+            off = 0
+            for sub in group:
+                self._resolve_sub(
+                    sub, _rows(leaves, treedef, slice(off, off + sub.rows)))
+                off += sub.rows
+        except Exception:
+            # merged dispatch failed: isolate — each sub-batch dispatches
+            # alone so a poisoned shard cannot fail its siblings
+            for sub in group:
+                try:
+                    self._resolve_sub(sub, self._run_one(sub.stacked))
+                except Exception as exc:
+                    self._fail_sub(sub, exc)
+
+    def _run_one(self, stacked):
+        """Dispatch + materialize to host: ONE D2H per output leaf for the
+        merged batch; the shards' split stages see host tensors."""
+        leaves, treedef, event = serialize.start_host_copy(self._fn(stacked))
+        if event is not None:
+            event.synchronize()
+        return codec.tree_unflatten(treedef, leaves)
+
+    @staticmethod
+    def _resolve_sub(sub: _SubBatch, result) -> None:
+        sub.out = result
+        sub.done.set()
+
+    @staticmethod
+    def _fail_sub(sub: _SubBatch, exc: Exception) -> None:
+        sub.err = exc
+        sub.done.set()
+
+    @staticmethod
+    def _concat(xs):
+        return torch.cat([_as_tensor(x) for x in xs], dim=0)
+
+
+class ShardedFanIn:
+    """N independent FanInBatcher shards merging at the device boundary.
+
+    Callers are striped round-robin across shards (one GIL-atomic
+    ``next()`` — no shared lock on the request path); each shard batches
+    under its OWN lock and publishes through the merger's handoff ring.
+    Drop-in for FanInBatcher where serve_torch wires one (``__call__``,
+    ``queue_depth``, ``batches_run``, ``rows_run``, ``close``)."""
+
+    def __init__(self, fn: Callable[[Any], Any], n_shards: int = 2,
+                 max_batch: int = 8, max_delay_s: float = 0.002,
+                 inflight_fn: Optional[Callable[[], int]] = None,
+                 device=None, **kw):
+        self.merger = DeviceMerger(fn, capacity=max(8, 4 * n_shards),
+                                   device=device)
+        self.shards = [
+            FanInBatcher(self.merger.entry(), max_batch=max_batch,
+                         max_delay_s=max_delay_s, inflight_fn=inflight_fn,
+                         device=device, **kw)
+            for _ in range(max(1, n_shards))]
+        self._rr = itertools.count()
+
+    def __call__(self, tree: Any) -> Any:
+        return self.shards[next(self._rr) % len(self.shards)](tree)
+
+    def queue_depth(self) -> int:
+        return sum(s.queue_depth() for s in self.shards)
+
+    @property
+    def batches_run(self) -> int:
+        return sum(s.batches_run for s in self.shards)
+
+    @property
+    def rows_run(self) -> int:
+        return sum(s.rows_run for s in self.shards)
+
+    def close(self) -> None:
+        for s in self.shards:
+            s.close()
+        self.merger.close()
+
+
 def serve_torch(fn: Callable[[Any], Any], address: str = "127.0.0.1:0", *,
                 name: str = "Call", device: bool = False,
-                max_workers: int = 32):
-    """Stand up a tensor server around ``fn``; returns ``(server, port,
-    None)`` — the third slot is the fan-in batcher of the reference's
-    ``serve_jax``, which this package does not have yet. The caller stops
-    the server."""
+                batching: bool = False, max_batch: int = 8,
+                max_delay_s: float = 0.002, max_workers: int = 32,
+                batch_shards: int = 1):
+    """One call: stand up a tensor server around ``fn``.
+
+    Returns ``(server, port, batcher_or_None)``; the caller stops the server
+    (and closes the batcher). ``device=True`` decodes requests into the
+    connection's device ring on the TPU platform (:func:`add_tensor_method`).
+
+    With ``batching`` a :class:`FanInBatcher` on the config's device is
+    wired to the server's in-flight request count (depth-aware flush): when
+    every request the transport has admitted is already queued, the batch
+    dispatches immediately instead of waiting out ``max_delay_s`` —
+    pipelined clients (``TensorClient.call_async``) fill batches, lockstep
+    clients stop paying the delay. ``batch_shards > 1`` splits the batcher
+    into that many independent shards merging only at the device boundary
+    (:class:`ShardedFanIn`). A request parks a server worker inside the
+    batcher until its batch completes, so ``max_workers`` bounds how many
+    requests can fill a batch.
+
+    The reference also feeds the batcher's queue depth into the server's
+    per-response load report (``Server.set_load_provider``); this package
+    has no load report yet, so that wiring waits for it.
+    """
     srv = Server(max_workers=max_workers)
-    add_tensor_method(srv, name, fn, device=device)
+    batcher = None
+    if batching:
+        if batch_shards > 1:
+            batcher = ShardedFanIn(fn, n_shards=batch_shards,
+                                   max_batch=max_batch,
+                                   max_delay_s=max_delay_s,
+                                   inflight_fn=srv.inflight_requests)
+        else:
+            batcher = FanInBatcher(fn, max_batch=max_batch,
+                                   max_delay_s=max_delay_s,
+                                   inflight_fn=srv.inflight_requests)
+        add_tensor_method(srv, name, batcher, device=device)
+    else:
+        add_tensor_method(srv, name, fn, device=device)
     srv.start()
-    port = srv.add_insecure_port(address)
-    return srv, port, None
+    port = srv.add_insecure_port(address)  # after start: returns the bound port
+    return srv, port, batcher
