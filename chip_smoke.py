@@ -38,7 +38,28 @@ fails the run (non-zero exit, no result line) on any error:
    reply is checked against the same model run directly on its image,
    padded with zero rows to the bucket shape [8,224,224,3]; batches must
    stack rows across connections. Skipped under ``--kernels``;
-5. print the kernels line, the card's name and power limit, and last the
+5. the bulk stream, as ``bench.py``'s headline Sink stream runs it: a
+   client streams float32 [1024,1024] tensors (4 MiB; a different tensor
+   for each message index, made from a seed, beside its index as an int64
+   [1] leaf) to a ``stream_stream`` tensor method on ``Server(max_workers=
+   8)``, which keeps up to 3 messages in flight, reduces each on the card
+   (its float64 sum and its values at 64 seeded positions) and replies once
+   at the end of the stream. Each of three legs gets a fresh server and
+   channel, 2 warm-up messages, then 5 timed rounds of 64: (a) rendezvous
+   on ``RDMA_BPEV``, each message landed on the host and moved to the card
+   by ``to_torch``; (b) the same with ``TPURPC_RENDEZVOUS=0`` (framed);
+   (c) rendezvous on the device-ring platform (``TPU``, a 16 MiB
+   ``HbmRing``, ``device=True``), each message's ring view reduced before
+   the next is pulled. Every round's sums, sampled values and indices are
+   checked against numpy's on the client; (a) and (c) must move every
+   timed payload by rendezvous (64 transfers a round, no fallback), (a)
+   with under 64 KiB of host copies a round; (c) must launch both kernels
+   every round (the index leaf makes the spans drift across the ring, so
+   about one message in four wraps it). GB/s is the median of the fastest
+   3 rounds. Also timed: one 4 MiB ``to_torch`` from a landing region, and
+   the card's busy share over one profiled round of (a). Skipped under
+   ``--kernels``;
+6. print the kernels line, the card's name and power limit, and last the
    one-line result JSON.
 """
 
@@ -95,6 +116,21 @@ BF16_TOP1_MISS = 2
 SER_SHAPE = (1024, 1024)       # serialization check: a 4 MiB float32 tensor
 #: environment that phase 3 sets and phase 4 restores
 RING_ENV = ("GRPC_PLATFORM_TYPE", "TPURPC_HBM_RING_SIZE_KB")
+#: phase 5: bench.py's headline stream — float32 [1024,1024] (4 MiB)
+SINK_SHAPE = (1024, 1024)
+SINK_WARM, SINK_ROUNDS, SINK_MSGS = 2, 5, 64
+SINK_INFLIGHT = 3      # bench.py's consume keeps 3 messages in flight
+SINK_WORKERS = 8
+SINK_SAMPLES = 64
+#: the reference's own bound on a rendezvous stream's host copies
+#: (tests/test_rendezvous.py): the control and reply frames only
+SINK_COPY_BOUND = 64 * 1024
+#: a message's float64 sum on the card vs numpy's: the same float32 terms
+#: added in another order, so within 1e-9 of the sum of their magnitudes
+#: (float64 rounding over 2^20 terms is below 2^20 x 2^-53 of it)
+SINK_SUM_TOL = 1e-9
+SINK_ENV = ("GRPC_PLATFORM_TYPE", "TPURPC_RENDEZVOUS",
+            "TPURPC_HBM_RING_SIZE_KB")
 
 
 def fail(msg: str) -> None:
@@ -727,6 +763,283 @@ def fanin_serving(dev, card: str, saved_env: dict) -> None:
                   flush=True)
 
 
+# -- phase 5 -----------------------------------------------------------------
+
+def _sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def sink_payloads(shape=SINK_SHAPE, msgs=SINK_MSGS):
+    """The client's messages and what the server must find in them: for
+    message i, float32 ``base + i`` (base from the seed), its float64 sum
+    by numpy, the sum of its magnitudes, and its values at the sampled
+    flat positions."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 5)
+    base = rng.standard_normal(shape).astype(np.float32)
+    idx = np.sort(rng.choice(base.size, SINK_SAMPLES, replace=False))
+    xs = [base + np.float32(i) for i in range(msgs)]
+    sums = np.array([x.astype(np.float64).sum() for x in xs])
+    mags = np.array([np.abs(x.astype(np.float64)).sum() for x in xs])
+    samples = np.stack([x.reshape(-1)[idx] for x in xs])
+    return xs, idx, sums, mags, samples
+
+
+def _sink_consume(dev, idx, device_ring: bool, stages: dict):
+    """bench.py's Sink on the card: each message's float64 sum and its
+    values at ``idx``, one reply at the end of the stream. Host-landed, a
+    message moves to the card by ``to_torch`` and up to SINK_INFLIGHT wait
+    to be reduced; from the device ring, a message's view is reduced (on
+    the ring's stream) before the next message is pulled, whose decode
+    returns the view's ring credit. ``stages`` gathers the handler's host
+    seconds: ``pull`` (waiting for and decoding the next message — on the
+    device ring, its landing too), ``h2d`` (``to_torch``), ``reduce``."""
+    from collections import deque
+
+    import torch
+
+    from tpurpc_torch.torchshim.codec import to_torch
+
+    idx_dev = torch.as_tensor(idx, device=dev)
+
+    def consume(trees):
+        seen, sums, samples = [], [], []
+        inflight = deque()
+        clock = time.perf_counter
+
+        def retire(x):
+            t = clock()
+            sums.append(x.double().sum())
+            samples.append(x.reshape(-1)[idx_dev])
+            stages["reduce"] += clock() - t
+
+        it = iter(trees)
+        while True:
+            t = clock()
+            tree = next(it, None)
+            stages["pull"] += clock() - t
+            if tree is None:
+                break
+            # hold no alias of the message while waiting for the next: a
+            # landing region recycles (its doorbell rings) when the last dies
+            seen.append(tree.pop("i").clone())
+            x = tree.pop("x")
+            if device_ring:
+                retire(x)
+                continue
+            t = clock()
+            inflight.append(to_torch(x, dev))
+            x = None
+            stages["h2d"] += clock() - t
+            if len(inflight) > SINK_INFLIGHT:
+                retire(inflight.popleft())
+        while inflight:
+            retire(inflight.popleft())
+        yield {"i": torch.cat(seen).cpu(),
+               "sums": torch.stack(sums).cpu(),
+               "samples": torch.stack(samples).cpu()}
+
+    return consume
+
+
+def _check_sink(label, reply, n, want):
+    import numpy as np
+
+    _, _, sums, mags, samples = want
+    got_i = reply["i"].numpy()
+    check(got_i.tolist() == list(range(n)),
+          f"{label}: the server saw message indices {got_i.tolist()[:8]}...")
+    got = reply["sums"].numpy()
+    err = np.abs(got - sums[:n])
+    check(bool((err <= SINK_SUM_TOL * mags[:n]).all()),
+          f"{label}: sums differ from numpy's by up to "
+          f"{(err / mags[:n]).max()} of the magnitudes")
+    check(np.array_equal(reply["samples"].numpy(), samples[:n]),
+          f"{label}: sampled values differ from numpy's")
+    return float((err / mags[:n]).max())
+
+
+def device_events(prof) -> list:
+    """A trace's kernels and copies (device events, not the host ops that
+    launched them, whose device time would count them twice)."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+
+
+def device_busy_ms(prof) -> float:
+    """Summed device time (ms) of every kernel and copy in a trace."""
+    return sum(e.self_device_time_total for e in device_events(prof)) / 1e3
+
+
+def sink_leg(label, dev, card, want, env, device_ring=False,
+             rounds=SINK_ROUNDS, profile=False, on_link=None):
+    """One leg of phase 5 on a fresh server and channel: warm-up, then
+    ``rounds`` timed rounds of the stream. Returns per-round records and
+    the leg's GB/s. ``on_link(link)`` sees the client's rendezvous link
+    after the warm-up (``sink_profile.py`` times its sends)."""
+    import torch
+
+    from tpurpc_torch.ops import ring_scatter as rs_mod
+    from tpurpc_torch.ops import ring_window as rw_mod
+    from tpurpc_torch.rpc.channel import Channel
+    from tpurpc_torch.rpc.server import Server
+    from tpurpc_torch.torchshim.service import TensorClient, add_tensor_method
+    from tpurpc_torch.tpu import ledger
+    from tpurpc_torch.utils import config
+
+    xs, idx = want[0], want[1]
+    for key in SINK_ENV:
+        os.environ.pop(key, None)
+    os.environ.update(env)
+    config.set_config(None)
+    tensors = [torch.from_numpy(x) for x in xs]
+    n = len(xs)
+
+    def gen(k):
+        for i in range(k):
+            yield {"i": torch.tensor([i]), "x": tensors[i]}
+
+    stages = {"pull": 0.0, "h2d": 0.0, "reduce": 0.0}
+    srv = Server(max_workers=SINK_WORKERS)
+    add_tensor_method(srv, "Sink",
+                      _sink_consume(dev, idx, device_ring, stages),
+                      kind="stream_stream", device=device_ring)
+    srv.start()
+    port = srv.add_insecure_port("127.0.0.1:0")
+    out = []
+    try:
+        with Channel(f"127.0.0.1:{port}") as ch:
+            cli = TensorClient(ch)
+            warm = list(cli.duplex("Sink", gen(SINK_WARM), timeout=300))
+            _check_sink(f"{label} warm-up", warm[-1], SINK_WARM, want)
+            link = ch._conn.rdv
+            if on_link is not None:
+                on_link(link)
+            for r in range(rounds + int(profile)):
+                prof = None
+                if r == rounds:   # one more round, profiled, not timed
+                    prof = torch.profiler.profile(activities=[
+                        torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA])
+                    prof.__enter__()
+                s0 = link.stats() if link is not None else None
+                rs_mod.launches = 0
+                rw_mod.launches = 0
+                for key in stages:
+                    stages[key] = 0.0
+                with ledger.track() as w:
+                    t0 = time.perf_counter()
+                    replies = list(cli.duplex("Sink", gen(n), timeout=300))
+                    dt = time.perf_counter() - t0
+                launches = {"ring_scatter": rs_mod.launches,
+                            "ring_window": rw_mod.launches}
+                err = _check_sink(f"{label} round {r}", replies[-1], n, want)
+                if prof is not None:
+                    prof.__exit__(None, None, None)
+                    busy = device_busy_ms(prof)
+                    print(f"{label}: one profiled round, card busy {busy} ms "
+                          f"of {dt * 1e3} ms ({busy / (dt * 1e3)}) ({card})",
+                          flush=True)
+                    break
+                rec = {"s": dt, "gbps": n * xs[0].nbytes / dt / 1e9,
+                       "ledger": {k: w[k] for k in ("rdma_write",
+                                                    "host_copy",
+                                                    "dma_h2d", "dma_d2d")},
+                       "launches": launches, "sum_err": err,
+                       "server_ms": {k: v * 1e3 / n
+                                     for k, v in stages.items()}}
+                if link is not None:
+                    s1 = link.stats()
+                    rec["link"] = {k: s1[k] - s0[k] for k in (
+                        "sent", "received", "fallbacks", "ctrl_frames")}
+                out.append(rec)
+                print(f"{label} round {r}: {rec['gbps']:.4f} GB/s, ledger "
+                      f"{rec['ledger']}, link {rec.get('link')}, launches "
+                      f"{launches}, server host ms per message "
+                      f"{rec['server_ms']}", flush=True)
+    finally:
+        srv.stop()
+    gbps = sorted((rec["gbps"] for rec in out), reverse=True)
+    kept = gbps[:max(1, (len(gbps) + 1) // 2)]   # the fastest 3 of 5
+    print(f"{label}: GB/s median of the fastest {len(kept)} "
+          f"{kept[len(kept) // 2]} (min {gbps[-1]}, max {gbps[0]}) over "
+          f"{len(out)} rounds of {n} x {xs[0].nbytes} bytes; sums within "
+          f"{max(r['sum_err'] for r in out)} of the magnitudes ({card})",
+          flush=True)
+    return out, kept[len(kept) // 2]
+
+
+def landing_to_torch_ms(dev, x) -> float:
+    """Host-clock ms of one ``to_torch`` of a tensor decoded from a
+    rendezvous landing region (synchronized; mean of 5)."""
+    from tpurpc_torch.core import rendezvous as rdv
+    from tpurpc_torch.torchshim import codec
+
+    desc, payload = codec.encode_tensor_descriptor(x)
+    lease = rdv.landing_pool("shm").lease(len(payload), 0)
+    try:
+        off = lease.pr.offset
+        lease.pr.region.buf[off:off + len(payload)] = payload
+        body = lease.deliver(len(payload))
+        t = codec.decode_tensor_external(desc, body)
+        del body
+        ms = host_ms(lambda: codec.to_torch(t, dev))
+        got = codec.to_torch(t, dev)
+        _sync(dev)
+        check(bool((got.cpu() == t).all()), "to_torch of a landing region")
+        del t, got
+    finally:
+        lease.release()
+    return ms
+
+
+def sink_stream(dev, card, want=None, rounds=SINK_ROUNDS, ring=RING):
+    """Phase 5: the three legs. Returns leg (c)'s launches per round."""
+    saved = {k: os.environ.get(k) for k in SINK_ENV}
+    want = want or sink_payloads()
+    try:
+        a, _ = sink_leg("sink (a) rendezvous, host-landed", dev, card,
+                        want, {"GRPC_PLATFORM_TYPE": "RDMA_BPEV"},
+                        rounds=rounds, profile=dev.type == "cuda")
+        for r, rec in enumerate(a):
+            check(rec["link"]["sent"] == len(want[0])
+                  and rec["link"]["fallbacks"] == 0,
+                  f"sink (a) round {r}: not every payload rode rendezvous: "
+                  f"{rec['link']}")
+            check(rec["ledger"]["host_copy"] < SINK_COPY_BOUND,
+                  f"sink (a) round {r}: host_copy {rec['ledger']}")
+        sink_leg("sink (b) framed", dev, card, want,
+                 {"GRPC_PLATFORM_TYPE": "RDMA_BPEV", "TPURPC_RENDEZVOUS": "0"},
+                 rounds=rounds)
+        c, _ = sink_leg("sink (c) rendezvous, device ring", dev, card,
+                        want, {"GRPC_PLATFORM_TYPE": "TPU",
+                               "TPURPC_HBM_RING_SIZE_KB": str(ring >> 10)},
+                        device_ring=True, rounds=rounds)
+        for r, rec in enumerate(c):
+            check(rec["link"]["sent"] == len(want[0])
+                  and rec["link"]["fallbacks"] == 0,
+                  f"sink (c) round {r}: not every payload rode rendezvous: "
+                  f"{rec['link']}")
+            check(min(rec["launches"].values()) >= 1,
+                  f"sink (c) round {r}: a kernel never launched: "
+                  f"{rec['launches']}")
+    finally:
+        for key, val in saved.items():
+            if val is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = val
+    ms = landing_to_torch_ms(dev, want[0][0])
+    print(f"sink: one to_torch of {want[0][0].nbytes} bytes from a landing "
+          f"region {ms} ms by host clock ({card})", flush=True)
+    return [rec["launches"] for rec in c]
+
+
 def card_line() -> str:
     """The card's name and power limit, as nvidia-smi reports them."""
     smi = subprocess.run(
@@ -760,10 +1073,12 @@ def main() -> None:
     err, timings = check_kernels(dev)
     if kernels_only:
         launches = {"ring_scatter": None, "ring_window": None}
+        stream = None
     else:
         saved_env = {k: os.environ.get(k) for k in RING_ENV}
         launches = main_path(dev)
         fanin_serving(dev, card, saved_env)
+        stream = sink_stream(dev, card)
 
     sources = {"ring_scatter": "tpurpc/ops/ring_scatter.py:133",
                "ring_window": "tpurpc/ops/ring_window.py:138"}
@@ -789,7 +1104,10 @@ def main() -> None:
             "bound_by": "bytes",
             "launch_floor_ms": t["tiny_kernel"][0],
             "host_us": t["host_us"][0],
-            "plain_host_us": t["plain_host_us"][0]})
+            "plain_host_us": t["plain_host_us"][0],
+            # phase 5 (c): launches in each timed round of the stream
+            "stream_launches": (None if stream is None else
+                                [r[name] for r in stream])})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     if kernels_only:

@@ -32,23 +32,10 @@ BUCKET = (8, 224, 224, 3)
 REPS = 20
 
 
-def _on_device(prof) -> list:
-    """The trace's kernels and copies (device events, not the host ops
-    that launched them, whose device time would count them twice)."""
-    from torch.autograd import DeviceType
-
-    return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-
-
-def _device_ms(prof) -> float:
-    """Summed device time (ms) of every kernel and copy in a trace."""
-    return sum(e.self_device_time_total for e in _on_device(prof)) / 1e3
-
-
 def model_forms(dev, card):
     import torch
 
-    from chip_smoke import host_ms
+    from chip_smoke import device_busy_ms, device_events, host_ms
     from tpurpc_torch.models.resnet import _Conv, make_infer_fn, resnet50
 
     x = torch.zeros(BUCKET, device=dev)
@@ -76,12 +63,12 @@ def model_forms(dev, card):
                 torch.profiler.ProfilerActivity.CUDA]) as prof:
             infer(x)
             torch.cuda.synchronize()
-        kernels = _on_device(prof)
+        kernels = device_events(prof)
         launches = sum(e.count for e in kernels)
         top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
         print(f"model {name} at {list(BUCKET)}: host clock {host} ms; back "
               f"to back {back_to_back} ms per forward; profiled forward: "
-              f"{launches} kernel launches, device {_device_ms(prof)} ms "
+              f"{launches} kernel launches, device {device_busy_ms(prof)} ms "
               f"({card})", flush=True)
         for e in top:
             print(f"    {e.self_device_time_total / 1e3:.4f} ms x{e.count} "
@@ -138,7 +125,7 @@ def serving_window(dev, card):
                     f"{k} {v * 1e3 / b.batches_run}" for k, v in
                     b.stage_s.items()))
         if prof is not None:
-            busy = _device_ms(prof)
+            busy = cs.device_busy_ms(prof)
             line += (f"; device busy {busy} ms of {total * 1e3} ms "
                      f"profiled ({busy / (total * 1e3)})")
         print(f"{line} ({card})", flush=True)

@@ -6,8 +6,9 @@ runs on a machine without it:
 
 (``--noconftest`` because tests/conftest.py imports jax.) The CPU tests hold
 the kernels' plain versions against the reference; here the CUDA kernels are
-held against the plain versions, and the device ring, the fan-in batcher
-and device serialization run on the card.
+held against the plain versions, and the device ring, the fan-in batcher,
+device serialization and 4 MiB tensor streams over rendezvous (landed on
+the host, and through the device ring) run on the card.
 """
 
 import numpy as np
@@ -20,11 +21,16 @@ from tpurpc_torch.ops import ring_window as rw_mod
 from tpurpc_torch.ops.ring_scatter import ring_scatter, ring_scatter_plain
 from tpurpc_torch.ops.ring_window import ring_window, ring_window_plain
 from tpurpc_torch.torchshim import codec
-from tpurpc_torch.torchshim.service import FanInBatcher, ShardedFanIn
+from tpurpc_torch.core.poller import PairPool, Poller
+from tpurpc_torch.rpc.channel import Channel
+from tpurpc_torch.rpc.server import Server
+from tpurpc_torch.torchshim.service import (FanInBatcher, ShardedFanIn,
+                                            TensorClient, add_tensor_method)
 from tpurpc_torch.tpu import ledger
 from tpurpc_torch.tpu.hbm_ring import HbmRing
 from tpurpc_torch.tpu.serialize import (deserialize_to_device,
                                         serialize_from_device)
+from tpurpc_torch.utils import config
 
 CAP = 16384
 SPANS = [(0, 4096), (4 * 37, 4096), (CAP - 2048, 8192), (CAP - 400, 4096),
@@ -36,6 +42,11 @@ SKEWED = [(CAP - 6144 + r, n) for r in range(16) for n in (4099, 8192 + 5)]
 #: shape: the same kernels on the same inputs, up to cuDNN's choice of
 #: algorithm per call
 REPLY_TOL = 1e-3
+#: a 4 MiB message's float64 sum on the card vs numpy's: the same float32
+#: terms in another order, within 1e-9 of the sum of their magnitudes
+SUM_TOL = 1e-9
+STREAM_SHAPE = (1024, 1024)    # bench.py's payload, 4 MiB
+STREAM_MSGS = 8
 
 
 @pytest.fixture
@@ -210,3 +221,91 @@ def test_serialize_from_device_one_d2h(dev):
         y, end = deserialize_to_device(buf, device=dev)
     assert end == len(buf) and y.device == x.device
     assert w["dma_h2d_ops"] == 1 and torch.equal(y, x)
+
+
+@pytest.fixture
+def stream_env(dev, monkeypatch):
+    """``stream_env(platform, **env)``: the port on ``platform`` on the
+    card, its singletons reset afterwards."""
+    def use(platform, **env):
+        monkeypatch.setenv("GRPC_PLATFORM_TYPE", platform)
+        monkeypatch.setenv("TPURPC_TORCH_DEVICE", str(dev))
+        for key, val in env.items():
+            monkeypatch.setenv(key, val)
+        config.set_config(None)
+    yield use
+    Poller.reset()
+    PairPool.reset()
+    config.set_config(None)
+
+
+def _stream_sums(dev, device_ring):
+    """Stream STREAM_MSGS float32 [1024,1024] tensors (``base + i``, each
+    beside its index) to a Sink that reduces each one on the card; returns
+    the reply, the client link's counters and the messages."""
+    from tpurpc_torch.torchshim.codec import to_torch
+
+    rng = np.random.default_rng(4)
+    base = rng.standard_normal(STREAM_SHAPE).astype(np.float32)
+    xs = [base + np.float32(i) for i in range(STREAM_MSGS)]
+
+    def consume(trees):
+        seen, sums = [], []
+        for tree in trees:
+            x = tree["x"] if device_ring else to_torch(tree["x"])
+            assert x.device.type == "cuda"
+            seen.append(tree["i"].clone())
+            sums.append(x.double().sum())
+        yield {"i": torch.cat(seen).cpu(), "sums": torch.stack(sums).cpu()}
+
+    srv = Server(max_workers=8)
+    add_tensor_method(srv, "Sink", consume, kind="stream_stream",
+                      device=device_ring)
+    srv.start()
+    port = srv.add_insecure_port("127.0.0.1:0")
+
+    def gen(k):
+        for i in range(k):
+            yield {"i": torch.tensor([i]), "x": torch.from_numpy(xs[i])}
+
+    try:
+        with Channel(f"127.0.0.1:{port}") as ch:
+            cli = TensorClient(ch)
+            list(cli.duplex("Sink", gen(2), timeout=120))   # warm-up
+            s0 = ch._conn.rdv.stats()
+            reply = list(cli.duplex("Sink", gen(STREAM_MSGS), timeout=120))
+            s1 = ch._conn.rdv.stats()
+    finally:
+        srv.stop()
+    counts = {k: s1[k] - s0[k] for k in ("sent", "fallbacks")}
+    return reply[-1], counts, xs
+
+
+def _check_stream(reply, xs):
+    assert reply["i"].tolist() == list(range(len(xs)))
+    for got, x in zip(reply["sums"].tolist(), xs):
+        x64 = x.astype(np.float64)
+        assert abs(got - x64.sum()) <= SUM_TOL * np.abs(x64).sum()
+
+
+@pytest.mark.cuda
+def test_rendezvous_stream_onto_card(dev, stream_env):
+    """8 x 4 MiB over rendezvous, each landed on the host and moved to the
+    card by to_torch: every payload rides rendezvous, sums equal."""
+    stream_env("RDMA_BPEV")
+    reply, counts, xs = _stream_sums(dev, device_ring=False)
+    assert counts == {"sent": STREAM_MSGS, "fallbacks": 0}
+    _check_stream(reply, xs)
+
+
+@pytest.mark.cuda
+def test_rendezvous_stream_through_device_ring(dev, stream_env):
+    """The same stream on the device-ring platform (a 16 MiB ring): the
+    index leaf makes 4 MiB + 8 bytes a message, so the 4th message's span
+    wraps the ring and takes both kernels."""
+    stream_env("TPU", TPURPC_HBM_RING_SIZE_KB=str(16 << 10))
+    before = (rs_mod.launches, rw_mod.launches)
+    reply, counts, xs = _stream_sums(dev, device_ring=True)
+    assert counts == {"sent": STREAM_MSGS, "fallbacks": 0}
+    assert rs_mod.launches > before[0] and rw_mod.launches > before[1]
+    _check_stream(reply, xs)

@@ -82,13 +82,16 @@ class Region:
 
 
 class Window:
-    """A write handle onto the *peer's* region."""
+    """A write handle onto the *peer's* region; ``view`` is its mapped
+    memory (both domains here are host-addressable)."""
 
-    __slots__ = ("write", "_close")
+    __slots__ = ("write", "view", "_close")
 
     def __init__(self, write: Callable[[int, bytes], None],
-                 close: Callable[[], None] = lambda: None):
+                 close: Callable[[], None] = lambda: None,
+                 view: "Optional[memoryview]" = None):
         self.write = write  # write(offset, data) — one-sided
+        self.view = view
         self._close = close
 
     def close(self) -> None:
@@ -134,7 +137,7 @@ class LocalDomain(MemoryDomain):
         def write(off: int, data) -> None:
             mv[off:off + len(data)] = data
 
-        return Window(write, mv.release)
+        return Window(write, mv.release, view=mv)
 
 
 class ShmDomain(MemoryDomain):
@@ -179,12 +182,14 @@ class ShmDomain(MemoryDomain):
             shm = shared_memory.SharedMemory(create=True, size=nbytes)
 
         def _close():
-            shm.close()
+            # the name goes first: a mapping still pinned by an alias
+            # (shm.close raises BufferError) must not leave it in /dev/shm
             with self._untracked():
                 try:
                     shm.unlink()
                 except FileNotFoundError:
                     pass
+            shm.close()
 
         return Region(f"shm:{shm.name}", shm.buf, _close)
 
@@ -203,7 +208,7 @@ class ShmDomain(MemoryDomain):
             mv.release()
             shm.close()
 
-        return Window(write, _close)
+        return Window(write, _close, view=mv)
 
 
 _DOMAINS: Dict[str, Callable[[], MemoryDomain]] = {
@@ -227,8 +232,9 @@ def make_domain(kind: str) -> MemoryDomain:
 
 class Address:
     """Serializable bootstrap blob: tag, domain, ring size and the handles of
-    the receive ring and status page. ``caps`` are capability strings; this
-    package advertises none and ignores the peer's."""
+    the receive ring and status page. ``caps`` are capability strings: this
+    package advertises ``rdv`` (rendezvous on, ``core/rendezvous.py``) and
+    reads only that of the peer's."""
 
     def __init__(self, tag: str, domain_kind: str, ring_size: int,
                  ring_handle: str, status_handle: str,
@@ -355,6 +361,8 @@ class Pair:
         self.writer: Optional[RingWriter] = None
         self._peer_ring: Optional[Window] = None
         self._peer_status: Optional[Window] = None
+        #: the peer's capability strings from its bootstrap Address
+        self.peer_caps: frozenset = frozenset()
 
         #: peer-driven event channel (notify tokens + liveness)
         self.notify_sock: Optional[socket.socket] = None
@@ -399,8 +407,16 @@ class Pair:
 
     def local_address(self) -> Address:
         assert self.state in (PairState.INITIALIZED, PairState.CONNECTED)
+        # rendezvous arms at connect time on a ring plane: no hello round
+        # trip for the first bulk payload to race. The switch is read here
+        # because rendezvous imports this module.
+        caps = []
+        if os.environ.get("TPURPC_RENDEZVOUS", "1").lower() not in (
+                "0", "off", "false"):
+            caps.append("rdv")
         return Address(self.tag, self.domain.kind, self.ring_size,
-                       self.recv_region.handle, self.status_region.handle)
+                       self.recv_region.handle, self.status_region.handle,
+                       caps=caps)
 
     def connect_over_socket(self, sock: socket.socket,
                             preread: bytes = b"") -> None:
@@ -435,6 +451,7 @@ class Pair:
             raise ValueError(f"domain mismatch: {peer.domain_kind} vs {self.domain.kind}")
         self._peer_ring = self.domain.open_window(peer.ring_handle, peer.ring_size)
         self._peer_status = self.domain.open_window(peer.status_handle, STATUS_BYTES)
+        self.peer_caps = peer.caps
         self.writer = RingWriter(peer.ring_size, self._peer_ring.write)
         self.state = PairState.CONNECTED
 

@@ -8,7 +8,8 @@ reader thread per connection):
   backoff and maps transport failure to ``UNAVAILABLE``;
 * ``_Connection`` is one live transport: a reader thread demuxing frames to
   per-stream state, a write path serialized by ``FrameWriter``, odd client
-  stream ids;
+  stream ids, and a rendezvous link (``core/rendezvous.py``) that moves
+  bulk payloads one-sided;
 * ``UnaryUnary`` / ``UnaryStream`` / ``StreamStream`` mirror grpcio's
   multicallables; ``Call.device_ring`` is the ring of the connection the
   call ran on;
@@ -26,6 +27,7 @@ import threading
 import time
 from typing import Callable, Dict, Iterable, Iterator, List, Optional, Tuple
 
+from tpurpc_torch.core import rendezvous as _rdv
 from tpurpc_torch.core.endpoint import (Endpoint, EndpointError,
                                         connect_endpoint, device_ring_of)
 from tpurpc_torch.rpc import frame as fr
@@ -82,6 +84,13 @@ class _ClientStream:
         else:
             self.assembly.take()  # stream already finished: drop
         return None
+
+    def commit_external(self, body) -> None:
+        """A rendezvous response payload, already whole in its landing
+        region (the decode aliases it): the same credit as a framed
+        commit."""
+        if self._acquire_credit():
+            self.events.put(("message", body))
 
     def deliver_trailers(self, code: StatusCode, details: str, md) -> None:
         # queue first: a pipelined caller that sees ``done`` drains the
@@ -148,6 +157,23 @@ class _Connection:
         self.draining = False  # GOAWAY received: no new streams
         self._on_dead = on_dead
         self.writer.send_preface()
+        # the rendezvous link and its hello: a PING any peer echoes; only a
+        # rendezvous-capable peer answers with its own hello, which arms the
+        # link. Until then every payload is framed.
+        self.rdv = _rdv.link_for_endpoint(
+            endpoint, "chan:" + getattr(endpoint, "peer", "?"),
+            self._rdv_send_op, self._rdv_deliver)
+        self.writer.rdv = self.rdv
+        if self.rdv is not None:
+            self.rdv.recv_limit = max_recv_bytes
+            # a ring plane negotiated at the pair bootstrap (Address.caps)
+            pair = getattr(endpoint, "pair", None)
+            if pair is not None and "rdv" in pair.peer_caps:
+                self.rdv.on_peer_hello()
+            try:
+                self.writer.send(fr.PING, 0, 0, _rdv.HELLO_PAYLOAD)
+            except (EndpointError, OSError, fr.FrameError):
+                pass  # connection dying; the reader surfaces it
         self._thread = threading.Thread(target=self._read_loop, daemon=True,
                                         name="tpurpc-chan-reader")
         self._thread.start()
@@ -173,6 +199,9 @@ class _Connection:
             self._die("drained after GOAWAY")
 
     def _read_loop(self) -> None:
+        if self.rdv is not None:
+            # this thread delivers CLAIMs: a big send here must frame
+            self.rdv.disallowed_thread = threading.get_ident()
         try:
             while True:
                 f = self.reader.read_frame()
@@ -184,9 +213,28 @@ class _Connection:
         except (EndpointError, fr.FrameError, OSError) as exc:
             self._die(str(exc))
 
+    def _rdv_send_op(self, op: int, stream_id: int, payload: bytes) -> None:
+        self.writer.send(fr.RDV_FRAME_OF_OP[op], 0, stream_id, payload)
+
+    def _rdv_deliver(self, stream_id: int, flags: int, body) -> None:
+        """A completed rendezvous payload is the stream's next message, in
+        frame order, aliasing its landing region."""
+        with self._lock:
+            st = self._streams.get(stream_id)
+        if st is not None:
+            st.commit_external(body)
+
     def _dispatch(self, f: fr.Frame) -> None:
         if f.type == fr.PING:
+            if (self.rdv is not None
+                    and f.payload.startswith(_rdv.HELLO_PAYLOAD)):
+                self.rdv.on_peer_hello(f.payload)
             self.writer.send(fr.PONG, 0, 0, f.payload)
+            return
+        if f.type in fr.RDV_OP_OF_FRAME:
+            if self.rdv is not None:
+                self.rdv.on_op(fr.RDV_OP_OF_FRAME[f.type], f.stream_id,
+                               f.payload)
             return
         if f.type == fr.PONG:
             return
@@ -220,6 +268,9 @@ class _Connection:
             self.alive = False
             streams = list(self._streams.values())
             self._streams.clear()
+        if self.rdv is not None:
+            # claimed landing regions are released; waiting senders wake
+            self.rdv.close()
         for st in streams:
             st.deliver_failure(StatusCode.UNAVAILABLE, f"transport failed: {why}")
         try:

@@ -1,14 +1,16 @@
 """tpurpc native wire format: multiplexed frames over one byte-pipe endpoint.
 
-A trimmed copy of ``tpurpc/rpc/frame.py`` (no compression, no rendezvous
-or control-ring frames, no cross-stream write coalescing). Frame layout,
-little-endian::
+A trimmed copy of ``tpurpc/rpc/frame.py`` (no compression, no control-ring
+frames, no cross-stream write coalescing). Frame layout, little-endian::
 
     [u8 type][u8 flags][u32 stream_id][u32 length] [payload: length bytes]
 
-Frame types: HEADERS, MESSAGE, TRAILERS, RST, PING, PONG, GOAWAY. A MESSAGE
-larger than ``MAX_FRAME_PAYLOAD`` is split into fragments with the MORE flag
-on all but the last. Metadata: ``u16 count`` then per entry ``u16 keylen,
+Frame types: HEADERS, MESSAGE, TRAILERS, RST, PING, PONG, GOAWAY, and the
+rendezvous control frames RDV_OFFER, RDV_CLAIM, RDV_COMPLETE, RDV_RELEASE. A
+MESSAGE larger than ``MAX_FRAME_PAYLOAD`` is split into fragments with the
+MORE flag on all but the last; with the connection's rendezvous link bound
+(``FrameWriter.rdv``) a MESSAGE over the size bar is written into the peer's
+landing region instead and only its control frames ride the connection. Metadata: ``u16 count`` then per entry ``u16 keylen,
 key-utf8, u32 vallen, value``; keys ending in ``-bin`` carry binary values.
 """
 
@@ -36,6 +38,18 @@ RST = 4
 PING = 5
 PONG = 6
 GOAWAY = 7
+# rendezvous control frames (core/rendezvous.py): the bulk payload is
+# written into the receiver's landing region and these small frames are all
+# the connection carries for it. Sent only after the peer's hello.
+RDV_OFFER = 8
+RDV_CLAIM = 9
+RDV_COMPLETE = 10
+RDV_RELEASE = 11
+
+#: rendezvous op <-> frame type
+RDV_FRAME_OF_OP = {1: RDV_OFFER, 2: RDV_CLAIM, 3: RDV_COMPLETE,
+                   4: RDV_RELEASE}
+RDV_OP_OF_FRAME = {v: k for k, v in RDV_FRAME_OF_OP.items()}
 
 # flags
 FLAG_END_STREAM = 0x01  # sender half-closes this stream
@@ -177,6 +191,10 @@ class FrameWriter:
     def __init__(self, endpoint: Endpoint):
         self._ep = endpoint
         self._lock = threading.Lock()
+        #: the connection's rendezvous link, bound by the owning connection:
+        #: a MESSAGE over the size bar is written into the peer's landing
+        #: region instead of fragmented frames
+        self.rdv = None
 
     def send(self, ftype: int, flags: int, stream_id: int,
              payload: "bytes | Sequence" = b"") -> None:
@@ -184,6 +202,12 @@ class FrameWriter:
         (the tensor codec's segments), scatter-written with no joins."""
         segs = _segments(payload)
         total = sum(len(s) for s in segs)
+        rdv = self.rdv
+        if (rdv is not None and ftype == MESSAGE and total
+                and not (flags & (FLAG_NO_MESSAGE | FLAG_MORE))
+                and rdv.eligible(total)
+                and rdv.send_message(stream_id, flags, segs, total)):
+            return  # payload placed; its COMPLETE is already framed
         if total <= MAX_FRAME_PAYLOAD:
             with self._lock:
                 self._ep.write(
@@ -225,7 +249,19 @@ class FrameWriter:
                   ) -> None:
         """Write several frames in ONE endpoint write (one transport notify
         instead of one per frame). Oversized MESSAGE frames fragment, in
-        order."""
+        order. A batch holding a MESSAGE for rendezvous goes frame by frame:
+        its COMPLETE is framed in sequence, so stream order holds."""
+        rdv = self.rdv
+        if rdv is not None:
+            for ftype, flags, _sid, payload in frames:
+                if ftype != MESSAGE or flags & (FLAG_NO_MESSAGE | FLAG_MORE):
+                    continue
+                n = (sum(len(s) for s in payload)
+                     if isinstance(payload, (list, tuple)) else len(payload))
+                if rdv.eligible(n):
+                    for f in frames:
+                        self.send(*f)
+                    return
         encoded = []
         for ftype, flags, stream_id, payload in frames:
             segs = _segments(payload)

@@ -2,9 +2,11 @@
 
 A trimmed copy of ``tpurpc/rpc/server.py`` (no admission control,
 interceptors, inline reactor handlers, keepalive/max-age timers, h2 or
-native planes, channelz or observability). ``ServerContext`` keeps the
-grpcio surface the tensor service uses, including ``device_ring``; handlers
-use grpcio's four-shape taxonomy.
+native planes, the control-ring plane, channelz or observability).
+``ServerContext`` keeps the grpcio surface the tensor service uses, including
+``device_ring``; handlers use grpcio's four-shape taxonomy. Each connection
+carries a rendezvous link (``core/rendezvous.py``): bulk request payloads
+land in this side's landing pool and bulk responses go into the client's.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
+from tpurpc_torch.core import rendezvous as _rdv
 from tpurpc_torch.core.endpoint import (Endpoint, EndpointError,
                                         EndpointListener, device_ring_of)
 from tpurpc_torch.rpc import frame as fr
@@ -188,6 +191,16 @@ class _ServerStream:
             self.half_closed = True
             self.requests.put(self._END)
 
+    def commit_external(self, body, end_stream: bool) -> None:
+        """A rendezvous request payload, already whole in its landing
+        region (the decode aliases it): the same per-stream credit as a
+        framed commit."""
+        if self._acquire_credit():
+            self.requests.put(body)
+        if end_stream:
+            self.half_closed = True
+            self.requests.put(self._END)
+
     def cancel(self) -> None:
         if self.context is not None:
             self.context.cancel()
@@ -212,7 +225,13 @@ class _ServerStream:
                     f"received message larger than max ({self.recv_limit} bytes)")
             if not context.is_active():
                 return
-            yield _deserialize(deserializer, item)
+            msg = _deserialize(deserializer, item)
+            item = None
+            yield msg
+            # the handler asked for the next message, so it is done with
+            # this one: drop it before waiting, or a rendezvous body's
+            # landing region stays pinned until the next message arrives
+            msg = None
 
 
 class _ServerSink(fr.MessageSink):
@@ -253,11 +272,31 @@ class _ServerConnection:
         self._lock = threading.Lock()
         self.alive = True
         self.draining = False  # GOAWAY sent; no new streams accepted
+        # the rendezvous link, made before the reader starts so that the
+        # client's hello never meets an unarmed link
+        self.rdv = _rdv.link_for_endpoint(
+            endpoint, "srv:" + getattr(endpoint, "peer", "?"),
+            self._rdv_send_op, self._rdv_deliver)
+        self.writer.rdv = self.rdv
+        if self.rdv is not None:
+            self.rdv.recv_limit = server.max_receive_message_length
+            # a ring plane negotiated at the pair bootstrap (Address.caps)
+            pair = getattr(endpoint, "pair", None)
+            if pair is not None and "rdv" in pair.peer_caps:
+                self.rdv.on_peer_hello()
+            try:
+                self.writer.send(fr.PING, 0, 0, _rdv.HELLO_PAYLOAD)
+            except (EndpointError, OSError, fr.FrameError):
+                pass  # connection dying; the read loop surfaces it
         self._thread = threading.Thread(target=self._read_loop, daemon=True,
                                         name="tpurpc-srv-reader")
         self._thread.start()
 
     def _read_loop(self) -> None:
+        if self.rdv is not None:
+            # a big send on this thread must never wait for a CLAIM that
+            # this very thread would have to deliver: it frames instead
+            self.rdv.disallowed_thread = threading.get_ident()
         try:
             while True:
                 f = self.reader.read_frame()
@@ -270,9 +309,28 @@ class _ServerConnection:
         finally:
             self._shutdown()
 
+    def _rdv_send_op(self, op: int, stream_id: int, payload: bytes) -> None:
+        self.writer.send(fr.RDV_FRAME_OF_OP[op], 0, stream_id, payload)
+
+    def _rdv_deliver(self, stream_id: int, flags: int, body) -> None:
+        """A completed rendezvous request payload: the stream's next
+        message, aliasing its landing region."""
+        with self._lock:
+            st = self._streams.get(stream_id)
+        if st is not None:
+            st.commit_external(body, bool(flags & fr.FLAG_END_STREAM))
+
     def _dispatch(self, f: fr.Frame) -> None:
         if f.type == fr.PING:
+            if (self.rdv is not None
+                    and f.payload.startswith(_rdv.HELLO_PAYLOAD)):
+                self.rdv.on_peer_hello(f.payload)
             self.writer.send(fr.PONG, 0, 0, f.payload)
+            return
+        if f.type in fr.RDV_OP_OF_FRAME:
+            if self.rdv is not None:
+                self.rdv.on_op(fr.RDV_OP_OF_FRAME[f.type], f.stream_id,
+                               f.payload)
             return
         if f.type == fr.PONG:
             return
@@ -416,6 +474,9 @@ class _ServerConnection:
             self.alive = False
             streams = list(self._streams.values())
             self._streams.clear()
+        if self.rdv is not None:
+            # peer gone mid-rendezvous: claimed landing regions are released
+            self.rdv.close()
         for st in streams:
             st.cancel()
         try:

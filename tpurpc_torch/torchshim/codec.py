@@ -12,7 +12,10 @@ an empty node — so both packages emit the same bytes for the same tree.
 
 Dtype codes are wire ABI and map to torch dtypes; a code torch cannot hold
 raises :class:`CodecError`. Decoding yields CPU tensors aliasing the receive
-buffer; :func:`to_torch` moves one to a device.
+buffer; :func:`to_torch` moves one to a device. For a rendezvous transfer,
+:func:`encode_tensor_descriptor` splits a record into its descriptor and its
+payload, and :func:`decode_tensor_external` joins them again over the
+landing region, with no copy.
 """
 
 from __future__ import annotations
@@ -96,6 +99,46 @@ def encode_tensor(x) -> List[Any]:
     head = _HDR.pack(MAGIC, code, t.dim(), 0, nbytes) + dims
     head += b"\x00" * ((-len(head)) % _ALIGN)
     return [head, _u8_view(t)]
+
+
+def encode_tensor_descriptor(x) -> Tuple[bytes, memoryview]:
+    """Descriptor-only encode for a rendezvous transfer: ``(descriptor,
+    payload_view)``, the descriptor being the record's header, dims and
+    pad (the bytes the framed path carries) and the view aliasing the
+    tensor's memory (the bytes the one-sided write places).
+    :func:`decode_tensor_external` is the inverse."""
+    head, payload = encode_tensor(x)
+    return bytes(head), memoryview(payload).cast("B")
+
+
+def decode_tensor_external(desc, payload) -> torch.Tensor:
+    """A tensor from its descriptor and its separately delivered payload
+    (a rendezvous landing region). The tensor aliases ``payload`` and
+    holds it, so the region stays unrecycled while the tensor lives."""
+    view = memoryview(desc)
+    if len(view) < _HDR.size:
+        raise CodecError("short tensor descriptor")
+    magic, code, ndim, _, nbytes = _HDR.unpack_from(view, 0)
+    if magic != MAGIC:
+        raise CodecError(f"bad tensor magic {magic!r}")
+    dt = _code_dtype(code)
+    if len(view) < _HDR.size + 8 * ndim:
+        raise CodecError("short tensor descriptor dims")
+    shape = struct.unpack_from(f"<{ndim}q", view, _HDR.size) if ndim else ()
+    pv = memoryview(payload).cast("B")
+    if len(pv) < nbytes:
+        raise CodecError(f"external payload short: want {nbytes}, "
+                         f"have {len(pv)}")
+    itemsize = torch.empty(0, dtype=dt).element_size()
+    expect = (int(np.prod(shape, dtype=np.int64)) * itemsize
+              if ndim else itemsize)
+    if expect != nbytes:
+        raise CodecError(f"shape/nbytes mismatch: {shape} x {dt} "
+                         f"!= {nbytes}")
+    t = host_tensor(np.frombuffer(pv, dtype=np.uint8, count=nbytes))
+    if dt != torch.uint8:
+        t = t.view(dt)
+    return t.reshape(shape)
 
 
 def encode_tensor_bytes(x) -> bytes:
@@ -195,42 +238,46 @@ def _dict_keys(d: dict) -> list:
     return sorted(d)
 
 
+# The walks below are module functions, not closures: a recursive closure
+# is a reference cycle, which would keep the leaves (tensors aliasing a
+# receive buffer or a rendezvous landing region) alive until the cyclic
+# garbage collector runs, long after the caller dropped them.
+
+def _walk(node, leaves: list):
+    if node is None:
+        return _NONE
+    if isinstance(node, (list, tuple)):
+        return {"__seq__": "list" if isinstance(node, list) else "tuple",
+                "items": [_walk(v, leaves) for v in node]}
+    if isinstance(node, dict):
+        return {"__dict__": [[_key_to_json(k), _walk(node[k], leaves)]
+                             for k in _dict_keys(node)]}
+    leaves.append(node)
+    return _LEAF
+
+
 def tree_flatten(tree: Any) -> Tuple[list, Any]:
     """``(leaves, treedef_json)`` in jax's flattening order."""
     leaves: list = []
+    return leaves, _walk(tree, leaves)
 
-    def walk(node):
-        if node is None:
-            return _NONE
-        if isinstance(node, (list, tuple)):
-            return {"__seq__": "list" if isinstance(node, list) else "tuple",
-                    "items": [walk(v) for v in node]}
-        if isinstance(node, dict):
-            return {"__dict__": [[_key_to_json(k), walk(node[k])]
-                                 for k in _dict_keys(node)]}
-        leaves.append(node)
-        return _LEAF
 
-    return leaves, walk(tree)
+def _build(j, it):
+    if j == _LEAF:
+        return next(it)
+    if j == _NONE:
+        return None
+    if "__seq__" in j:
+        items = [_build(v, it) for v in j["items"]]
+        return items if j["__seq__"] == "list" else tuple(items)
+    if "__dict__" in j:
+        return {_key_from_json(k): _build(v, it) for k, v in j["__dict__"]}
+    raise CodecError(f"bad treedef json {j!r}")
 
 
 def tree_unflatten(treedef: Any, leaves: list) -> Any:
     """Rebuild a tree from its JSON treedef and leaves in flattening order."""
-    it = iter(leaves)
-
-    def build(j):
-        if j == _LEAF:
-            return next(it)
-        if j == _NONE:
-            return None
-        if "__seq__" in j:
-            items = [build(v) for v in j["items"]]
-            return items if j["__seq__"] == "list" else tuple(items)
-        if "__dict__" in j:
-            return {_key_from_json(k): build(v) for k, v in j["__dict__"]}
-        raise CodecError(f"bad treedef json {j!r}")
-
-    return build(treedef)
+    return _build(treedef, iter(leaves))
 
 
 def encode_tree(tree: Any) -> List[Any]:

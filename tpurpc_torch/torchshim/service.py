@@ -78,6 +78,16 @@ def _device_decoder(ctx):
     return decode, finish
 
 
+def _decoded(decode, raw_iter):
+    """``decode`` each raw message; the raw body (on rendezvous, a view of
+    its landing region) is dropped as soon as it is decoded, so the region
+    recycles while the handler works on the tree."""
+    for raw in raw_iter:
+        tree = decode(raw)
+        raw = None
+        yield tree
+
+
 def add_tensor_method(server: Server, name: str,
                       fn: Callable[..., Any],
                       kind: str = "unary_unary",
@@ -139,7 +149,7 @@ def add_tensor_method(server: Server, name: str,
         def behavior(raw_iter, ctx):
             decode, finish = _device_decoder(ctx)
             try:
-                for item in fn(decode(raw) for raw in raw_iter):
+                for item in fn(_decoded(decode, raw_iter)):
                     yield codec.tree_serializer(item)
             finally:
                 finish()
