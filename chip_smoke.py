@@ -59,7 +59,25 @@ fails the run (non-zero exit, no result line) on any error:
    3 rounds. Also timed: one 4 MiB ``to_torch`` from a landing region, and
    the card's busy share over one profiled round of (a). Skipped under
    ``--kernels``;
-6. print the kernels line, the card's name and power limit, and last the
+6. the MoE transformer of ``examples/sharded_inference.py`` on a one-rank
+   mesh (``build_mesh(1)``) behind fan-in batching, at
+   ``TransformerConfig()``'s defaults (vocab 256, d_model 128, 8 heads x
+   16, d_ff 256, 4 layers, 2 experts, capacity factor 2.0, 2 microbatches;
+   821,376 parameters, random from a seed), 128-token sequences: (a) a
+   seeded int32 [8,128] batch on the card against the same module on the
+   CPU (float32, TF32 off, within 1e-4 of max(1, max |logit|)), and one
+   forward's host clock, device ms and launches in float32 and bf16; (b)
+   ``FanInBatcher(make_serve_fn(model), max_batch=8, max_delay_s=0.005,
+   fixed_bucket=True)`` on a ``Server``, method "Generate", 8 clients x a
+   depth-4 pipeline x 16 int32 [1,128] requests, each reply against the
+   direct run of its own tokens and nearer it than any other request's;
+   requests/s, tokens/s, p50/p99, batches, the card's busy share; (c) the
+   same in bf16 (the same weights cast, within 2^-6); (d) a token at or
+   above vocab (NaN rows, as the reference's gather gives) and a negative
+   one (wrapped), each against the CPU run of the same tokens, then an
+   ordinary request: the CUDA context still serves. Skipped under
+   ``--kernels``;
+7. print the kernels line, the card's name and power limit, and last the
    one-line result JSON.
 """
 
@@ -131,6 +149,22 @@ SINK_COPY_BOUND = 64 * 1024
 SINK_SUM_TOL = 1e-9
 SINK_ENV = ("GRPC_PLATFORM_TYPE", "TPURPC_RENDEZVOUS",
             "TPURPC_HBM_RING_SIZE_KB")
+#: phase 6: the MoE transformer at TransformerConfig()'s defaults (vocab
+#: 256, d_model 128, 8 heads x 16, d_ff 256, 4 layers, 2 experts, capacity
+#: factor 2.0, 2 microbatches: 821,376 parameters), 128-token sequences
+TF_SEQ = 128
+TF_PARAMS = 821_376
+#: card vs CPU, float32 with TF32 off: the same arithmetic, sums in another
+#: order; of max(1, max |logit|). Also the limit of a float32 reply against
+#: the direct run of its own tokens on the card
+TF_TOL = 1e-4
+#: a bf16 reply against the bf16 direct run of its own tokens on the card,
+#: of max(1, max |logit|): one bf16 rounding landing the other way moves a
+#: logit by 2^-8 of it; 2^-6 allows a few and no routing flip
+TF_BF16_TOL = 2 ** -6
+#: (d): a token at or above vocab (the reference gathers a NaN row) and a
+#: negative one (it wraps), at this position of an otherwise seeded row
+TF_OOR, TF_OOR_POS = (300, -1), 17
 
 
 def fail(msg: str) -> None:
@@ -357,17 +391,24 @@ def check_kernels(dev):
 
 # -- phase 3 -----------------------------------------------------------------
 
-def host_ms(fn, reps: int = 5) -> float:
-    """Mean host-clock time of ``fn`` followed by a device synchronize."""
+def host_ms(fn, reps: int = 5, dev=None) -> float:
+    """Mean host-clock time of ``fn`` followed by a synchronize of ``dev``
+    (default: the current card)."""
     import torch
+
+    def sync():
+        if dev is None:
+            torch.cuda.synchronize()
+        else:
+            _sync(dev)
 
     for _ in range(2):
         fn()
-    torch.cuda.synchronize()
+    sync()
     t0 = time.perf_counter()
     for _ in range(reps):
         fn()
-        torch.cuda.synchronize()
+        sync()
     return (time.perf_counter() - t0) * 1e3 / reps
 
 
@@ -524,11 +565,13 @@ def check_serialization(dev):
           f"D2H, back in one H2D, bytes equal to the codec's", flush=True)
 
 
-def drive_clients(port: int, images, per_client: int, batcher):
+def drive_clients(port: int, images, per_client: int, batcher,
+                  method: str = "Infer", key: str = "x"):
     """CLIENTS pipelined clients, each its own Channel and a depth-DEPTH
     pipeline, as bench.py's serving leg: one warm call each, then, from a
     common start, ``per_client`` requests each (client c sends
-    ``images[c * per_client:(c + 1) * per_client]``). Returns the replies,
+    ``images[c * per_client:(c + 1) * per_client]``, each as the leaf
+    ``key`` of a call to ``method``). Returns the replies,
     each request's latency in ms (``call_async`` to completion), the wall
     time in s of the timed part, and the batcher's (rows_run, batches_run)
     at the start: every warm call has completed by then."""
@@ -551,8 +594,8 @@ def drive_clients(port: int, images, per_client: int, batcher):
             with Channel(f"127.0.0.1:{port}") as ch:
                 cli = TensorClient(ch, depth=DEPTH)
                 warm = np.zeros_like(images[0])
-                cli.call("Infer", {"x": torch.from_numpy(warm)}, timeout=300)
-                pl = cli.pipeline("Infer")
+                cli.call(method, {key: torch.from_numpy(warm)}, timeout=300)
+                pl = cli.pipeline(method)
                 start.wait()
                 inflight = []
                 for i in range(c * per_client, (c + 1) * per_client):
@@ -560,7 +603,7 @@ def drive_clients(port: int, images, per_client: int, batcher):
                         j, fut = inflight.pop(0)
                         replies[j] = fut.result(timeout=300)
                     t0 = time.perf_counter()
-                    fut = pl.call_async({"x": torch.from_numpy(images[i])},
+                    fut = pl.call_async({key: torch.from_numpy(images[i])},
                                         timeout=300)
                     fut.add_done_callback(
                         lambda _f, i=i, t0=t0: lat.__setitem__(
@@ -605,34 +648,38 @@ def drive_clients(port: int, images, per_client: int, batcher):
 
 
 def _direct(infer, image, dev):
-    """The model run directly on one image, padded with zero rows to the
-    bucket shape [MAX_BATCH,224,224,3]: row 0 of the logits, on the host."""
+    """The model run directly on one image (or one request's leaf), padded
+    with zero rows to the bucket shape (phase 4: [MAX_BATCH,224,224,3]): row
+    0 of the logits, on the host."""
     import torch
 
-    x = torch.zeros((MAX_BATCH, *image.shape[1:]), dtype=torch.float32)
-    x[:1] = torch.from_numpy(image)
+    row = torch.from_numpy(image)
+    x = torch.zeros((MAX_BATCH, *row.shape[1:]), dtype=row.dtype)
+    x[:1] = row
     return infer(x.to(dev))[:1].float().cpu()
 
 
-def _check_replies(label, replies, images, infer, dev, tol, top1_min):
+def _check_replies(label, replies, images, infer, dev, tol, top1_min,
+                   floor=0.0):
     """Each reply against the direct run of its own image, within ``tol``
-    of that run's largest |logit|, and strictly nearer to it than to the
-    direct run of any other image of the run (so a reply delivered to the
-    wrong caller, or rows split off by one, fails). Returns (max |diff| /
-    scale, the least distance to another image's run / scale, top-1
-    agreements)."""
+    of that run's largest |logit| (or of ``floor``, if larger), and
+    strictly nearer to it than to the direct run of any other image of the
+    run (so a reply delivered to the wrong caller, or rows split off by
+    one, fails). Returns (max |diff| / scale, the least distance to another
+    image's run / scale, top-1 agreements; None when ``top1_min`` is)."""
     import torch
 
     wants = torch.cat([_direct(infer, img, dev) for img in images])
     for i, r in enumerate(replies):
         got = r["logits"]
-        check(tuple(got.shape) == (1, 1000) and got.dtype == torch.float32,
+        check(got.shape == wants[i:i + 1].shape and got.dtype == torch.float32,
               f"{label} reply {i}: logits {tuple(got.shape)} {got.dtype}")
         check(bool(torch.isfinite(got).all()), f"{label} reply {i} non-finite")
-    got = torch.cat([r["logits"] for r in replies])
-    scale = wants.abs().amax(dim=1)
+    got = torch.cat([r["logits"] for r in replies]).flatten(1)
+    wants = wants.flatten(1)
+    scale = wants.abs().amax(dim=1).clamp(min=floor)
     # dist[i, j]: max |diff| of reply i against image j's direct run
-    dist = (got[:, None, :] - wants[None, :, :]).abs().amax(dim=2)
+    dist = torch.stack([(g - wants).abs().amax(dim=1) for g in got])
     own = dist.diagonal()
     others = dist + torch.diag(torch.full_like(own, float("inf")))
     nearest_other = others.amin(dim=1)
@@ -643,14 +690,20 @@ def _check_replies(label, replies, images, infer, dev, tol, top1_min):
         check(own[i] < nearest_other[i], f"{label} reply {i} is no nearer its "
               f"own image's run ({own[i].item()}) than image "
               f"{others[i].argmin().item()}'s ({nearest_other[i].item()})")
-    agree = int((got.argmax(1) == wants.argmax(1)).sum())
-    check(agree >= top1_min, f"{label}: top-1 agrees on {agree} of "
-          f"{len(replies)} replies, want at least {top1_min}")
+    agree = None
+    if top1_min is not None:
+        agree = int((got.argmax(1) == wants.argmax(1)).sum())
+        check(agree >= top1_min, f"{label}: top-1 agrees on {agree} of "
+              f"{len(replies)} replies, want at least {top1_min}")
     return ((own / scale).max().item(), (nearest_other / scale).min().item(),
             agree)
 
 
-def _stats(label, batcher, before, replies, lat, wall, card):
+def _stats(label, batcher, before, replies, lat, wall, card,
+           unit="images"):
+    """Check that every request ran once and batches stacked rows across
+    connections; print and return (requests/s, batches, mean rows, p50,
+    p99)."""
     import numpy as np
 
     rows = batcher.rows_run - before[0]
@@ -661,8 +714,9 @@ def _stats(label, batcher, before, replies, lat, wall, card):
           f"stacking across connections")
     p50, p99 = np.percentile(lat, [50, 99])
     print(f"{label}: {n} requests from {CLIENTS} clients at depth {DEPTH}: "
-          f"{batches} batches, mean rows {rows / batches}, images/s "
+          f"{batches} batches, mean rows {rows / batches}, {unit}/s "
           f"{n / wall}, latency ms p50 {p50} p99 {p99} ({card})", flush=True)
+    return n / wall, batches, rows / batches, p50, p99
 
 
 def fanin_serving(dev, card: str, saved_env: dict) -> None:
@@ -1040,6 +1094,296 @@ def sink_stream(dev, card, want=None, rounds=SINK_ROUNDS, ring=RING):
     return [rec["launches"] for rec in c]
 
 
+# -- phase 6 -----------------------------------------------------------------
+
+def _profiled_forward(fn):
+    """Launches, device ms and the 4 costliest kernels (ms, count, name) of
+    one call of ``fn`` (already warm) under ``torch.profiler``, as
+    ``fanin_profile.py`` reads them."""
+    import torch
+
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = device_events(prof)
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:4]
+    return (sum(e.count for e in events), device_busy_ms(prof),
+            [(e.self_device_time_total / 1e3, e.count, e.key[:60])
+             for e in top])
+
+
+def _forward_parts(dev, card, cfg, mesh, model):
+    """The float32 forward's two largest parts alone, at the path's shapes:
+    one layer's ring attention and MoE block on one microbatch (a forward
+    runs each n_layers x n_micro times). Host clock, and on a card device
+    ms and launches."""
+    import torch
+
+    from tpurpc_torch.parallel.moe import MoEParams, moe_block
+    from tpurpc_torch.parallel.ring_attention import ring_attention_block
+
+    mb = MAX_BATCH // cfg.n_micro
+    per_forward = cfg.n_layers * cfg.n_micro
+    g = torch.Generator().manual_seed(SEED)
+    q, k, v = (torch.randn((mb, cfg.n_heads, TF_SEQ, cfg.head_dim),
+                           generator=g).to(dev) for _ in range(3))
+    x = torch.randn((mb * TF_SEQ, cfg.d_model), generator=g).to(dev)
+    moe = MoEParams(model.router[0], model.w_in[0], model.w_out[0])
+    parts = {
+        f"ring attention [{mb},{cfg.n_heads},{TF_SEQ},{cfg.head_dim}]":
+            lambda: ring_attention_block(q, k, v, mesh, causal=True),
+        f"MoE block [{mb * TF_SEQ},{cfg.d_model}]":
+            lambda: moe_block(moe, x, mesh,
+                              capacity_factor=cfg.capacity_factor)}
+    with torch.inference_mode():
+        for name, fn in parts.items():
+            ms = host_ms(fn, reps=10, dev=dev)
+            dev_part = "device time and launches not measured"
+            if dev.type == "cuda":
+                launches, device_ms, _ = _profiled_forward(fn)
+                dev_part = f"device {device_ms} ms, {launches} launches"
+            print(f"transformer (a) float32 {name}, x{per_forward} a "
+                  f"forward: host clock {ms} ms, {dev_part} ({card})",
+                  flush=True)
+
+
+def _tf_serve(label, serve, dev, rows, per_client, card, check_fn):
+    """One fan-in run of ``serve`` behind FanInBatcher(max_batch=8,
+    max_delay_s=0.005, fixed_bucket=True) on a Server, method "Generate":
+    CLIENTS pipelined clients send ``rows`` (int32 [1,TF_SEQ] each). The
+    replies go to ``check_fn``; then, on a card, the same run once more
+    under ``torch.profiler`` for the card's busy share of its window."""
+    import torch
+
+    from tpurpc_torch.rpc.server import Server
+    from tpurpc_torch.torchshim.service import FanInBatcher, add_tensor_method
+
+    out = {}
+    for profiled in ((False, True) if dev.type == "cuda" else (False,)):
+        batcher = FanInBatcher(serve, max_batch=MAX_BATCH, max_delay_s=0.005,
+                               fixed_bucket=True, device=dev)
+        srv = Server(max_workers=WORKERS)
+        add_tensor_method(srv, "Generate", batcher)
+        srv.start()
+        port = srv.add_insecure_port("127.0.0.1:0")
+        prof = None
+        try:
+            if profiled:
+                prof = torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA])
+                prof.__enter__()
+            t0 = time.perf_counter()
+            replies, lat, wall, before = drive_clients(
+                port, rows, per_client, batcher, method="Generate",
+                key="tokens")
+            window = time.perf_counter() - t0
+        finally:
+            if prof is not None:
+                prof.__exit__(None, None, None)
+            srv.stop()
+            batcher.close()
+        if profiled:
+            busy = device_busy_ms(prof)
+            out["busy"] = busy / (window * 1e3)
+            print(f"{label} (profiled run): card busy {busy} ms of "
+                  f"{window * 1e3} ms ({out['busy']}) ({card})", flush=True)
+            continue
+        check_fn(replies)
+        rps, batches, mean_rows, p50, p99 = _stats(
+            label, batcher, before, replies, lat, wall, card,
+            unit="requests")
+        stage_ms = {k: v * 1e3 / batcher.batches_run
+                    for k, v in batcher.stage_s.items()}
+        out.update(replies=replies, rps=rps, batches=batches,
+                   mean_rows=mean_rows, p50=p50, p99=p99, stage_ms=stage_ms)
+        print(f"{label}: tokens scored/s {rps * TF_SEQ}; batcher host ms per "
+              f"batch over all {batcher.batches_run} (warm-up included): "
+              + ", ".join(f"{k} {v}" for k, v in stage_ms.items())
+              + f" ({card})", flush=True)
+    return out
+
+
+def transformer_serving(dev, card, per_client=PER_CLIENT, cfg=None):
+    """Phase 6: the MoE transformer of ``examples/sharded_inference.py`` on
+    a one-rank mesh (``build_mesh(1)``), behind fan-in batching.
+
+    Random weights from ``init_params`` with a generator seeded SEED;
+    float32 with TF32 off, and bf16 (the same weights cast). (a) a seeded
+    int32 [8,128] batch on the card against the same module on the CPU, and
+    the forward's host clock, device ms and launches; (b) float32 and (c)
+    bf16 fan-in serving of 8 clients x depth 4 x ``per_client`` int32
+    [1,128] requests, each reply against the direct run of its own tokens
+    (padded with zero rows to the bucket [8,128]) and strictly nearer it
+    than any other request's; (d) a token at or above vocab and a negative
+    one, each alone in its batch, against the CPU run of the same tokens,
+    then an ordinary request.
+
+    Why a reply can be checked row by row: with 2 experts and capacity
+    factor 2.0 every expert has T slots (T = the microbatch's tokens), so
+    no token is ever dropped, and each row's logits depend on its own
+    tokens alone, whatever else shares its batch. (A NaN row from an
+    out-of-range token is the exception: the dense dispatch spreads it over
+    its microbatch, as in the reference; (d) sends such a request alone.)
+    """
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from tpurpc_torch.models.transformer import (Transformer,
+                                                 TransformerConfig,
+                                                 make_serve_fn)
+    from tpurpc_torch.parallel import build_mesh
+    from tpurpc_torch.rpc.channel import Channel
+    from tpurpc_torch.rpc.server import Server
+    from tpurpc_torch.torchshim.service import (FanInBatcher, TensorClient,
+                                                add_tensor_method)
+    from tpurpc_torch.utils import config
+
+    config.set_config(None)
+    cfg = cfg or TransformerConfig()
+    cpu = torch.device("cpu")
+    mesh = build_mesh(1, device=dev)
+    model32 = Transformer(cfg, mesh,
+                          generator=torch.Generator().manual_seed(SEED))
+    ref32 = Transformer(cfg, build_mesh(1, device=cpu),
+                        generator=torch.Generator().manual_seed(SEED))
+    model16 = Transformer(dataclasses.replace(cfg, dtype=torch.bfloat16),
+                          mesh)
+    model16.load_state_dict(model32.state_dict())
+    n_params = sum(p.numel() for p in model32.parameters())
+    if cfg == TransformerConfig():
+        check(n_params == TF_PARAMS, f"transformer: {n_params} parameters, "
+              f"want {TF_PARAMS}")
+    print(f"transformer: {cfg}, {n_params} parameters, mesh {mesh.sizes} on "
+          f"{mesh.device}, platform {config.get_config().platform.value}",
+          flush=True)
+    serve32, serve16 = make_serve_fn(model32), make_serve_fn(model16)
+    on_cpu = make_serve_fn(ref32)
+
+    def fwd32(x):
+        return serve32({"tokens": x})["logits"]
+
+    def fwd16(x):
+        return serve16({"tokens": x})["logits"]
+
+    def fwd_cpu(x):
+        return on_cpu({"tokens": x})["logits"]
+
+    # (a) the direct run, card against CPU, and its cost
+    rng = np.random.default_rng(SEED + 6)
+    batch = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (MAX_BATCH, TF_SEQ)).astype(np.int32))
+    a_card, a_cpu = fwd32(batch.to(dev)).cpu(), fwd_cpu(batch)
+    check(a_card.shape == (MAX_BATCH, TF_SEQ, cfg.vocab)
+          and a_card.dtype == torch.float32, f"transformer (a): logits "
+          f"{tuple(a_card.shape)} {a_card.dtype}")
+    check(bool(torch.isfinite(a_card).all()), "transformer (a): non-finite")
+    scale = max(1.0, a_cpu.abs().max().item())
+    err = (a_card - a_cpu).abs().max().item() / scale
+    check(err <= TF_TOL, f"transformer (a): card vs CPU max |diff| {err} of "
+          f"max(1, scale), tolerance {TF_TOL}")
+    print(f"transformer (a): int32 [{MAX_BATCH},{TF_SEQ}] on the card vs the "
+          f"CPU: max |diff| / max(1, max |logit|) {err} (scale {scale})",
+          flush=True)
+    x = batch.to(dev)
+    for name, fwd in (("float32", fwd32), ("bf16", fwd16)):
+        ms = host_ms(lambda: fwd(x), reps=10, dev=dev)
+        dev_part = "device time and launches not measured"
+        if dev.type == "cuda":
+            launches, device_ms, top = _profiled_forward(lambda: fwd(x))
+            dev_part = (f"device {device_ms} ms, {launches} launches; "
+                        "costliest: " + "; ".join(
+                            f"{t} ms x{c} {k}" for t, c, k in top))
+        print(f"transformer (a) {name} forward at [{MAX_BATCH},{TF_SEQ}]: "
+              f"host clock {ms} ms, {dev_part} ({card})", flush=True)
+    _forward_parts(dev, card, cfg, mesh, model32)
+
+    rows = [rng.integers(0, cfg.vocab, (1, TF_SEQ)).astype(np.int32)
+            for _ in range(CLIENTS * per_client)]
+
+    # (b) float32 fan-in; (c) bf16, the same weights cast
+    def check32(replies):
+        worst, apart, _ = _check_replies(
+            "transformer (b) float32", replies, rows, fwd32, dev, TF_TOL,
+            None, floor=1.0)
+        print(f"transformer (b) float32: replies vs direct runs max |diff| / "
+              f"max(1, scale) {worst}, nearest other request's run {apart} x "
+              f"it", flush=True)
+
+    def check16(replies):
+        worst, apart, _ = _check_replies(
+            "transformer (c) bf16", replies, rows, fwd16, dev, TF_BF16_TOL,
+            None, floor=1.0)
+        print(f"transformer (c) bf16: replies vs bf16 direct runs max |diff| "
+              f"/ max(1, scale) {worst} (bit-equal: {worst == 0.0}), nearest "
+              f"other request's run {apart} x it", flush=True)
+
+    b = _tf_serve("transformer (b) float32", serve32, dev, rows, per_client,
+                  card, check32)
+    c = _tf_serve("transformer (c) bf16", serve16, dev, rows, per_client,
+                  card, check16)
+    gap = max((r32["logits"] - r16["logits"]).abs().max().item()
+              for r32, r16 in zip(b["replies"], c["replies"]))
+    print(f"transformer: bf16 vs float32 replies, same weights: max |diff| "
+          f"{gap}", flush=True)
+
+    # (d) out-of-range tokens, each alone in its batch, then an ordinary one
+    reqs = []
+    for tok in TF_OOR:
+        r = rows[0].copy()
+        r[0, TF_OOR_POS] = tok
+        reqs.append(r)
+    reqs.append(rows[1])
+    batcher = FanInBatcher(serve32, max_batch=MAX_BATCH, max_delay_s=0.005,
+                           fixed_bucket=True, device=dev)
+    srv = Server(max_workers=WORKERS)
+    add_tensor_method(srv, "Generate", batcher)
+    srv.start()
+    port = srv.add_insecure_port("127.0.0.1:0")
+    try:
+        with Channel(f"127.0.0.1:{port}") as ch:
+            cli = TensorClient(ch)
+            replies = [cli.call("Generate", {"tokens": torch.from_numpy(r)},
+                                timeout=300)["logits"] for r in reqs]
+    finally:
+        srv.stop()
+        batcher.close()
+    check(batcher.batches_run == len(reqs), f"transformer (d): "
+          f"{batcher.batches_run} batches for {len(reqs)} lone requests")
+    readings = []
+    for r, got in zip(reqs, replies):
+        want = _direct(fwd_cpu, r, cpu)
+        nan = torch.isnan(want)
+        check(got.shape == want.shape and torch.equal(torch.isnan(got), nan),
+              f"transformer (d) token {r[0, TF_OOR_POS]}: NaN positions "
+              f"differ from the CPU run's ({int(torch.isnan(got).sum())} vs "
+              f"{int(nan.sum())})")
+        fin = ~nan
+        err = 0.0
+        if fin.any():
+            err = ((got[fin] - want[fin]).abs().max().item()
+                   / max(1.0, want[fin].abs().max().item()))
+        check(err <= TF_TOL, f"transformer (d) token {r[0, TF_OOR_POS]}: "
+              f"{err} of max(1, scale) from the CPU run")
+        readings.append((int(r[0, TF_OOR_POS]), int(nan.sum()), err))
+    check(readings[0][1] == replies[0].numel(),
+          f"transformer (d): token {TF_OOR[0]} did not give a NaN reply")
+    check(readings[1][1] == 0 and readings[2][1] == 0,
+          "transformer (d): a wrapped or ordinary token gave NaN")
+    print("transformer (d): " + "; ".join(
+        f"token {t} at {TF_OOR_POS}: {n} NaN logits, finite ones {e} of "
+        f"max(1, scale) from the CPU run" for t, n, e in readings[:2])
+        + f"; the following ordinary request {readings[2][2]} from it",
+        flush=True)
+    again = (fwd32(batch.to(dev)).cpu() - a_cpu).abs().max().item() / scale
+    check(again <= TF_TOL, f"transformer (d): (a)'s batch, run again on the "
+          f"card, is {again} of max(1, scale) from the CPU run")
+    return {"b": b, "c": c, "d": readings}
+
+
 def card_line() -> str:
     """The card's name and power limit, as nvidia-smi reports them."""
     smi = subprocess.run(
@@ -1073,12 +1417,24 @@ def main() -> None:
     err, timings = check_kernels(dev)
     if kernels_only:
         launches = {"ring_scatter": None, "ring_window": None}
-        stream = None
+        stream = tf_launches = None
     else:
+        from tpurpc_torch.ops import ring_scatter as rs_mod
+        from tpurpc_torch.ops import ring_window as rw_mod
+
         saved_env = {k: os.environ.get(k) for k in RING_ENV}
         launches = main_path(dev)
         fanin_serving(dev, card, saved_env)
         stream = sink_stream(dev, card)
+        # phase 6 takes neither kernel (fan-in decodes on the host, as the
+        # reference's example does); its launches are counted all the same
+        rs_mod.launches = rw_mod.launches = 0
+        t0 = time.perf_counter()
+        transformer_serving(dev, card)
+        tf_launches = {"ring_scatter": rs_mod.launches,
+                       "ring_window": rw_mod.launches}
+        print(f"transformer: kernel launches in phase 6 {tf_launches}; "
+              f"phase 6 took {time.perf_counter() - t0} s", flush=True)
 
     sources = {"ring_scatter": "tpurpc/ops/ring_scatter.py:133",
                "ring_window": "tpurpc/ops/ring_window.py:138"}
@@ -1107,7 +1463,10 @@ def main() -> None:
             "plain_host_us": t["plain_host_us"][0],
             # phase 5 (c): launches in each timed round of the stream
             "stream_launches": (None if stream is None else
-                                [r[name] for r in stream])})
+                                [r[name] for r in stream]),
+            # phase 6, the transformer behind fan-in
+            "transformer_launches": (None if tf_launches is None else
+                                     tf_launches[name])})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     if kernels_only:

@@ -309,3 +309,78 @@ def test_rendezvous_stream_through_device_ring(dev, stream_env):
     assert counts == {"sent": STREAM_MSGS, "fallbacks": 0}
     assert rs_mod.launches > before[0] and rw_mod.launches > before[1]
     _check_stream(reply, xs)
+
+
+# -- the MoE transformer (phase 6's model) ------------------------------------
+
+#: card vs CPU, float32 with TF32 off, of max(1, max |logit|)
+TF_TOL = 1e-4
+#: bf16, per token position the max |diff| over the vocab, of max(1, max
+#: |logit|): the median within 2^-7 and at most 2 positions above 2^-6 (a
+#: token whose router margin lies inside a bf16 rounding may take the other
+#: expert on one side), as tests/test_torch_transformer.py holds the port's
+#: bf16 forward against the reference's
+TF_BF16_MEDIAN, TF_BF16_POS, TF_BF16_FLIPS = 2 ** -7, 2 ** -6, 2
+
+
+@pytest.fixture
+def no_tf32():
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def _transformers(dev, dtype):
+    from tpurpc_torch.models.transformer import Transformer, TransformerConfig
+    from tpurpc_torch.parallel import build_mesh
+
+    cfg = TransformerConfig(n_layers=2, dtype=dtype)
+    return [Transformer(cfg, build_mesh(1, device=d),
+                        generator=torch.Generator().manual_seed(0)).eval()
+            for d in (dev, "cpu")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bf16"])
+def test_transformer_on_card_matches_cpu(dev, no_tf32, dtype):
+    card, cpu = _transformers(dev, dtype)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 256, (4, 64)).astype(np.int32))
+    with torch.inference_mode():
+        got = card(tokens.to(dev)).cpu()
+        want = cpu(tokens)
+    assert got.shape == (4, 64, 256) and got.dtype == torch.float32
+    assert bool(torch.isfinite(got).all())
+    scale = max(1.0, want.abs().max().item())
+    if dtype == torch.float32:
+        assert (got - want).abs().max().item() <= TF_TOL * scale
+    else:
+        d = ((got - want).abs().amax(dim=-1) / scale).flatten()
+        assert d.median().item() <= TF_BF16_MEDIAN
+        assert int((d > TF_BF16_POS).sum()) <= TF_BF16_FLIPS
+
+
+@pytest.mark.cuda
+def test_transformer_out_of_range_token_keeps_the_context(dev, no_tf32):
+    """Token 300 (at or above vocab) and −1 reach the gather: NaN rows and
+    a wrapped row as on the CPU (and in the reference), no device-side
+    assert, and the next forward on the card is still right."""
+    card, cpu = _transformers(dev, torch.float32)
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, 256, (4, 32)).astype(np.int32))
+    bad = tokens.clone()
+    bad[0, 3], bad[3, 5] = 300, -1
+    with torch.inference_mode():
+        got, want = card(bad.to(dev)).cpu(), cpu(bad)
+        torch.cuda.synchronize(dev)
+        assert torch.equal(torch.isnan(got), torch.isnan(want))
+        assert bool(torch.isnan(want[:2]).all())        # microbatch 0
+        fin = ~torch.isnan(want)
+        assert bool(fin[2:].all())                      # -1 wraps
+        scale = max(1.0, want[fin].abs().max().item())
+        assert (got[fin] - want[fin]).abs().max().item() <= TF_TOL * scale
+        again, ok = card(tokens.to(dev)).cpu(), cpu(tokens)
+    assert (again - ok).abs().max().item() <= TF_TOL * max(
+        1.0, ok.abs().max().item())

@@ -1,1 +1,2 @@
-"""Models served over the port: ResNet-50 (``resnet``)."""
+"""Models served over the port: ResNet-50 (``resnet``) and the MoE
+transformer (``transformer``)."""
