@@ -77,7 +77,18 @@ fails the run (non-zero exit, no result line) on any error:
    one (wrapped), each against the CPU run of the same tokens, then an
    ordinary request: the CUDA context still serves. Skipped under
    ``--kernels``;
-7. print the kernels line, the card's name and power limit, and last the
+7. training: ``TransformerConfig()`` at the same full width and depth
+   (821,376 parameters, random from a seed), float32 with TF32 off, on the
+   one-rank mesh: 10 steps of ``build_train_step(cfg, mesh, lr=3e-3)``
+   (``torch.optim.AdamW`` with ``optax.adamw``'s defaults) on a seeded
+   int32 [8,128] batch with next-token targets. Each step's loss and the
+   final parameters are held against the same 10 steps on the CPU from the
+   same weights, and the loss must fall below 0.8x its first value. Then
+   the same 10 steps once more from the same weights, each part (forward
+   and loss, backward, optimizer step) in its own ``torch.profiler``
+   window: per step and part, host ms (synchronized), device ms and
+   launches. Skipped under ``--kernels``;
+8. print the kernels line, the card's name and power limit, and last the
    one-line result JSON.
 """
 
@@ -165,6 +176,27 @@ TF_BF16_TOL = 2 ** -6
 #: (d): a token at or above vocab (the reference gathers a NaN row) and a
 #: negative one (it wraps), at this position of an otherwise seeded row
 TF_OOR, TF_OOR_POS = (300, -1), 17
+#: phase 7: 10 AdamW steps at lr 3e-3 on [8,128] tokens, as the reference's
+#: test trains (tests/test_transformer.py:58), the loss below 0.8x its first
+TRAIN_STEPS, TRAIN_LR, TRAIN_FALL = 10, 3e-3, 0.8
+#: card vs CPU, float32 with TF32 off, from the same weights. The two runs
+#: are the same arithmetic in another order until a token whose router
+#: margin is inside that rounding takes the other expert; from then on
+#: they train different models. Readings (NVIDIA H100 80GB HBM3, 700 W):
+#: steps 1-8 within 6.9e-7 of the CPU's loss, relative, with every one of
+#: the 4,096 tokens routed alike in every layer; at step 9 one token took
+#: the other expert (its margin on the CPU 1.1e-5) and the loss moved
+#: 1.1e-5, at step 10 six, 1.1e-4. Parameters after 10 steps: largest
+#: |diff| 1.1e-3, median at most 1.4e-5. Limits: the first
+#: TRAIN_EXACT_STEPS steps' losses (the forward, then one update) within
+#: TRAIN_EXACT_TOL; every step's within TRAIN_LOSS_TOL; each parameter's
+#: median |diff| at most TRAIN_MEDIAN and none above 2 x lr a step (Adam
+#: divides each gradient entry by its RMS, so an entry whose gradient is
+#: near 0 and rounds to the other sign on one device moves by up to lr one
+#: way there and lr the other here)
+TRAIN_EXACT_STEPS, TRAIN_EXACT_TOL = 2, 1e-6
+TRAIN_LOSS_TOL = 1e-3
+TRAIN_MEDIAN = 1e-4
 
 
 def fail(msg: str) -> None:
@@ -1243,7 +1275,7 @@ def transformer_serving(dev, card, per_client=PER_CLIENT, cfg=None):
     from tpurpc_torch.utils import config
 
     config.set_config(None)
-    cfg = cfg or TransformerConfig()
+    cfg = TransformerConfig()
     cpu = torch.device("cpu")
     mesh = build_mesh(1, device=dev)
     model32 = Transformer(cfg, mesh,
@@ -1384,6 +1416,136 @@ def transformer_serving(dev, card, per_client=PER_CLIENT, cfg=None):
     return {"b": b, "c": c, "d": readings}
 
 
+def _train_run(model, tokens, targets, parts=None):
+    """TRAIN_STEPS steps of ``build_train_step`` on ``model``: each step's
+    loss and host ms (synchronized). With ``parts`` (a dict), each step runs
+    as the step's parts instead (zero_grad, forward and loss, backward,
+    optimizer), each in its own profiler window on a card, and ``parts``
+    gets per part its host ms, device ms and launches a step."""
+    import torch
+
+    from tpurpc_torch.models import transformer as tfm
+
+    dev, cfg = model.mesh.device, model.cfg
+    train_step, make_optimizer = tfm.build_train_step(cfg, model.mesh,
+                                                      lr=TRAIN_LR)
+    loss_fn = tfm.build_loss_fn(cfg, model.mesh)
+    opt = make_optimizer(model)
+    losses, ms = [], []
+
+    def timed(name, fn):
+        prof = None
+        if dev.type == "cuda":
+            prof = torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA])
+            prof.__enter__()
+        t0 = time.perf_counter()
+        out = fn()
+        _sync(dev)
+        host = (time.perf_counter() - t0) * 1e3
+        if prof is not None:
+            prof.__exit__(None, None, None)
+            events = device_events(prof)
+            dev_ms, n = device_busy_ms(prof), sum(e.count for e in events)
+        else:
+            dev_ms = n = "not measured"
+        parts.setdefault(name, []).append((host, dev_ms, n))
+        return out
+
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        if parts is None:
+            loss = train_step(model, opt, tokens, targets)
+        else:
+            opt.zero_grad()
+            loss = timed("forward", lambda: loss_fn(model, tokens, targets))
+            timed("backward", lambda: tfm.backward(model, loss))
+            timed("optimizer", opt.step)
+        _sync(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss.detach()))
+    return losses, ms
+
+
+def _train_check(label, losses, model, want_losses, want_params):
+    """Print ``losses`` and ``model``'s parameters against the CPU run's,
+    then fail on any reading past its limit."""
+    diffs = [abs(a - b) / abs(b) for a, b in zip(losses, want_losses)]
+    params = {}
+    for name, p in model.named_parameters():
+        d = (p.detach().cpu() - want_params[name]).abs()
+        params[name] = (d.max().item(), d.median().item())
+    print(f"training {label}: losses {losses}; relative diff from the CPU "
+          f"run per step {diffs}; parameters after {TRAIN_STEPS} steps, "
+          f"|diff| max / median: " + "; ".join(
+              f"{k} {m} / {med}" for k, (m, med) in params.items()),
+          flush=True)
+    check(max(diffs[:TRAIN_EXACT_STEPS]) <= TRAIN_EXACT_TOL,
+          f"training {label}: the first {TRAIN_EXACT_STEPS} steps' losses are "
+          f"{diffs[:TRAIN_EXACT_STEPS]} from the CPU run's, relative; "
+          f"tolerance {TRAIN_EXACT_TOL}")
+    check(max(diffs) <= TRAIN_LOSS_TOL, f"training {label}: a step's loss "
+          f"is {max(diffs)} from the CPU run's, relative; tolerance "
+          f"{TRAIN_LOSS_TOL}")
+    for name, (most, median) in params.items():
+        check(most <= 2 * TRAIN_LR * TRAIN_STEPS and median <= TRAIN_MEDIAN,
+              f"training {label}: parameter {name} after {TRAIN_STEPS} "
+              f"steps differs from the CPU run's: largest |diff| {most}, "
+              f"median {median}")
+    check(losses[-1] < TRAIN_FALL * losses[0], f"training {label}: loss "
+          f"{losses[0]} -> {losses[-1]}, not below {TRAIN_FALL}x")
+
+
+def transformer_training(dev, card) -> None:
+    """Phase 7: train ``TransformerConfig()`` on the one-rank mesh on the
+    card, against the same steps on the CPU from the same weights."""
+    import numpy as np
+    import torch
+
+    from tpurpc_torch.models.transformer import Transformer, TransformerConfig
+    from tpurpc_torch.parallel import build_mesh
+
+    cfg = TransformerConfig()
+    cpu = torch.device("cpu")
+
+    def model_on(d):
+        return Transformer(cfg, build_mesh(1, device=d),
+                           generator=torch.Generator().manual_seed(SEED))
+
+    tokens = np.random.default_rng(SEED).integers(
+        0, cfg.vocab, (MAX_BATCH, TF_SEQ)).astype(np.int32)
+    tokens = torch.from_numpy(tokens)
+    targets = torch.roll(tokens, -1, dims=1)
+    ref = model_on(cpu)
+    n_params = sum(p.numel() for p in ref.parameters())
+    check(n_params == TF_PARAMS, f"training: {n_params} parameters, want "
+          f"{TF_PARAMS}")
+    t0 = time.perf_counter()
+    want, _ = _train_run(ref, tokens, targets)
+    cpu_s = time.perf_counter() - t0
+    want_params = {k: v.detach() for k, v in ref.named_parameters()}
+    print(f"training: {cfg}, {n_params} parameters, [{MAX_BATCH},{TF_SEQ}] "
+          f"tokens, next-token targets, lr {TRAIN_LR}; CPU run: losses "
+          f"{want} ({cpu_s} s)", flush=True)
+
+    tok, tgt = tokens.to(dev), targets.to(dev)
+    model = model_on(dev)
+    losses, ms = _train_run(model, tok, tgt)
+    _train_check(f"(a) on {dev}", losses, model, want, want_params)
+    print(f"training (a): host ms per step (synchronized) {ms} ({card})",
+          flush=True)
+
+    parts = {}
+    model = model_on(dev)
+    losses, _ = _train_run(model, tok, tgt, parts=parts)
+    _train_check("(b), by parts under the profiler", losses, model, want,
+                 want_params)
+    for name, rows in parts.items():
+        print(f"training (b) {name}, per step: host ms (profiled) "
+              f"{[r[0] for r in rows]}; device ms {[r[1] for r in rows]}; "
+              f"launches {[r[2] for r in rows]} ({card})", flush=True)
+
+
 def card_line() -> str:
     """The card's name and power limit, as nvidia-smi reports them."""
     smi = subprocess.run(
@@ -1417,7 +1579,7 @@ def main() -> None:
     err, timings = check_kernels(dev)
     if kernels_only:
         launches = {"ring_scatter": None, "ring_window": None}
-        stream = tf_launches = None
+        stream = tf_launches = train_launches = None
     else:
         from tpurpc_torch.ops import ring_scatter as rs_mod
         from tpurpc_torch.ops import ring_window as rw_mod
@@ -1435,6 +1597,15 @@ def main() -> None:
                        "ring_window": rw_mod.launches}
         print(f"transformer: kernel launches in phase 6 {tf_launches}; "
               f"phase 6 took {time.perf_counter() - t0} s", flush=True)
+        # phase 7 takes neither kernel either (training lands no payload
+        # in a ring); its launches are counted all the same
+        rs_mod.launches = rw_mod.launches = 0
+        t0 = time.perf_counter()
+        transformer_training(dev, card)
+        train_launches = {"ring_scatter": rs_mod.launches,
+                          "ring_window": rw_mod.launches}
+        print(f"training: kernel launches in phase 7 {train_launches}; "
+              f"phase 7 took {time.perf_counter() - t0} s", flush=True)
 
     sources = {"ring_scatter": "tpurpc/ops/ring_scatter.py:133",
                "ring_window": "tpurpc/ops/ring_window.py:138"}
@@ -1466,7 +1637,10 @@ def main() -> None:
                                 [r[name] for r in stream]),
             # phase 6, the transformer behind fan-in
             "transformer_launches": (None if tf_launches is None else
-                                     tf_launches[name])})
+                                     tf_launches[name]),
+            # phase 7, training
+            "training_launches": (None if train_launches is None else
+                                  train_launches[name])})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     if kernels_only:

@@ -6,9 +6,11 @@ runs on a machine without it:
 
 (``--noconftest`` because tests/conftest.py imports jax.) The CPU tests hold
 the kernels' plain versions against the reference; here the CUDA kernels are
-held against the plain versions, and the device ring, the fan-in batcher,
-device serialization and 4 MiB tensor streams over rendezvous (landed on
-the host, and through the device ring) run on the card.
+held against the plain versions, and the device ring (with a release
+against a side stream's read), the fan-in batcher, device serialization,
+4 MiB tensor streams over rendezvous (landed on the host, and through the
+device ring), and the MoE transformer's forward and train steps run on the
+card.
 """
 
 import numpy as np
@@ -94,6 +96,39 @@ def test_device_ring_on_card_aliases_and_gathers(dev):
     lease.release()
     assert ring.stats()["writable"] == CAP
     assert ring.buf.data_ptr() == ring._base_ptr
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wrap", [False, True], ids=["unwrapped", "wrapped"])
+def test_released_span_waits_for_a_side_stream_read(dev, wrap):
+    """A handler reads its view on a side stream, behind a long sleep, and
+    releases the lease there; the next landing write, on the default
+    stream, covers the span (a ring-sized payload: two segments, the
+    ``ring_scatter`` kernel). The write must wait for the read: the read
+    sees the old bytes. (For a wrapped span the view itself is the
+    ``ring_window`` gather, on the side stream.) Both kernels are built
+    first: a build inside the timed part blocks the host for longer than
+    the sleep, which would hide the fault."""
+    warm = HbmRing(64, device=dev)
+    warm.view(*warm.place(np.zeros(48, np.uint8))).release()
+    warm.view(*warm.place(np.zeros(32, np.uint8))).release()  # both kernels
+    ring = HbmRing(CAP, device=dev)
+    if wrap:    # move the tail so that the span lands across the wrap point
+        pad = ring.place(np.zeros(CAP - 4096, np.uint8))
+        ring.view(*pad).release()
+    off, n = ring.place(np.full(8192, 1, np.uint8))
+    assert ((off & (CAP - 1)) + n > CAP) == wrap
+    torch.cuda.synchronize(dev)
+    side = torch.cuda.Stream(dev)
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(200_000_000)     # about 0.1 s of the card's clock
+        lease = ring.view(off, n)
+        seen = lease.array.clone()
+        lease.release()
+    ring.place(np.full(CAP, 2, np.uint8))
+    torch.cuda.synchronize(dev)
+    assert bool((seen == 1).all()), int((seen != 1).sum())
+    assert bool((ring.buf == 2).all())
 
 
 def _fan_in(batcher, xs):
@@ -384,3 +419,51 @@ def test_transformer_out_of_range_token_keeps_the_context(dev, no_tf32):
         again, ok = card(tokens.to(dev)).cpu(), cpu(tokens)
     assert (again - ok).abs().max().item() <= TF_TOL * max(
         1.0, ok.abs().max().item())
+
+
+#: training, card vs CPU from the same weights, float32 with TF32 off. The
+#: gradient of one backward: within TRAIN_GRAD_TOL of each parameter's
+#: largest |gradient| (on the CPU the port's 8-rank gradients read 1.1e-6
+#: of it against the reference's). Two AdamW steps: the losses within
+#: TRAIN_LOSS_TOL (chip_smoke.py phase 7 read 0 and 8.9e-8); the parameters
+#: after them with a median |diff| within TRAIN_MEDIAN, and none above
+#: 2 x lr a step: Adam divides each gradient entry by its RMS, so an entry
+#: whose gradient is near 0 and rounds to the other sign on one device
+#: moves by up to lr one way there and lr the other here
+TRAIN_GRAD_TOL, TRAIN_LOSS_TOL, TRAIN_LR, TRAIN_MEDIAN = 1e-5, 1e-6, 3e-3, 1e-6
+
+
+@pytest.mark.cuda
+def test_train_steps_on_card_match_cpu(dev, no_tf32):
+    """``value_and_grad`` once, then two AdamW steps of
+    ``build_train_step``, on the card and on the CPU from the same weights
+    (2 layers, [4,64] tokens, next-token targets)."""
+    from tpurpc_torch.models import transformer as tfm
+
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(
+        0, 256, (4, 64)).astype(np.int32))
+    targets = torch.roll(tokens, -1, dims=1)
+    runs = []
+    for model in _transformers(dev, torch.float32):
+        d = model.mesh.device
+        tok, tgt = tokens.to(d), targets.to(d)
+        tfm.value_and_grad(tfm.build_loss_fn(model.cfg, model.mesh), model,
+                           tok, tgt)
+        grads = {k: v.grad.cpu() for k, v in model.named_parameters()}
+        step, make_optimizer = tfm.build_train_step(model.cfg, model.mesh,
+                                                    lr=TRAIN_LR)
+        opt = make_optimizer(model)
+        losses = [float(step(model, opt, tok, tgt)) for _ in range(2)]
+        runs.append((grads, losses, {k: v.detach().cpu() for k, v in
+                                     model.named_parameters()}))
+    (card_g, card, card_p), (cpu_g, cpu, cpu_p) = runs
+    for k, want in cpu_g.items():
+        err = (card_g[k] - want).abs().max() / want.abs().max()
+        assert err.item() <= TRAIN_GRAD_TOL, (k, err.item())
+    for a, b in zip(card, cpu):
+        assert abs(a - b) <= TRAIN_LOSS_TOL * abs(b), (card, cpu)
+    assert card[1] < card[0]
+    for k, want in cpu_p.items():
+        d = (card_p[k] - want).abs()
+        assert d.max().item() <= 2 * TRAIN_LR * 2, (k, d.max().item())
+        assert d.median().item() <= TRAIN_MEDIAN, (k, d.median().item())

@@ -270,3 +270,28 @@ def test_port_ring_refuses_cuda_without_a_card():
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TorchRing(CAP, device="cuda")
+
+
+@pytest.mark.parametrize("wrap", [False, True], ids=["unwrapped", "wrapped"])
+def test_port_release_then_place_over_the_same_span(wrap):
+    """A lease's span, read, released, then written over by a ring-sized
+    payload (a wrapped landing write whose segments cover the span): the
+    read saw the old bytes and a new view sees the new ones. On the CPU
+    there are no streams, so no release event is kept (on a card the write
+    waits on one: tests/test_torch_cuda.py)."""
+    ring = TorchRing(CAP, device="cpu")
+    if wrap:    # move the tail so that the span lands across the wrap point
+        pad = ring.place(np.zeros(CAP - 4096, np.uint8))
+        ring.view(*pad).release()
+    off, n = ring.place(np.full(8192, 1, np.uint8))
+    assert ((off & (CAP - 1)) + n > CAP) == wrap
+    lease = ring.view(off, n)
+    seen = lease.array.clone()
+    lease.release()
+    assert ring._reads == []
+    off2, n2 = ring.place(np.full(CAP, 2, np.uint8))
+    assert bool((seen == 1).all())
+    assert bool((ring.buf == 2).all())
+    with ring.view(off2, n2) as again:
+        assert bool((again == 2).all())
+    assert ring.stats()["writable"] == CAP

@@ -196,7 +196,9 @@ def _port_files():
 
 
 def test_port_imports_nothing_of_jax_or_the_reference():
-    code = ("import importlib, pkgutil, sys, tpurpc_torch\n"
+    """Neither the port's modules nor ``chip_smoke.py`` (its imports are
+    inside its functions, so its source is read too)."""
+    code = ("import importlib, pkgutil, sys, tpurpc_torch, chip_smoke\n"
             "for m in pkgutil.walk_packages(tpurpc_torch.__path__, "
             "'tpurpc_torch.'):\n"
             "    importlib.import_module(m.name)\n"
@@ -208,7 +210,7 @@ def test_port_imports_nothing_of_jax_or_the_reference():
                          text=True, env=env, cwd=REPO, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
-    for path in _port_files():
+    for path in _port_files() + [os.path.join(REPO, "chip_smoke.py")]:
         with open(path, encoding="utf-8") as f:
             src = f.read()
         for bad in ("import jax", "from jax", "import flax", "from flax",

@@ -1,16 +1,25 @@
-"""Decoder-only MoE transformer over the five-axis mesh: the serving half.
+"""Decoder-only MoE transformer over the five-axis mesh: serving and
+training.
 
-The port of ``tpurpc/models/transformer.py``'s forward. One program runs
-every parallelism family of the mesh — microbatches through the 'pp'
-pipeline, ring attention over 'sp', heads over 'tp' with one psum per
-block, switch MoE over 'ep' — here on a one-rank mesh, where each
-collective is the identity (:mod:`tpurpc_torch.parallel.collectives`).
+The port of ``tpurpc/models/transformer.py``. One program runs every
+parallelism family of the mesh — microbatches through the 'pp' pipeline,
+ring attention over 'sp', heads over 'tp' with one psum per block, switch
+MoE over 'ep', the batch over ('dp', 'ep') — with its collectives over
+``torch.distributed`` (:mod:`tpurpc_torch.parallel.collectives`); on a
+one-rank mesh each collective is the identity.
 
 The parameters are the reference's dict entries under the same names, the
-per-layer ones stacked on a leading layer axis, in the config's dtype.
-Einsums run in that dtype; attention statistics, the router, the experts'
-FFN, layer-norm statistics and the logits run in float32, as in the
-reference.
+per-layer ones stacked on a leading layer axis, in the config's dtype. A
+:class:`Transformer` on a mesh holds this rank's shards of them
+(:func:`param_specs`, :func:`shard_params`) and takes this rank's block of
+the tokens (:data:`DATA_SPEC`). Einsums run in the parameters' dtype;
+attention statistics, the router, the experts' FFN, layer-norm statistics,
+the logits and the loss run in float32, as in the reference.
+
+Training (:func:`build_train_step`) is ``optax.adamw``'s step with
+``torch.optim.AdamW``: the loss's gradient follows ``shard_map``'s
+transpose, so every gradient, gathered from its shards, is the one-rank
+gradient.
 
 The embedding gather follows ``jnp.take(embed, tokens, axis=0)``: a negative
 token wraps once (−1 is the last row), and a token still outside
@@ -21,21 +30,21 @@ A NaN row spreads as it does in the reference: through attention to its
 whole sequence, and through the MoE's dense dispatch to its microbatch.
 
 :func:`from_jax` carries the reference's ``init_params`` output across as
-numpy arrays (bfloat16 ones included). The reference's training half (loss,
-train step) and its sharding specs are not ported (ROADMAP).
+numpy arrays (bfloat16 ones included).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn as nn
 
-from tpurpc_torch.parallel.collectives import psum
-from tpurpc_torch.parallel.mesh import Mesh, axis_size, build_mesh
+from tpurpc_torch.parallel.collectives import pmean, psum
+from tpurpc_torch.parallel.mesh import (AXES, Mesh, axes_of, axis_size,
+                                        build_mesh, shard)
 from tpurpc_torch.parallel.moe import MoEParams, moe_block
 from tpurpc_torch.parallel.pipeline import (microbatch, pipeline_apply,
                                             unmicrobatch)
@@ -80,6 +89,53 @@ def param_shapes(cfg: TransformerConfig) -> Dict[str, tuple]:
             "wq": (L, d, H, Dh), "wk": (L, d, H, Dh), "wv": (L, d, H, Dh),
             "wo": (L, H, Dh, d), "router": (L, d, E), "w_in": (L, E, d, f),
             "w_out": (L, E, f, d)}
+
+
+#: how each parameter is split over the mesh, one entry per dimension (the
+#: reference's ``PartitionSpec``s): layers over 'pp', heads over 'tp',
+#: experts over 'ep'; the rest replicated
+_SPECS = {
+    "embed": (None, None),
+    "ln_f": (None,),
+    "ln1": ("pp", None),
+    "ln2": ("pp", None),
+    "wq": ("pp", None, "tp", None),
+    "wk": ("pp", None, "tp", None),
+    "wv": ("pp", None, "tp", None),
+    "wo": ("pp", "tp", None, None),
+    "router": ("pp", None, None),
+    "w_in": ("pp", "ep", None, None),
+    "w_out": ("pp", "ep", None, None),
+}
+
+#: tokens [B, S]: the batch over ('dp', 'ep'), dp major, the sequence over
+#: 'sp' (the MoE's all_to_all then moves distinct tokens between ep ranks)
+DATA_SPEC = (("dp", "ep"), "sp")
+#: the axes the loss is averaged over: those that split the tokens
+LOSS_AXES = ("dp", "ep", "sp")
+
+
+def param_specs(cfg: TransformerConfig) -> Dict[str, tuple]:
+    """Each parameter's spec (see :func:`~tpurpc_torch.parallel.mesh.shard`);
+    the same for every config, as in the reference."""
+    return dict(_SPECS)
+
+
+def shard_params(params: Dict[str, torch.Tensor], cfg: TransformerConfig,
+                 mesh: Mesh) -> Dict[str, torch.Tensor]:
+    """This rank's shards of the global parameters (``param_specs``); on a
+    one-rank mesh the parameters themselves."""
+    out = {}
+    for name, spec in param_specs(cfg).items():
+        t = shard(mesh, params[name], *spec)
+        out[name] = t if t.shape == params[name].shape else t.clone()
+    return out
+
+
+def _replicated_axes(spec: tuple) -> Tuple[str, ...]:
+    named = {a for entry in spec if entry is not None
+             for a in axes_of(entry)}
+    return tuple(a for a in AXES if a not in named)
 
 
 def init_params(cfg: TransformerConfig,
@@ -148,14 +204,15 @@ def _block(lp: Dict[str, torch.Tensor], h: torch.Tensor,
 
 
 class Transformer(nn.Module):
-    """The reference's ``build_forward`` on a one-rank mesh:
-    tokens int [B, S] → float32 logits [B, S, vocab].
+    """The reference's ``_forward_local``: this rank's tokens int
+    [b, s] → its float32 logits [b, s, vocab].
 
     ``mesh`` defaults to ``build_mesh(1)`` on the configured device (a CUDA
-    device with no card raises). The parameters come from
-    :func:`init_params` with ``generator``; load :func:`from_jax`'s state
-    dict to run the reference's weights. B must divide into
-    ``cfg.n_micro`` microbatches.
+    device with no card raises); on one rank the tokens are the whole batch.
+    The parameters are trainable, this rank's shards of :func:`init_params`
+    with ``generator`` (the same seed on every rank gives one global set);
+    load ``from_jax(params, mesh)`` to run the reference's weights. b must
+    divide into ``cfg.n_micro`` microbatches.
     """
 
     def __init__(self, cfg: TransformerConfig, mesh: Optional[Mesh] = None,
@@ -165,8 +222,9 @@ class Transformer(nn.Module):
         cfg.validate(mesh)
         self.cfg = cfg
         self.mesh = mesh
-        for name, t in init_params(cfg, generator, mesh.device).items():
-            self.register_parameter(name, nn.Parameter(t, requires_grad=False))
+        params = init_params(cfg, generator, mesh.device)
+        for name, t in shard_params(params, cfg, mesh).items():
+            self.register_parameter(name, nn.Parameter(t))
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         cfg, mesh = self.cfg, self.mesh
@@ -183,6 +241,103 @@ class Transformer(nn.Module):
                             microbatch(h, cfg.n_micro), mesh, axis="pp")
         h = _layer_norm(unmicrobatch(hm), self.ln_f)
         return torch.einsum("bsd,vd->bsv", h.float(), self.embed.float())
+
+
+def _loss_local(model: Transformer, tokens: torch.Tensor,
+                targets: torch.Tensor) -> torch.Tensor:
+    """Mean next-token NLL of this rank's block (log-softmax of the float32
+    logits, NLL by gather), averaged over ``LOSS_AXES``."""
+    logp = torch.log_softmax(model(tokens), dim=-1)
+    nll = -logp.gather(-1, targets.long()[..., None])[..., 0]
+    return pmean(nll.mean(), model.mesh, LOSS_AXES)
+
+
+def _shard_data(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
+    """This rank's block of a global [B, S, ...] tensor (``DATA_SPEC``)."""
+    return shard(mesh, x, *DATA_SPEC)
+
+
+def build_loss_fn(cfg: TransformerConfig, mesh: Mesh):
+    """``loss(model, tokens, targets)`` on the global int [B, S] tokens and
+    targets: each rank takes its block, and every rank returns the loss
+    over the whole batch (a float32 scalar)."""
+    cfg.validate(mesh)
+
+    def loss(model, tokens, targets):
+        return _loss_local(model, _shard_data(mesh, tokens),
+                           _shard_data(mesh, targets))
+
+    return loss
+
+
+def build_forward(cfg: TransformerConfig, mesh: Mesh):
+    """``forward(model, tokens)`` on the global int [B, S] tokens → this
+    rank's logits block in ``DATA_SPEC``'s layout [B/(dp·ep), S/sp,
+    vocab] (on one rank, all of them)."""
+    cfg.validate(mesh)
+
+    def forward(model, tokens):
+        return model(_shard_data(mesh, tokens))
+
+    return forward
+
+
+def _sum_replicated_grads(model: Transformer) -> None:
+    """``shard_map``'s transpose: a parameter replicated over some axes has
+    its gradient summed over them."""
+    import torch.distributed as dist
+
+    for name, p in model.named_parameters():
+        group = model.mesh.group(_replicated_axes(_SPECS[name]))
+        if group is not None:
+            dist.all_reduce(p.grad, group=group)
+
+
+def backward(model: Transformer, loss: torch.Tensor) -> None:
+    """The gradient of a :func:`build_loss_fn` loss, as ``jax.grad`` of the
+    reference's ``shard_map`` gives it: added to each parameter's
+    ``.grad``, this rank's shard of the one-rank gradient."""
+    # the loss is replicated over every rank: its cotangent is shared out
+    # among them, and the psums of the backward add it up again
+    loss.backward(torch.full_like(loss, 1.0 / model.mesh.size))
+    _sum_replicated_grads(model)
+
+
+def value_and_grad(loss_fn, model: Transformer, tokens: torch.Tensor,
+                   targets: torch.Tensor) -> torch.Tensor:
+    """``jax.value_and_grad`` of a :func:`build_loss_fn` loss: returns the
+    loss and adds its gradient to the parameters' ``.grad``
+    (:func:`backward`)."""
+    loss = loss_fn(model, tokens, targets)
+    backward(model, loss)
+    return loss.detach()
+
+
+def build_train_step(cfg: TransformerConfig, mesh: Mesh, lr: float = 1e-3):
+    """The reference's training step with ``optax.adamw(lr)``'s defaults.
+
+    Returns ``(step, make_optimizer)``: ``make_optimizer(model)`` is
+    ``torch.optim.AdamW(lr, betas=(0.9, 0.999), eps=1e-8,
+    weight_decay=1e-4)`` over every parameter (optax masks none), its state
+    beside each rank's shards; ``step(model, optimizer, tokens, targets)``
+    takes the global tokens and targets, updates the model in place and
+    returns the loss before the update.
+    """
+    cfg.validate(mesh)
+    loss_fn = build_loss_fn(cfg, mesh)
+
+    def make_optimizer(model):
+        return torch.optim.AdamW(model.parameters(), lr=lr,
+                                 betas=(0.9, 0.999), eps=1e-8,
+                                 weight_decay=1e-4)
+
+    def step(model, optimizer, tokens, targets):
+        optimizer.zero_grad()
+        loss = value_and_grad(loss_fn, model, tokens, targets)
+        optimizer.step()
+        return loss
+
+    return step, make_optimizer
 
 
 def make_serve_fn(model: Transformer) -> Callable[[Any], Dict[str, Any]]:
@@ -206,8 +361,11 @@ def _tensor(a) -> torch.Tensor:
     return torch.from_numpy(a.copy())
 
 
-def from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+def from_jax(params: Dict[str, Any],
+             mesh: Optional[Mesh] = None) -> Dict[str, torch.Tensor]:
     """The reference's ``init_params`` output, as numpy arrays, →
-    :class:`Transformer`'s state dict (same names, shapes and dtypes; the
-    values bit for bit)."""
-    return {name: _tensor(a) for name, a in params.items()}
+    :class:`Transformer`'s state dict (same names, dtypes and values bit
+    for bit): the global parameters, or with ``mesh`` this rank's shards of
+    them (:func:`shard_params`)."""
+    sd = {name: _tensor(a) for name, a in params.items()}
+    return sd if mesh is None else shard_params(sd, None, mesh)

@@ -35,11 +35,17 @@ def pipeline_apply(stage_fn: Callable[[Any, torch.Tensor], torch.Tensor],
     stage = axis_index(mesh, axis)
     M = x_micro.shape[0]
     want = (tuple(x_micro.shape[1:]), x_micro.dtype)
+    if P > 1:
+        first, last = (torch.tensor(c, device=x_micro.device)
+                       for c in (stage == 0, stage == P - 1))
 
     recv = torch.zeros_like(x_micro[0])
-    out = torch.zeros_like(x_micro)
+    outs = []
     for t in range(M + P - 1):
-        h = x_micro[min(t, M - 1)] if stage == 0 else recv
+        xm = x_micro[min(t, M - 1)]
+        # a mask, not a branch: every stage's autograd graph has the same
+        # shape, so their backward collectives pair up
+        h = xm if P == 1 else torch.where(first, xm, recv)
         y = stage_fn(stage_params, h)
         if t == 0 and (tuple(y.shape), y.dtype) != want:
             raise ValueError(
@@ -48,11 +54,13 @@ def pipeline_apply(stage_fn: Callable[[Any, torch.Tensor], torch.Tensor],
                 f"{tuple(y.shape)}/{_dtype_name(y.dtype)})")
         (recv,) = shift(mesh, axis, y)
         # the last stage commits microbatch t - (P - 1) when it is in range
-        m_idx = t - (P - 1)
-        if stage == P - 1 and 0 <= m_idx < M:
-            out[m_idx] = y
+        if t >= P - 1:
+            outs.append(y)
+    out = torch.stack(outs)
+    if P == 1:
+        return out
     # every stage but the last contributes zeros
-    return psum(out if stage == P - 1 else torch.zeros_like(out), mesh, axis)
+    return psum(torch.where(last, out, torch.zeros_like(out)), mesh, axis)
 
 
 def microbatch(x: torch.Tensor, n_micro: int) -> torch.Tensor:

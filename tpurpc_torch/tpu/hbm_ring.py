@@ -23,9 +23,13 @@ The device parts, on a CUDA card (or the CPU when asked for):
   wrapped span is gathered by the ``ring_window`` kernel (``dma_d2d``).
 
 Placement, the kernels and the consumer all run on the calling thread's
-current CUDA stream, so reads are ordered after the landing write. The ring
-is one allocation for its whole life (no donation), and ``place`` asserts
-that ``data_ptr()`` never changes.
+current CUDA stream, so reads are ordered after the landing write. A
+consumer may read its view on another stream: it releases the lease on the
+stream that read it, ``release`` records a CUDA event there against the
+span, and the landing write that next covers any byte of the span makes its
+stream wait on that event first. The ring is one allocation for its whole
+life (no donation), and ``place`` asserts that ``data_ptr()`` never
+changes.
 """
 
 from __future__ import annotations
@@ -72,6 +76,9 @@ class HbmRing:
         self._live: Dict[Tuple[int, int], list] = {}
         #: outstanding leases whose tensor aliases ring memory
         self._aliased = 0
+        #: (start, end, event) of released spans, absolute bytes: the last
+        #: reads of [start, end) are done once the CUDA event has completed
+        self._reads: list = []
 
     # -- producer ------------------------------------------------------------
 
@@ -90,13 +97,27 @@ class HbmRing:
         if n > self.writable():
             raise BufferError(f"HBM ring full: {n} > {self.writable()}")
 
-    def _land_locked(self, src: np.ndarray, p: int) -> None:
-        """One host→device staging copy, then one landing write at physical
-        offset ``p`` (caller holds the lock)."""
+    def _land_locked(self, src: np.ndarray, off: int) -> None:
+        """One host→device staging copy, then one landing write at absolute
+        offset ``off`` (caller holds the lock). Before the landing write,
+        its stream waits on the release events of every span whose bytes it
+        covers, both segments of a wrapped write included."""
         n = src.nbytes
+        p = off & self._mask
         staged = torch.empty(n, dtype=torch.uint8, device=self.device)
         staged.copy_(host_tensor(src))
         ledger.dma_h2d(n)
+        if self._reads:
+            # after the staging copy, which waits for the host: the wait is
+            # the device's alone. The bytes at [off, off + n) last held
+            # [off - cap, off + n - cap)
+            lo, hi = off - self.capacity, off + n - self.capacity
+            stream = torch.cuda.current_stream(self.device)
+            for start, end, event in self._reads:
+                if start < hi and end > lo:
+                    stream.wait_event(event)
+            # a span wholly written over is never covered again
+            self._reads = [r for r in self._reads if r[1] > hi]
         if p + n <= self.capacity:
             self.buf[p:p + n].copy_(staged)
         else:
@@ -123,7 +144,7 @@ class HbmRing:
             off = self.tail
             self.tail += n
             self._live[(off, n)] = [0, False]
-            self._land_locked(src, off & self._mask)
+            self._land_locked(src, off)
         return off, n
 
     def place_many(self, payloads,
@@ -152,7 +173,7 @@ class HbmRing:
                 spans.append((off, n))
                 off += n
             packed = np.concatenate(srcs) if len(srcs) > 1 else srcs[0]
-            self._land_locked(packed, spans[0][0] & self._mask)
+            self._land_locked(packed, spans[0][0])
         return spans
 
     def _assert_stable(self) -> None:
@@ -218,10 +239,16 @@ class HbmRing:
     def _release(self, off: int, n: int, aliased: bool = False, *,
                  consumed: bool = True) -> None:
         """Return one lease's credit. ``consumed=False`` (error unwinding)
-        decrements without marking the span consumed."""
+        decrements without marking the span consumed. On a card, records an
+        event on the calling thread's current stream, which the next landing
+        write over the span waits on."""
         if n == 0:
             return  # zero-size spans hold no credit (never entered _live)
         with self._lock:
+            if self.device.type == "cuda":
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(self.device))
+                self._reads.append((off, off + n, event))
             if aliased:
                 self._aliased -= 1
             entry = self._live[(off, n)]
@@ -282,7 +309,7 @@ class HbmRing:
         with self._lock:
             if (off, nbytes) not in self._live:
                 raise KeyError(f"span ({off}, {nbytes}) not live")
-            self._land_locked(src, off & self._mask)
+            self._land_locked(src, off)
 
 
 class HbmLease:
