@@ -88,7 +88,22 @@ fails the run (non-zero exit, no result line) on any error:
    and loss, backward, optimizer step) in its own ``torch.profiler``
    window: per step and part, host ms (synchronized), device ms and
    launches. Skipped under ``--kernels``;
-8. print the kernels line, the card's name and power limit, and last the
+8. generation serving with ``ToyDecodeModel``'s state on the card (an
+   int64 [B,3] tensor; one device-to-host copy of the tokens a step): (a)
+   colocated, as ``bench.py``'s ``_gen_bench`` runs it:
+   ``serve_generation(max_batch=8, max_waiting=8, batch_shed_depth=4)``
+   with a 1 ms step stand-in, 8 closed-loop streaming clients alternating
+   interactive and batch, seeded prompts of 2-64 tokens, 24 tokens a
+   stream; tokens/s, TTFT p50/p99, sheds per class, decode steps and rows
+   a step, then one step of 8 rows (opaque and paged) under
+   ``torch.profiler``; (b) disaggregated, as ``_disagg_bench`` runs it: a
+   prefill tier ships KV over block grants into a decode tier, 4 clients
+   x 3 streams of 48 tokens; the bytes shipped must equal 16 B per entry;
+   a repeated 64-token prompt must score a prefix hit and ship one entry;
+   a live stream is migrated between two decode servers (worst
+   inter-token gap against the median). Every stream is held token for
+   token to ``reference_decode``. Skipped under ``--kernels``;
+9. print the kernels line, the card's name and power limit, and last the
    one-line result JSON.
 """
 
@@ -197,6 +212,18 @@ TRAIN_STEPS, TRAIN_LR, TRAIN_FALL = 10, 3e-3, 0.8
 TRAIN_EXACT_STEPS, TRAIN_EXACT_TOL = 2, 1e-6
 TRAIN_LOSS_TOL = 1e-3
 TRAIN_MEDIAN = 1e-4
+#: phase 8 (a): bench.py's _gen_bench — ToyDecodeModel with a 1 ms step
+#: stand-in behind serve_generation(max_batch=8, max_waiting=8,
+#: batch_shed_depth=4); 8 closed-loop clients, alternating interactive and
+#: batch, each GEN_STREAMS streams of 24 tokens from seeded prompts of
+#: 2-64 tokens. Every token is held exactly to reference_decode
+GEN_STEP_S, GEN_TOKENS = 0.001, 24
+GEN_CLIENTS, GEN_STREAMS, GEN_PROMPT = 8, 8, (2, 64)
+#: phase 8 (b): bench.py's _disagg_bench — 4 clients x 3 streams of 48
+#: tokens from 24-token prompts, the same stand-in; a live stream of 400
+#: tokens migrated after its 40th
+GEN_DIS_CLIENTS, GEN_DIS_TOKENS, GEN_DIS_PROMPT = 4, 48, 24
+GEN_MIG_TOKENS, GEN_MIG_AT = 400, 40
 
 
 def fail(msg: str) -> None:
@@ -1546,6 +1573,353 @@ def transformer_training(dev, card) -> None:
               f"launches {[r[2] for r in rows]} ({card})", flush=True)
 
 
+def _gen_prompts(rng, n: int, lo: int = GEN_PROMPT[0],
+                 hi: int = GEN_PROMPT[1]) -> list:
+    return [[int(t) for t in rng.integers(0, 251, int(rng.integers(lo,
+                                                                   hi + 1)))]
+            for _ in range(n)]
+
+
+def _check_stream(label, pairs, prompt, n):
+    from tpurpc_torch.torchshim.generate import reference_decode
+
+    check([i for i, _ in pairs] == list(range(n)),
+          f"{label}: indices {[i for i, _ in pairs][:8]}... not 0..{n - 1}")
+    check([t for _, t in pairs] == reference_decode(prompt, n),
+          f"{label}: tokens of prompt {prompt[:6]}... differ from "
+          "reference_decode")
+
+
+def _pct(xs, q):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(len(xs) * q))]
+
+
+def _profiled_step(label, model, dev, card, paged: bool) -> None:
+    """One warm decode step of the batch under ``torch.profiler``: host ms
+    (synchronized), device ms and launches."""
+    import numpy as np
+    import torch
+
+    from tpurpc_torch.serving.kv import HostKv
+
+    prompts = _gen_prompts(np.random.default_rng(SEED + 8), MAX_BATCH)
+    if paged:
+        kvs = [HostKv() for _ in prompts]
+        toks = model.prefill_paged(prompts, kvs)
+
+        def step():
+            return model.step_paged(kvs, toks)
+    else:
+        states, toks = model.prefill(prompts)
+
+        def step():
+            return model.step(states, toks)
+    ms = host_ms(step, reps=20, dev=dev)
+    dev_part = "device ms and launches not measured"
+    if dev.type == "cuda":
+        launches, device_ms, top = _profiled_forward(step)
+        dev_part = (f"device {device_ms} ms in {launches} launches "
+                    f"(costliest: {top})")
+    print(f"generation: one {label} step of {MAX_BATCH} rows: host clock "
+          f"{ms} ms, {dev_part} ({card})", flush=True)
+
+
+def _warm(model) -> None:
+    """One prefill and step of each contract, before any timed window: the
+    first calls on a card pay for lazy CUDA set-up and the power tables."""
+    from tpurpc_torch.serving.kv import HostKv
+
+    states, toks = model.prefill([[1, 2]])
+    model.step(states, toks)
+    kv = HostKv()
+    model.step_paged([kv], model.prefill_paged([[1, 2]], [kv]))
+
+
+def _colocated(dev, card) -> dict:
+    """Phase 8 (a): bench.py's _gen_bench posture with the step model on
+    the card: GEN_CLIENTS closed-loop streaming clients, alternating
+    interactive and batch, GEN_STREAMS streams each of GEN_TOKENS tokens
+    from seeded prompts; a shed client honors its pushback and retries."""
+    import threading
+
+    import numpy as np
+
+    from tpurpc_torch.rpc.channel import Channel
+    from tpurpc_torch.rpc.status import RpcError, StatusCode
+    from tpurpc_torch.serving import GenerationClient, serve_generation
+    from tpurpc_torch.torchshim.generate import ToyDecodeModel
+
+    model = ToyDecodeModel(device=dev, step_delay_s=GEN_STEP_S)
+    check(model.device == dev, f"step model on {model.device}, not {dev}")
+    _warm(model)
+    srv, port, sched = serve_generation(model, max_batch=MAX_BATCH,
+                                        max_waiting=8, batch_shed_depth=4)
+    rng = np.random.default_rng(SEED + 80)
+    work = [_gen_prompts(rng, GEN_STREAMS) for _ in range(GEN_CLIENTS)]
+    lock = threading.Lock()
+    stats = {"tokens": 0, "sheds": {"interactive": 0, "batch": 0},
+             "ttft_ms": {"interactive": [], "batch": []}, "errors": []}
+    start = threading.Barrier(GEN_CLIENTS + 1)
+
+    def client(i, slo):
+        try:
+            with Channel(f"127.0.0.1:{port}") as ch:
+                gen = GenerationClient(ch)
+                # dial outside the timed window, as bench.py's clients do
+                list(gen.generate([1], max_tokens=1, timeout=60))
+                start.wait(60)
+                for prompt in work[i]:
+                    while True:
+                        t0 = time.perf_counter()
+                        try:
+                            it = gen.generate_with_meta(
+                                prompt, max_tokens=GEN_TOKENS, slo=slo,
+                                timeout=60)
+                            pairs = [next(it)]
+                            ttft = (time.perf_counter() - t0) * 1e3
+                            pairs += list(it)
+                        except RpcError as exc:
+                            if exc.code() is not StatusCode.UNAVAILABLE:
+                                raise
+                            with lock:
+                                stats["sheds"][slo] += 1
+                            md = dict(exc.trailing_metadata() or ())
+                            pb = int(md.get("tpurpc-pushback-ms", 25))
+                            time.sleep(min(pb, 200) / 1e3)
+                            continue
+                        _check_stream(f"generation (a) client {i}", pairs,
+                                      prompt, GEN_TOKENS)
+                        with lock:
+                            stats["tokens"] += len(pairs)
+                            stats["ttft_ms"][slo].append(ttft)
+                        break
+        except BaseException as exc:  # noqa: BLE001 - reported below
+            with lock:
+                stats["errors"].append(f"client {i}: {exc!r}")
+
+    threads = [threading.Thread(target=client, args=(
+        i, "interactive" if i % 2 == 0 else "batch"), daemon=True)
+        for i in range(GEN_CLIENTS)]
+    try:
+        for t in threads:
+            t.start()
+        start.wait(60)
+        steps0, rows0, prefills0 = sched.steps, sched.rows_stepped, \
+            model.prefills
+        t0 = time.perf_counter()
+        for t in threads:
+            t.join(300)
+        wall = time.perf_counter() - t0
+        steps = sched.steps - steps0
+        rows = sched.rows_stepped - rows0
+    finally:
+        srv.stop(grace=0)
+        sched.close()
+    check(not any(t.is_alive() for t in threads), "generation (a): a client "
+          "did not finish")
+    check(not stats["errors"], "; ".join(stats["errors"]))
+    want = GEN_CLIENTS * GEN_STREAMS * GEN_TOKENS
+    check(stats["tokens"] == want,
+          f"generation (a): {stats['tokens']} tokens, want {want}")
+    check(model.device.type == dev.type and steps > 0,
+          "generation (a): no decode step ran on the device")
+    ttft = stats["ttft_ms"]["interactive"] + stats["ttft_ms"]["batch"]
+    out = {"tokens_per_s": stats["tokens"] / wall,
+           "ttft_p50": _pct(ttft, 0.5), "ttft_p99": _pct(ttft, 0.99),
+           "sheds": dict(stats["sheds"]), "steps": steps,
+           "rows_per_step": rows / max(1, steps)}
+    print(f"generation (a) colocated: {GEN_CLIENTS} clients x "
+          f"{GEN_STREAMS} streams x {GEN_TOKENS} tokens, every stream "
+          f"exact: {out['tokens_per_s']} tokens/s, TTFT p50 "
+          f"{out['ttft_p50']} ms p99 {out['ttft_p99']} ms (interactive p99 "
+          f"{_pct(stats['ttft_ms']['interactive'], 0.99)}, batch p99 "
+          f"{_pct(stats['ttft_ms']['batch'], 0.99)}), sheds {out['sheds']}, "
+          f"{steps} decode steps, {out['rows_per_step']} rows a step, "
+          f"{model.prefills - prefills0} prefills, wall {wall} s ({card})",
+          flush=True)
+    _profiled_step("opaque", ToyDecodeModel(device=dev), dev, card, False)
+    _profiled_step("paged", ToyDecodeModel(device=dev), dev, card, True)
+    return out
+
+
+def _disaggregated(dev, card) -> dict:
+    """Phase 8 (b): bench.py's _disagg_bench posture with the step models
+    on the card: a prefill tier ships KV over block grants into a decode
+    tier; GEN_DIS_CLIENTS clients x 3 streams of GEN_DIS_TOKENS tokens,
+    then a repeated prompt (a prefix hit ships one entry), then one live
+    stream migrated between two decode servers."""
+    import threading
+
+    import numpy as np
+
+    from tpurpc_torch.rpc.channel import Channel
+    from tpurpc_torch.serving import (DisaggClient, migrate, serve_decode,
+                                      serve_prefill)
+    from tpurpc_torch.torchshim.generate import ToyDecodeModel
+    from tpurpc_torch.tpu import ledger
+
+    decode_model = ToyDecodeModel(device=dev, step_delay_s=GEN_STEP_S)
+    d_srv, d_port, d_sched, d_state = serve_decode(
+        decode_model, max_batch=MAX_BATCH, kv_blocks=512, block_bytes=1024)
+    b_srv, b_port, b_sched, b_state = serve_decode(
+        ToyDecodeModel(device=dev, step_delay_s=GEN_STEP_S), name="migB",
+        kv_blocks=256, block_bytes=1024)
+    d_addr, b_addr = f"127.0.0.1:{d_port}", f"127.0.0.1:{b_port}"
+    d_ch, b_ch = Channel(d_addr), Channel(b_addr)
+    prefill_model = ToyDecodeModel(device=dev)
+    for m in (decode_model, prefill_model):
+        _warm(m)
+    p_srv, p_port, p_state = serve_prefill(prefill_model, d_ch, d_addr)
+    chans, clis = [], []
+
+    def client_of():
+        ch = Channel(f"127.0.0.1:{p_port}")
+        chans.append(ch)
+        cli = DisaggClient(ch, d_addr)
+        clis.append(cli)
+        return cli
+
+    out = {}
+    try:
+        rng = np.random.default_rng(SEED + 81)
+        work = [_gen_prompts(rng, 3, GEN_DIS_PROMPT, GEN_DIS_PROMPT)
+                for _ in range(GEN_DIS_CLIENTS)]
+        errors, ttfts, lock = [], [], threading.Lock()
+        dialed = threading.Barrier(GEN_DIS_CLIENTS + 1)
+        start = threading.Barrier(GEN_DIS_CLIENTS + 1)
+
+        def client(i, cli):
+            try:
+                # dial both tiers outside the timed window
+                list(cli.generate([1], max_tokens=2, timeout=60))
+                dialed.wait(60)
+                start.wait(60)
+                for prompt in work[i]:
+                    t0 = time.perf_counter()
+                    it = cli.generate_with_meta(prompt,
+                                                max_tokens=GEN_DIS_TOKENS,
+                                                timeout=60)
+                    pairs = [next(it)]
+                    ttft = (time.perf_counter() - t0) * 1e3
+                    pairs += list(it)
+                    _check_stream(f"generation (b) client {i}", pairs,
+                                  prompt, GEN_DIS_TOKENS)
+                    with lock:
+                        ttfts.append(ttft)
+            except BaseException as exc:  # noqa: BLE001 - reported below
+                with lock:
+                    errors.append(f"client {i}: {exc!r}")
+
+        threads = [threading.Thread(target=client, args=(i, client_of()),
+                                    daemon=True)
+                   for i in range(GEN_DIS_CLIENTS)]
+        for t in threads:
+            t.start()
+        dialed.wait(60)
+        shipped0 = p_state.shipped_bytes
+        with ledger.track() as w:
+            start.wait(60)
+            t0 = time.perf_counter()
+            for t in threads:
+                t.join(300)
+            wall = time.perf_counter() - t0
+        check(not any(t.is_alive() for t in threads),
+              "generation (b): a client did not finish")
+        check(not errors, "; ".join(errors))
+        entries = sum(len(p) + 1 for ps in work for p in ps)
+        shipped = p_state.shipped_bytes - shipped0
+        check(w["rdma_write"] == shipped == 16 * entries,
+              f"generation (b): shipped {w['rdma_write']} bytes (prefill "
+              f"counted {shipped}), want 16 x {entries}")
+        n_tok = GEN_DIS_CLIENTS * 3 * GEN_DIS_TOKENS
+        out.update(tokens_per_s=n_tok / wall, ttft_p50=_pct(ttfts, 0.5),
+                   shipped=w["rdma_write"], entries=entries)
+        print(f"generation (b) disaggregated: {GEN_DIS_CLIENTS} clients x 3 "
+              f"streams x {GEN_DIS_TOKENS} tokens, every stream exact: "
+              f"{out['tokens_per_s']} tokens/s, TTFT p50 {out['ttft_p50']} "
+              f"ms, KV shipped {w['rdma_write']} bytes = 16 x {entries} "
+              f"entries over block grants (rdma_write ops "
+              f"{w['rdma_write_ops']}, host_copy {w['host_copy']} bytes), "
+              f"wall {wall} s ({card})", flush=True)
+
+        # a repeated prompt: the second time only the first sample ships
+        cli = clis[0]
+        hot = [int(t) for t in rng.integers(0, 251, 64)]
+        hits0 = d_state.mgr.prefix_hits
+        for k in range(2):
+            shipped0 = p_state.shipped_bytes
+            pairs = list(cli.generate_with_meta(hot, max_tokens=4,
+                                                timeout=60))
+            _check_stream("generation (b) repeated prompt", pairs, hot, 4)
+        check(d_state.mgr.prefix_hits - hits0 == 1,
+              "generation (b): the repeated prompt scored no prefix hit")
+        check(p_state.shipped_bytes - shipped0 == 16,
+              f"generation (b): the prefix hit shipped "
+              f"{p_state.shipped_bytes - shipped0} bytes, want 16")
+        print("generation (b): repeated 64-token prompt: 1 prefix hit, "
+              "16 bytes shipped (one entry)", flush=True)
+
+        # live migration between two decode servers
+        stamps, pairs, mig_err = [], [], []
+        prompt = [5] * 8
+
+        def stream():
+            try:
+                for pair in cli.generate_with_meta(
+                        prompt, max_tokens=GEN_MIG_TOKENS, timeout=60):
+                    pairs.append(pair)
+                    stamps.append(time.perf_counter())
+            except BaseException as exc:  # noqa: BLE001 - reported below
+                mig_err.append(repr(exc))
+
+        t = threading.Thread(target=stream, daemon=True)
+        t.start()
+        deadline = time.monotonic() + 60
+        while len(stamps) < GEN_MIG_AT and time.monotonic() < deadline \
+                and t.is_alive():
+            time.sleep(0.001)
+        moved = migrate(d_state, b_ch, b_addr)
+        t.join(120)
+        check(not mig_err and not t.is_alive(),
+              f"generation (b): the migrated stream failed: {mig_err}")
+        check(moved == (1, 0), f"generation (b): migrate gave {moved}")
+        check(b_sched.tokens_out > 0, "generation (b): the peer never "
+              "stepped the migrated sequence")
+        _check_stream("generation (b) migrated stream", pairs, prompt,
+                      GEN_MIG_TOKENS)
+        gaps = sorted((b - a) * 1e3 for a, b in zip(stamps, stamps[1:]))
+        out.update(blackout=gaps[-1], median_gap=_pct(gaps, 0.5))
+        print(f"generation (b): one live stream of {GEN_MIG_TOKENS} tokens "
+              f"migrated after {GEN_MIG_AT}, exact: worst inter-token gap "
+              f"{gaps[-1]} ms against a median {out['median_gap']} ms; the "
+              f"peer emitted {b_sched.tokens_out} tokens ({card})",
+              flush=True)
+    finally:
+        for c in clis:
+            c.close()
+        for ch in chans:
+            ch.close()
+        p_srv.stop(grace=0)
+        p_state.close()
+        for srv, sched, state in ((d_srv, d_sched, d_state),
+                                  (b_srv, b_sched, b_state)):
+            srv.stop(grace=0)
+            sched.close()
+            state.close()
+            state.mgr.close()
+        d_ch.close()
+        b_ch.close()
+    return out
+
+
+def generation_serving(dev, card) -> dict:
+    """Phase 8: generation serving with the step model's state on the
+    card, (a) colocated and (b) disaggregated (docstring of this file)."""
+    return {"colocated": _colocated(dev, card),
+            "disaggregated": _disaggregated(dev, card)}
+
+
 def card_line() -> str:
     """The card's name and power limit, as nvidia-smi reports them."""
     smi = subprocess.run(
@@ -1579,7 +1953,7 @@ def main() -> None:
     err, timings = check_kernels(dev)
     if kernels_only:
         launches = {"ring_scatter": None, "ring_window": None}
-        stream = tf_launches = train_launches = None
+        stream = tf_launches = train_launches = gen_launches = None
     else:
         from tpurpc_torch.ops import ring_scatter as rs_mod
         from tpurpc_torch.ops import ring_window as rw_mod
@@ -1606,6 +1980,15 @@ def main() -> None:
                           "ring_window": rw_mod.launches}
         print(f"training: kernel launches in phase 7 {train_launches}; "
               f"phase 7 took {time.perf_counter() - t0} s", flush=True)
+        # phase 8 takes neither kernel either (token trees are framed and
+        # the step model's state never enters a ring); counted all the same
+        rs_mod.launches = rw_mod.launches = 0
+        t0 = time.perf_counter()
+        generation_serving(dev, card)
+        gen_launches = {"ring_scatter": rs_mod.launches,
+                        "ring_window": rw_mod.launches}
+        print(f"generation: kernel launches in phase 8 {gen_launches}; "
+              f"phase 8 took {time.perf_counter() - t0} s", flush=True)
 
     sources = {"ring_scatter": "tpurpc/ops/ring_scatter.py:133",
                "ring_window": "tpurpc/ops/ring_window.py:138"}
@@ -1640,7 +2023,10 @@ def main() -> None:
                                      tf_launches[name]),
             # phase 7, training
             "training_launches": (None if train_launches is None else
-                                  train_launches[name])})
+                                  train_launches[name]),
+            # phase 8, generation serving
+            "generation_launches": (None if gen_launches is None else
+                                    gen_launches[name])})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     if kernels_only:

@@ -9,8 +9,8 @@ the kernels' plain versions against the reference; here the CUDA kernels are
 held against the plain versions, and the device ring (with a release
 against a side stream's read), the fan-in batcher, device serialization,
 4 MiB tensor streams over rendezvous (landed on the host, and through the
-device ring), and the MoE transformer's forward and train steps run on the
-card.
+device ring), the MoE transformer's forward and train steps, and the
+generation plane's step model run on the card.
 """
 
 import numpy as np
@@ -467,3 +467,58 @@ def test_train_steps_on_card_match_cpu(dev, no_tf32):
         d = (card_p[k] - want).abs()
         assert d.max().item() <= 2 * TRAIN_LR * 2, (k, d.max().item())
         assert d.median().item() <= TRAIN_MEDIAN, (k, d.median().item())
+
+
+def _gen_prompts(n=64):
+    rng = np.random.default_rng(8)
+    return [rng.integers(0, 251, int(rng.integers(1, 65))).astype(np.int32)
+            for _ in range(n)]
+
+
+@pytest.mark.cuda
+def test_step_model_on_card_matches_reference_decode(dev):
+    """``ToyDecodeModel`` on the card, 64 seeded prompts, both contracts:
+    its int64 state stays on the card and every token equals
+    ``reference_decode`` (which proves int64 ``*`` and ``+`` wrap there as
+    on the CPU); a poisoned row fails the batch and a clean row alone
+    passes."""
+    from tpurpc_torch.serving.kv import HostKv
+    from tpurpc_torch.torchshim.generate import (ToyDecodeModel,
+                                                 reference_decode)
+
+    prompts = _gen_prompts()
+    want = [reference_decode(p, 16) for p in prompts]
+    m = ToyDecodeModel(device=dev)
+    states, toks = m.prefill(prompts)
+    assert states.device == dev and states.dtype == torch.int64
+    got = [[int(t)] for t in toks]
+    for _ in range(15):
+        states, toks = m.step(states, toks)
+        assert states.device == dev
+        for row, t in zip(got, toks):
+            row.append(int(t))
+    assert got == want
+    cpu = ToyDecodeModel(device="cpu")
+    kvs, kc = [HostKv() for _ in prompts], [HostKv() for _ in prompts]
+    paged = [[int(t)] for t in m.prefill_paged(prompts, kvs)]
+    cpu.prefill_paged(prompts, kc)
+    for _ in range(15):
+        toks = m.step_paged(kvs, np.asarray([r[-1] for r in paged]))
+        cpu.step_paged(kc, toks)
+        for row, t in zip(paged, toks):
+            row.append(int(t))
+    assert paged == want
+    assert all(bytes(a.payload()) == bytes(b.payload())
+               for a, b in zip(kvs, kc))
+    bad = ToyDecodeModel(device=dev, poison_token=666)
+    s, t = bad.prefill([np.asarray([1, 666], np.int32), prompts[0]])
+    with pytest.raises(ValueError, match="poisoned row"):
+        bad.step(s, t)
+    _s1, t1 = bad.step(s[1:], t[1:])
+    assert int(t1[0]) == want[0][1]
+    pk = [HostKv(), HostKv()]
+    bad.prefill_paged([np.asarray([1, 666], np.int32), prompts[0]], pk)
+    with pytest.raises(ValueError, match="poisoned row"):
+        bad.step_paged(pk, np.zeros(2, np.int32))
+    assert int(bad.step_paged(pk[1:], np.zeros(1, np.int32))[0]) == \
+        want[0][1]

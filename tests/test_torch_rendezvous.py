@@ -25,6 +25,7 @@ import pytest
 import torch
 
 import tpurpc.core.rendezvous as ref_rdv
+from tpurpc.core import _native as ref_native
 from tpurpc.jaxshim import TensorClient as RefClient
 from tpurpc.jaxshim import add_tensor_method as ref_add_tensor_method
 from tpurpc.jaxshim import codec as ref_codec
@@ -59,6 +60,12 @@ SUM_RTOL = 1e-9
 def platform(monkeypatch):
     """``platform(name, **env)``: both packages on ``name`` with ``env``
     set, the port on the CPU; the port's singletons reset afterwards."""
+    # The reference loads its native library on a ring's first use and,
+    # in a checkout without native/build, first builds it with g++ under
+    # an exclusive lock that every other process waits on for the whole
+    # compile. Take that wait here, not inside a call that has a deadline.
+    ref_native.load()
+
     def use(name, **env):
         monkeypatch.setenv("GRPC_PLATFORM_TYPE", name)
         monkeypatch.setenv("TPURPC_TORCH_DEVICE", "cpu")

@@ -24,6 +24,7 @@ import pytest
 import torch
 
 from test_torch_resnet import _random_variables
+from tpurpc.core import _native as ref_native
 from tpurpc.jaxshim import TensorClient as JaxClient
 from tpurpc.jaxshim import add_tensor_method as jax_add_tensor_method
 from tpurpc.models import resnet as jres
@@ -50,6 +51,11 @@ SHAPE = (2, 32, 32, 3)
 @pytest.fixture
 def tpu_platform(monkeypatch):
     """Both packages on the device-ring platform, the port on the CPU."""
+    # The reference loads its native library on a ring's first use and,
+    # in a checkout without native/build, first builds it with g++ under
+    # an exclusive lock that every other process waits on for the whole
+    # compile. Take that wait here, not inside a call that has a deadline.
+    ref_native.load()
     monkeypatch.setenv("GRPC_PLATFORM_TYPE", "TPU")
     monkeypatch.setenv("TPURPC_TORCH_DEVICE", "cpu")
     monkeypatch.setenv("TPURPC_HBM_RING_SIZE_KB", str(RING_KB))
@@ -204,12 +210,21 @@ def test_port_imports_nothing_of_jax_or_the_reference():
             "    importlib.import_module(m.name)\n"
             "bad = sorted(k for k in sys.modules\n"
             "             if k.split('.')[0] in ('jax', 'flax', 'tpurpc'))\n"
-            "print(bad)\n")
+            "print(bad)\n"
+            "print(sorted(k for k in sys.modules if k.startswith(\n"
+            "    ('tpurpc_torch.serving', 'tpurpc_torch.analysis'))))\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, cwd=REPO, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == "[]"
+    bad, walked = out.stdout.strip().splitlines()
+    assert bad == "[]"
+    # the walk reached the generation plane (its modules import the rest)
+    assert walked == str([
+        "tpurpc_torch.analysis", "tpurpc_torch.analysis.locks",
+        "tpurpc_torch.serving", "tpurpc_torch.serving.api",
+        "tpurpc_torch.serving.disagg", "tpurpc_torch.serving.kv",
+        "tpurpc_torch.serving.scheduler"])
     for path in _port_files() + [os.path.join(REPO, "chip_smoke.py")]:
         with open(path, encoding="utf-8") as f:
             src = f.read()

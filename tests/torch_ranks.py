@@ -10,6 +10,12 @@ file as a script, and reads back what each rank wrote:
 ``TPURPC_AUTODETECT=1``), which gives gloo a 60 s timeout, and the test
 waits at most ``timeout`` seconds for them before killing them all.
 
+The suite runs several test workers at once, and a launch starts up to 8
+rank processes. So that the ranks never starve other tests (many of them
+bound by deadlines on loopback), a launch holds a cross-process file lock
+from :func:`start` to :func:`finish` (one multi-rank launch at a time
+across workers), and every rank lowers its own priority (``os.nice``).
+
 The rank side (run as a script) imports torch and the port only: no JAX,
 nothing of ``tpurpc``. Each job builds its mesh over the same world, runs
 the port's per-rank program on this rank's block of the inputs and saves
@@ -19,11 +25,14 @@ its outputs (this rank's blocks, and gradients) as ``<job>.<rank>.npz``.
 from __future__ import annotations
 
 import contextlib
+import fcntl
 import json
 import os
 import socket
 import subprocess
 import sys
+import tempfile
+import time
 from pathlib import Path
 
 import numpy as np
@@ -31,6 +40,40 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent.parent
 #: how long a test waits for its ranks, seconds
 TIMEOUT = 180
+#: the lock that lets one multi-rank launch run at a time across workers
+LOCK = Path(tempfile.gettempdir()) / "tpurpc_torch_ranks.lock"
+#: how long a launch waits for another's lock before it runs regardless
+LOCK_WAIT = 900
+#: the priority a rank gives itself: other tests' threads go first
+RANK_NICE = 10
+
+
+class Ranks(list):
+    """The ranks' ``Popen``s, and the launch lock they hold until
+    :func:`finish`."""
+
+    lock_fd = None
+
+
+def _lock() -> int:
+    """Take the launch lock (bounded wait); returns its descriptor, which
+    :func:`_unlock` closes."""
+    fd = os.open(LOCK, os.O_RDWR | os.O_CREAT, 0o644)
+    deadline = time.monotonic() + LOCK_WAIT
+    while True:
+        try:
+            fcntl.flock(fd, fcntl.LOCK_EX | fcntl.LOCK_NB)
+            return fd
+        except BlockingIOError:
+            if time.monotonic() >= deadline:
+                return fd   # a stuck holder: run unlocked, never hang
+            time.sleep(0.1)
+
+
+def _unlock(fd) -> None:
+    if fd is not None:
+        fcntl.flock(fd, fcntl.LOCK_UN)
+        os.close(fd)
 
 
 @contextlib.contextmanager
@@ -56,13 +99,24 @@ def free_port() -> int:
 
 def start(world: int, jobs: list, inputs: dict, workdir: Path,
           autodetect: bool = False, extra_env: dict = None):
-    """Write the jobs and inputs under ``workdir`` and start the ranks;
-    returns their ``Popen``s (stdout piped, stderr merged into it)."""
+    """Write the jobs and inputs under ``workdir``, take the launch lock and
+    start the ranks; returns their ``Popen``s (stdout piped, stderr merged
+    into it), which hold the lock until :func:`finish`."""
     workdir.mkdir(parents=True, exist_ok=True)
     (workdir / "jobs.json").write_text(json.dumps(jobs))
     np.savez(workdir / "inputs.npz", **inputs)
+    procs = Ranks()
+    procs.lock_fd = _lock()
+    try:
+        _spawn(procs, world, workdir, autodetect, extra_env)
+    except BaseException:
+        finish_quietly(procs)
+        raise
+    return procs
+
+
+def _spawn(procs, world, workdir, autodetect, extra_env) -> None:
     port = free_port()
-    procs = []
     for rank in range(world):
         env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1",
                    TPURPC_TORCH_DEVICE="cpu", **(extra_env or {}))
@@ -78,7 +132,17 @@ def start(world: int, jobs: list, inputs: dict, workdir: Path,
         procs.append(subprocess.Popen(
             [sys.executable, __file__, str(workdir)], stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True, env=env))
-    return procs
+
+
+def finish_quietly(procs) -> None:
+    """Kill every rank and give the launch lock back."""
+    try:
+        for p in procs:
+            p.kill()
+            p.wait()
+    finally:
+        fd, procs.lock_fd = procs.lock_fd, None
+        _unlock(fd)
 
 
 def finish(procs, timeout: float = TIMEOUT) -> list:
@@ -90,9 +154,7 @@ def finish(procs, timeout: float = TIMEOUT) -> list:
             out, _ = p.communicate(timeout=timeout)
             outs.append(out)
     finally:
-        for p in procs:
-            p.kill()
-            p.wait()
+        finish_quietly(procs)
     for rank, (p, out) in enumerate(zip(procs, outs)):
         assert p.returncode == 0 and f"RANK_OK {rank}" in out, (
             f"rank {rank} exited {p.returncode}:\n{out[-4000:]}")
@@ -351,4 +413,5 @@ def _rank_main(workdir: Path) -> None:
 
 
 if __name__ == "__main__":
+    os.nice(RANK_NICE)
     _rank_main(Path(sys.argv[1]))

@@ -39,11 +39,15 @@ region. Every consumer alias (the codec's decoded arrays and the torch
 tensors over them) holds the wrapper, so the finalize fires only when no
 consumer can read the memory any more.
 
+Block-granular grants (:class:`BlockGrant`, :class:`GrantWriter`): the
+KV plane's unit is the block, so a grant names a scatter of block offsets
+inside one registered arena region, and the sender writes each block
+straight into place through a window it keeps open per region.
+
 Not here (the reference's): the control-frame coalescer of the native
 framing, the descriptor-ring control plane (``ctrl_post``/``ctrl_drain``),
-the inline-pump wait, block-granular grants (``BlockGrant``,
-``GrantWriter``), and flight events, metrics and lens counters. Each link
-counts its transfers in :meth:`RdvLink.stats` instead.
+the inline-pump wait, and flight events, metrics and lens counters. Each
+link counts its transfers in :meth:`RdvLink.stats` instead.
 
 Env knobs: ``TPURPC_RENDEZVOUS`` (default on), ``TPURPC_RENDEZVOUS_MIN_KB``
 (size bar, default 256), ``TPURPC_RENDEZVOUS_POOL_MB`` (landing pool budget
@@ -1055,6 +1059,140 @@ class RdvLink:
                                      self._grants.values()),
                 **self._counts,
             }
+
+
+# ---------------------------------------------------------------------------
+# Block-granular standing grants.
+# ---------------------------------------------------------------------------
+
+_GRANT_HDR = struct.Struct("<QIIQQ16s")  # grant_id, block_bytes, n_offsets,
+#                                          window_bytes, nonce_off, nonce
+
+
+class BlockGrant:
+    """A peer-advertised landing descriptor at block granularity: which
+    blocks of which registered region the sender may write, plus the
+    anti-mixup nonce stored at ``nonce_off`` inside the region (the writer
+    checks it through its window before placing a byte). The wire form is
+    byte-equal to the reference's."""
+
+    __slots__ = ("grant_id", "kind", "handle", "block_bytes", "offsets",
+                 "window_bytes", "nonce", "nonce_off")
+
+    def __init__(self, grant_id: int, kind: str, handle: str,
+                 block_bytes: int, offsets: Sequence[int],
+                 window_bytes: int, nonce: bytes, nonce_off: int):
+        self.grant_id = int(grant_id)
+        self.kind = kind
+        self.handle = handle
+        self.block_bytes = int(block_bytes)
+        self.offsets = tuple(int(o) for o in offsets)
+        self.window_bytes = int(window_bytes)
+        self.nonce = bytes(nonce)
+        self.nonce_off = int(nonce_off)
+
+    @property
+    def capacity(self) -> int:
+        return self.block_bytes * len(self.offsets)
+
+    def to_wire(self) -> bytes:
+        kb = self.kind.encode()
+        return (_GRANT_HDR.pack(self.grant_id, self.block_bytes,
+                                len(self.offsets), self.window_bytes,
+                                self.nonce_off, self.nonce)
+                + bytes([len(kb)]) + kb + self.handle.encode()
+                + b"\x00" + b"".join(struct.pack("<Q", o)
+                                     for o in self.offsets))
+
+    @classmethod
+    def from_wire(cls, payload) -> "BlockGrant":
+        buf = bytes(payload)
+        (grant_id, block_bytes, n, window_bytes, nonce_off,
+         nonce) = _GRANT_HDR.unpack_from(buf)
+        pos = _GRANT_HDR.size
+        klen = buf[pos]
+        pos += 1
+        kind = buf[pos:pos + klen].decode()
+        pos += klen
+        end = buf.index(b"\x00", pos)
+        handle = buf[pos:end].decode()
+        pos = end + 1
+        offsets = struct.unpack_from(f"<{n}Q", buf, pos)
+        return cls(grant_id, kind, handle, block_bytes, offsets,
+                   window_bytes, nonce, nonce_off)
+
+
+class GrantWriter:
+    """The sender half of block grants: opens (and keeps) one window per
+    ``(kind, handle)`` through the shared window cache, checks the grant's
+    nonce, then places each chunk with a one-sided write. The bytes are
+    billed to the ledger's ``rdma_write``, as the bulk path's are."""
+
+    def __init__(self):
+        self._windows: Dict[Tuple[str, str], _pair.Window] = {}
+        self._lock = threading.Lock()
+
+    def _window(self, grant: BlockGrant) -> _pair.Window:
+        key = (grant.kind, grant.handle)
+        win = self._windows.get(key)
+        if win is not None:
+            return win
+        win = window_share().acquire(grant.kind, grant.handle,
+                                     grant.window_bytes)
+        extra = None
+        with self._lock:
+            prev = self._windows.get(key)
+            if prev is not None:
+                extra, win = win, prev
+            else:
+                self._windows[key] = win
+        if extra is not None:
+            window_share().release(grant.kind, grant.handle, extra)
+        return win
+
+    def write_blocks(self, grant: BlockGrant, chunks: Sequence) -> int:
+        """Place ``chunks[i]`` (bytes-like, at most ``block_bytes``) at
+        ``grant.offsets[i]``; returns the bytes written. Raises on a nonce
+        mismatch or an oversized chunk."""
+        if len(chunks) > len(grant.offsets):
+            raise ValueError(f"{len(chunks)} chunks for a "
+                             f"{len(grant.offsets)}-block grant")
+        win = self._window(grant)
+        view = win.view
+        if grant.nonce and view is not None:
+            seen = bytes(view[grant.nonce_off:
+                              grant.nonce_off + len(grant.nonce)])
+            if seen != grant.nonce:
+                raise OSError(
+                    "block-grant nonce mismatch: the granted handle "
+                    "resolves to different memory on this host")
+        total = 0
+        placed = []
+        for off, chunk in zip(grant.offsets, chunks):
+            sv = memoryview(chunk).cast("B")
+            if len(sv) > grant.block_bytes:
+                raise ValueError(f"chunk of {len(sv)} exceeds the "
+                                 f"{grant.block_bytes}-byte block")
+            placed.append((off, sv))
+            total += len(sv)
+
+        def _place() -> None:
+            for off, sv in placed:
+                if view is not None:
+                    view[off:off + len(sv)] = sv
+                else:
+                    win.write(off, sv)
+
+        _transport.dispatch("write", self, _place)
+        _ledger.rdma_write(total)
+        return total
+
+    def close(self) -> None:
+        with self._lock:
+            windows = list(self._windows.items())
+            self._windows.clear()
+        for (kind, handle), win in windows:
+            window_share().release(kind, handle, win)
 
 
 def domains_for_endpoint(endpoint) -> Tuple[Tuple[str, ...],

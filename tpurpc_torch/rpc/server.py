@@ -1,8 +1,10 @@
 """Server: listener → per-connection demux → handler dispatch on a pool.
 
-A trimmed copy of ``tpurpc/rpc/server.py`` (no admission control,
-interceptors, inline reactor handlers, keepalive/max-age timers, h2 or
-native planes, the control-ring plane, channelz or observability).
+A trimmed copy of ``tpurpc/rpc/server.py`` (no interceptors, inline
+reactor handlers, keepalive/max-age timers, load reports, h2 or native
+planes, the control-ring plane, channelz or observability). It keeps the
+overload :class:`AdmissionGate` and the server-wide :meth:`Server.drain`
+with its drain hooks, which generation serving uses.
 ``ServerContext`` keeps the grpcio surface the tensor service uses, including
 ``device_ring``; handlers use grpcio's four-shape taxonomy. Each connection
 carries a rendezvous link (``core/rendezvous.py``): bulk request payloads
@@ -29,6 +31,79 @@ from tpurpc_torch.rpc.status import (AbortError, Deserializer, Metadata,
 from tpurpc_torch.utils.config import get_config
 
 _log = logging.getLogger("tpurpc_torch.server")
+
+#: trailing-metadata key on admission rejections: how long the client
+#: should back off before retrying (milliseconds)
+PUSHBACK_KEY = "tpurpc-pushback-ms"
+
+
+class AdmissionGate:
+    """Server-side overload admission control at stream admission, before
+    any handler work. Below ``soft_limit`` admitted-but-unfinished RPCs
+    everything is admitted, at ``max_inflight`` nothing is; between the
+    two, admission requires ``latency_ms_fn()`` (a workload's latency
+    signal: a decode server hands in its step-time p99) to be under
+    ``latency_slo_ms``. A rejection is UNAVAILABLE with
+    :data:`PUSHBACK_KEY` trailing metadata that grows with the excess."""
+
+    def __init__(self, max_inflight: int, *,
+                 soft_limit: Optional[int] = None,
+                 latency_slo_ms: Optional[float] = None,
+                 latency_ms_fn: "Optional[Callable[[], Optional[float]]]"
+                 = None,
+                 base_pushback_ms: int = 25,
+                 max_pushback_ms: int = 1000):
+        if max_inflight < 1:
+            raise ValueError("max_inflight must be >= 1")
+        self.max_inflight = int(max_inflight)
+        self.soft_limit = (int(soft_limit) if soft_limit is not None
+                           else max(1, (self.max_inflight * 3) // 4))
+        if not 1 <= self.soft_limit <= self.max_inflight:
+            raise ValueError("need 1 <= soft_limit <= max_inflight")
+        self.latency_slo_ms = latency_slo_ms
+        self.latency_ms_fn = latency_ms_fn
+        self.base_pushback_ms = int(base_pushback_ms)
+        self.max_pushback_ms = int(max_pushback_ms)
+        self._inflight = 0
+        self._lock = threading.Lock()
+        self.rejected = 0
+
+    def _latency_ms(self) -> Optional[float]:
+        if self.latency_ms_fn is None:
+            return None  # no signal: not slow
+        try:
+            return self.latency_ms_fn()
+        except Exception:
+            return None  # a broken probe never blocks admission
+
+    def try_admit(self) -> Optional[int]:
+        """None = admitted (the caller owes a :meth:`release`); an int =
+        rejected, with that many milliseconds of retry pushback."""
+        with self._lock:
+            n = self._inflight
+            if n < self.soft_limit:
+                self._inflight = n + 1
+                return None
+            slow = False
+            if n < self.max_inflight:
+                if self.latency_slo_ms is not None:
+                    lat = self._latency_ms()
+                    slow = lat is not None and lat > self.latency_slo_ms
+                if not slow:
+                    self._inflight = n + 1
+                    return None
+            self.rejected += 1
+            excess = max(1, n - self.soft_limit + 1)
+            return min(self.max_pushback_ms,
+                       self.base_pushback_ms * excess)
+
+    def release(self) -> None:
+        with self._lock:
+            self._inflight = max(0, self._inflight - 1)
+
+    def inflight(self) -> int:
+        with self._lock:
+            return self._inflight
 
 
 class RpcMethodHandler:
@@ -152,6 +227,8 @@ class _ServerStream:
     def __init__(self, stream_id: int, queue_depth: int = 64,
                  recv_limit: Optional[int] = None):
         self.stream_id = stream_id
+        #: the admission gate this stream holds a slot of, if any
+        self.gate: Optional[AdmissionGate] = None
         self.recv_limit = recv_limit
         self.requests: "queue.Queue[object]" = queue.Queue()
         self.assembly = fr.Assembly()
@@ -272,6 +349,7 @@ class _ServerConnection:
         self._lock = threading.Lock()
         self.alive = True
         self.draining = False  # GOAWAY sent; no new streams accepted
+        self._linger_timer: Optional[threading.Timer] = None
         # the rendezvous link, made before the reader starts so that the
         # client's hello never meets an unarmed link
         self.rdv = _rdv.link_for_endpoint(
@@ -357,7 +435,10 @@ class _ServerConnection:
                            queue_depth=get_config().stream_queue_depth,
                            recv_limit=self.server.max_receive_message_length)
         with self._lock:
-            rejected = self.draining
+            # the server's flag closes the adoption race: a connection
+            # dialed into a draining server can dispatch HEADERS before it
+            # is marked draining
+            rejected = self.draining or self.server._draining
             if not rejected:
                 self._streams[f.stream_id] = st
         if rejected:
@@ -365,6 +446,19 @@ class _ServerConnection:
                              fr.rst_payload(StatusCode.UNAVAILABLE,
                                             "connection draining"))
             return
+        gate = self.server.admission
+        if gate is not None:
+            pushback_ms = gate.try_admit()
+            if pushback_ms is not None:
+                self._send_trailers(
+                    st, StatusCode.UNAVAILABLE,
+                    f"server overloaded: admission rejected "
+                    f"({gate.inflight()} in flight); retry after "
+                    f"{pushback_ms}ms",
+                    [(PUSHBACK_KEY, str(pushback_ms))])
+                self._finish_stream(st)
+                return
+            st.gate = gate  # released exactly once in _finish_stream
         deadline = (None if timeout_us is None
                     else time.monotonic() + timeout_us / 1e6)
         handler = self.server._methods.get(path)
@@ -466,6 +560,40 @@ class _ServerConnection:
     def _finish_stream(self, st: _ServerStream) -> None:
         with self._lock:
             self._streams.pop(st.stream_id, None)
+            gate, st.gate = st.gate, None
+            drained = self.draining and not self._streams and self.alive
+        if gate is not None:
+            gate.release()
+        if drained:
+            self.linger_then_close()
+
+    #: after GOAWAY, wait this long before closing: a HEADERS frame already
+    #: in flight from a client that has not read the GOAWAY yet is answered
+    #: with a refusal instead of a dead connection
+    GOAWAY_LINGER_S = 1.0
+
+    def linger_then_close(self) -> None:
+        with self._lock:
+            if self._linger_timer is not None:
+                return
+            self._linger_timer = threading.Timer(self.GOAWAY_LINGER_S,
+                                                 self.close)
+        self._linger_timer.daemon = True
+        self._linger_timer.start()
+
+    def goaway(self, why: bytes) -> bool:
+        """Mark the connection draining and tell the client; True when it
+        had no stream in flight (the caller lingers, then closes)."""
+        with self._lock:
+            if not self.alive or self.draining:
+                return False
+            self.draining = True
+            empty = not self._streams
+        try:
+            self.writer.send(fr.GOAWAY, 0, 0, why)
+        except (EndpointError, OSError, fr.FrameError):
+            return False  # connection already dying
+        return empty
 
     def _shutdown(self) -> None:
         with self._lock:
@@ -474,10 +602,16 @@ class _ServerConnection:
             self.alive = False
             streams = list(self._streams.values())
             self._streams.clear()
+            timer = self._linger_timer
+        if timer is not None:
+            timer.cancel()
         if self.rdv is not None:
             # peer gone mid-rendezvous: claimed landing regions are released
             self.rdv.close()
         for st in streams:
+            gate, st.gate = st.gate, None
+            if gate is not None:
+                gate.release()  # the connection died with it admitted
             st.cancel()
         try:
             self.endpoint.close()
@@ -496,7 +630,12 @@ class Server:
     """Thread-pooled RPC server over any Endpoint source."""
 
     def __init__(self, max_workers: int = 32,
-                 max_receive_message_length: Optional[int] = None):
+                 max_receive_message_length: Optional[int] = None,
+                 admission: Optional[AdmissionGate] = None):
+        #: overload admission gate (None: admit everything)
+        self.admission = admission
+        self._draining = False
+        self._drain_hooks: List[Callable[[], None]] = []
         self._pool = ThreadPoolExecutor(max_workers=max_workers,
                                         thread_name_prefix="tpurpc-handler")
         #: per-message receive bound (None = config default; -1 = unlimited)
@@ -558,10 +697,15 @@ class Server:
         # stop() closed the others would answer every call "shutting down"
         with self._lock:
             adopted = not self._stopping
+            drain_new = self._draining
             if adopted:
                 self._connections.append(conn)
         if not adopted:
             conn.close()
+        elif drain_new:
+            # a connection dialed into a draining server is told at once
+            conn.goaway(b"server drain")
+            conn.linger_then_close()
 
     def _forget(self, conn: _ServerConnection) -> None:
         with self._lock:
@@ -599,6 +743,46 @@ class Server:
         self._pool.shutdown(wait=False)
         self._stopped.set()
         return self._stopped
+
+    def add_drain_hook(self, fn: Callable[[], None]) -> None:
+        """Register a callback the first :meth:`drain` runs after the
+        GOAWAY round and before it waits out in-flight streams (stateful
+        serving migrates live sequences here). Exceptions are swallowed: a
+        failed hook degrades to a plain drain."""
+        self._drain_hooks.append(fn)
+
+    @property
+    def draining(self) -> bool:
+        """True between :meth:`drain` and :meth:`stop`."""
+        return self._draining and not self._stopped.is_set()
+
+    def drain(self, linger: float = 5.0) -> bool:
+        """Server-wide graceful drain: every connection gets a GOAWAY
+        (streams that race it are refused, and connections opened during
+        the drain are told at adoption), the drain hooks run, and in-flight
+        streams finish within ``linger`` seconds. The server stays up; call
+        :meth:`stop` afterwards. True iff every in-flight stream finished
+        in time. A second call just waits again."""
+        with self._lock:
+            first = not self._draining
+            self._draining = True
+            conns = list(self._connections)
+        if first:
+            for conn in conns:
+                if conn.goaway(b"server drain"):
+                    conn.linger_then_close()
+            for hook in list(self._drain_hooks):
+                try:
+                    hook()
+                except Exception:
+                    pass  # a failed hook degrades to a plain drain
+        deadline = time.monotonic() + max(0.0, linger)
+        while True:
+            remaining = self.inflight_requests()
+            if remaining == 0 or time.monotonic() >= deadline:
+                break
+            time.sleep(0.01)
+        return remaining == 0
 
     def wait_for_termination(self, timeout: Optional[float] = None) -> bool:
         return self._stopped.wait(timeout)
