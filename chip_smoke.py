@@ -103,7 +103,24 @@ fails the run (non-zero exit, no result line) on any error:
    a live stream is migrated between two decode servers (worst
    inter-token gap against the median). Every stream is held token for
    token to ``reference_decode``. Skipped under ``--kernels``;
-9. print the kernels line, the card's name and power limit, and last the
+9. fleet serving, each fleet's workers spawned processes with their own
+   CUDA contexts on the card: (a) ``serve_torch_sharded`` of 2 workers on
+   one port (``SO_REUSEPORT``), each phase 6's float32 transformer (seed 0,
+   TF32 off) behind its own batcher (max_batch 8, 5 ms), phase 6's traffic
+   (8 clients x depth 4 x 16 int32 [1,128] requests), every reply against
+   the direct run in this process; requests/s, p50/p99 and requests per
+   worker (a pid leaf in each reply); then ``drain``: a health Watch held
+   on each worker sees NOT_SERVING, every worker reports drained, and
+   ``stop`` reaps both. (b) a handoff fleet (round robin) of 2 device-ring
+   ResNet-50 workers on phase 3's ring environment: one channel on each,
+   phase 3's 8 requests on each, every reply against the direct run; the
+   two pids differ and each worker launched each kernel at least twice
+   (its 4th and 7th requests wrap). (c) two ``serve_torch`` transformer
+   servers and one client ``Channel`` over both with ``lb_policy=
+   "least_loaded"``: 8 threads x 16 calls, each server's share, the last
+   parsed load reports, every reply against the direct run, and no
+   ``tpurpc-load`` key in the app's metadata. Skipped under ``--kernels``;
+10. print the kernels line, the card's name and power limit, and last the
    one-line result JSON.
 """
 
@@ -224,6 +241,8 @@ GEN_CLIENTS, GEN_STREAMS, GEN_PROMPT = 8, 8, (2, 64)
 #: tokens migrated after its 40th
 GEN_DIS_CLIENTS, GEN_DIS_TOKENS, GEN_DIS_PROMPT = 4, 48, 24
 GEN_MIG_TOKENS, GEN_MIG_AT = 400, 40
+#: phase 9: worker processes of each fleet
+FLEET_WORKERS = 2
 
 
 def fail(msg: str) -> None:
@@ -633,7 +652,8 @@ def drive_clients(port: int, images, per_client: int, batcher,
     ``key`` of a call to ``method``). Returns the replies,
     each request's latency in ms (``call_async`` to completion), the wall
     time in s of the timed part, and the batcher's (rows_run, batches_run)
-    at the start: every warm call has completed by then."""
+    at the start (None without a batcher in this process): every warm call
+    has completed by then."""
     import threading
 
     import numpy as np
@@ -688,7 +708,8 @@ def drive_clients(port: int, images, per_client: int, batcher,
     except threading.BrokenBarrierError:
         pass
     t0 = time.perf_counter()
-    before = (batcher.rows_run, batcher.batches_run)
+    before = (None if batcher is None
+              else (batcher.rows_run, batcher.batches_run))
     try:
         done.wait()
     except threading.BrokenBarrierError:
@@ -1920,6 +1941,460 @@ def generation_serving(dev, card) -> dict:
             "disaggregated": _disaggregated(dev, card)}
 
 
+# -- phase 9 -----------------------------------------------------------------
+#
+# The worker builds below run in spawned shard workers, which import this
+# file as ``__mp_main__`` and find them by name: they are module-level, and
+# the file's top level does no work. Each runs on the config's device
+# (``TPURPC_TORCH_DEVICE``, set by phase 3 to the card), with TF32 off.
+
+def _worker_device():
+    import torch
+
+    from tpurpc_torch.utils.config import resolve_device
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return resolve_device()
+
+
+def _fleet_transformer(dev):
+    """Phase 6's float32 model: ``TransformerConfig()``, seed SEED, on a
+    one-rank mesh on ``dev``; its serve fn padded with zero rows to the
+    bucket [MAX_BATCH,128] (serve_torch_sharded's batcher pads to powers of
+    two, the microbatches need an even count, and phase 6's direct run pads
+    to MAX_BATCH), each reply row beside the serving process's pid."""
+    import torch
+
+    from tpurpc_torch.models.transformer import (Transformer,
+                                                 TransformerConfig,
+                                                 make_serve_fn)
+    from tpurpc_torch.parallel import build_mesh
+
+    model = Transformer(TransformerConfig(), build_mesh(1, device=dev),
+                        generator=torch.Generator().manual_seed(SEED))
+    serve = make_serve_fn(model)
+    pid = os.getpid()
+
+    def fn(tree):
+        tokens = torch.as_tensor(tree["tokens"])
+        b = tokens.shape[0]
+        padded = tokens.new_zeros((max(b, MAX_BATCH), *tokens.shape[1:]))
+        padded[:b] = tokens
+        logits = serve({"tokens": padded})["logits"][:b]
+        return {"logits": logits,
+                "pid": torch.full((b,), pid, dtype=torch.int64,
+                                  device=logits.device)}
+
+    return fn
+
+
+def fleet_transformer_fn():
+    """Phase 9 (a)'s ``build_fn``: the transformer on this worker's card."""
+    return _fleet_transformer(_worker_device())
+
+
+def _kernel_check(dev) -> None:
+    """Both kernels once, across a wrap, against their plain versions;
+    raises on a difference. Its launches do not count: the counters are
+    zeroed after it."""
+    import torch
+
+    from tpurpc_torch.ops import ring_scatter as rs_mod
+    from tpurpc_torch.ops import ring_window as rw_mod
+
+    g = torch.Generator().manual_seed(SEED)
+    ring = torch.randint(0, 256, (4096,), dtype=torch.uint8, generator=g)
+    payload = torch.randint(0, 256, (1001,), dtype=torch.uint8, generator=g)
+    want = rs_mod.ring_scatter_plain(ring.clone(), payload, 3500)
+    got = rs_mod.ring_scatter(ring.to(dev), payload.to(dev), 3500).cpu()
+    if not torch.equal(got, want):
+        raise RuntimeError("ring_scatter differs from its plain version")
+    if not torch.equal(rw_mod.ring_window(got.to(dev), 3500, 1001).cpu(),
+                       rw_mod.ring_window_plain(want, 3500, 1001)):
+        raise RuntimeError("ring_window differs from its plain version")
+    rs_mod.launches = rw_mod.launches = 0
+
+
+def fleet_ring_build(shard_id: int):
+    """Phase 9 (b)'s worker: phase 3's ResNet-50 (float32, seed SEED) on
+    this worker's card behind ``add_tensor_method("Call", device=True)``,
+    and "Stats" (JSON: pid, shard, launches, the card's name). A worker
+    whose card or kernels fail raises here, which its supervisor reports
+    as ``fatal``."""
+    import torch
+
+    from tpurpc_torch.models.resnet import make_infer_fn, resnet50
+    from tpurpc_torch.ops import ring_scatter as rs_mod
+    from tpurpc_torch.ops import ring_window as rw_mod
+    from tpurpc_torch.rpc.server import (Server,
+                                         unary_unary_rpc_method_handler)
+    from tpurpc_torch.rpc.shard import shard_identity
+    from tpurpc_torch.torchshim.service import add_tensor_method
+
+    dev = _worker_device()
+    if dev.type == "cuda":
+        _kernel_check(dev)
+    torch.manual_seed(SEED)
+    infer = make_infer_fn(resnet50().to(dev))
+    infer(torch.zeros(BATCH, SIZE, SIZE, 3, device=dev))  # warm cuDNN
+
+    def classify(tree):
+        logits = infer(tree["images"])
+        return {"logits": logits, "top1": logits.argmax(dim=1)}
+
+    def stats(req, ctx):
+        return json.dumps({
+            "pid": os.getpid(), "shard": shard_identity()[0],
+            "launches": {"ring_scatter": rs_mod.launches,
+                         "ring_window": rw_mod.launches},
+            "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                       else "cpu")}).encode()
+
+    srv = Server(max_workers=4)
+    add_tensor_method(srv, "Call", classify, device=True)
+    srv.add_method("/tpurpc.Tensor/Stats",
+                   unary_unary_rpc_method_handler(stats))
+    return srv
+
+
+def _set_env(env: dict) -> None:
+    from tpurpc_torch.utils import config
+
+    for key, val in env.items():
+        if val is None:
+            os.environ.pop(key, None)
+        else:
+            os.environ[key] = val
+    config.set_config(None)
+
+
+def _pinned_channels(port, n, pid_of):
+    """Dial channels to a reuseport fleet until ``n`` distinct workers
+    hold one each (the kernel picks the worker per connection); returns
+    {pid: channel}."""
+    from tpurpc_torch.rpc.channel import Channel
+
+    pinned = {}
+    for _ in range(64):
+        ch = Channel(f"127.0.0.1:{port}")
+        pid = pid_of(ch)
+        if pid in pinned:
+            ch.close()
+        else:
+            pinned[pid] = ch
+        if len(pinned) == n:
+            return pinned
+    for ch in pinned.values():
+        ch.close()
+    fail(f"fleet: 64 connections reached {len(pinned)} of {n} workers")
+
+
+def _fleet_fanin(dev, card, per_client, fwd32) -> dict:
+    """(a): serve_torch_sharded of 2 transformer workers behind reuseport,
+    phase 6's traffic, then a drain seen by a Watch on each worker."""
+    import threading
+    from collections import Counter
+
+    import numpy as np
+    import torch
+
+    from tpurpc_torch.rpc import health
+    from tpurpc_torch.torchshim.service import (TensorClient,
+                                                serve_torch_sharded)
+
+    rng = np.random.default_rng(SEED + 9)
+    rows = [rng.integers(0, 256, (1, TF_SEQ)).astype(np.int32)
+            for _ in range(CLIENTS * per_client)]
+    t0 = time.perf_counter()
+    sup = serve_torch_sharded(fleet_transformer_fn, workers=FLEET_WORKERS,
+                              name="Generate", batching=True,
+                              max_batch=MAX_BATCH, max_delay_s=0.005,
+                              listener="reuseport")
+    pinned = {}
+    try:
+        up = time.perf_counter() - t0
+        pids = [sup.worker_pid(i) for i in range(FLEET_WORKERS)]
+        print(f"fleet (a): {FLEET_WORKERS} transformer workers up in {up} s "
+              f"(spawn, import, model), pids {pids}", flush=True)
+        replies, lat, wall, _ = drive_clients(
+            sup.port, rows, per_client, None, method="Generate",
+            key="tokens")
+        worst, apart, _ = _check_replies(
+            "fleet (a)", replies, rows, fwd32, dev, TF_TOL, None, floor=1.0)
+        served = Counter(int(r["pid"][0]) for r in replies)
+        check(set(served) <= set(pids), f"fleet (a): replies from pids "
+              f"{sorted(served)}, workers {pids}")
+        p50, p99 = np.percentile(lat, [50, 99])
+        n = len(replies)
+        print(f"fleet (a): {n} requests from {CLIENTS} clients at depth "
+              f"{DEPTH}: requests/s {n / wall}, latency ms p50 {p50} p99 "
+              f"{p99}; replies vs direct runs max |diff| / max(1, scale) "
+              f"{worst}, nearest other request's run {apart} x it; served "
+              f"per worker {[served.get(p, 0) for p in pids]} ({card})",
+              flush=True)
+
+        def pid_of(ch):
+            zero = torch.zeros((1, TF_SEQ), dtype=torch.int32)
+            out = TensorClient(ch).call("Generate", {"tokens": zero},
+                                        timeout=300)
+            return int(out["pid"][0])
+
+        pinned = _pinned_channels(sup.port, FLEET_WORKERS, pid_of)
+        seen = {pid: [] for pid in pinned}
+
+        def watch(ch, pid):
+            try:
+                for msg in ch.unary_stream(f"/{health.SERVICE_NAME}/Watch")(
+                        health.encode_request(""), timeout=60):
+                    seen[pid].append(health.decode_response(msg))
+                    if seen[pid][-1] is health.ServingStatus.NOT_SERVING:
+                        return
+            except Exception as exc:  # surfaced by the check below
+                seen[pid].append(repr(exc))
+
+        threads = [threading.Thread(target=watch, args=(ch, pid),
+                                    daemon=True)
+                   for pid, ch in pinned.items()]
+        for t in threads:
+            t.start()
+        deadline = time.monotonic() + 30
+        while not all(seen.values()) and time.monotonic() < deadline:
+            time.sleep(0.01)
+        check(all(v[:1] == [health.ServingStatus.SERVING]
+                  for v in seen.values()), f"fleet (a): watches before the "
+              f"drain {seen}")
+        sup.drain(linger=5.0)
+        for t in threads:
+            t.join(60)
+        check(not any(t.is_alive() for t in threads),
+              "fleet (a): a Watch did not see the drain")
+        check(all(v[-1] is health.ServingStatus.NOT_SERVING
+                  for v in seen.values()), f"fleet (a): watches {seen}")
+        deadline = time.monotonic() + 30
+        while len(sup.drained_workers()) < FLEET_WORKERS and \
+                time.monotonic() < deadline:
+            time.sleep(0.01)
+        check(sup.drained_workers() == list(range(FLEET_WORKERS)),
+              f"fleet (a): drained {sup.drained_workers()}")
+        print("fleet (a): drain: every worker's health Watch went SERVING "
+              "-> NOT_SERVING, every worker reported drained", flush=True)
+    finally:
+        for ch in pinned.values():
+            ch.close()
+        sup.stop()
+    check(sup.alive_workers() == [] and all(
+        w.proc.exitcode is not None for w in sup._workers),
+        "fleet (a): stop left a worker running")
+    return {"rps": n / wall, "p50": p50, "p99": p99,
+            "served": [served.get(p, 0) for p in pids]}
+
+
+def _fleet_ring(dev, card, requests) -> dict:
+    """(b): a handoff fleet of 2 device-ring ResNet-50 workers on phase
+    3's ring environment; one channel on each (round robin), phase 3's
+    requests on each, every reply against the direct run."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from tpurpc_torch.models.resnet import make_infer_fn, resnet50
+    from tpurpc_torch.rpc.channel import Channel
+    from tpurpc_torch.rpc.shard import ShardedServer
+    from tpurpc_torch.torchshim.service import TensorClient
+
+    torch.manual_seed(SEED)
+    infer = make_infer_fn(resnet50().to(dev))
+    rng = np.random.default_rng(SEED)
+    images = [rng.standard_normal((BATCH, SIZE, SIZE, 3)).astype(np.float32)
+              for _ in range(requests)]
+    t0 = time.perf_counter()
+    sup = ShardedServer(fleet_ring_build, workers=FLEET_WORKERS,
+                        listener="handoff", handoff_policy="round_robin")
+    sup.start(ready_timeout=600)
+    chans = []
+    try:
+        print(f"fleet (b): {FLEET_WORKERS} ResNet-50 device-ring workers up "
+              f"in {time.perf_counter() - t0} s", flush=True)
+        stats, replies, lat = [], {}, {}
+        for _ in range(FLEET_WORKERS):   # dialed in turn: round robin
+            ch = Channel(f"127.0.0.1:{sup.port}")
+            chans.append(ch)
+            stats.append(json.loads(bytes(ch.unary_unary(
+                "/tpurpc.Tensor/Stats")(b"", timeout=300))))
+        errors = []
+
+        def client(k, ch):
+            cli = TensorClient(ch)
+            replies[k], lat[k] = [], []
+            try:
+                for x in images:
+                    t = time.perf_counter()
+                    replies[k].append(cli.call(
+                        "Call", {"images": torch.from_numpy(x)}, timeout=300))
+                    lat[k].append((time.perf_counter() - t) * 1e3)
+            except Exception as exc:
+                errors.append(f"client {k}: {exc!r}")
+
+        ts = [threading.Thread(target=client, args=(k, ch), daemon=True)
+              for k, ch in enumerate(chans)]
+        t0 = time.perf_counter()
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(600)
+        wall = time.perf_counter() - t0
+        check(not errors and not any(t.is_alive() for t in ts),
+              f"fleet (b): {errors or 'a client did not finish'}")
+        after = [json.loads(bytes(ch.unary_unary("/tpurpc.Tensor/Stats")(
+            b"", timeout=300))) for ch in chans]
+    finally:
+        for ch in chans:
+            ch.close()
+        sup.stop()
+    check(sup.alive_workers() == [], "fleet (b): stop left a worker running")
+    for k in replies:
+        for i, (x, r) in enumerate(zip(images, replies[k])):
+            want = infer(torch.from_numpy(x).to(dev)).cpu()
+            got = r["logits"]
+            check(got.shape == (BATCH, 1000) and bool(
+                torch.isfinite(got).all()), f"fleet (b) {k}/{i}: logits "
+                f"{tuple(got.shape)}")
+            d = (got - want).abs().max().item()
+            check(d <= REPLY_TOL * max(1.0, want.abs().max().item()),
+                  f"fleet (b) {k}/{i}: logits differ from the direct run by "
+                  f"{d}")
+            check(torch.equal(r["top1"], want.argmax(dim=1)),
+                  f"fleet (b) {k}/{i}: top1 differs from the direct run")
+    pids = [s["pid"] for s in after]
+    check([s["shard"] for s in stats] == list(range(FLEET_WORKERS))
+          and [s["pid"] for s in stats] == pids
+          and len(set(pids)) == FLEET_WORKERS,
+          f"fleet (b): round robin put channels on {stats} / {after}")
+    launches = {name: [s["launches"][name] for s in after]
+                for name in ("ring_scatter", "ring_window")}
+    if dev.type == "cuda":
+        for name, counts in launches.items():
+            check(all(c >= 2 for c in counts), f"fleet (b): {name} launched "
+                  f"{counts} times in the workers, want at least 2 each")
+    wraps = sum(1 for k in range(requests) if (k * SPAN) % RING + SPAN > RING)
+    every = [v for k in sorted(lat) for v in lat[k]]
+    p50, p99 = (float(v) for v in np.percentile(every, [50, 99]))
+    n = FLEET_WORKERS * requests
+    for k in sorted(lat):
+        print(f"fleet (b) connection {k} latency ms: "
+              + " ".join(f"{v:.2f}" for v in lat[k]), flush=True)
+    print(f"fleet (b): {n} ResNet-50 requests of float32 "
+          f"[{BATCH},{SIZE},{SIZE},3] over {FLEET_WORKERS} connections, one "
+          f"per worker, {wraps} wrapped each; requests/s {n / wall}, p50 "
+          f"{p50} ms, p99 {p99} ms; pids {pids}; launches per worker "
+          f"{launches}; cards {[s['device'] for s in after]} ({card})",
+          flush=True)
+    return {"launches": launches, "rps": n / wall, "p50": p50, "p99": p99}
+
+
+def _fleet_least_loaded(dev, card, per_client, fwd32) -> dict:
+    """(c): two serve_torch transformer servers, one least_loaded channel
+    over both; CLIENTS threads x ``per_client`` calls on it."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from tpurpc_torch.rpc.channel import Channel
+    from tpurpc_torch.torchshim import codec
+    from tpurpc_torch.torchshim.service import TensorClient, serve_torch
+
+    fns = [_fleet_transformer(dev) for _ in range(2)]
+    servers = [serve_torch(fn, name="Generate", batching=True,
+                           max_batch=MAX_BATCH, max_delay_s=0.005)
+               for fn in fns]
+    rng = np.random.default_rng(SEED + 10)
+    rows = [rng.integers(0, 256, (1, TF_SEQ)).astype(np.int32)
+            for _ in range(CLIENTS * per_client)]
+    replies = [None] * len(rows)
+    errors = []
+    ch = Channel(f"ipv4:127.0.0.1:{servers[0][1]},127.0.0.1:"
+                 f"{servers[1][1]}", lb_policy="least_loaded")
+    try:
+        cli = TensorClient(ch)
+        warm = torch.zeros((1, TF_SEQ), dtype=torch.int32)
+        for _ in range(4):
+            cli.call("Generate", {"tokens": warm}, timeout=300)
+        before = [b.rows_run for _s, _p, b in servers]
+
+        def client(c):
+            try:
+                for i in range(c * per_client, (c + 1) * per_client):
+                    replies[i] = cli.call(
+                        "Generate", {"tokens": torch.from_numpy(rows[i])},
+                        timeout=300)
+            except Exception as exc:
+                errors.append(f"client {c}: {exc!r}")
+
+        ts = [threading.Thread(target=client, args=(c,), daemon=True)
+              for c in range(CLIENTS)]
+        t0 = time.perf_counter()
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(600)
+        wall = time.perf_counter() - t0
+        check(not errors and not any(t.is_alive() for t in ts),
+              f"fleet (c): {errors or 'a client did not finish'}")
+        shares = [b.rows_run - r0 for (_s, _p, b), r0 in zip(servers, before)]
+        snap = ch._policy.snapshot()
+        raw, call = ch.unary_unary("/tpurpc.Tensor/Generate").with_call(
+            codec.encode_tree_bytes({"tokens": warm}), timeout=300)
+        keys = [k for k, _v in call.trailing_metadata() or ()]
+    finally:
+        ch.close()
+        for srv, _p, batcher in servers:
+            srv.stop()
+            batcher.close()
+    check("tpurpc-load" not in keys, f"fleet (c): the load report reached "
+          f"the app's trailing metadata {keys}")
+    check(sum(shares) == len(rows), f"fleet (c): {shares} rows for "
+          f"{len(rows)} calls")
+    check(all(snap["reported"]), f"fleet (c): reports {snap}")
+    worst, apart, _ = _check_replies(
+        "fleet (c)", replies, rows, fwd32, dev, TF_TOL, None, floor=1.0)
+    n = len(rows)
+    print(f"fleet (c): {n} calls from {CLIENTS} threads on one least_loaded "
+          f"channel over 2 serve_torch servers: share {shares}, requests/s "
+          f"{n / wall}; last parsed reports: load EWMA {snap['load']}, p99 "
+          f"{snap['p99_ms']}, ejected {snap['ejected']}; replies vs direct "
+          f"runs max |diff| / max(1, scale) {worst}; no tpurpc-load key in "
+          f"the app's metadata ({card})", flush=True)
+    return {"shares": shares, "rps": n / wall, "load": snap["load"]}
+
+
+def fleet_serving(dev, card, per_client=PER_CLIENT,
+                  ring_requests=REQUESTS) -> dict:
+    """Phase 9: fleet serving (docstring of this file). Returns each
+    leg's readings; ``["b"]["launches"]`` holds each kernel's launches in
+    each worker of (b)."""
+    fwd32 = _fleet_transformer(dev)
+    tcp = {k: None for k in RING_ENV}
+    tcp["TPURPC_TORCH_DEVICE"] = str(dev)
+    _set_env(tcp)
+
+    def direct(x):
+        return fwd32({"tokens": x})["logits"]
+
+    a = _fleet_fanin(dev, card, per_client, direct)
+    ring = {"GRPC_PLATFORM_TYPE": "TPU", "TPURPC_HBM_RING_SIZE_KB":
+            str(RING >> 10), "TPURPC_TORCH_DEVICE": str(dev)}
+    _set_env(ring)
+    try:
+        b = _fleet_ring(dev, card, ring_requests)
+    finally:
+        _set_env(tcp)
+    c = _fleet_least_loaded(dev, card, per_client, direct)
+    return {"a": a, "b": b, "c": c}
+
+
 def card_line() -> str:
     """The card's name and power limit, as nvidia-smi reports them."""
     smi = subprocess.run(
@@ -1954,6 +2429,7 @@ def main() -> None:
     if kernels_only:
         launches = {"ring_scatter": None, "ring_window": None}
         stream = tf_launches = train_launches = gen_launches = None
+        fleet_launches = None
     else:
         from tpurpc_torch.ops import ring_scatter as rs_mod
         from tpurpc_torch.ops import ring_window as rw_mod
@@ -1989,6 +2465,17 @@ def main() -> None:
                         "ring_window": rw_mod.launches}
         print(f"generation: kernel launches in phase 8 {gen_launches}; "
               f"phase 8 took {time.perf_counter() - t0} s", flush=True)
+        # phase 9: (b) launches both kernels inside its worker processes,
+        # which count them there; this process launches neither
+        rs_mod.launches = rw_mod.launches = 0
+        t0 = time.perf_counter()
+        fleet = fleet_serving(dev, card)
+        fleet_launches = fleet["b"]["launches"]
+        check((rs_mod.launches, rw_mod.launches) == (0, 0),
+              "fleet: the smoke process itself launched a kernel")
+        print(f"fleet: kernel launches in phase 9's workers {fleet_launches}; "
+              f"phase 9 took {time.perf_counter() - t0} s ({card})",
+              flush=True)
 
     sources = {"ring_scatter": "tpurpc/ops/ring_scatter.py:133",
                "ring_window": "tpurpc/ops/ring_window.py:138"}
@@ -2026,7 +2513,10 @@ def main() -> None:
                                   train_launches[name]),
             # phase 8, generation serving
             "generation_launches": (None if gen_launches is None else
-                                    gen_launches[name])})
+                                    gen_launches[name]),
+            # phase 9 (b), in each fleet worker: [worker 0, worker 1]
+            "fleet_launches": (None if fleet_launches is None else
+                               fleet_launches[name])})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     if kernels_only:

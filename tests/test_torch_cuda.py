@@ -9,8 +9,9 @@ the kernels' plain versions against the reference; here the CUDA kernels are
 held against the plain versions, and the device ring (with a release
 against a side stream's read), the fan-in batcher, device serialization,
 4 MiB tensor streams over rendezvous (landed on the host, and through the
-device ring), the MoE transformer's forward and train steps, and the
-generation plane's step model run on the card.
+device ring), the MoE transformer's forward and train steps, the
+generation plane's step model, and a spawned shard worker's device ring run
+on the card.
 """
 
 import numpy as np
@@ -522,3 +523,38 @@ def test_step_model_on_card_matches_reference_decode(dev):
         bad.step_paged(pk, np.zeros(2, np.int32))
     assert int(bad.step_paged(pk[1:], np.zeros(1, np.int32))[0]) == \
         want[0][1]
+
+
+@pytest.mark.cuda
+def test_spawned_worker_device_ring_launches_both_kernels(dev, stream_env):
+    """One spawned shard worker on the device-ring platform (a 64 KiB ring
+    on the card): a connection's 3rd and 6th float32 [2,32,32,3] requests
+    wrap the ring, so the worker, in its own CUDA context, launches both
+    kernels; every reply equals 2x + 1 computed here."""
+    import json
+    import os
+
+    import torch_shard_builds as builds
+    from tpurpc_torch.rpc.shard import ShardedServer
+
+    stream_env("TPU", TPURPC_HBM_RING_SIZE_KB="64")
+    sup = ShardedServer(builds.ring, workers=1, listener="handoff")
+    sup.start(ready_timeout=180)
+    rng = np.random.default_rng(5)
+    try:
+        with Channel(f"127.0.0.1:{sup.port}") as ch:
+            cli = TensorClient(ch)
+            for _ in range(6):
+                x = torch.from_numpy(rng.standard_normal(
+                    (2, 32, 32, 3)).astype(np.float32))
+                y = cli.call("Call", {"x": x}, timeout=60)["y"]
+                assert torch.equal(y.cpu(), x * 2.0 + 1.0)
+            st = json.loads(bytes(ch.unary_unary(builds.STATS)(
+                b"", timeout=60)))
+    finally:
+        sup.stop()
+    assert st["pid"] == sup.worker_pid(0) != os.getpid()
+    assert st["device"] == torch.cuda.get_device_name(0)
+    assert st["launches"]["ring_scatter"] >= 2, st
+    assert st["launches"]["ring_window"] >= 2, st
+    assert st["plain"] == {"ring_scatter": 0, "ring_window": 0}

@@ -314,13 +314,21 @@ class EndpointListener:
     """Accept loop feeding the factory. Each accepted socket bootstraps on
     its own thread, so one silent client cannot stall other accepts; the
     listener accepts only once ``ready`` is set (grpcio semantics: the port
-    is bound at add_port, served at start)."""
+    is bound at add_port, served at start). ``reuseport`` lets listeners of
+    several processes share one port (``SO_REUSEPORT``)."""
 
     def __init__(self, host: str, port: int,
                  on_endpoint: Callable[[Endpoint], None],
-                 ready: "Optional[threading.Event]" = None):
+                 ready: "Optional[threading.Event]" = None,
+                 reuseport: bool = False):
         self._sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
         self._sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        if reuseport:
+            # listener sharding: N worker processes listen on the SAME port
+            # and the kernel spreads accepted connections across them. Every
+            # sharing socket sets the flag before bind; a dead worker's
+            # socket closes with it, so the kernel stops routing there.
+            self._sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEPORT, 1)
         self._sock.bind((host, port))
         self._sock.listen(128)
         self.port = self._sock.getsockname()[1]

@@ -1,11 +1,14 @@
 """Client channel: multiplexed calls over one endpoint, with reconnect.
 
-A trimmed copy of ``tpurpc/rpc/channel.py`` (one address, no resolver, load
-balancing, retries, hedging, compression or native fast path; a dedicated
-reader thread per connection):
+A trimmed copy of ``tpurpc/rpc/channel.py`` (no retries, hedging, service
+config, compression or native fast path; a dedicated reader thread per
+connection):
 
-* ``Channel`` owns one subchannel that (re)connects with exponential
-  backoff and maps transport failure to ``UNAVAILABLE``;
+* ``Channel`` resolves its target into subchannels (one per address), each
+  (re)connecting with exponential backoff; an LB policy
+  (``tpurpc_torch/rpc/resolver.py``) orders them per call, and transport
+  failure maps to ``UNAVAILABLE``. A server's per-response load report is
+  stripped from the trailing metadata and fed to the policy;
 * ``_Connection`` is one live transport: a reader thread demuxing frames to
   per-stream state, a write path serialized by ``FrameWriter``, odd client
   stream ids, and a rendezvous link (``core/rendezvous.py``) that moves
@@ -25,18 +28,23 @@ import queue
 import random
 import threading
 import time
-from typing import Callable, Dict, Iterable, Iterator, List, Optional, Tuple
+from typing import (Callable, Dict, Iterable, Iterator, List, Optional,
+                    Tuple, Union)
 
 from tpurpc_torch.core import rendezvous as _rdv
 from tpurpc_torch.core.endpoint import (Endpoint, EndpointError,
                                         connect_endpoint, device_ring_of)
 from tpurpc_torch.rpc import frame as fr
+from tpurpc_torch.rpc.resolver import make_policy, resolve_target
 from tpurpc_torch.rpc.status import (Deserializer, Metadata, RpcError,
                                      Serializer, StatusCode,
                                      deserialize as _deserialize,
                                      identity_codec as _identity)
 from tpurpc_torch.utils.config import get_config
 
+#: the server's load-report key (``tpurpc_torch.rpc.server.LOAD_KEY``), a
+#: literal here rather than a server import in the client module
+_LOAD_KEY = "tpurpc-load"
 
 class _ClientStream:
     """Per-call state the reader thread feeds and the caller drains."""
@@ -156,6 +164,9 @@ class _Connection:
         self.alive = True
         self.draining = False  # GOAWAY received: no new streams
         self._on_dead = on_dead
+        #: the LB policy's load-report sink for this connection, rebound by
+        #: the channel at every pick (None: reports are stripped, unused)
+        self.on_load: Optional[Callable[[object], None]] = None
         self.writer.send_preface()
         # the rendezvous link and its hello: a PING any peer echoes; only a
         # rendezvous-capable peer answers with its own hello, which arms the
@@ -256,6 +267,20 @@ class _Connection:
             st.events.put(("initial_metadata", md))
         elif f.type in (fr.TRAILERS, fr.RST):
             code, details, md = fr.parse_trailers(f.payload)
+            if md:
+                # the server's piggybacked load report is transport-internal:
+                # strip it before metadata surfaces to the app, feed it to
+                # the LB policy's sink
+                for i, (key, value) in enumerate(md):
+                    if key == _LOAD_KEY:
+                        del md[i]
+                        cb = self.on_load
+                        if cb is not None:
+                            try:
+                                cb(value)
+                            except Exception:
+                                pass  # a policy bug must not kill the reader
+                        break
             self.close_stream(st)
             st.deliver_trailers(code, details, md)
         else:
@@ -283,9 +308,102 @@ class _Connection:
         self._die("channel closed")
 
 
+class _Subchannel:
+    """One address's connection + exponential reconnect backoff (gRPC's
+    Subchannel in client_channel + lib/backoff)."""
+
+    def __init__(self, factory: Callable[[], Endpoint], channel: "Channel"):
+        self._factory = factory
+        self._channel = channel
+        self._conn: Optional[_Connection] = None
+        self._lock = threading.Lock()          # guards _conn/backoff state
+        self._connect_lock = threading.Lock()  # serializes dial attempts only
+        self._backoff = Channel._BACKOFF_INITIAL
+        self._next_attempt = 0.0
+
+    def _live(self) -> Optional[_Connection]:
+        conn = self._conn
+        if conn is not None and conn.alive and not conn.draining:
+            return conn
+        return None
+
+    def get(self, fail_fast: bool = False) -> _Connection:
+        """The live connection, dialing if needed. ``fail_fast=True`` (the
+        multi-subchannel LB walk) raises UNAVAILABLE immediately while the
+        subchannel is in connect backoff instead of sleeping it out —
+        sleeping through backoff inside the dial lock convoys every walker
+        behind one dead backend, and with other backends in the walk there
+        is nothing worth waiting for. Single-subchannel channels keep the
+        sleep: there, waiting out the backoff IS the reconnect contract."""
+        with self._lock:
+            conn = self._live()
+            if conn is not None:
+                return conn
+            if fail_fast and self._next_attempt > time.monotonic():
+                raise RpcError(StatusCode.UNAVAILABLE,
+                               "subchannel in connect backoff")
+        # dial outside self._lock: a blackholed connect must not freeze
+        # close() or concurrent calls for the whole connect timeout
+        with self._connect_lock:
+            with self._lock:
+                conn = self._live()
+                if conn is not None:
+                    return conn
+                wait = self._next_attempt - time.monotonic()
+            if wait > 0:
+                time.sleep(wait)
+            if self._channel._is_closed():
+                raise RpcError(StatusCode.UNAVAILABLE, "channel closed")
+            try:
+                conn = _Connection(
+                    self._factory(), self._on_conn_dead,
+                    max_recv_bytes=self._channel.max_receive_message_length)
+            except (OSError, EndpointError) as exc:
+                with self._lock:
+                    self._next_attempt = (
+                        time.monotonic()
+                        + self._backoff * (1 + 0.2 * random.random()))
+                    self._backoff = min(self._backoff * Channel._BACKOFF_MULT,
+                                        Channel._BACKOFF_MAX)
+                raise RpcError(StatusCode.UNAVAILABLE,
+                               f"connect failed: {exc}") from exc
+            with self._lock:
+                if self._channel._is_closed():
+                    conn.close()
+                    raise RpcError(StatusCode.UNAVAILABLE, "channel closed")
+                self._backoff = Channel._BACKOFF_INITIAL
+                self._conn = conn
+            return conn
+
+    def _on_conn_dead(self, conn: _Connection) -> None:
+        with self._lock:
+            if self._conn is conn:
+                self._conn = None
+
+    def close(self) -> None:
+        with self._lock:
+            conn, self._conn = self._conn, None
+        if conn is not None:
+            conn.close()
+
+
 class Channel:
-    """A lazily-(re)connecting client channel to ``"host:port"``, or over an
-    injected ``endpoint_factory``."""
+    """A lazily-(re)connecting client channel.
+
+    ``target`` is a gRPC target (``"host:port"``, ``"dns:///host:port"``,
+    ``"ipv4:h1:p1,h2:p2"`` or a registered scheme; see
+    :mod:`tpurpc_torch.rpc.resolver`); tests may instead inject
+    ``endpoint_factory``. Each resolved address is one subchannel.
+
+    ``lb_policy`` is a policy name (``"pick_first"``, ``"round_robin"``,
+    ``"ring_hash"``, ``"least_loaded"``) or a composition-tree dict spec
+    (``priority`` / ``weighted_target`` over subchannel index subsets) — see
+    :func:`tpurpc_torch.rpc.resolver.make_policy`. ``options`` takes
+    grpcio's ``[("grpc.arg_name", value), ...]``; the port reads
+    ``grpc.max_receive_message_length`` and ``grpc.lb_policy_name`` (an
+    explicit parameter wins) and ignores the rest, as grpcio ignores unknown
+    channel args.
+    """
 
     #: reconnect backoff: start 50 ms, cap 2 s, ×1.6, 20% jitter
     _BACKOFF_INITIAL = 0.05
@@ -295,71 +413,129 @@ class Channel:
     def __init__(self, target: Optional[str] = None, *,
                  endpoint_factory: Optional[Callable[[], Endpoint]] = None,
                  connect_timeout: float = 30.0,
-                 max_receive_message_length: Optional[int] = None):
+                 lb_policy: "Union[str, dict]" = "pick_first",
+                 max_receive_message_length: Optional[int] = None,
+                 options=None):
+        if options:
+            opt = dict(options)
+            if max_receive_message_length is None:
+                max_receive_message_length = opt.get(
+                    "grpc.max_receive_message_length")
+            if lb_policy == "pick_first" and "grpc.lb_policy_name" in opt:
+                lb_policy = opt["grpc.lb_policy_name"]
+        self.max_receive_message_length = get_config().resolve_recv_limit(
+            max_receive_message_length)
+        self._lb_spec = lb_policy
+        self._connect_timeout = connect_timeout
         if endpoint_factory is None:
             if target is None:
                 raise ValueError("need target or endpoint_factory")
-            host, _, port = target.rpartition(":")
-            if not host or not port.isdigit():
-                raise ValueError(f"target must be host:port, got {target!r}")
-            endpoint_factory = (lambda: connect_endpoint(
-                host, int(port), timeout=connect_timeout))
-        self._factory = endpoint_factory
-        self.max_receive_message_length = get_config().resolve_recv_limit(
-            max_receive_message_length)
-        self._lock = threading.Lock()          # guards _conn/backoff/_closed
-        self._connect_lock = threading.Lock()  # serializes dials
-        self._conn: Optional[_Connection] = None
+            addrs = resolve_target(target)
+            self._addrs: Optional[list] = list(addrs)
+            factories = [self._addr_factory(h, p) for h, p in addrs]
+        else:
+            self._addrs = None  # injected factory: membership is fixed
+            factories = [endpoint_factory]
+        self._subchannels = [_Subchannel(f, self) for f in factories]
+        self._policy = make_policy(lb_policy, len(self._subchannels))
+        self._lock = threading.Lock()  # guards _closed and the membership
         self._closed = False
-        self._backoff = self._BACKOFF_INITIAL
-        self._next_attempt = 0.0
 
-    def _live(self) -> Optional[_Connection]:
-        conn = self._conn
-        if conn is not None and conn.alive and not conn.draining:
-            return conn
-        return None
+    def _addr_factory(self, h: str, p: int) -> Callable[[], Endpoint]:
+        timeout = self._connect_timeout
+        return lambda: connect_endpoint(h, p, timeout=timeout)
 
-    def _connection(self) -> _Connection:
-        """The live connection, dialing (after any backoff) if needed."""
+    @property
+    def _conn(self) -> Optional[_Connection]:
+        """The first subchannel's connection, or None: THE connection of a
+        one-address channel (tests and the smoke read its rendezvous
+        link)."""
+        return self._subchannels[0]._conn
+
+    def _is_closed(self) -> bool:
+        with self._lock:
+            return self._closed
+
+    def update_addresses(self, addrs) -> None:
+        """Replace the channel's backend set (re-resolution). Addresses
+        present in both old and new sets KEEP their live subchannel (and
+        its connection); removed ones are closed; the LB policy is rebuilt
+        over the new membership with the channel's original spec.
+
+        ``addrs``: iterable of ``(host, port)`` or ``"host:port"`` strings.
+        In-flight calls on kept subchannels are unaffected; calls racing
+        the swap may still land on a closing backend once and fail
+        UNAVAILABLE.
+        """
+        parsed: list = []
+        for a in addrs:
+            if isinstance(a, tuple):
+                parsed.append(a)
+            else:
+                # resolve strings as the constructor did: the keep-live
+                # matching below compares RESOLVED addresses, so
+                # "localhost:p" must normalize to the same keys or a no-op
+                # update would tear down live connections
+                parsed.extend(resolve_target(a))
+        if not parsed:
+            raise ValueError("update_addresses needs at least one address")
+        # composite dict specs pin absolute subchannel indices and cannot
+        # survive a membership size change: balanced sets get round_robin
+        spec = (self._lb_spec if isinstance(self._lb_spec, str)
+                else "round_robin")
         with self._lock:
             if self._closed:
                 raise RpcError(StatusCode.UNAVAILABLE, "channel closed")
-            conn = self._live()
-            if conn is not None:
-                return conn
-        with self._connect_lock:
-            with self._lock:
-                conn = self._live()
-                if conn is not None:
-                    return conn
-                wait = self._next_attempt - time.monotonic()
-            if wait > 0:
-                time.sleep(wait)
-            try:
-                conn = _Connection(self._factory(), self._on_conn_dead,
-                                   max_recv_bytes=self.max_receive_message_length)
-            except (OSError, EndpointError) as exc:
-                with self._lock:
-                    self._next_attempt = (
-                        time.monotonic()
-                        + self._backoff * (1 + 0.2 * random.random()))
-                    self._backoff = min(self._backoff * self._BACKOFF_MULT,
-                                        self._BACKOFF_MAX)
-                raise RpcError(StatusCode.UNAVAILABLE,
-                               f"connect failed: {exc}") from exc
-            with self._lock:
-                if self._closed:
-                    conn.close()
-                    raise RpcError(StatusCode.UNAVAILABLE, "channel closed")
-                self._backoff = self._BACKOFF_INITIAL
-                self._conn = conn
-            return conn
+            if self._addrs is None:
+                raise RuntimeError(
+                    "channel built from endpoint_factory has fixed membership")
+            old: dict = {}
+            for a, sc in zip(self._addrs, self._subchannels):
+                old.setdefault(a, []).append(sc)
+            new_subs = []
+            for a in parsed:
+                bucket = old.get(a)
+                if bucket:
+                    new_subs.append(bucket.pop(0))  # keep the live conn
+                else:
+                    new_subs.append(_Subchannel(self._addr_factory(*a), self))
+            removed = [sc for bucket in old.values() for sc in bucket]
+            policy = make_policy(spec, len(new_subs))
+            # atomic swap: _connection() snapshots both attributes
+            self._subchannels = new_subs
+            self._policy = policy
+            self._addrs = list(parsed)
+        for sc in removed:
+            sc.close()
 
-    def _on_conn_dead(self, conn: _Connection) -> None:
+    def _connection(self) -> _Connection:
+        """LB pick: walk subchannels in policy order, first live or
+        dialable wins (client_channel's resolver → LB → subchannel flow)."""
         with self._lock:
-            if self._conn is conn:
-                self._conn = None
+            if self._closed:
+                raise RpcError(StatusCode.UNAVAILABLE, "channel closed")
+            # snapshot: update_addresses swaps both under this lock, so a
+            # pick never mixes one generation's policy with another's subs
+            policy, subs = self._policy, self._subchannels
+        last_exc: Optional[Exception] = None
+        fail_fast = len(subs) > 1  # walkers skip backing-off members
+        for idx in list(policy.order()):
+            try:
+                conn = subs[idx].get(fail_fast=fail_fast)
+            except RpcError as exc:
+                policy.failed(idx)
+                last_exc = exc
+                continue
+            policy.connected(idx)
+            # bind the connection's load-report sink to this pick's
+            # (policy, index) — rebound every pick so a policy rebuilt by
+            # update_addresses never receives stale indices
+            if hasattr(policy, "load_report"):
+                conn.on_load = (lambda raw, _p=policy, _i=idx:
+                                _p.load_report(_i, raw))
+            return conn
+        raise last_exc if last_exc is not None else RpcError(
+            StatusCode.UNAVAILABLE, "no subchannels")
 
     def device_ring(self):
         """The live connection's device receive ring, or None off the TPU
@@ -370,9 +546,9 @@ class Channel:
     def close(self) -> None:
         with self._lock:
             self._closed = True
-            conn, self._conn = self._conn, None
-        if conn is not None:
-            conn.close()
+            subs = list(self._subchannels)
+        for sc in subs:
+            sc.close()
 
     def __enter__(self):
         return self

@@ -1,10 +1,13 @@
 """Server: listener → per-connection demux → handler dispatch on a pool.
 
 A trimmed copy of ``tpurpc/rpc/server.py`` (no interceptors, inline
-reactor handlers, keepalive/max-age timers, load reports, h2 or native
-planes, the control-ring plane, channelz or observability). It keeps the
-overload :class:`AdmissionGate` and the server-wide :meth:`Server.drain`
-with its drain hooks, which generation serving uses.
+reactor handlers, keepalive/max-age timers, h2 or native planes, the
+control-ring plane, channelz or observability). It keeps the overload
+:class:`AdmissionGate`, the server-wide :meth:`Server.drain` with its drain
+hooks and its health-service flip, and what a fleet needs: the per-response
+load report (:meth:`Server.set_load_provider`, :data:`LOAD_KEY`), listeners
+that share a port (``add_insecure_port(..., reuseport=True)``) and
+:meth:`Server.adopt_socket` for connections accepted elsewhere.
 ``ServerContext`` keeps the grpcio surface the tensor service uses, including
 ``device_ring``; handlers use grpcio's four-shape taxonomy. Each connection
 carries a rendezvous link (``core/rendezvous.py``): bulk request payloads
@@ -14,7 +17,9 @@ land in this side's landing pool and bulk responses go into the client's.
 from __future__ import annotations
 
 import logging
+import os
 import queue
+import socket
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -22,7 +27,8 @@ from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 from tpurpc_torch.core import rendezvous as _rdv
 from tpurpc_torch.core.endpoint import (Endpoint, EndpointError,
-                                        EndpointListener, device_ring_of)
+                                        EndpointListener, create_endpoint,
+                                        device_ring_of)
 from tpurpc_torch.rpc import frame as fr
 from tpurpc_torch.rpc.status import (AbortError, Deserializer, Metadata,
                                      Serializer, StatusCode,
@@ -32,6 +38,10 @@ from tpurpc_torch.utils.config import get_config
 
 _log = logging.getLogger("tpurpc_torch.server")
 
+#: trailing-metadata key carrying the ORCA-style per-response load report
+#: (``"<inflight>,<queue_depth>,<p99_ms>"`` — see Server._load_md); the
+#: client channel strips it and feeds the ``least_loaded`` LB policy
+LOAD_KEY = "tpurpc-load"
 #: trailing-metadata key on admission rejections: how long the client
 #: should back off before retrying (milliseconds)
 PUSHBACK_KEY = "tpurpc-pushback-ms"
@@ -229,6 +239,9 @@ class _ServerStream:
         self.stream_id = stream_id
         #: the admission gate this stream holds a slot of, if any
         self.gate: Optional[AdmissionGate] = None
+        #: a health probe: admitted during drain and past the admission
+        #: gate, and not counted by the drain's wait
+        self.is_probe = False
         self.recv_limit = recv_limit
         self.requests: "queue.Queue[object]" = queue.Queue()
         self.assembly = fr.Assembly()
@@ -434,11 +447,16 @@ class _ServerConnection:
         st = _ServerStream(f.stream_id,
                            queue_depth=get_config().stream_queue_depth,
                            recv_limit=self.server.max_receive_message_length)
+        # Health RPCs are admitted even while draining: the drain contract
+        # is that the health service ANSWERS NOT_SERVING — a refused probe
+        # reads as death, not as leaving rotation.
+        st.is_probe = path.startswith("/grpc.health.")
         with self._lock:
             # the server's flag closes the adoption race: a connection
             # dialed into a draining server can dispatch HEADERS before it
             # is marked draining
-            rejected = self.draining or self.server._draining
+            rejected = ((self.draining or self.server._draining)
+                        and not st.is_probe)
             if not rejected:
                 self._streams[f.stream_id] = st
         if rejected:
@@ -446,8 +464,10 @@ class _ServerConnection:
                              fr.rst_payload(StatusCode.UNAVAILABLE,
                                             "connection draining"))
             return
+        # health probes are exempt: an overloaded backend must keep
+        # answering its LB's probes or shedding reads as death
         gate = self.server.admission
-        if gate is not None:
+        if gate is not None and not st.is_probe:
             pushback_ms = gate.try_admit()
             if pushback_ms is not None:
                 self._send_trailers(
@@ -526,7 +546,8 @@ class _ServerConnection:
                          handler.response_serializer(result)),
                         (fr.TRAILERS, fr.FLAG_END_STREAM, st.stream_id,
                          fr.trailers_payload(code, ctx._details,
-                                             list(ctx._trailing))),
+                                             list(ctx._trailing)
+                                             + self.server._load_md())),
                     ])
                 except fr.FrameError:
                     self._send_trailers(st, StatusCode.INTERNAL,
@@ -544,10 +565,13 @@ class _ServerConnection:
 
     def _send_trailers(self, st: _ServerStream, code: StatusCode, details: str,
                        metadata: Metadata = ()) -> None:
+        # every terminal response piggybacks the (cached) load report —
+        # the least_loaded policy's per-response feed
+        md = list(metadata) + self.server._load_md()
         try:
             try:
                 self.writer.send(fr.TRAILERS, fr.FLAG_END_STREAM, st.stream_id,
-                                 fr.trailers_payload(code, details, metadata))
+                                 fr.trailers_payload(code, details, md))
             except fr.FrameError:
                 # user trailing metadata too large for one control frame
                 self.writer.send(
@@ -635,6 +659,11 @@ class Server:
         #: overload admission gate (None: admit everything)
         self.admission = admission
         self._draining = False
+        self._health_servicer = None  # set by HealthServicer.add_to_server
+        self._load_reports = os.environ.get(
+            "TPURPC_LOAD_REPORTS", "1").lower() not in ("0", "off", "false")
+        self._load_extra: Optional[Callable[[], int]] = None
+        self._load_cache: Tuple[float, Optional[list]] = (0.0, None)
         self._drain_hooks: List[Callable[[], None]] = []
         self._pool = ThreadPoolExecutor(max_workers=max_workers,
                                         thread_name_prefix="tpurpc-handler")
@@ -652,14 +681,46 @@ class Server:
     def add_method(self, path: str, handler: RpcMethodHandler) -> None:
         self._methods[path] = handler
 
-    def add_insecure_port(self, address: str) -> int:
+    def add_insecure_port(self, address: str, *,
+                          reuseport: bool = False) -> int:
         """Bind now and return the real port (the port for ":0" is known
-        before start); connections are accepted once the server starts."""
+        before start); connections are accepted once the server starts.
+
+        ``reuseport=True`` is the listener-sharding mode: shard workers bind
+        the SAME port with ``SO_REUSEPORT`` and the kernel spreads accepts
+        across them (see :class:`tpurpc_torch.rpc.shard.ShardedServer`)."""
         host, _, port = address.rpartition(":")
         listener = EndpointListener(host or "0.0.0.0", int(port),
-                                    self.serve_endpoint, ready=self._serving)
+                                    self.serve_endpoint, ready=self._serving,
+                                    reuseport=reuseport)
         self._listeners.append(listener)
         return listener.port
+
+    def adopt_socket(self, sock: socket.socket) -> None:
+        """Serve a connection that was ACCEPTED ELSEWHERE (the shard
+        supervisor's accept loop, delivered over SCM_RIGHTS) as this
+        server's own listener would: the platform's endpoint factory (the
+        device ring on ``TPU``), then the protocol sniff. Runs off the
+        caller's thread: a ring bootstrap blocks, and the worker's control
+        loop must not stall behind one silent client."""
+
+        def _adopt():
+            try:
+                peer = sock.getpeername()
+                host = peer[0] if isinstance(peer, tuple) else str(peer)
+                ep = create_endpoint(sock, is_server=True,
+                                     pool_key=f"peer:{host}")
+            except Exception as exc:
+                _log.debug("handoff bootstrap failed: %s", exc)
+                try:
+                    sock.close()
+                except OSError:
+                    pass
+                return
+            self.serve_endpoint(ep)
+
+        threading.Thread(target=_adopt, daemon=True,
+                         name="tpurpc-handoff").start()
 
     def start(self) -> "Server":
         self._serving.set()
@@ -744,6 +805,47 @@ class Server:
         self._stopped.set()
         return self._stopped
 
+    def set_load_provider(self, fn: Optional[Callable[[], int]]) -> None:
+        """Register an extra queue-depth signal for the load report —
+        serve_torch wires the FanInBatcher's queue depth here, so the
+        ``least_loaded`` policy sees requests parked BEHIND the transport
+        (the batcher is where overload actually queues on a model server);
+        generation serving wires ``DecodeScheduler.load_depth`` (waiting
+        AND swapped)."""
+        self._load_extra = fn
+
+    def _load_md(self) -> list:
+        """The ORCA-style piggyback: ``[(LOAD_KEY, "i,q,p99ms")]`` appended
+        to every terminal response's trailing metadata, or ``[]`` when
+        disabled (``TPURPC_LOAD_REPORTS=0``).
+
+        Cached ~20 ms so the per-response cost is one monotonic read plus a
+        list concat — load is a trend, not a fence, and the client-side
+        EWMA smooths staleness anyway. Inflight comes from the admission
+        gate's own counter when one is installed, else from
+        :meth:`inflight_requests`. The p99 field is ``0.0``: the reference
+        reads it from its watchdog, which the port does not have yet."""
+        if not self._load_reports:
+            return []
+        now = time.monotonic()
+        stamp, cached = self._load_cache
+        if cached is not None and now - stamp < 0.02:
+            return cached
+        gate = self.admission
+        inflight = (gate.inflight() if gate is not None
+                    else self.inflight_requests())
+        qdepth = 0
+        extra = self._load_extra
+        if extra is not None:
+            try:
+                qdepth = int(extra())
+            except Exception:
+                qdepth = 0
+        p99_ms = 0.0
+        md = [(LOAD_KEY, f"{inflight},{qdepth},{p99_ms:.1f}")]
+        self._load_cache = (now, md)
+        return md
+
     def add_drain_hook(self, fn: Callable[[], None]) -> None:
         """Register a callback the first :meth:`drain` runs after the
         GOAWAY round and before it waits out in-flight streams (stateful
@@ -757,17 +859,24 @@ class Server:
         return self._draining and not self._stopped.is_set()
 
     def drain(self, linger: float = 5.0) -> bool:
-        """Server-wide graceful drain: every connection gets a GOAWAY
+        """Server-wide graceful drain: an attached health servicer flips
+        every service to NOT_SERVING, every connection gets a GOAWAY
         (streams that race it are refused, and connections opened during
-        the drain are told at adoption), the drain hooks run, and in-flight
-        streams finish within ``linger`` seconds. The server stays up; call
-        :meth:`stop` afterwards. True iff every in-flight stream finished
-        in time. A second call just waits again."""
+        the drain are told at adoption; health probes are still answered),
+        the drain hooks run, and in-flight streams finish within ``linger``
+        seconds. The server stays up; call :meth:`stop` afterwards. True iff
+        every in-flight stream other than a health probe finished in time.
+        A second call just waits again."""
         with self._lock:
             first = not self._draining
             self._draining = True
             conns = list(self._connections)
         if first:
+            hs = self._health_servicer
+            if hs is not None:
+                from tpurpc_torch.rpc.health import ServingStatus
+
+                hs.set_all(ServingStatus.NOT_SERVING)
             for conn in conns:
                 if conn.goaway(b"server drain"):
                     conn.linger_then_close()
@@ -778,7 +887,12 @@ class Server:
                     pass  # a failed hook degrades to a plain drain
         deadline = time.monotonic() + max(0.0, linger)
         while True:
-            remaining = self.inflight_requests()
+            with self._lock:
+                # health probes (Check and held-open Watch streams) are
+                # admitted during drain and must not count against it
+                remaining = sum(1 for c in self._connections
+                                for st in list(c._streams.values())
+                                if not st.is_probe)
             if remaining == 0 or time.monotonic() >= deadline:
                 break
             time.sleep(0.01)

@@ -1,7 +1,8 @@
 """Streaming generation over tpurpc_torch: the scheduler's transport face.
 
-A trimmed copy of ``tpurpc/serving/api.py`` (no trace contexts, accounting
-metadata or load reports). ``add_generation_method`` registers a
+A trimmed copy of ``tpurpc/serving/api.py`` (no trace contexts or
+accounting metadata); the server's load report carries the scheduler's
+``load_depth``. ``add_generation_method`` registers a
 server-streaming tensor method whose handler submits to the
 :class:`~tpurpc_torch.serving.scheduler.DecodeScheduler`, then forwards
 tokens from the sequence's queue to the RPC stream with bounded waits that
@@ -139,6 +140,9 @@ def serve_generation(model, address: str = "127.0.0.1:0", *,
     srv = Server(max_workers=max_workers, admission=gate)
     srv_box.append(srv)
     add_generation_method(srv, sched, name=name)
+    # the load report carries waiting AND swapped work: queue depth alone
+    # makes a server holding preempted sequences look idle
+    srv.set_load_provider(sched.load_depth)
     srv.start()
     port = srv.add_insecure_port(address)
     return srv, port, sched

@@ -644,6 +644,7 @@ def serve_decode(model, address: str = "127.0.0.1:0", *,
                          parked_ttl_s=parked_ttl_s)
     add_kv_methods(srv, state)
     add_generation_method(srv, sched, name="Generate")
+    srv.set_load_provider(sched.load_depth)
     if migrate_to is not None:
         def _drain_migrate() -> None:
             try:

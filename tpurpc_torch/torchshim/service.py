@@ -14,14 +14,17 @@ The port of ``tpurpc/jaxshim/service.py``:
   that meet only at the device boundary, through a lock-free handoff ring.
 * :func:`serve_torch` — one call that stands a tensor server up, batched or
   not.
+* :func:`serve_torch_sharded` — N worker processes on one port
+  (:class:`tpurpc_torch.rpc.shard.ShardedServer`), each a full
+  :func:`serve_torch` stack around its own replica.
 
 Not here: the reference's metrics, flush-reason counters, trace spans and
-flight events, the native channel's pipeline, and ``serve_jax_sharded``
-(per-core worker processes).
+flight events, and the native channel's pipeline.
 """
 
 from __future__ import annotations
 
+import functools
 import itertools
 import json
 import queue
@@ -33,9 +36,11 @@ from typing import Any, Callable, Iterator, List, Optional, Sequence
 import torch
 
 from tpurpc_torch.core.handoff import HandoffRing
+from tpurpc_torch.rpc.health import add_health_servicer
 from tpurpc_torch.rpc.server import (Server, stream_stream_rpc_method_handler,
                                      unary_stream_rpc_method_handler,
                                      unary_unary_rpc_method_handler)
+from tpurpc_torch.rpc.shard import ShardedServer
 from tpurpc_torch.torchshim import codec
 from tpurpc_torch.tpu import ledger, serialize
 from tpurpc_torch.utils.config import resolve_device
@@ -883,27 +888,77 @@ def serve_torch(fn: Callable[[Any], Any], address: str = "127.0.0.1:0", *,
     into that many independent shards merging only at the device boundary
     (:class:`ShardedFanIn`). A request parks a server worker inside the
     batcher until its batch completes, so ``max_workers`` bounds how many
-    requests can fill a batch.
-
-    The reference also feeds the batcher's queue depth into the server's
-    per-response load report (``Server.set_load_provider``); this package
-    has no load report yet, so that wiring waits for it.
+    requests can fill a batch. The batcher's queue depth rides the
+    server's per-response load report (``Server.set_load_provider``), so a
+    ``least_loaded`` client sees model-side queueing that the transport's
+    in-flight count alone would miss.
     """
     srv = Server(max_workers=max_workers)
-    batcher = None
-    if batching:
-        if batch_shards > 1:
-            batcher = ShardedFanIn(fn, n_shards=batch_shards,
-                                   max_batch=max_batch,
-                                   max_delay_s=max_delay_s,
-                                   inflight_fn=srv.inflight_requests)
-        else:
-            batcher = FanInBatcher(fn, max_batch=max_batch,
-                                   max_delay_s=max_delay_s,
-                                   inflight_fn=srv.inflight_requests)
-        add_tensor_method(srv, name, batcher, device=device)
-    else:
-        add_tensor_method(srv, name, fn, device=device)
+    batcher = _add_served(srv, fn, name, device, batching, max_batch,
+                          max_delay_s, batch_shards)
     srv.start()
     port = srv.add_insecure_port(address)  # after start: returns the bound port
     return srv, port, batcher
+
+
+def _add_served(srv: Server, fn, name: str, device: bool, batching: bool,
+                max_batch: int, max_delay_s: float, batch_shards: int):
+    """Register ``fn`` on ``srv`` as :func:`serve_torch` does; returns the
+    batcher, or None."""
+    if not batching:
+        add_tensor_method(srv, name, fn, device=device)
+        return None
+    if batch_shards > 1:
+        batcher = ShardedFanIn(fn, n_shards=batch_shards,
+                               max_batch=max_batch, max_delay_s=max_delay_s,
+                               inflight_fn=srv.inflight_requests)
+    else:
+        batcher = FanInBatcher(fn, max_batch=max_batch,
+                               max_delay_s=max_delay_s,
+                               inflight_fn=srv.inflight_requests)
+    add_tensor_method(srv, name, batcher, device=device)
+    srv.set_load_provider(batcher.queue_depth)
+    return batcher
+
+
+def _sharded_build(build_fn: Callable[[], Callable[[Any], Any]], name: str,
+                   batching: bool, max_batch: int, max_delay_s: float,
+                   max_workers: int, batch_shards: int, shard_id: int):
+    """One worker's server for :func:`serve_torch_sharded`: a module-level
+    function, so that ``functools.partial`` of it crosses into a spawned
+    worker by name."""
+    srv = Server(max_workers=max_workers)
+    _add_served(srv, build_fn(), name, False, batching, max_batch,
+                max_delay_s, batch_shards)
+    add_health_servicer(srv)
+    return srv
+
+
+def serve_torch_sharded(build_fn: Callable[[], Callable[[Any], Any]],
+                        address: str = "127.0.0.1:0", *,
+                        workers: int = 2, name: str = "Call",
+                        batching: bool = True, max_batch: int = 8,
+                        max_delay_s: float = 0.002, max_workers: int = 32,
+                        batch_shards: int = 1, listener: str = "reuseport",
+                        handoff_policy: str = "round_robin"):
+    """N worker processes on ONE port, each a full :func:`serve_torch`
+    stack (its own poller, rings, thread pool and batcher; with
+    ``batch_shards > 1`` a :class:`ShardedFanIn`).
+
+    ``build_fn()`` constructs the model callable IN EACH WORKER: model and
+    CUDA state never cross a process boundary, so each shard owns a replica
+    built in its own process. Workers start by spawn, so ``build_fn`` must
+    be importable by name (a module-level function, or a
+    ``functools.partial`` of one); a closure raises ``TypeError``. Each
+    worker also carries the health service, so that the supervisor's
+    ``drain`` shows as NOT_SERVING to a fleet's probes (the reference's
+    workers carry none). Returns the started
+    :class:`tpurpc_torch.rpc.shard.ShardedServer`; ``.port`` is the serving
+    port, ``.stop()`` tears the fleet down.
+    """
+    build = functools.partial(_sharded_build, build_fn, name, batching,
+                              max_batch, max_delay_s, max_workers,
+                              batch_shards)
+    return ShardedServer(build, workers=workers, address=address,
+                         listener=listener,
+                         handoff_policy=handoff_policy).start()
