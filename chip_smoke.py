@@ -120,7 +120,27 @@ fails the run (non-zero exit, no result line) on any error:
    "least_loaded"``: 8 threads x 16 calls, each server's share, the last
    parsed load reports, every reply against the direct run, and no
    ``tpurpc-load`` key in the app's metadata. Skipped under ``--kernels``;
-10. print the kernels line, the card's name and power limit, and last the
+10. the gRPC wire plane (HTTP/2), on the port's default (TCP) platform;
+   the card's machine has no grpcio, so the port's own ``H2Channel``
+   drives it: (a) ``serve_torch`` of phase 6's float32 transformer (seed
+   0, TF32 off, padded to the [8,128] bucket as in phase 9) behind its
+   batcher (max_batch 8, 5 ms) on one port, with 8 threads, each its own
+   ``H2Channel``, making 16 closed-loop ``TensorClient.call("Generate")``
+   calls of int32 [1,128], and at the same time one native ``Channel``
+   pipeline of depth 4 running phase 6's first 16 requests; every reply
+   bit-equal to the direct run; requests/s and p50/p99 for each kind of
+   client, then the same traffic once more under ``torch.profiler`` for the
+   card's busy share. (b) phase 5's 4 MiB messages in one
+   ``stream_stream`` call over ``H2Channel``, each landed on the card by
+   ``to_torch`` and reduced as phase 5 (a) does: once with rendezvous
+   negotiated through ``SETTINGS_TPURPC_RDV`` (every timed message sent
+   one-sided, no fallback) and once with ``TPURPC_RENDEZVOUS=0`` (DATA
+   frames under flow control); every round exact, GB/s a round. (c)
+   ``drain()`` during a tail of (a)'s traffic: each ``H2Channel`` sees the
+   GOAWAY, the calls the server took finish with bit-equal replies, the
+   rest are refused before the server takes them, and no taken call fails.
+   Skipped under ``--kernels``;
+11. print the kernels line, the card's name and power limit, and last the
    one-line result JSON.
 """
 
@@ -243,6 +263,17 @@ GEN_DIS_CLIENTS, GEN_DIS_TOKENS, GEN_DIS_PROMPT = 4, 48, 24
 GEN_MIG_TOKENS, GEN_MIG_AT = 400, 40
 #: phase 9: worker processes of each fleet
 FLEET_WORKERS = 2
+#: phase 10 (a): closed-loop HTTP/2 clients, each its own H2Channel, and
+#: the calls each makes; beside them one native pipeline (depth DEPTH) of
+#: phase 6's first PER_CLIENT requests. (c): calls each h2 client makes
+#: before the drain starts
+H2_CLIENTS, H2_CALLS, H2_DRAIN_AFTER = 8, 16, 4
+#: H2Channel's details of a call the server never took: the channel had
+#: read the GOAWAY (draining, or closed with no call left), or the stream
+#: was above the last one the GOAWAY named, or refused by RST_STREAM
+#: REFUSED_STREAM (7). A taken call that fails reads "connection: ..."
+H2_REFUSED = ("channel draining: ", "channel dead: server sent GOAWAY",
+              "stream refused: ", "stream reset by server (h2 error 7)")
 
 
 def fail(msg: str) -> None:
@@ -1011,11 +1042,12 @@ def device_busy_ms(prof) -> float:
 
 
 def sink_leg(label, dev, card, want, env, device_ring=False,
-             rounds=SINK_ROUNDS, profile=False, on_link=None):
+             rounds=SINK_ROUNDS, profile=False, on_link=None, h2=False):
     """One leg of phase 5 on a fresh server and channel: warm-up, then
     ``rounds`` timed rounds of the stream. Returns per-round records and
     the leg's GB/s. ``on_link(link)`` sees the client's rendezvous link
-    after the warm-up (``sink_profile.py`` times its sends)."""
+    after the warm-up (``sink_profile.py`` times its sends). ``h2``: the
+    client is an ``H2Channel`` (phase 10 (b))."""
     import torch
 
     from tpurpc_torch.ops import ring_scatter as rs_mod
@@ -1025,6 +1057,7 @@ def sink_leg(label, dev, card, want, env, device_ring=False,
     from tpurpc_torch.torchshim.service import TensorClient, add_tensor_method
     from tpurpc_torch.tpu import ledger
     from tpurpc_torch.utils import config
+    from tpurpc_torch.wire.h2_client import H2Channel
 
     xs, idx = want[0], want[1]
     for key in SINK_ENV:
@@ -1047,11 +1080,11 @@ def sink_leg(label, dev, card, want, env, device_ring=False,
     port = srv.add_insecure_port("127.0.0.1:0")
     out = []
     try:
-        with Channel(f"127.0.0.1:{port}") as ch:
+        with (H2Channel if h2 else Channel)(f"127.0.0.1:{port}") as ch:
             cli = TensorClient(ch)
             warm = list(cli.duplex("Sink", gen(SINK_WARM), timeout=300))
             _check_sink(f"{label} warm-up", warm[-1], SINK_WARM, want)
-            link = ch._conn.rdv
+            link = ch.rdv if h2 else ch._conn.rdv
             if on_link is not None:
                 on_link(link)
             for r in range(rounds + int(profile)):
@@ -2395,6 +2428,270 @@ def fleet_serving(dev, card, per_client=PER_CLIENT,
     return {"a": a, "b": b, "c": c}
 
 
+# -- phase 10 ----------------------------------------------------------------
+
+def _h2_fanin(port, h2_rows, native_rows):
+    """(a)'s traffic on one port: H2_CLIENTS threads, each its own
+    H2Channel and ``len(h2_rows) // H2_CLIENTS`` closed-loop calls, and one
+    native Channel pipeline of depth DEPTH over ``native_rows``, all from a
+    common start after one warm call each. Returns the replies and
+    latencies (ms) of each kind and the wall time (s)."""
+    import threading
+
+    import torch
+
+    from tpurpc_torch.rpc.channel import Channel
+    from tpurpc_torch.torchshim.service import TensorClient
+    from tpurpc_torch.wire.h2_client import H2Channel
+
+    per = len(h2_rows) // H2_CLIENTS
+    out = {"h2": [None] * len(h2_rows), "native": [None] * len(native_rows)}
+    lat = {"h2": [None] * len(h2_rows), "native": [None] * len(native_rows)}
+    errors = []
+    start = threading.Barrier(H2_CLIENTS + 2, timeout=300)
+    zero = torch.zeros((1, TF_SEQ), dtype=torch.int32)
+
+    def h2_client(c):
+        try:
+            with H2Channel(f"127.0.0.1:{port}") as ch:
+                cli = TensorClient(ch)
+                cli.call("Generate", {"tokens": zero}, timeout=300)
+                start.wait()
+                for i in range(c * per, (c + 1) * per):
+                    t0 = time.perf_counter()
+                    out["h2"][i] = cli.call(
+                        "Generate", {"tokens": torch.from_numpy(h2_rows[i])},
+                        timeout=300)
+                    lat["h2"][i] = (time.perf_counter() - t0) * 1e3
+        except Exception as exc:  # surfaced after the join
+            errors.append(f"h2 client {c}: {exc!r}")
+            start.abort()
+
+    def native_client():
+        try:
+            with Channel(f"127.0.0.1:{port}") as ch:
+                cli = TensorClient(ch, depth=DEPTH)
+                cli.call("Generate", {"tokens": zero}, timeout=300)
+                pl = cli.pipeline("Generate")
+                start.wait()
+                t0s = [time.perf_counter()] * len(native_rows)
+                futs = []
+                for i, r in enumerate(native_rows):
+                    if len(futs) >= DEPTH:
+                        j, f = futs.pop(0)
+                        out["native"][j] = f.result(timeout=300)
+                        lat["native"][j] = (time.perf_counter() - t0s[j]) * 1e3
+                    t0s[i] = time.perf_counter()
+                    futs.append((i, pl.call_async(
+                        {"tokens": torch.from_numpy(r)}, timeout=300)))
+                for j, f in futs:
+                    out["native"][j] = f.result(timeout=300)
+                    lat["native"][j] = (time.perf_counter() - t0s[j]) * 1e3
+        except Exception as exc:
+            errors.append(f"native client: {exc!r}")
+            start.abort()
+
+    ts = [threading.Thread(target=h2_client, args=(c,), daemon=True)
+          for c in range(H2_CLIENTS)]
+    ts.append(threading.Thread(target=native_client, daemon=True))
+    for t in ts:
+        t.start()
+    try:
+        start.wait()
+    except threading.BrokenBarrierError:
+        pass
+    t0 = time.perf_counter()
+    for t in ts:
+        t.join(600)
+    wall = time.perf_counter() - t0
+    check(not errors, "h2 (a): " + "; ".join(errors))
+    check(not any(t.is_alive() for t in ts), "h2 (a): a client did not finish")
+    for kind in out:
+        check(None not in out[kind] and None not in lat[kind],
+              f"h2 (a): a {kind} request got no reply")
+    return out, lat, wall
+
+
+def _h2_drain(srv, port, rows, direct, dev) -> dict:
+    """(c): H2_CLIENTS closed-loop H2Channel clients on ``srv``; once each
+    has made H2_DRAIN_AFTER calls, and while calls are in flight,
+    ``srv.drain()``. Each client calls on until a call is refused before
+    the server took it (H2_REFUSED); any other failure fails the phase.
+    Every taken call's reply is held bit-equal to the direct run."""
+    import threading
+
+    import torch
+
+    from tpurpc_torch.rpc.status import RpcError, StatusCode
+    from tpurpc_torch.torchshim.service import TensorClient
+    from tpurpc_torch.wire.h2_client import H2Channel
+
+    done = {c: [] for c in range(H2_CLIENTS)}
+    refused, errors, goaway = [], [], []
+    reached = threading.Semaphore(0)
+
+    def client(c):
+        try:
+            with H2Channel(f"127.0.0.1:{port}") as ch:
+                cli = TensorClient(ch)
+                for k in range(64 * len(rows)):
+                    i = (c + k * H2_CLIENTS) % len(rows)
+                    try:
+                        rep = cli.call("Generate", {
+                            "tokens": torch.from_numpy(rows[i])}, timeout=300)
+                    except RpcError as exc:
+                        if (exc.code() is StatusCode.UNAVAILABLE
+                                and exc.details().startswith(H2_REFUSED)):
+                            refused.append(exc.details())
+                            # a stream refused by RST (the server's drain
+                            # flag is up before its GOAWAY is written)
+                            # comes ahead of the GOAWAY on the wire
+                            deadline = time.monotonic() + 10
+                            while (not (ch._goaway or ch._dead)
+                                   and time.monotonic() < deadline):
+                                time.sleep(0.01)
+                            goaway.append(ch._goaway or ch._dead)
+                            return
+                        raise
+                    done[c].append((i, rep))
+                    if len(done[c]) == H2_DRAIN_AFTER:
+                        reached.release()
+                raise AssertionError("never refused: the drain did not reach "
+                                     "this channel")
+        except Exception as exc:  # surfaced after the join
+            errors.append(f"h2 drain client {c}: {exc!r}")
+            reached.release()
+
+    ts = [threading.Thread(target=client, args=(c,), daemon=True)
+          for c in range(H2_CLIENTS)]
+    for t in ts:
+        t.start()
+    for _ in range(H2_CLIENTS):
+        reached.acquire(timeout=300)
+    deadline = time.monotonic() + 10
+    while srv.inflight_requests() == 0 and time.monotonic() < deadline:
+        time.sleep(0.0005)
+    t0 = time.perf_counter()
+    inflight = srv.inflight_requests()
+    drained = srv.drain(linger=30.0)
+    drain_s = time.perf_counter() - t0
+    for t in ts:
+        t.join(120)
+    check(not errors, "h2 (c): " + "; ".join(errors))
+    check(not any(t.is_alive() for t in ts), "h2 (c): a client hung")
+    check(inflight > 0, "h2 (c): no call was in flight when the drain began")
+    check(drained, "h2 (c): drain() reported streams still in flight")
+    check(len(refused) == H2_CLIENTS, f"h2 (c): {len(refused)} of "
+          f"{H2_CLIENTS} clients saw the drain: {refused}")
+    check(all(g and "GOAWAY" in g for g in goaway),
+          f"h2 (c): a channel refused without a GOAWAY: {goaway}")
+    taken = [(i, rep) for c in done for i, rep in done[c]]
+    wants = {}
+    for i, rep in taken:
+        if i not in wants:
+            wants[i] = _direct(direct, rows[i], dev)
+        diff = (rep["logits"] - wants[i]).abs().max().item()
+        check(diff == 0.0, f"h2 (c): a taken call's reply is {diff} from "
+              f"the direct run")
+    return {"taken": len(taken), "refused": len(refused),
+            "inflight": inflight, "drain_s": drain_s, "kinds": sorted(
+                {d.split(":")[0] for d in refused})}
+
+
+def h2_serving(dev, card, per_client=PER_CLIENT, h2_calls=H2_CALLS,
+               sink_msgs=SINK_MSGS, sink_rounds=SINK_ROUNDS) -> dict:
+    """Phase 10: the gRPC wire plane (docstring of this file)."""
+    import numpy as np
+    import torch
+
+    from tpurpc_torch.torchshim.service import serve_torch
+    from tpurpc_torch.utils import config
+
+    config.set_config(None)
+    fn = _fleet_transformer(dev)
+
+    def direct(x):
+        return fn({"tokens": x})["logits"]
+
+    rng = np.random.default_rng(SEED + 6)     # phase 6's draws
+    rng.integers(0, 256, (MAX_BATCH, TF_SEQ))
+    native_rows = [rng.integers(0, 256, (1, TF_SEQ)).astype(np.int32)
+                   for _ in range(per_client)]
+    rng = np.random.default_rng(SEED + 10)
+    h2_rows = [rng.integers(0, 256, (1, TF_SEQ)).astype(np.int32)
+               for _ in range(H2_CLIENTS * h2_calls)]
+
+    srv, port, batcher = serve_torch(fn, name="Generate", batching=True,
+                                     max_batch=MAX_BATCH, max_delay_s=0.005,
+                                     max_workers=WORKERS)
+    res = {}
+    try:
+        # (a), once for the readings, once under the profiler
+        out, lat, wall = _h2_fanin(port, h2_rows, native_rows)
+        for kind, rows in (("h2", h2_rows), ("native", native_rows)):
+            worst, apart, _ = _check_replies(
+                f"h2 (a) {kind}", out[kind], rows, direct, dev, 0.0, None,
+                floor=1.0)
+            p50, p99 = np.percentile(lat[kind], [50, 99])
+            res[kind] = {"rps": len(rows) / wall, "p50": p50, "p99": p99}
+            print(f"h2 (a) {kind}: {len(rows)} requests ("
+                  + (f"{H2_CLIENTS} H2Channel clients x {h2_calls} closed-loop"
+                     if kind == "h2" else f"one native pipeline at depth "
+                     f"{DEPTH}") + f"): requests/s {len(rows) / wall}, "
+                  f"latency ms p50 {p50} p99 {p99}; replies vs direct runs "
+                  f"max |diff| / max(1, scale) {worst} (bit-equal), nearest "
+                  f"other request's run {apart} x it ({card})", flush=True)
+        print(f"h2 (a): both kinds together {len(h2_rows) + len(native_rows)}"
+              f" requests in {wall} s: {batcher.batches_run} batches, "
+              f"{batcher.rows_run} rows (warm-ups included) ({card})",
+              flush=True)
+        if dev.type == "cuda":
+            prof = torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA])
+            with prof:
+                t0 = time.perf_counter()
+                _h2_fanin(port, h2_rows, native_rows)
+                window = time.perf_counter() - t0
+            busy = device_busy_ms(prof)
+            res["busy"] = busy / (window * 1e3)
+            print(f"h2 (a) profiled run: card busy {busy} ms of "
+                  f"{window * 1e3} ms ({res['busy']}) ({card})", flush=True)
+        else:
+            print("h2 (a): the card's busy share not measured (no card)",
+                  flush=True)
+        # (c) the drain, on the same server
+        res["c"] = _h2_drain(srv, port, h2_rows[:H2_CLIENTS * H2_DRAIN_AFTER
+                                                * 2], direct, dev)
+        print(f"h2 (c): drain with {res['c']['inflight']} calls in flight "
+              f"took {res['c']['drain_s']} s; {res['c']['taken']} taken calls"
+              f" all bit-equal, {res['c']['refused']} refused before the "
+              f"server took them ({res['c']['kinds']}), none failed",
+              flush=True)
+    finally:
+        srv.stop()
+        batcher.close()
+    # (b) bulk over h2, with rendezvous and without, on the TCP platform
+    want = sink_payloads(msgs=sink_msgs)
+    saved = {k: os.environ.get(k) for k in SINK_ENV}
+    try:
+        res["b_rdv"], _ = sink_leg("h2 (b) rendezvous", dev, card, want, {},
+                                   rounds=sink_rounds, h2=True)
+        for r, rec in enumerate(res["b_rdv"]):
+            check(rec["link"]["sent"] == sink_msgs
+                  and rec["link"]["fallbacks"] == 0,
+                  f"h2 (b) round {r}: not every message rode rendezvous: "
+                  f"{rec['link']}")
+        res["b_framed"], _ = sink_leg(
+            "h2 (b) DATA frames", dev, card, want,
+            {"TPURPC_RENDEZVOUS": "0"}, rounds=sink_rounds, h2=True)
+        check(all("link" not in rec for rec in res["b_framed"]),
+              "h2 (b) DATA frames: a rendezvous link was armed")
+    finally:
+        _set_env(saved)
+    return res
+
+
 def card_line() -> str:
     """The card's name and power limit, as nvidia-smi reports them."""
     smi = subprocess.run(
@@ -2429,7 +2726,7 @@ def main() -> None:
     if kernels_only:
         launches = {"ring_scatter": None, "ring_window": None}
         stream = tf_launches = train_launches = gen_launches = None
-        fleet_launches = None
+        fleet_launches = h2_launches = None
     else:
         from tpurpc_torch.ops import ring_scatter as rs_mod
         from tpurpc_torch.ops import ring_window as rw_mod
@@ -2476,6 +2773,15 @@ def main() -> None:
         print(f"fleet: kernel launches in phase 9's workers {fleet_launches}; "
               f"phase 9 took {time.perf_counter() - t0} s ({card})",
               flush=True)
+        # phase 10 takes neither kernel (h2 requests decode on the host, in
+        # both packages); counted all the same
+        rs_mod.launches = rw_mod.launches = 0
+        t0 = time.perf_counter()
+        h2_serving(dev, card)
+        h2_launches = {"ring_scatter": rs_mod.launches,
+                       "ring_window": rw_mod.launches}
+        print(f"h2: kernel launches in phase 10 {h2_launches}; phase 10 took "
+              f"{time.perf_counter() - t0} s ({card})", flush=True)
 
     sources = {"ring_scatter": "tpurpc/ops/ring_scatter.py:133",
                "ring_window": "tpurpc/ops/ring_window.py:138"}
@@ -2516,7 +2822,10 @@ def main() -> None:
                                     gen_launches[name]),
             # phase 9 (b), in each fleet worker: [worker 0, worker 1]
             "fleet_launches": (None if fleet_launches is None else
-                               fleet_launches[name])})
+                               fleet_launches[name]),
+            # phase 10, the gRPC wire plane
+            "h2_launches": (None if h2_launches is None else
+                            h2_launches[name])})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     if kernels_only:

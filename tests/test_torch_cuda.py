@@ -9,9 +9,9 @@ the kernels' plain versions against the reference; here the CUDA kernels are
 held against the plain versions, and the device ring (with a release
 against a side stream's read), the fan-in batcher, device serialization,
 4 MiB tensor streams over rendezvous (landed on the host, and through the
-device ring), the MoE transformer's forward and train steps, the
-generation plane's step model, and a spawned shard worker's device ring run
-on the card.
+device ring) and over HTTP/2, the MoE transformer's forward, its serving
+over HTTP/2 with a drain, and its train steps, the generation plane's step
+model, and a spawned shard worker's device ring run on the card.
 """
 
 import numpy as np
@@ -275,10 +275,12 @@ def stream_env(dev, monkeypatch):
     config.set_config(None)
 
 
-def _stream_sums(dev, device_ring):
+def _stream_sums(dev, device_ring, h2=False):
     """Stream STREAM_MSGS float32 [1024,1024] tensors (``base + i``, each
-    beside its index) to a Sink that reduces each one on the card; returns
-    the reply, the client link's counters and the messages."""
+    beside its index) to a Sink that reduces each one on the card, over the
+    native framing or (``h2``) an ``H2Channel``; returns the reply, the
+    client link's counters (None without a link) and the messages."""
+    from tpurpc_torch.wire.h2_client import H2Channel
     from tpurpc_torch.torchshim.codec import to_torch
 
     rng = np.random.default_rng(4)
@@ -305,15 +307,17 @@ def _stream_sums(dev, device_ring):
             yield {"i": torch.tensor([i]), "x": torch.from_numpy(xs[i])}
 
     try:
-        with Channel(f"127.0.0.1:{port}") as ch:
+        with (H2Channel if h2 else Channel)(f"127.0.0.1:{port}") as ch:
             cli = TensorClient(ch)
             list(cli.duplex("Sink", gen(2), timeout=120))   # warm-up
-            s0 = ch._conn.rdv.stats()
+            link = ch.rdv if h2 else ch._conn.rdv
+            s0 = link.stats() if link is not None else None
             reply = list(cli.duplex("Sink", gen(STREAM_MSGS), timeout=120))
-            s1 = ch._conn.rdv.stats()
+            s1 = link.stats() if link is not None else None
     finally:
         srv.stop()
-    counts = {k: s1[k] - s0[k] for k in ("sent", "fallbacks")}
+    counts = (None if link is None else
+              {k: s1[k] - s0[k] for k in ("sent", "fallbacks")})
     return reply[-1], counts, xs
 
 
@@ -344,6 +348,22 @@ def test_rendezvous_stream_through_device_ring(dev, stream_env):
     reply, counts, xs = _stream_sums(dev, device_ring=True)
     assert counts == {"sent": STREAM_MSGS, "fallbacks": 0}
     assert rs_mod.launches > before[0] and rw_mod.launches > before[1]
+    _check_stream(reply, xs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rendezvous", ["1", "0"], ids=["rdv", "framed"])
+def test_h2_stream_onto_card(dev, stream_env, rendezvous):
+    """Phase 10 (b) at 8 messages: 4 MiB tensors in one stream_stream call
+    over ``H2Channel``, each landed on the card by to_torch. With
+    rendezvous negotiated through SETTINGS_TPURPC_RDV every payload is sent
+    one-sided; without it they travel in DATA frames. Sums equal."""
+    stream_env("TCP", TPURPC_RENDEZVOUS=rendezvous)
+    reply, counts, xs = _stream_sums(dev, device_ring=False, h2=True)
+    if rendezvous == "1":
+        assert counts == {"sent": STREAM_MSGS, "fallbacks": 0}
+    else:
+        assert counts is None
     _check_stream(reply, xs)
 
 
@@ -432,6 +452,89 @@ def test_transformer_out_of_range_token_keeps_the_context(dev, no_tf32):
 #: whose gradient is near 0 and rounds to the other sign on one device
 #: moves by up to lr one way there and lr the other here
 TRAIN_GRAD_TOL, TRAIN_LOSS_TOL, TRAIN_LR, TRAIN_MEDIAN = 1e-5, 1e-6, 3e-3, 1e-6
+
+
+@pytest.mark.cuda
+def test_h2_transformer_serving_bit_equal_and_drain(dev, no_tf32,
+                                                    stream_env):
+    """Phase 10 (a) and (c) at a small size: a 2-layer transformer on the
+    card behind serve_torch's batcher, padded to the [8,64] bucket; 4
+    closed-loop ``H2Channel`` clients and a native pipeline on one port,
+    every reply bit-equal to the direct run of its tokens; then ``drain()``
+    while the h2 clients call on: the taken calls finish bit-equal, the
+    rest are refused before the server takes them, none fails."""
+    import threading
+
+    from tpurpc_torch.models.transformer import make_serve_fn
+    from tpurpc_torch.rpc.status import RpcError, StatusCode
+    from tpurpc_torch.torchshim.service import serve_torch
+    from tpurpc_torch.wire.h2_client import H2Channel
+
+    stream_env("TCP")
+    model, _ = _transformers(dev, torch.float32)
+    serve = make_serve_fn(model)
+
+    def fn(tree):
+        tokens = torch.as_tensor(tree["tokens"])
+        padded = tokens.new_zeros((8, tokens.shape[1]))
+        padded[:tokens.shape[0]] = tokens
+        return {"logits": serve({"tokens": padded})["logits"][
+            :tokens.shape[0]]}
+
+    rows = [torch.from_numpy(r) for r in np.random.default_rng(10).integers(
+        0, 256, (20, 1, 64)).astype(np.int32)]
+    want = [fn({"tokens": r.to(dev)})["logits"].cpu() for r in rows]
+    srv, port, batcher = serve_torch(fn, name="Generate", batching=True,
+                                     max_batch=8, max_delay_s=0.005)
+    got, errors, refused = {}, [], []
+    go = threading.Event()
+
+    def h2_client(c):
+        try:
+            with H2Channel(f"127.0.0.1:{port}") as ch:
+                cli = TensorClient(ch)
+                for k in range(1000):
+                    i = (c + 4 * k) % 16
+                    if k == 4:
+                        go.set()
+                    try:
+                        out = cli.call("Generate", {"tokens": rows[i]},
+                                       timeout=120)
+                    except RpcError as exc:
+                        assert exc.code() is StatusCode.UNAVAILABLE
+                        assert "GOAWAY" in exc.details() or \
+                            "h2 error 7" in exc.details(), exc.details()
+                        refused.append(c)
+                        return
+                    got.setdefault(i, []).append(out["logits"])
+        except Exception as exc:
+            errors.append(repr(exc))
+
+    try:
+        with Channel(f"127.0.0.1:{port}") as ch:
+            pl = TensorClient(ch, depth=4).pipeline("Generate")
+            futs = [pl.call_async({"tokens": r}, timeout=120)
+                    for r in rows[16:]]
+            ts = [threading.Thread(target=h2_client, args=(c,))
+                  for c in range(4)]
+            for t in ts:
+                t.start()
+            for j, f in enumerate(futs):
+                got.setdefault(16 + j, []).append(f.result(timeout=120)[
+                    "logits"])
+        assert go.wait(120)
+        assert srv.drain(linger=30)
+        for t in ts:
+            t.join(120)
+    finally:
+        srv.stop()
+        batcher.close()
+    assert not errors, errors
+    assert sorted(refused) == [0, 1, 2, 3]
+    assert sorted(got) == list(range(20))
+    for i, outs in got.items():
+        for o in outs:
+            assert torch.equal(o, want[i]), i
 
 
 @pytest.mark.cuda

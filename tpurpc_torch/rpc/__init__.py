@@ -1,1 +1,53 @@
-"""RPC layer: status codes, framing, server and channel."""
+"""tpurpc_torch.rpc — status codes, framing, server and channel.
+
+The grpcio-shaped surface of ``tpurpc/rpc/__init__.py``, limited to what
+the port has, so that a grpcio-style program runs against
+``import tpurpc_torch.rpc as grpc``:
+
+    channel = grpc.insecure_channel("host:port")
+    reply = channel.unary_unary("/demo.Greeter/SayHello")(b"world", timeout=5)
+
+    srv = grpc.server()
+    srv.add_generic_rpc_handlers((grpc.method_handlers_generic_handler(
+        "demo.Greeter", {"SayHello": grpc.unary_unary_rpc_method_handler(fn)}),))
+    srv.add_insecure_port("0.0.0.0:50051"); srv.start()
+
+``H2Channel`` (``tpurpc_torch/wire/h2_client.py``) is exported lazily, as
+the reference does: an eager import here would make a program that imports
+``tpurpc_torch.wire.grpc_h2`` first meet this package mid-cycle.
+"""
+
+from tpurpc_torch.rpc.status import AbortError, Metadata, RpcError, StatusCode
+from tpurpc_torch.rpc.channel import Channel, insecure_channel
+from tpurpc_torch.rpc.server import (
+    RpcMethodHandler,
+    Server,
+    ServerContext,
+    method_handlers_generic_handler,
+    stream_stream_rpc_method_handler,
+    stream_unary_rpc_method_handler,
+    unary_stream_rpc_method_handler,
+    unary_unary_rpc_method_handler,
+)
+from tpurpc_torch.rpc.resolver import register_resolver, ring_hash_key
+from tpurpc_torch.rpc.health import add_health_servicer
+from tpurpc_torch.rpc import server  # the module, callable as server()
+
+__all__ = [
+    "AbortError", "Metadata", "RpcError", "StatusCode",
+    "Channel", "insecure_channel",
+    "Server", "ServerContext", "RpcMethodHandler", "server",
+    "method_handlers_generic_handler",
+    "unary_unary_rpc_method_handler", "unary_stream_rpc_method_handler",
+    "stream_unary_rpc_method_handler", "stream_stream_rpc_method_handler",
+    "register_resolver", "ring_hash_key", "add_health_servicer",
+    "H2Channel",
+]
+
+
+def __getattr__(name):
+    if name == "H2Channel":
+        from tpurpc_torch.wire.h2_client import H2Channel
+
+        return H2Channel
+    raise AttributeError(f"module 'tpurpc_torch.rpc' has no attribute {name!r}")

@@ -928,3 +928,8 @@ class StreamStream(_MultiCallable):
                          daemon=True, name="tpurpc-stream-sender").start()
         return call
 
+
+
+def insecure_channel(target: str, **kwargs) -> Channel:
+    """grpcio-shaped constructor."""
+    return Channel(target, **kwargs)

@@ -11,8 +11,8 @@ protobuf dependency:
     HealthCheckRequest  { string service = 1; }          → 0x0A len bytes
     HealthCheckResponse { ServingStatus status = 1; }     → 0x08 varint
 
-The port has no HTTP/2 plane yet, so here it is served to tpurpc_torch
-channels over every transport.
+Served on every transport, and to stock gRPC clients over the HTTP/2
+plane (``tpurpc_torch/wire/grpc_h2.py``).
 """
 
 from __future__ import annotations
@@ -21,11 +21,11 @@ import enum
 import threading
 from typing import Dict, Iterator
 
-from tpurpc_torch.rpc.protowire import decode_varint as _decode_varint
-from tpurpc_torch.rpc.protowire import encode_varint as _encode_varint
 from tpurpc_torch.rpc.server import (Server, unary_stream_rpc_method_handler,
                                      unary_unary_rpc_method_handler)
 from tpurpc_torch.rpc.status import AbortError, StatusCode
+from tpurpc_torch.wire.protowire import decode_varint as _decode_varint
+from tpurpc_torch.wire.protowire import encode_varint as _encode_varint
 
 SERVICE_NAME = "grpc.health.v1.Health"
 #: the conventional key for "the server as a whole"

@@ -1,8 +1,12 @@
 """Server: listener → per-connection demux → handler dispatch on a pool.
 
 A trimmed copy of ``tpurpc/rpc/server.py`` (no interceptors, inline
-reactor handlers, keepalive/max-age timers, h2 or native planes, the
-control-ring plane, channelz or observability). It keeps the overload
+reactor handlers, keepalive/max-age timers, native plane, the control-ring
+plane, channelz or observability). One port serves both wire protocols: the
+first 8 bytes of a connection route the native framing's magic to
+:class:`_ServerConnection` and the HTTP/2 preface to
+``tpurpc_torch/wire/grpc_h2.py``, so stock gRPC clients call the same
+handlers. It keeps the overload
 :class:`AdmissionGate`, the server-wide :meth:`Server.drain` with its drain
 hooks and its health-service flip, and what a fleet needs: the per-response
 load report (:meth:`Server.set_load_provider`, :data:`LOAD_KEY`), listeners
@@ -20,8 +24,10 @@ import logging
 import os
 import queue
 import socket
+import sys
 import threading
 import time
+import types
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
@@ -155,10 +161,33 @@ def unary_stream_rpc_method_handler(behavior, request_deserializer=_identity,
                             response_serializer)
 
 
+def stream_unary_rpc_method_handler(behavior, request_deserializer=_identity,
+                                    response_serializer=_identity):
+    return RpcMethodHandler("stream_unary", behavior, request_deserializer,
+                            response_serializer)
+
+
 def stream_stream_rpc_method_handler(behavior, request_deserializer=_identity,
                                      response_serializer=_identity):
     return RpcMethodHandler("stream_stream", behavior, request_deserializer,
                             response_serializer)
+
+
+def method_handlers_generic_handler(service: str,
+                                    method_handlers: Dict[str, RpcMethodHandler]):
+    """grpcio-shaped: ``{path: handler}`` for
+    :meth:`Server.add_generic_rpc_handlers`."""
+    return {f"/{service}/{name}": h for name, h in method_handlers.items()}
+
+
+class _HandlerCallDetails:
+    """grpc.HandlerCallDetails shape for GenericRpcHandler.service()."""
+
+    __slots__ = ("method", "invocation_metadata")
+
+    def __init__(self, method: str, invocation_metadata=()):
+        self.method = method
+        self.invocation_metadata = tuple(invocation_metadata or ())
 
 
 class ServerContext:
@@ -481,7 +510,7 @@ class _ServerConnection:
             st.gate = gate  # released exactly once in _finish_stream
         deadline = (None if timeout_us is None
                     else time.monotonic() + timeout_us / 1e6)
-        handler = self.server._methods.get(path)
+        handler = self.server._lookup(path, metadata)
         if handler is None:
             self._send_trailers(st, StatusCode.UNIMPLEMENTED,
                                 f"unknown method {path}")
@@ -671,6 +700,7 @@ class Server:
         self.max_receive_message_length = get_config().resolve_recv_limit(
             max_receive_message_length)
         self._methods: Dict[str, RpcMethodHandler] = {}
+        self._generic_handlers: list = []
         self._listeners: List[EndpointListener] = []
         self._connections: List[_ServerConnection] = []
         self._lock = threading.Lock()
@@ -680,6 +710,57 @@ class Server:
 
     def add_method(self, path: str, handler: RpcMethodHandler) -> None:
         self._methods[path] = handler
+
+    @staticmethod
+    def _adapt_foreign_handler(h) -> Optional[RpcMethodHandler]:
+        """grpc.RpcMethodHandler (any object with grpcio's attribute set)
+        → ours; None if it is not one."""
+        if isinstance(h, RpcMethodHandler):
+            return h
+        try:
+            kind = (("stream" if h.request_streaming else "unary") + "_"
+                    + ("stream" if h.response_streaming else "unary"))
+            behavior = getattr(h, kind)
+        except AttributeError:
+            return None
+        if behavior is None:
+            return None
+        return RpcMethodHandler(kind, behavior,
+                                h.request_deserializer or _identity,
+                                h.response_serializer or _identity)
+
+    def add_generic_rpc_handlers(self, generic_handlers) -> None:
+        """grpcio-shaped: a sequence of GenericRpcHandler objects whose
+        ``.service(handler_call_details)`` resolves methods at call time,
+        or ``{path: handler}`` mappings
+        (:func:`method_handlers_generic_handler`)."""
+        self._generic_handlers.extend(generic_handlers)
+
+    def _lookup(self, path: str, metadata=()) -> Optional[RpcMethodHandler]:
+        handler = self._methods.get(path)
+        if handler is not None:
+            return handler
+        for gh in self._generic_handlers:
+            getter = getattr(gh, "get", None)
+            cacheable = getter is not None
+            if cacheable:  # mapping-shaped: metadata-independent
+                found = getter(path)
+            else:
+                try:
+                    found = gh.service(_HandlerCallDetails(path, metadata))
+                except Exception:
+                    # a routing bug must not masquerade as UNIMPLEMENTED
+                    _log.exception(
+                        "generic handler %r raised resolving %s", gh, path)
+                    continue
+            if found is not None:
+                adapted = self._adapt_foreign_handler(found)
+                if adapted is not None and cacheable:
+                    # .service() results are not cached: a generic handler
+                    # may route on metadata per call
+                    self._methods[path] = adapted
+                return adapted
+        return None
 
     def add_insecure_port(self, address: str, *,
                           reuseport: bool = False) -> int:
@@ -733,7 +814,10 @@ class Server:
                          daemon=True, name="tpurpc-sniff").start()
 
     def _sniff_and_serve(self, endpoint: Endpoint) -> None:
-        first = bytearray(len(fr.MAGIC))
+        """The first 8 bytes decide: the native magic routes to
+        :class:`_ServerConnection`, ``PRI * HT`` (the h2 connection
+        preface) to :class:`GrpcH2Connection`."""
+        first = bytearray(8)
         got = 0
         try:
             while got < len(first):
@@ -745,13 +829,22 @@ class Server:
         except (EndpointError, TimeoutError):
             endpoint.close()
             return
-        if bytes(first) != fr.MAGIC:
-            _log.debug("unknown protocol preface %r; dropping", bytes(first))
-            endpoint.close()
-            return
         try:
-            conn = _ServerConnection(self, endpoint)
-        except (EndpointError, OSError):
+            if bytes(first) == fr.MAGIC:
+                conn = _ServerConnection(self, endpoint)
+            elif bytes(first) == b"PRI * HT":
+                from tpurpc_torch.wire.grpc_h2 import GrpcH2Connection
+
+                conn = GrpcH2Connection(self, endpoint, preface_consumed=8)
+            else:
+                _log.debug("unknown protocol preface %r; dropping",
+                           bytes(first))
+                endpoint.close()
+                return
+        except (EndpointError, OSError) as exc:
+            # the peer vanished mid-adoption (the h2 path writes SETTINGS
+            # during construction): contained to this connection
+            _log.debug("peer gone during adoption: %s", exc)
             endpoint.close()
             return
         # registration is atomic against stop(): a connection adopted after
@@ -786,6 +879,9 @@ class Server:
             # GOAWAY: clients stop opening streams; in-flight calls run on
             # through the grace window
             for conn in conns:
+                if getattr(conn, "writer", None) is None:
+                    conn.goaway(b"server shutdown")  # h2's own GOAWAY
+                    continue
                 with conn._lock:
                     conn.draining = True
                 try:
@@ -911,3 +1007,44 @@ class Server:
         with self._lock:
             conns = list(self._connections)
         return sum(len(c._streams) for c in conns)
+
+
+def server(thread_pool=None, handlers=None, interceptors=None, options=None,
+           maximum_concurrent_rpcs=None, compression=None, *,
+           max_workers: int = 32) -> Server:
+    """grpcio-shaped constructor: accepts the stock call
+    ``grpc.server(ThreadPoolExecutor(max_workers=N), options=[...])``
+    verbatim. A passed executor contributes its worker count (the Server
+    keeps its own pool), handlers register directly, the
+    ``grpc.max_receive_message_length`` option maps onto the Server, and
+    ``maximum_concurrent_rpcs`` and ``compression`` are accepted and
+    advisory. A bare int first argument is ``max_workers``. Interceptors
+    are not ported: passing any raises ``ValueError``."""
+    if interceptors:
+        raise ValueError("tpurpc_torch has no server interceptors")
+    if isinstance(thread_pool, int):
+        max_workers = thread_pool
+    elif thread_pool is not None:
+        workers = getattr(thread_pool, "_max_workers", None)
+        if workers:
+            max_workers = workers
+    max_recv = None
+    if options:
+        max_recv = dict(options).get("grpc.max_receive_message_length")
+    srv = Server(max_workers=max_workers, max_receive_message_length=max_recv)
+    if handlers:
+        srv.add_generic_rpc_handlers(handlers)
+    return srv
+
+
+class _ServerModule(types.ModuleType):
+    """This module, callable as grpcio's ``server()`` factory: with
+    ``import tpurpc_torch.rpc as grpc``, ``grpc.server(...)`` calls
+    :func:`server`, while ``from tpurpc_torch.rpc import server`` still gives
+    the module (the reference's package rebinds the name to the function)."""
+
+    def __call__(self, *args, **kwargs):
+        return server(*args, **kwargs)
+
+
+sys.modules[__name__].__class__ = _ServerModule
