@@ -140,7 +140,29 @@ fails the run (non-zero exit, no result line) on any error:
    GOAWAY, the calls the server took finish with bit-equal replies, the
    rest are refused before the server takes them, and no taken call fails.
    Skipped under ``--kernels``;
-11. print the kernels line, the card's name and power limit, and last the
+11. the call plane on phase 3's device-ring path (``GRPC_PLATFORM_TYPE=
+   TPU``, a 16 MiB ``HbmRing``, ``add_tensor_method(..., device=True)``),
+   phase 3's ResNet-50 weights, requests and tolerance, through
+   ``TensorClient.call``; every reply against the direct run: (a) one
+   server behind a ``FaultInjector`` aborting 30 % of attempts
+   UNAVAILABLE (seeded), the channel's retryPolicy (5 attempts) and
+   retryThrottling (10 tokens, ratio 0.5) delivered by a registered
+   resolver's service config: every call succeeds, the server sees the
+   attempts and the throttle holds the tokens that the seeded abort
+   sequence gives, the kernels launch exactly as in phase 3 (an aborted
+   attempt lands nothing) and the ring comes back whole; (b) two
+   device-ring servers behind ``round_robin``, the second delayed 1.0 s
+   by a ``FaultInjector``, a hedgingPolicy (2 attempts, 50 ms) from the
+   ``grpc.service_config`` option: no call waits on the slow replica, the
+   fast server answers all, and once every slow handler that started is
+   done (a hedge loser cancelled before its request arrived never starts)
+   both rings are back to capacity; hedges fired and each server's
+   launches (counted around its own landings) are printed; (c) two plain servers, 16
+   sequential calls, the first server drained after the 4th reply: no
+   call fails and the drained server serves none after; the client's
+   FLAG_REFUSED replays and draining redials are counted. Latency p50/p99
+   per part, on the host clock. Skipped under ``--kernels``;
+12. print the kernels line, the card's name and power limit, and last the
    one-line result JSON.
 """
 
@@ -149,6 +171,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 SEED = 0
@@ -2692,6 +2715,405 @@ def h2_serving(dev, card, per_client=PER_CLIENT, h2_calls=H2_CALLS,
     return res
 
 
+# -- phase 11 ----------------------------------------------------------------
+
+def retry_arithmetic(seed, requests, fraction, max_attempts, throttle):
+    """(attempts, aborts, tokens) that ``requests`` sequential calls give
+    against a ``FaultInjector`` seeded ``seed`` (one draw an attempt, an
+    abort below ``fraction``) under a retry policy of ``max_attempts`` and
+    a retry throttle ``{"maxTokens", "tokenRatio"}``: a retryable failure
+    costs a token, a success refunds ``tokenRatio``, a retry needs more
+    than half the bucket. Fails if the sequence would fail a call."""
+    import random
+
+    rng = random.Random(seed)
+    cap = float(throttle["maxTokens"])
+    tokens = cap
+    attempts = aborts = 0
+    for i in range(requests):
+        for k in range(max_attempts):
+            attempts += 1
+            if rng.random() >= fraction:
+                tokens = min(cap, tokens + throttle["tokenRatio"])
+                break
+            aborts += 1
+            tokens = max(0.0, tokens - 1.0)
+            check(k + 1 < max_attempts and tokens > cap / 2,
+                  f"call plane: the seeded aborts would fail request {i}")
+    return attempts, aborts, tokens
+
+
+def _ring_wraps(tail: int, span: int, ring: int) -> int:
+    """Landings of ``span`` bytes that wrapped a ring of ``ring`` bytes,
+    out of the ``tail // span`` landed back to back from offset 0."""
+    return sum(1 for k in range(tail // span)
+               if (k * span) % ring + span > ring)
+
+
+class CallPlaneServer:
+    """A started device-ring server of ``fn`` (``Classify``, device mode)
+    behind a counting interceptor, placed first so that it sees every
+    attempt (``seen``), then ``interceptors``, then a meter.
+
+    ``entered`` gets one entry per handler that started, ``done`` one per
+    handler that finished. An attempt cancelled before its request has
+    arrived is seen but never starts: the server skips its handler. ``launched`` holds this
+    server's own kernel launches, measured: the meter, innermost, takes
+    :attr:`landing` (one lock for every such server) before the request
+    lands, and the handler reads the wrappers' counts and lets the lock go
+    once the tree has landed. So only landings are serialized, never the
+    model, and no other server's landing falls into the window."""
+
+    landing = threading.Lock()
+
+    def __init__(self, fn, interceptors=(), max_workers=16):
+        from tpurpc_torch.ops import ring_scatter as rs_mod
+        from tpurpc_torch.ops import ring_window as rw_mod
+        from tpurpc_torch.rpc.interceptors import ServerInterceptor
+        from tpurpc_torch.rpc.server import RpcMethodHandler, Server
+        from tpurpc_torch.torchshim.service import add_tensor_method
+
+        self.seen, self.entered, self.done = [], [], []
+        self.launched = {"ring_scatter": 0, "ring_window": 0}
+        held = threading.local()
+        seen, entered, launched = self.seen, self.entered, self.launched
+
+        def let_go():
+            before = getattr(held, "before", None)
+            if before is None:
+                return
+            held.before = None
+            launched["ring_scatter"] += rs_mod.launches - before[0]
+            launched["ring_window"] += rw_mod.launches - before[1]
+            CallPlaneServer.landing.release()
+
+        def wrap(handler, behavior):
+            return RpcMethodHandler(handler.kind, behavior,
+                                    handler.request_deserializer,
+                                    handler.response_serializer)
+
+        class Count(ServerInterceptor):
+            def intercept_service(self, continuation, details):
+                seen.append(details.method)
+                handler = continuation(details)
+                if handler is None:
+                    return None
+                inner = handler.behavior
+
+                def counted(raw, ctx):
+                    entered.append(1)
+                    return inner(raw, ctx)
+
+                return wrap(handler, counted)
+
+        class Meter(ServerInterceptor):
+            def intercept_service(self, continuation, details):
+                handler = continuation(details)
+                if handler is None:
+                    return None
+                inner = handler.behavior
+
+                def metered(raw, ctx):
+                    CallPlaneServer.landing.acquire()
+                    held.before = (rs_mod.launches, rw_mod.launches)
+                    try:
+                        return inner(raw, ctx)
+                    finally:
+                        let_go()        # the landing failed: fn never ran
+
+                return wrap(handler, metered)
+
+        def run(tree):
+            let_go()
+            out = fn(tree)
+            self.done.append(1)
+            return out
+
+        self.server = Server(max_workers=max_workers,
+                             interceptors=[Count(), *interceptors, Meter()])
+        add_tensor_method(self.server, "Classify", run, device=True)
+        self.server.start()
+        self.port = self.server.add_insecure_port("127.0.0.1:0")
+
+    def ring(self):
+        conns = list(self.server._connections)
+        check(len(conns) == 1, f"call plane: {len(conns)} server connections")
+        return conns[0].endpoint.device_ring
+
+
+def _cp_calls(ch, images, label, after=None):
+    """Sequential ``TensorClient.call``s of every image; each call's host
+    ms. ``after(i)`` runs after reply i."""
+    import torch
+
+    from tpurpc_torch.torchshim.service import TensorClient
+
+    client = TensorClient(ch)
+    replies, lat = [], []
+    for i, x in enumerate(images):
+        t = time.perf_counter()
+        try:
+            replies.append(client.call("Classify",
+                                       {"images": torch.from_numpy(x)},
+                                       timeout=60))
+        except Exception as exc:
+            fail(f"{label}: call {i} failed: {exc!r}")
+        lat.append((time.perf_counter() - t) * 1e3)
+        if after is not None:
+            after(i)
+    return replies, lat
+
+
+def _cp_check(label, replies, wants):
+    import torch
+
+    worst = 0.0
+    for i, (r, want) in enumerate(zip(replies, wants)):
+        got = r["logits"]
+        check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+              f"{label} reply {i}: logits {tuple(got.shape)} or non-finite")
+        scale = max(1.0, want.abs().max().item())
+        d = (got - want).abs().max().item()
+        check(d <= REPLY_TOL * scale, f"{label} reply {i} differs from the "
+              f"direct run by {d} (scale {scale})")
+        check(torch.equal(r["top1"], want.argmax(dim=1)),
+              f"{label} reply {i} top1 differs from the direct run")
+        worst = max(worst, d / scale)
+    return worst
+
+
+def call_plane(dev, card, size=SIZE, ring=RING, requests=REQUESTS) -> dict:
+    """Phase 11: the call plane on the device-ring path (docstring of this
+    file). Returns each part's kernel launches, and (b)'s per server."""
+    import random
+
+    import numpy as np
+    import torch
+
+    from tpurpc_torch.models.resnet import make_infer_fn, resnet50
+    from tpurpc_torch.ops import ring_scatter as rs_mod
+    from tpurpc_torch.ops import ring_window as rw_mod
+    from tpurpc_torch.core.endpoint import EndpointError
+    from tpurpc_torch.rpc import channel as chmod
+    from tpurpc_torch.rpc.channel import Channel
+    from tpurpc_torch.rpc.interceptors import FaultConfig, FaultInjector
+    from tpurpc_torch.rpc.resolver import _RESOLVERS, register_resolver
+    from tpurpc_torch.rpc.status import RpcError, StatusCode
+
+    t_phase = time.perf_counter()
+    saved = {k: os.environ.get(k) for k in RING_ENV}
+    _set_env({"GRPC_PLATFORM_TYPE": "TPU", "TPURPC_TORCH_DEVICE": str(dev),
+              "TPURPC_HBM_RING_SIZE_KB": str(ring >> 10)})
+    torch.manual_seed(SEED)                  # phase 3's weights
+    infer = make_infer_fn(resnet50().to(dev))
+
+    def classify(tree):
+        logits = infer(tree["images"])
+        return {"logits": logits, "top1": logits.argmax(dim=1)}
+
+    rng = np.random.default_rng(SEED)        # phase 3's requests
+    images = [rng.standard_normal((BATCH, size, size, 3)).astype(np.float32)
+              for _ in range(requests)]
+    wants = [infer(torch.from_numpy(x).to(dev)).cpu() for x in images]
+    span = images[0].nbytes
+    wraps = _ring_wraps(requests * span, span, ring)
+    check(wraps > 0, f"call plane: no request wraps the {ring}-byte ring")
+    res = {}
+
+    def launches():
+        return {"ring_scatter": rs_mod.launches,
+                "ring_window": rw_mod.launches}
+
+    def per_server(label, rigs, total):
+        """Each server's measured launches; together they are all of
+        ``total``, the wrappers' counts over the part."""
+        per = [rig.launched for rig in rigs]
+        check({k: sum(p[k] for p in per) for k in total} == total,
+              f"{label}: the servers' launches {per} do not add up to the "
+              f"part's {total}")
+        return per
+
+    # (a) retries from a delivered service config
+    retry = {"maxAttempts": 5, "initialBackoff": "0.01s",
+             "maxBackoff": "0.1s", "backoffMultiplier": 2,
+             "retryableStatusCodes": ["UNAVAILABLE"]}
+    throttle = {"maxTokens": 10, "tokenRatio": 0.5}
+    cfg = {"methodConfig": [{"name": [{"service": "tpurpc.Tensor"}],
+                             "retryPolicy": retry}],
+           "retryThrottling": throttle}
+    attempts, aborts, tokens = retry_arithmetic(SEED, requests, 0.3,
+                                                retry["maxAttempts"], throttle)
+    check(aborts > 0, "call plane (a): the seeded injector aborts nothing")
+    fi = FaultInjector({"*": FaultConfig(abort_code=StatusCode.UNAVAILABLE,
+                                         abort_fraction=0.3)},
+                       rng=random.Random(SEED))
+    rig = CallPlaneServer(classify, [fi])
+    register_resolver("smoke11",
+                      lambda rest: ([("127.0.0.1", rig.port)], cfg))
+    try:
+        with Channel("smoke11:///a") as ch:
+            rs_mod.launches = rw_mod.launches = 0
+            replies, lat = _cp_calls(ch, images, "call plane (a)")
+            res["a"] = launches()
+            left = ch._service_config.retry_throttle.tokens()
+            stats = rig.ring().stats()
+    finally:
+        _RESOLVERS.pop("smoke11", None)
+        rig.server.stop()
+    worst = _cp_check("call plane (a)", replies, wants)
+    per_server("call plane (a)", [rig], res["a"])
+    check(len(rig.seen) == attempts, f"call plane (a): the server saw "
+          f"{len(rig.seen)} attempts, the seeded abort sequence gives "
+          f"{attempts}")
+    check(len(rig.done) == requests,
+          f"call plane (a): {len(rig.done)} handlers ran")
+    check(left == tokens, f"call plane (a): throttle tokens {left}, the "
+          f"bucket's arithmetic gives {tokens}")
+    check(res["a"] == {"ring_scatter": wraps, "ring_window": wraps},
+          f"call plane (a): launches {res['a']}, phase 3 gives {wraps} each "
+          f"(an aborted attempt must land nothing)")
+    check(stats["tail"] == requests * span and stats["live_spans"] == 0
+          and stats["writable"] == stats["capacity"],
+          f"call plane (a): ring {stats}")
+    p50, p99 = np.percentile(lat, [50, 99])
+    print(f"call plane (a): {requests} ResNet-50 calls, retry policy and "
+          f"throttle from a registered resolver's service config; the "
+          f"FaultInjector (abort 0.3, seed {SEED}) aborted {aborts}: "
+          f"{len(rig.seen)} attempts, all calls ok, throttle tokens {left}; "
+          f"replies vs direct run max |diff| / max(1, scale) {worst}; "
+          f"launches {res['a']}; latency ms p50 {p50} p99 {p99} ({card})",
+          flush=True)
+
+    # (b) hedging across two device-ring servers, the second slow
+    hedge = {"maxAttempts": 2, "hedgingDelay": "0.05s",
+             "nonFatalStatusCodes": ["UNAVAILABLE"]}
+    hcfg = {"methodConfig": [{"name": [{"service": "tpurpc.Tensor"}],
+                              "hedgingPolicy": hedge}]}
+    slow_fi = FaultInjector({"*": FaultConfig(delay_s=1.0,
+                                              delay_fraction=1.0)})
+    rigs = [CallPlaneServer(classify), CallPlaneServer(classify, [slow_fi])]
+    target = "ipv4:" + ",".join(f"127.0.0.1:{r.port}" for r in rigs)
+    try:
+        rs_mod.launches = rw_mod.launches = 0
+        with Channel(target, lb_policy="round_robin",
+                     options=[("grpc.service_config",
+                               json.dumps(hcfg))]) as ch:
+            replies, lat = _cp_calls(ch, images, "call plane (b)")
+            # a loser's handler starts, if at all, when its request has
+            # arrived, moments after the call's end at the latest; it then
+            # sleeps 1.0 s, lands and runs the model. A loser cancelled
+            # before its request arrived never starts.
+            slow, t_end = rigs[1], time.monotonic()
+            while ((time.monotonic() < t_end + 1.5
+                    or len(slow.done) < len(slow.entered))
+                   and time.monotonic() < t_end + 30):
+                time.sleep(0.01)
+            check(len(slow.done) == len(slow.entered), f"call plane (b): the "
+                  f"slow server finished {len(slow.done)} of the "
+                  f"{len(slow.entered)} handlers that started")
+            stats = [r.ring().stats() for r in rigs]
+            res["b"] = launches()
+    finally:
+        for r in rigs:
+            r.server.stop()
+    worst = _cp_check("call plane (b)", replies, wants)
+    check(max(lat) < 1000.0, f"call plane (b): a call took {max(lat)} ms: "
+          f"it waited on the slow replica")
+    check(len(rigs[0].done) == requests, f"call plane (b): the fast server "
+          f"finished {len(rigs[0].done)} handlers, want {requests}")
+    for k, st in enumerate(stats):
+        check(st["live_spans"] == 0 and st["writable"] == st["capacity"],
+              f"call plane (b): server {k}'s ring not back: {st}")
+    res["b_per_server"] = per_server("call plane (b)", rigs, res["b"])
+    for k, (st, got) in enumerate(zip(stats, res["b_per_server"])):
+        want = _ring_wraps(st["tail"], span, ring)
+        check(got == {"ring_scatter": want, "ring_window": want},
+              f"call plane (b): server {k} launched {got}, its ring's "
+              f"{st['tail'] // span} landings wrap {want} times")
+    hedges = len(rigs[0].seen) + len(rigs[1].seen) - requests
+    p50, p99 = np.percentile(lat, [50, 99])
+    print(f"call plane (b): {requests} calls, round_robin over two "
+          f"device-ring servers, the second delayed 1.0 s, hedgingPolicy "
+          f"{hedge} from the grpc.service_config option: attempts fast "
+          f"{len(rigs[0].seen)} slow {len(rigs[1].seen)} (handlers started "
+          f"{len(rigs[1].entered)}, the rest cancelled before their request "
+          f"arrived), hedges fired {hedges}; all answered by the fast server, slowest call "
+          f"{max(lat)} ms; replies vs direct run {worst}; slow handlers done, "
+          f"both rings back to capacity; launches {res['b']}, per server "
+          f"(measured) {res['b_per_server']}; latency ms p50 {p50} p99 "
+          f"{p99} ({card})", flush=True)
+
+    # (c) drain migration, the replays counted at the client. Stop-gap:
+    # the channel has no replay counter yet (ROADMAP A4), so the part wraps
+    # two of its methods for the part's length and puts them back after.
+    replays = {"refused": 0, "redial": 0}
+    lock = threading.Lock()
+    once = chmod.UnaryUnary._call_once
+    open_stream = chmod._Connection.open_stream
+
+    def counted_once(self, *a, **kw):
+        try:
+            return once(self, *a, **kw)
+        except RpcError as exc:
+            if getattr(exc, "_tpurpc_refused", False):
+                with lock:
+                    replays["refused"] += 1
+            raise
+
+    def counted_open(self):
+        try:
+            return open_stream(self)
+        except EndpointError:
+            if self.draining:
+                with lock:
+                    replays["redial"] += 1
+            raise
+
+    rigs = [CallPlaneServer(classify), CallPlaneServer(classify)]
+    target = "ipv4:" + ",".join(f"127.0.0.1:{r.port}" for r in rigs)
+    calls = 2 * requests
+    drained_at = []
+
+    def drain_after(i):
+        if i == 3:
+            drained_at.append(len(rigs[0].done))
+            check(rigs[0].server.drain(linger=10.0),
+                  "call plane (c): drain missed its linger")
+
+    chmod.UnaryUnary._call_once = counted_once
+    chmod._Connection.open_stream = counted_open
+    try:
+        rs_mod.launches = rw_mod.launches = 0
+        with Channel(target, lb_policy="round_robin") as ch:
+            replies, lat = _cp_calls(ch, images + images, "call plane (c)",
+                                     after=drain_after)
+        res["c"] = launches()
+    finally:
+        chmod.UnaryUnary._call_once = once
+        chmod._Connection.open_stream = open_stream
+        for r in rigs:
+            r.server.stop()
+    worst = _cp_check("call plane (c)", replies, wants + wants)
+    per_c = per_server("call plane (c)", rigs, res["c"])
+    first, second = len(rigs[0].done), len(rigs[1].done)
+    check(first == drained_at[0] and first + second == calls,
+          f"call plane (c): the drained server served {first - drained_at[0]}"
+          f" calls after the drain ({first} + {second} of {calls})")
+    p50, p99 = np.percentile(lat, [50, 99])
+    print(f"call plane (c): {calls} calls, round_robin over two servers, "
+          f"the first drained after reply 4: none failed, served "
+          f"{first}/{second}, the drained one none after; replays at the "
+          f"client {replays} (FLAG_REFUSED replays, draining redials); "
+          f"replies vs direct run {worst}; launches {res['c']}, per server "
+          f"(measured) {per_c}; latency ms p50 {p50} p99 {p99} ({card})",
+          flush=True)
+    res["replays"] = replays
+    _set_env(saved)
+    print(f"call plane: phase 11 took {time.perf_counter() - t_phase} s "
+          f"({card})", flush=True)
+    return res
+
+
 def card_line() -> str:
     """The card's name and power limit, as nvidia-smi reports them."""
     smi = subprocess.run(
@@ -2726,7 +3148,7 @@ def main() -> None:
     if kernels_only:
         launches = {"ring_scatter": None, "ring_window": None}
         stream = tf_launches = train_launches = gen_launches = None
-        fleet_launches = h2_launches = None
+        fleet_launches = h2_launches = cp_launches = None
     else:
         from tpurpc_torch.ops import ring_scatter as rs_mod
         from tpurpc_torch.ops import ring_window as rw_mod
@@ -2782,6 +3204,8 @@ def main() -> None:
                        "ring_window": rw_mod.launches}
         print(f"h2: kernel launches in phase 10 {h2_launches}; phase 10 took "
               f"{time.perf_counter() - t0} s ({card})", flush=True)
+        # phase 11: both kernels on every part, counted per part inside
+        cp_launches = call_plane(dev, card)
 
     sources = {"ring_scatter": "tpurpc/ops/ring_scatter.py:133",
                "ring_window": "tpurpc/ops/ring_window.py:138"}
@@ -2825,7 +3249,13 @@ def main() -> None:
                                fleet_launches[name]),
             # phase 10, the gRPC wire plane
             "h2_launches": (None if h2_launches is None else
-                            h2_launches[name])})
+                            h2_launches[name]),
+            # phase 11, the call plane: (a) retries, (b) hedging [server
+            # 0, server 1], (c) the drain
+            "call_plane_launches": (None if cp_launches is None else {
+                "a": cp_launches["a"][name],
+                "b": [p[name] for p in cp_launches["b_per_server"]],
+                "c": cp_launches["c"][name]})})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     if kernels_only:

@@ -11,13 +11,16 @@ against a side stream's read), the fan-in batcher, device serialization,
 4 MiB tensor streams over rendezvous (landed on the host, and through the
 device ring) and over HTTP/2, the MoE transformer's forward, its serving
 over HTTP/2 with a drain, and its train steps, the generation plane's step
-model, and a spawned shard worker's device ring run on the card.
+model, a spawned shard worker's device ring, and the call plane (retries
+behind a seeded fault injector, a hedge's loser) on the device ring run on
+the card.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from chip_smoke import CallPlaneServer, retry_arithmetic
 from tpurpc_torch.models.resnet import make_infer_fn, resnet18_thin
 from tpurpc_torch.ops import ring_scatter as rs_mod
 from tpurpc_torch.ops import ring_window as rw_mod
@@ -661,3 +664,123 @@ def test_spawned_worker_device_ring_launches_both_kernels(dev, stream_env):
     assert st["launches"]["ring_scatter"] >= 2, st
     assert st["launches"]["ring_window"] >= 2, st
     assert st["plain"] == {"ring_scatter": 0, "ring_window": 0}
+
+
+#: the call plane's seeded aborts: a FaultInjector of this seed aborting
+#: this fraction, under this retry policy and throttle
+CP_SEED, CP_ABORT = 0, 0.3
+CP_RETRY = {"maxAttempts": 5, "initialBackoff": "0.01s",
+            "maxBackoff": "0.1s", "backoffMultiplier": 2,
+            "retryableStatusCodes": ["UNAVAILABLE"]}
+CP_THROTTLE = {"maxTokens": 10, "tokenRatio": 0.5}
+
+
+@pytest.mark.cuda
+def test_call_plane_retries_on_the_card_ring(dev, stream_env, exact_f32):
+    """Phase 11 (a) at a small model: a device-mode method on the card's
+    ring (64 KiB; the 3rd and 6th float32 [2,32,32,3] requests wrap it)
+    behind a seeded FaultInjector, the retry policy and throttle from a
+    registered resolver's service config. Every call succeeds and equals a
+    direct run; the attempts and tokens are the seeded sequence's; the
+    kernels launch as without faults (an aborted attempt lands nothing) and
+    the ring comes back whole."""
+    import random
+
+    from tpurpc_torch.rpc.interceptors import FaultConfig, FaultInjector
+    from tpurpc_torch.rpc.resolver import _RESOLVERS, register_resolver
+    from tpurpc_torch.rpc.status import StatusCode
+
+    stream_env("TPU", TPURPC_HBM_RING_SIZE_KB="64")
+    infer = _small_model(dev)
+    fi = FaultInjector({"*": FaultConfig(abort_code=StatusCode.UNAVAILABLE,
+                                         abort_fraction=CP_ABORT)},
+                       rng=random.Random(CP_SEED))
+    rig = CallPlaneServer(lambda t: {"y": infer(t["x"])}, [fi],
+                          max_workers=4)
+    cfg = {"methodConfig": [{"name": [{"service": "tpurpc.Tensor"}],
+                             "retryPolicy": CP_RETRY}],
+           "retryThrottling": CP_THROTTLE}
+    register_resolver("cardretry",
+                      lambda rest: ([("127.0.0.1", rig.port)], cfg))
+    rng = np.random.default_rng(7)
+    xs = [torch.from_numpy(rng.standard_normal((2, 32, 32, 3)).astype(
+        np.float32)) for _ in range(6)]
+    attempts, aborts, tokens = retry_arithmetic(
+        CP_SEED, len(xs), CP_ABORT, CP_RETRY["maxAttempts"], CP_THROTTLE)
+    assert aborts > 0
+    try:
+        with Channel("cardretry:///x") as ch:
+            before = (rs_mod.launches, rw_mod.launches)
+            outs = [TensorClient(ch).call("Classify", {"x": x}, timeout=60)
+                    for x in xs]
+            launched = (rs_mod.launches - before[0],
+                        rw_mod.launches - before[1])
+            left = ch._service_config.retry_throttle.tokens()
+            stats = rig.ring().stats()
+    finally:
+        _RESOLVERS.pop("cardretry", None)
+        rig.server.stop()
+    for x, out in zip(xs, outs):
+        want = infer(x.to(dev)).cpu()
+        scale = max(1.0, want.abs().max().item())
+        assert (out["y"] - want).abs().max().item() <= REPLY_TOL * scale
+    assert (len(rig.seen), left) == (attempts, tokens)
+    assert launched == ((2, 2) if dev.type == "cuda" else (0, 0))
+    assert launched == (rig.launched["ring_scatter"],
+                        rig.launched["ring_window"])
+    assert stats["tail"] == len(xs) * xs[0].numel() * 4
+    assert stats["writable"] == stats["capacity"] and not stats["live_spans"]
+
+
+@pytest.mark.cuda
+def test_call_plane_hedge_loser_releases_the_card_ring(dev, stream_env,
+                                                       exact_f32):
+    """Phase 11 (b) at a small model: two device-ring servers on the card,
+    the first delayed 1.0 s; the hedge (50 ms) wins on the second well
+    before that, and once the delayed handler has landed its request, run
+    the model and replied into the cancelled stream, its ring is back to
+    capacity."""
+    import threading
+    import time
+
+    from tpurpc_torch.rpc.channel import HedgingPolicy
+    from tpurpc_torch.rpc.interceptors import FaultConfig, FaultInjector
+
+    stream_env("TPU", TPURPC_HBM_RING_SIZE_KB="64")
+    infer = _small_model(dev)
+    done = threading.Event()
+
+    def slow_fn(t):
+        out = {"y": infer(t["x"])}
+        done.set()
+        return out
+
+    slow = CallPlaneServer(slow_fn, [FaultInjector({"*": FaultConfig(
+        delay_s=1.0, delay_fraction=1.0)})], max_workers=4)
+    fast = CallPlaneServer(lambda t: {"y": infer(t["x"])}, max_workers=4)
+    x = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        (2, 32, 32, 3)).astype(np.float32))
+    try:
+        with Channel(f"ipv4:127.0.0.1:{slow.port},127.0.0.1:{fast.port}",
+                     hedging_policy=HedgingPolicy(2, 0.05)) as ch:
+            for sc in ch._subchannels:  # both dialed before the hedge
+                sc.get()
+            t0 = time.monotonic()
+            out = TensorClient(ch).call("Classify", {"x": x}, timeout=60)
+            took = time.monotonic() - t0
+            assert done.wait(30)
+            ring = slow.ring()
+            deadline = time.monotonic() + 30
+            while (ring.stats()["live_spans"]
+                   and time.monotonic() < deadline):
+                time.sleep(0.01)
+            stats = ring.stats()
+    finally:
+        slow.server.stop()
+        fast.server.stop()
+    want = infer(x.to(dev)).cpu()
+    assert (out["y"] - want).abs().max().item() <= REPLY_TOL * max(
+        1.0, want.abs().max().item())
+    assert took < 1.0 and (len(slow.seen), len(fast.seen)) == (1, 1)
+    assert stats["tail"] == x.numel() * 4          # the loser landed it
+    assert stats["writable"] == stats["capacity"] and not stats["live_spans"]

@@ -514,15 +514,35 @@ def test_generic_handler_objects_resolve_per_call():
             assert ei.value.code() == grpc.StatusCode.UNIMPLEMENTED
     finally:
         srv.stop(grace=0)
-    with pytest.raises(ValueError):
-        trpc.server(interceptors=[object()])
+    # server(interceptors=...) passes them through: both planes see them
+    seen = []
+
+    class Seen(trpc.ServerInterceptor):
+        def intercept_service(self, continuation, details):
+            seen.append(details.method)
+            return continuation(details)
+
+    srv = trpc.server(2, handlers=(Handler(),), interceptors=[Seen()])
+    port = srv.add_insecure_port("127.0.0.1:0")
+    srv.start()
+    try:
+        with trpc.insecure_channel(f"127.0.0.1:{port}") as ch:
+            assert bytes(ch.unary_unary("/g.S/Up")(b"ef", timeout=10)) == b"EF"
+        with grpc.insecure_channel(f"127.0.0.1:{port}") as ch:
+            assert ch.unary_unary("/g.S/Up", _ID, _ID)(b"gh", timeout=10) \
+                == b"GH"
+    finally:
+        srv.stop(grace=0)
+    assert seen == ["/g.S/Up", "/g.S/Up"]
 
 
 def test_rpc_surface_exports_only_what_the_port_has():
     for name in ("Channel", "insecure_channel", "Server", "server",
                  "method_handlers_generic_handler", "H2Channel",
                  "stream_unary_rpc_method_handler", "register_resolver",
-                 "ring_hash_key", "add_health_servicer", "Metadata"):
+                 "ring_hash_key", "add_health_servicer", "Metadata",
+                 "RetryPolicy", "intercept_channel", "ClientInterceptor",
+                 "ServerInterceptor", "FaultConfig", "FaultInjector"):
         assert hasattr(trpc, name), name
     assert trpc.H2Channel is H2Channel
     # the package's `server` is the module, callable as grpcio's factory
@@ -530,7 +550,7 @@ def test_rpc_surface_exports_only_what_the_port_has():
 
     assert server_module.LOAD_KEY == "tpurpc-load"
     assert isinstance(trpc.server(1), trpc.Server)
-    for name in ("aio", "NativeChannel", "RetryPolicy", "ChannelConnectivity",
-                 "secure_channel", "intercept_channel",
-                 "enable_server_reflection", "enable_channelz"):
+    for name in ("aio", "NativeChannel", "ChannelConnectivity",
+                 "secure_channel", "enable_server_reflection",
+                 "enable_channelz"):
         assert not hasattr(trpc, name), name

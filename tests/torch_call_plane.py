@@ -1,0 +1,127 @@
+"""Both packages' call planes side by side, for the port's call-plane tests.
+
+``REF`` and ``PORT`` carry each package's channel, server, resolver,
+service-config and interceptor modules under the same names, so that one
+scenario function runs on either package (or on a client of one and a
+server of the other). Observations are plain values: status codes by
+name, reply bytes, attempt counts, throttle tokens, server indices.
+"""
+
+import importlib
+import socket
+import threading
+import time
+import types
+
+import tpurpc.rpc as jrpc
+import tpurpc_torch.rpc as trpc
+
+
+def _pkg(name, root):
+    mods = {m: importlib.import_module(f"{root}.rpc.{m}")
+            for m in ("channel", "server", "resolver", "service_config",
+                      "interceptors", "status")}
+    return types.SimpleNamespace(name=name, rpc=jrpc if name == "ref" else trpc,
+                                 **mods)
+
+
+REF = _pkg("ref", "tpurpc")
+PORT = _pkg("port", "tpurpc_torch")
+PKGS = {"ref": REF, "port": PORT}
+
+
+def code_name(exc) -> str:
+    return exc.code().name
+
+
+def observe(fn):
+    """``fn()``'s value, or ``("error", code name, details)`` when it
+    raises an RpcError of either package."""
+    try:
+        return ("ok", fn())
+    except (REF.status.RpcError, PORT.status.RpcError) as exc:
+        return ("error", code_name(exc), exc.details())
+
+
+def code_of(pkg, name: str):
+    return getattr(pkg.status.StatusCode, name)
+
+
+def serve(pkg, methods: dict, interceptors=(), **kw):
+    """A started server of ``pkg`` with ``{path: (kind, fn)}`` methods;
+    returns ``(server, port)``."""
+    srv = pkg.server.Server(max_workers=kw.pop("max_workers", 8),
+                            interceptors=interceptors, **kw)
+    for path, (kind, fn) in methods.items():
+        make = getattr(pkg.server, f"{kind}_rpc_method_handler")
+        srv.add_method(path, make(fn))
+    port = srv.add_insecure_port("127.0.0.1:0")
+    srv.start()
+    return srv, port
+
+
+def poll(pred, timeout: float = 10.0, interval: float = 0.01):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        got = pred()
+        if got:
+            return got
+        time.sleep(interval)
+    return pred()
+
+
+def settles_at(fn, expect, settle_s: float = 0.3, interval: float = 0.02):
+    """``fn()`` must equal ``expect`` for the whole settle window."""
+    deadline = time.monotonic() + settle_s
+    while time.monotonic() < deadline:
+        if fn() != expect:
+            return False
+        time.sleep(interval)
+    return fn() == expect
+
+
+def dead_port() -> int:
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+class Counter:
+    """A thread-safe handler-side call counter."""
+
+    def __init__(self):
+        self.n = 0
+        self._lock = threading.Lock()
+
+    def bump(self) -> int:
+        with self._lock:
+            self.n += 1
+            return self.n
+
+
+class Flaky:
+    """A unary handler that fails with ``code`` for its first ``fail``
+    calls, then answers ``b"ok:<n>"``."""
+
+    def __init__(self, pkg, fail: int, code: str = "UNAVAILABLE"):
+        self.pkg = pkg
+        self.fail = fail
+        self.code = code_of(pkg, code)
+        self.calls = Counter()
+
+    def __call__(self, req, ctx):
+        n = self.calls.bump()
+        if n <= self.fail:
+            ctx.abort(self.code, "flake")
+        return b"ok:" + str(n).encode()
+
+
+def both(scenario, *args):
+    """Run ``scenario(pkg, *args)`` on the reference, then on the port; the
+    observations must be equal. Returns them."""
+    want = scenario(REF, *args)
+    got = scenario(PORT, *args)
+    assert got == want, (got, want)
+    return got

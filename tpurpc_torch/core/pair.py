@@ -147,8 +147,12 @@ class ShmDomain(MemoryDomain):
 
     # The allocator unlinks explicitly (Region.close); Python's
     # resource_tracker would otherwise unlink from every process that ever
-    # mapped the segment, so registration is suppressed.
-    _track_mu = threading.Lock()
+    # mapped the segment, so registration is suppressed. Re-entrant: a
+    # SharedMemory constructed inside the block can trigger a garbage
+    # collection whose weakref callback closes a recycled window, which
+    # takes the block again on the same thread (the reference's plain lock
+    # deadlocks there).
+    _track_mu = threading.RLock()
 
     @staticmethod
     @contextlib.contextmanager

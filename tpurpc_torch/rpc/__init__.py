@@ -12,13 +12,20 @@ the port has, so that a grpcio-style program runs against
         "demo.Greeter", {"SayHello": grpc.unary_unary_rpc_method_handler(fn)}),))
     srv.add_insecure_port("0.0.0.0:50051"); srv.start()
 
+A channel takes a service config (per-method timeout, waitForReady,
+retryPolicy or hedgingPolicy, retryThrottling) from its resolver, from
+``update_service_config`` or from the ``grpc.service_config`` option, or
+explicit ``retry_policy=RetryPolicy(...)`` / ``hedging_policy=`` arguments;
+``server(interceptors=[...])`` and ``intercept_channel`` take grpcio-shaped
+interceptors, and ``FaultInjector`` injects aborts and delays.
+
 ``H2Channel`` (``tpurpc_torch/wire/h2_client.py``) is exported lazily, as
 the reference does: an eager import here would make a program that imports
 ``tpurpc_torch.wire.grpc_h2`` first meet this package mid-cycle.
 """
 
 from tpurpc_torch.rpc.status import AbortError, Metadata, RpcError, StatusCode
-from tpurpc_torch.rpc.channel import Channel, insecure_channel
+from tpurpc_torch.rpc.channel import Channel, RetryPolicy, insecure_channel
 from tpurpc_torch.rpc.server import (
     RpcMethodHandler,
     Server,
@@ -29,6 +36,9 @@ from tpurpc_torch.rpc.server import (
     unary_stream_rpc_method_handler,
     unary_unary_rpc_method_handler,
 )
+from tpurpc_torch.rpc.interceptors import (ClientInterceptor, FaultConfig,
+                                           FaultInjector, ServerInterceptor,
+                                           intercept_channel)
 from tpurpc_torch.rpc.resolver import register_resolver, ring_hash_key
 from tpurpc_torch.rpc.health import add_health_servicer
 from tpurpc_torch.rpc import server  # the module, callable as server()
@@ -41,6 +51,8 @@ __all__ = [
     "unary_unary_rpc_method_handler", "unary_stream_rpc_method_handler",
     "stream_unary_rpc_method_handler", "stream_stream_rpc_method_handler",
     "register_resolver", "ring_hash_key", "add_health_servicer",
+    "ClientInterceptor", "FaultConfig", "FaultInjector",
+    "ServerInterceptor", "intercept_channel", "RetryPolicy",
     "H2Channel",
 ]
 

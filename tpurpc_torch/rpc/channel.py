@@ -1,8 +1,8 @@
 """Client channel: multiplexed calls over one endpoint, with reconnect.
 
-A trimmed copy of ``tpurpc/rpc/channel.py`` (no retries, hedging, service
-config, compression or native fast path; a dedicated reader thread per
-connection):
+A trimmed copy of ``tpurpc/rpc/channel.py`` (no compression, native fast
+path, keepalive or connectivity state, and none of the reference's
+observability hooks; a dedicated reader thread per connection):
 
 * ``Channel`` resolves its target into subchannels (one per address), each
   (re)connecting with exponential backoff; an LB policy
@@ -13,9 +13,18 @@ connection):
   per-stream state, a write path serialized by ``FrameWriter``, odd client
   stream ids, and a rendezvous link (``core/rendezvous.py``) that moves
   bulk payloads one-sided;
-* ``UnaryUnary`` / ``UnaryStream`` / ``StreamStream`` mirror grpcio's
-  multicallables; ``Call.device_ring`` is the ring of the connection the
-  call ran on;
+* ``UnaryUnary`` / ``UnaryStream`` / ``StreamUnary`` / ``StreamStream``
+  mirror grpcio's multicallables; ``Call.device_ring`` is the ring of the
+  connection the call ran on;
+* the call plane: a service config (``rpc/service_config.py``) delivered
+  by the resolver, by ``update_service_config`` or by the
+  ``grpc.service_config`` option gives per-method timeouts,
+  wait-for-ready, :class:`RetryPolicy` (with the channel-wide retry
+  throttle and the server's pushback as a floor) and
+  :class:`HedgingPolicy`. A stream the server REFUSED before any handler
+  ran (``RST|FLAG_REFUSED``, a draining server) is replayed transparently
+  on another subchannel, and so is a stream that could not open because
+  its connection turned draining;
 * ``PipelinedUnary`` keeps many unary calls in flight on one connection,
   each resolved as a future by the reader thread (no REFUSED-replay
   migration, stall watchdog, pump mode or latency histograms).
@@ -29,22 +38,44 @@ import random
 import threading
 import time
 from typing import (Callable, Dict, Iterable, Iterator, List, Optional,
-                    Tuple, Union)
+                    Sequence, Tuple, Union)
 
 from tpurpc_torch.core import rendezvous as _rdv
 from tpurpc_torch.core.endpoint import (Endpoint, EndpointError,
                                         connect_endpoint, device_ring_of)
 from tpurpc_torch.rpc import frame as fr
-from tpurpc_torch.rpc.resolver import make_policy, resolve_target
+from tpurpc_torch.rpc import resolver as _resolver
+from tpurpc_torch.rpc.resolver import (make_policy, resolve_target,
+                                       resolve_target_full)
+from tpurpc_torch.rpc.service_config import ServiceConfig
 from tpurpc_torch.rpc.status import (Deserializer, Metadata, RpcError,
                                      Serializer, StatusCode,
                                      deserialize as _deserialize,
                                      identity_codec as _identity)
 from tpurpc_torch.utils.config import get_config
 
-#: the server's load-report key (``tpurpc_torch.rpc.server.LOAD_KEY``), a
-#: literal here rather than a server import in the client module
+#: the server's load-report and pushback keys
+#: (``tpurpc_torch.rpc.server.LOAD_KEY`` / ``PUSHBACK_KEY``), literals here
+#: rather than a server import in the client module
 _LOAD_KEY = "tpurpc-load"
+_PUSHBACK_KEY = "tpurpc-pushback-ms"
+
+
+def _pushback_s(exc) -> "Optional[float]":
+    """Server retry-pushback (``tpurpc-pushback-ms`` trailing metadata on
+    an admission rejection) in seconds, or None when absent/junk."""
+    try:
+        md = exc.trailing_metadata() or ()
+    except Exception:
+        return None
+    for key, value in md:
+        if key == _PUSHBACK_KEY:
+            try:
+                return max(0.0, float(value) / 1000.0)
+            except (TypeError, ValueError):
+                return None
+    return None
+
 
 class _ClientStream:
     """Per-call state the reader thread feeds and the caller drains."""
@@ -55,6 +86,7 @@ class _ClientStream:
         self.initial_metadata: Optional[List[Tuple[str, "str | bytes"]]] = None
         self.assembly = fr.Assembly()
         self.done = False  # trailers or failure delivered
+        self.refused = False  # RST|FLAG_REFUSED: admission refusal, replayable
         #: pipelined-call completion hook: invoked (on the delivering thread)
         #: AFTER the terminal event is queued — PipelinedUnary resolves its
         #: future here instead of parking a thread on the event queue
@@ -281,6 +313,10 @@ class _Connection:
                             except Exception:
                                 pass  # a policy bug must not kill the reader
                         break
+            if f.type == fr.RST and f.flags & fr.FLAG_REFUSED:
+                # admission refusal: the server certifies no handler ran
+                # (set BEFORE the event lands; the queue orders the read)
+                st.refused = True
             self.close_stream(st)
             st.deliver_trailers(code, details, md)
         else:
@@ -400,9 +436,14 @@ class Channel:
     (``priority`` / ``weighted_target`` over subchannel index subsets) — see
     :func:`tpurpc_torch.rpc.resolver.make_policy`. ``options`` takes
     grpcio's ``[("grpc.arg_name", value), ...]``; the port reads
-    ``grpc.max_receive_message_length`` and ``grpc.lb_policy_name`` (an
-    explicit parameter wins) and ignores the rest, as grpcio ignores unknown
-    channel args.
+    ``grpc.max_receive_message_length``, ``grpc.lb_policy_name`` (an
+    explicit parameter wins) and ``grpc.service_config`` (a fallback used
+    only when the resolver delivers no config) and ignores the rest, as
+    grpcio ignores unknown channel args.
+
+    ``retry_policy`` / ``hedging_policy`` apply to every method and win
+    over a service config's; without them (gRPC's default) calls are not
+    retried unless a service config says so.
     """
 
     #: reconnect backoff: start 50 ms, cap 2 s, ×1.6, 20% jitter
@@ -415,7 +456,10 @@ class Channel:
                  connect_timeout: float = 30.0,
                  lb_policy: "Union[str, dict]" = "pick_first",
                  max_receive_message_length: Optional[int] = None,
+                 retry_policy: "Optional[RetryPolicy]" = None,
+                 hedging_policy: "Optional[HedgingPolicy]" = None,
                  options=None):
+        svc_cfg_fallback = None
         if options:
             opt = dict(options)
             if max_receive_message_length is None:
@@ -423,6 +467,22 @@ class Channel:
                     "grpc.max_receive_message_length")
             if lb_policy == "pick_first" and "grpc.lb_policy_name" in opt:
                 lb_policy = opt["grpc.lb_policy_name"]
+            #: grpcio's service-config channel arg: a JSON FALLBACK used
+            #: only when the resolver delivers no config (the resolver wins)
+            svc_cfg_fallback = opt.get("grpc.service_config")
+        #: channel-level retry policy for unary-request calls (None = off,
+        #: gRPC's default without a service config). An explicit policy
+        #: here WINS over any service config the resolver delivers.
+        self.retry_policy = retry_policy
+        #: channel-level hedging policy (gRFC A6): staggered parallel
+        #: attempts on distinct subchannels, first response wins. Retry wins
+        #: when both are configured (a call runs ONE strategy).
+        self.hedging_policy = hedging_policy
+        #: parsed service config (per-method timeout / waitForReady /
+        #: retryPolicy / hedgingPolicy, channel-wide retryThrottling);
+        #: swapped whole by update_service_config, read once per call by
+        #: _call_plan
+        self._service_config: Optional[ServiceConfig] = None
         self.max_receive_message_length = get_config().resolve_recv_limit(
             max_receive_message_length)
         self._lb_spec = lb_policy
@@ -430,12 +490,17 @@ class Channel:
         if endpoint_factory is None:
             if target is None:
                 raise ValueError("need target or endpoint_factory")
-            addrs = resolve_target(target)
+            resolution = resolve_target_full(target)
+            addrs = resolution.addresses
             self._addrs: Optional[list] = list(addrs)
             factories = [self._addr_factory(h, p) for h, p in addrs]
+            if resolution.service_config is not None:
+                self.update_service_config(resolution.service_config)
         else:
             self._addrs = None  # injected factory: membership is fixed
             factories = [endpoint_factory]
+        if self._service_config is None and svc_cfg_fallback is not None:
+            self.update_service_config(svc_cfg_fallback)
         self._subchannels = [_Subchannel(f, self) for f in factories]
         self._policy = make_policy(lb_policy, len(self._subchannels))
         self._lock = threading.Lock()  # guards _closed and the membership
@@ -444,6 +509,51 @@ class Channel:
     def _addr_factory(self, h: str, p: int) -> Callable[[], Endpoint]:
         timeout = self._connect_timeout
         return lambda: connect_endpoint(h, p, timeout=timeout)
+
+    def update_service_config(self, cfg) -> None:
+        """Apply a JSON service config (dict or JSON text): per-method
+        timeouts, wait-for-ready, retry and hedging policies, and
+        channel-wide retry throttling take effect for SUBSEQUENT calls
+        without touching call sites. A malformed config raises
+        ``ValueError`` and the previous one stays (reject-whole,
+        keep-last-good). The throttle's drain state carries across updates:
+        a re-resolution re-delivering the same config must not refill the
+        bucket and resume a suppressed retry storm."""
+        new = ServiceConfig.from_json(cfg)
+        prev = self._service_config
+        if new.retry_throttle is not None:
+            new.retry_throttle.carry_from(
+                prev.retry_throttle if prev else None)
+        self._service_config = new
+
+    def _call_plan(self, method: str, timeout: "Optional[float]",
+                   wait_for_ready: bool = False):
+        """ONE consistent per-call snapshot of the service-config-derived
+        values: ``(retry_policy, timeout, throttle, wait_for_ready,
+        hedging_policy)``, from a single read of ``_service_config`` so a
+        concurrent update can never pair one config's retry policy with
+        another's throttle or timeout. Rules: an explicit constructor
+        policy wins; the config's timeout can only TIGHTEN the call's (the
+        min rule); waitForReady is or-ed with the per-call flag; a method
+        runs ONE strategy — when both retry and hedging resolve, retry
+        wins."""
+        sc = self._service_config
+        mc = sc.for_method(method) if sc is not None else None
+        policy = self.retry_policy
+        if policy is None and mc is not None:
+            policy = mc.retry_policy
+        hedging = self.hedging_policy
+        if hedging is None and mc is not None:
+            hedging = mc.hedging_policy
+        if policy is not None:
+            hedging = None
+        if mc is not None and mc.timeout is not None:
+            timeout = (mc.timeout if timeout is None
+                       else min(timeout, mc.timeout))
+        return (policy, timeout,
+                sc.retry_throttle if sc is not None else None,
+                bool(wait_for_ready) or bool(mc and mc.wait_for_ready),
+                hedging)
 
     @property
     def _conn(self) -> Optional[_Connection]:
@@ -508,9 +618,17 @@ class Channel:
         for sc in removed:
             sc.close()
 
-    def _connection(self) -> _Connection:
+    def _connection(self, exclude=None, picked=None) -> _Connection:
         """LB pick: walk subchannels in policy order, first live or
-        dialable wins (client_channel's resolver → LB → subchannel flow)."""
+        dialable wins (client_channel's resolver → LB → subchannel flow).
+
+        ``exclude`` (a set of :class:`_Subchannel` objects) deprioritizes
+        backends this logical call already used — hedged attempts prefer
+        distinct subchannels, and a drain-refused replay migrates instead
+        of re-hitting the drainer. Excluded subchannels are walked LAST,
+        not dropped: landing on a busy backend beats failing the call when
+        nothing else is dialable. ``picked`` (a list, out-param) receives
+        the chosen subchannel."""
         with self._lock:
             if self._closed:
                 raise RpcError(StatusCode.UNAVAILABLE, "channel closed")
@@ -518,10 +636,15 @@ class Channel:
             # pick never mixes one generation's policy with another's subs
             policy, subs = self._policy, self._subchannels
         last_exc: Optional[Exception] = None
+        order = list(policy.order())
+        if exclude:
+            order = ([i for i in order if subs[i] not in exclude]
+                     + [i for i in order if subs[i] in exclude])
         fail_fast = len(subs) > 1  # walkers skip backing-off members
-        for idx in list(policy.order()):
+        for idx in order:
+            sc = subs[idx]
             try:
-                conn = subs[idx].get(fail_fast=fail_fast)
+                conn = sc.get(fail_fast=fail_fast)
             except RpcError as exc:
                 policy.failed(idx)
                 last_exc = exc
@@ -533,6 +656,8 @@ class Channel:
             if hasattr(policy, "load_report"):
                 conn.on_load = (lambda raw, _p=policy, _i=idx:
                                 _p.load_report(_i, raw))
+            if picked is not None:
+                picked.append(sc)
             return conn
         raise last_exc if last_exc is not None else RpcError(
             StatusCode.UNAVAILABLE, "no subchannels")
@@ -564,6 +689,11 @@ class Channel:
     def unary_stream(self, method: str, request_serializer: Serializer = _identity,
                      response_deserializer: Deserializer = _identity) -> "UnaryStream":
         return UnaryStream(self, method, request_serializer or _identity,
+                           response_deserializer or _identity)
+
+    def stream_unary(self, method: str, request_serializer: Serializer = _identity,
+                     response_deserializer: Deserializer = _identity) -> "StreamUnary":
+        return StreamUnary(self, method, request_serializer or _identity,
                            response_deserializer or _identity)
 
     def stream_stream(self, method: str, request_serializer: Serializer = _identity,
@@ -665,7 +795,10 @@ class Call:
             _, code, details, md = ev
             self._finish(code, details, md)
             if code is not StatusCode.OK:
-                raise RpcError(code, details, md)
+                exc = RpcError(code, details, md)
+                if self._st.refused:
+                    exc._tpurpc_refused = True  # replay-safe: FLAG_REFUSED
+                raise exc
             return
 
     def __iter__(self):
@@ -673,6 +806,120 @@ class Call:
 
 
 _NO_REQUEST = object()
+
+
+def _status_of(exc: RpcError) -> StatusCode:
+    """RpcError's grpcio-style ``code()`` method, tolerant of plain attrs."""
+    return exc.code() if callable(exc.code) else exc.code
+
+
+class RetryPolicy:
+    """Client retry policy (gRPC's service-config ``retryPolicy``:
+    maxAttempts, backoff, retryableStatusCodes), applied to unary-request
+    calls (the whole request is in hand to replay); a call that already
+    delivered a response message is never retried, the gRPC retry
+    contract.
+
+    >>> ch = Channel(target, retry_policy=RetryPolicy(max_attempts=4))
+    """
+
+    __slots__ = ("max_attempts", "initial_backoff", "max_backoff",
+                 "backoff_multiplier", "retryable_codes")
+
+    def __init__(self, max_attempts: int = 3, initial_backoff: float = 0.05,
+                 max_backoff: float = 1.0, backoff_multiplier: float = 2.0,
+                 retryable_codes: Sequence[StatusCode] = (
+                     StatusCode.UNAVAILABLE,)):
+        if max_attempts < 1:
+            raise ValueError("max_attempts must be >= 1")
+        self.max_attempts = max_attempts
+        self.initial_backoff = initial_backoff
+        self.max_backoff = max_backoff
+        self.backoff_multiplier = backoff_multiplier
+        self.retryable_codes = tuple(retryable_codes)
+
+    def next_sleep(self, backoff: float,
+                   deadline: Optional[float]) -> Optional[float]:
+        """The jittered (±20%) clamped sleep for the next retry, or None
+        when it would outlive the call deadline."""
+        sleep = min(backoff, self.max_backoff)
+        sleep *= 1.0 + random.uniform(-0.2, 0.2)
+        if deadline is not None and time.monotonic() + sleep >= deadline:
+            return None
+        return sleep
+
+    def run(self, deadline: Optional[float], attempt_fn, throttle=None):
+        """Drive attempt_fn() under this policy. ``throttle`` is the
+        channel-wide :class:`~tpurpc_torch.rpc.service_config.RetryThrottle`
+        (gRFC A6): retryable failures drain it, successes refill it, and a
+        drained bucket suppresses the retry (the failure surfaces)."""
+        backoff = self.initial_backoff
+        attempt = 0
+        while True:
+            try:
+                result = attempt_fn()
+            except RpcError as exc:
+                attempt += 1
+                code = _status_of(exc)
+                retryable = code in self.retryable_codes
+                if throttle is not None and retryable:
+                    throttle.record_failure()
+                if (attempt >= self.max_attempts
+                        or not retryable
+                        or getattr(exc, "_tpurpc_committed", False)
+                        or (throttle is not None
+                            and not throttle.allow_retry())):
+                    raise
+                sleep = self.next_sleep(backoff, deadline)
+                # an admission-shedding server names its own backoff
+                # (tpurpc-pushback-ms): the FLOOR of the retry sleep
+                pushback = _pushback_s(exc)
+                if pushback is not None:
+                    sleep = pushback if sleep is None else max(sleep,
+                                                               pushback)
+                    if (deadline is not None
+                            and time.monotonic() + sleep >= deadline):
+                        sleep = None
+                if sleep is None:
+                    raise
+                time.sleep(sleep)
+                backoff *= self.backoff_multiplier
+            else:
+                if throttle is not None:
+                    throttle.record_success()
+                return result
+
+
+class HedgingPolicy:
+    """gRFC A6 hedging: up to ``max_attempts`` copies of one unary call in
+    flight, staggered ``hedging_delay`` apart, each preferring a subchannel
+    the call hasn't used yet. The first usable response wins and the losers
+    are cancelled (RST on their streams); a failure with a status in
+    ``non_fatal_codes`` fires the next hedge IMMEDIATELY instead of waiting
+    out the delay; any other failure is fatal and resolves the call.
+
+    The method must be idempotent (two servers may both execute it). All
+    attempts share ONE deadline (the caller's timeout, anchored once), the
+    channel-wide retry throttle gates every hedge beyond the first, and a
+    server's admission pushback stops further hedging outright.
+
+    >>> ch = Channel(target, lb_policy="round_robin",
+    ...              hedging_policy=HedgingPolicy(max_attempts=3,
+    ...                                           hedging_delay=0.01))
+    """
+
+    __slots__ = ("max_attempts", "hedging_delay", "non_fatal_codes")
+
+    def __init__(self, max_attempts: int = 2, hedging_delay: float = 0.05,
+                 non_fatal_codes: Sequence[StatusCode] = (
+                     StatusCode.UNAVAILABLE,)):
+        if max_attempts < 2:
+            raise ValueError("max_attempts must be >= 2")
+        if hedging_delay < 0:
+            raise ValueError("hedging_delay must be >= 0")
+        self.max_attempts = int(max_attempts)
+        self.hedging_delay = float(hedging_delay)
+        self.non_fatal_codes = tuple(non_fatal_codes)
 
 
 class _MultiCallable:
@@ -683,17 +930,59 @@ class _MultiCallable:
         self._ser = serializer
         self._deser = deserializer
 
+    def _dial(self, wait_for_ready: bool, deadline: Optional[float],
+              exclude=None, picked=None) -> _Connection:
+        """One LB-picked connection. With ``wait_for_ready`` (the grpcio
+        per-call flag), a channel in TRANSIENT_FAILURE QUEUES the call —
+        keep redialing until the deadline — instead of failing it fast
+        (fail-fast is the default)."""
+        if not wait_for_ready:
+            return self._channel._connection(exclude=exclude, picked=picked)
+        while True:
+            try:
+                return self._channel._connection(exclude=exclude,
+                                                 picked=picked)
+            except RpcError as exc:
+                if (self._channel._is_closed()
+                        or _status_of(exc) is not StatusCode.UNAVAILABLE):
+                    raise
+                if deadline is not None and time.monotonic() >= deadline:
+                    raise RpcError(
+                        StatusCode.DEADLINE_EXCEEDED,
+                        "deadline exceeded waiting for channel readiness",
+                    ) from exc
+                # Subchannel.get already sleeps through its backoff; this
+                # only paces the no-deadline case. The deadline is checked
+                # BETWEEN attempts, so one connect to a blackholed address
+                # can overshoot it by up to the channel's connect_timeout.
+                time.sleep(0.05)
+
     def _start(self, metadata: Optional[Metadata], timeout: Optional[float],
-               first_request=_NO_REQUEST) -> Tuple[_Connection, _ClientStream, Call]:
+               first_request=_NO_REQUEST, wait_for_ready: bool = False,
+               exclude=None, picked=None
+               ) -> Tuple[_Connection, _ClientStream, Call]:
         """Open a stream and send HEADERS — fused with the only MESSAGE when
-        the request is known upfront (one transport write per unary call)."""
+        the request is known upfront (one transport write per unary call).
+
+        A connection that turned draining (GOAWAY) between the LB pick and
+        ``open_stream`` is redialed transparently: the stream never reached
+        the wire."""
+        # ONE deadline for the whole call, anchored before the dial: time
+        # queued in wait_for_ready counts against the caller's timeout
         deadline = None if timeout is None else time.monotonic() + timeout
-        conn = self._channel._connection()
-        try:
-            st = conn.open_stream()
-        except EndpointError as exc:
+        for _ in range(3):
+            conn = self._dial(wait_for_ready, deadline,
+                              exclude=exclude, picked=picked)
+            try:
+                st = conn.open_stream()
+                break
+            except EndpointError:
+                if not conn.draining:
+                    raise RpcError(StatusCode.UNAVAILABLE,
+                                   "connection closed while starting call")
+        else:
             raise RpcError(StatusCode.UNAVAILABLE,
-                           f"connection closed while starting call: {exc}") from exc
+                           "no non-draining connection after 3 dials")
         try:
             timeout_us = (None if deadline is None else
                           max(0, int((deadline - time.monotonic()) * 1e6)))
@@ -710,8 +999,17 @@ class _MultiCallable:
             conn.close_stream(st)
             raise RpcError(StatusCode.RESOURCE_EXHAUSTED, str(exc)) from exc
         except (EndpointError, OSError) as exc:
-            raise RpcError(StatusCode.UNAVAILABLE,
-                           f"transport failed: {exc}") from exc
+            err = RpcError(StatusCode.UNAVAILABLE, f"transport failed: {exc}")
+            if st.refused:
+                # A draining server refused the stream (RST|FLAG_REFUSED: no
+                # handler ran) while its request was still being written, and
+                # the drained connection closed behind the refusal: the send
+                # fails, but the refusal stands, and the call may be replayed.
+                # (The reference fails such a call with this detail.)
+                err._tpurpc_refused = True
+                if picked:
+                    err._tpurpc_sub = picked[-1]
+            raise err from exc
         return conn, st, Call(conn, st, self._deser, deadline)
 
     def _send_stream(self, conn: _Connection, st: _ClientStream,
@@ -739,24 +1037,260 @@ class _MultiCallable:
                                f"request iterator raised: {exc!r}")
 
 
+def _reject_call_credentials(grpcio_kw: dict) -> None:
+    """grpcio callers may pass credentials/wait_for_ready/compression per
+    call. wait_for_ready is honored (queue instead of fail-fast, see
+    _MultiCallable._dial); per-call compression is advisory; per-call
+    CREDENTIALS are a security feature that must not be silently
+    dropped."""
+    if grpcio_kw.get("credentials") is not None:
+        raise NotImplementedError(
+            "per-call credentials are not supported; use channel credentials")
+
+
 class UnaryUnary(_MultiCallable):
     def __call__(self, request, timeout: Optional[float] = None,
-                 metadata: Optional[Metadata] = None):
-        response, _ = self.with_call(request, timeout=timeout, metadata=metadata)
+                 metadata: Optional[Metadata] = None, **grpcio_kw):
+        response, _ = self.with_call(request, timeout=timeout,
+                                     metadata=metadata, **grpcio_kw)
         return response
 
     def with_call(self, request, timeout: Optional[float] = None,
-                  metadata: Optional[Metadata] = None):
+                  metadata: Optional[Metadata] = None, **grpcio_kw):
         """``(response, call)``; the call carries the trailing metadata and
-        the connection's device ring."""
-        _, _, call = self._start(metadata, timeout, first_request=request)
+        the connection's device ring. Runs under the call plan: a retry
+        policy, else a hedging policy, else one attempt — each with the
+        transparent replay of refused streams."""
+        _reject_call_credentials(grpcio_kw)
+        policy, timeout, throttle, eff_wfr, hedging = \
+            self._channel._call_plan(
+                self._method, timeout, bool(grpcio_kw.get("wait_for_ready")))
+        deadline = None if timeout is None else time.monotonic() + timeout
+        if policy is None and hedging is not None:
+            return self._hedged_call(request, deadline, metadata, eff_wfr,
+                                     hedging, throttle)
+        #: subchannels that REFUSED this logical call (drain): the replay
+        #: deprioritizes them, so a draining backend's traffic migrates
+        #: instead of re-racing the same GOAWAY
+        refused_subs: set = set()
+
+        def remaining():
+            return (None if deadline is None
+                    else max(0.0, deadline - time.monotonic()))
+
+        def attempt():
+            # Transparent retry (distinct from RetryPolicy): a stream the
+            # server REFUSED at admission never reached a handler, so
+            # replaying it is always safe. Each replay spends from the
+            # OUTER deadline; nothing re-anchors it.
+            for _ in range(3):
+                try:
+                    return self._call_once(request, remaining(), metadata,
+                                           eff_wfr,
+                                           exclude=refused_subs or None)
+                except RpcError as exc:
+                    # FLAG_REFUSED is the contract; the "connection
+                    # draining" wording stays for servers that send the
+                    # RST without the flag
+                    refused = ((getattr(exc, "_tpurpc_refused", False)
+                                or (_status_of(exc) is StatusCode.UNAVAILABLE
+                                    and "connection draining"
+                                    in exc.details()))
+                               and not getattr(exc, "_tpurpc_committed",
+                                               False))
+                    if not refused:
+                        raise
+                    sub = getattr(exc, "_tpurpc_sub", None)
+                    if sub is not None:
+                        refused_subs.add(sub)
+            return self._call_once(request, remaining(), metadata, eff_wfr,
+                                   exclude=refused_subs or None)
+
+        if policy is None:
+            return attempt()
+        return policy.run(deadline, attempt, throttle=throttle)
+
+    def _hedged_call(self, request, deadline: Optional[float],
+                     metadata: Optional[Metadata], wait_for_ready: bool,
+                     hp: HedgingPolicy, throttle):
+        """The gRFC A6 hedging state machine. The caller's thread drives
+        one thread per attempt:
+
+        * attempt 0 launches at once; attempt k+1 launches when the hedging
+          delay lapses with nothing resolved, OR at once when an attempt
+          fails with a non-fatal status;
+        * every launch beyond the first consults the channel-wide retry
+          throttle, so hedges never amplify into a retry storm;
+        * admission pushback from any attempt stops further hedging;
+        * the first OK response wins: the losers' streams are RST and
+          their Calls observe CANCELLED. A fatal failure resolves the call
+          the same way.
+
+        All attempts share the ONE deadline anchored by the caller; each
+        attempt carries its own remaining-budget snapshot, so every
+        outstanding attempt self-resolves by the deadline and the final
+        wait cannot hang."""
+        def remaining():
+            return (None if deadline is None
+                    else max(0.0, deadline - time.monotonic()))
+
+        results: "queue.Queue[tuple]" = queue.Queue()
+        lock = threading.Lock()
+        calls: dict = {}        # attempt idx -> live Call (for cancellation)
+        used_subs: set = set()  # prefer-distinct exclusion, cross-attempt
+        done = [False]
+
+        def on_call_for(idx):
+            def on_call(call, sub):
+                cancel_now = False
+                with lock:
+                    calls[idx] = call
+                    if sub is not None:
+                        used_subs.add(sub)
+                    if done[0]:
+                        cancel_now = True  # raced the winner: die quietly
+                if cancel_now:
+                    call.cancel()
+            return on_call
+
+        def run_attempt(idx):
+            refused_local: set = set()
+            last_exc = None
+            for _ in range(3):  # transparent refused-replay, per attempt
+                with lock:
+                    excl = set(used_subs) | refused_local
+                try:
+                    resp, call = self._call_once(
+                        request, remaining(), metadata, wait_for_ready,
+                        exclude=excl or None, on_call=on_call_for(idx))
+                    results.put((idx, (resp, call), None))
+                    return
+                except RpcError as exc:
+                    last_exc = exc
+                    if (getattr(exc, "_tpurpc_refused", False)
+                            and not getattr(exc, "_tpurpc_committed",
+                                            False)):
+                        sub = getattr(exc, "_tpurpc_sub", None)
+                        if sub is not None:
+                            refused_local.add(sub)
+                        continue
+                    results.put((idx, None, exc))
+                    return
+                except BaseException as exc:  # serializer bug etc.
+                    results.put((idx, None, exc))
+                    return
+            results.put((idx, None, last_exc))
+
+        launched = 0
+        outstanding = 0
+        stop_hedging = False  # flipped by admission pushback
+
+        def may_hedge():
+            return (launched < hp.max_attempts and not stop_hedging
+                    and (throttle is None or throttle.allow_retry()))
+
+        def launch():
+            nonlocal launched, outstanding
+            idx = launched
+            launched += 1
+            outstanding += 1
+            threading.Thread(target=run_attempt, args=(idx,), daemon=True,
+                             name="tpurpc-hedge").start()
+
+        def finish(win_idx=None):
+            with lock:
+                done[0] = True
+                losers = [c for i, c in calls.items() if i != win_idx]
+            for call in losers:
+                try:
+                    call.cancel()
+                except Exception:
+                    pass
+
+        launch()
+        last_failure = None
+        while True:
+            wait = hp.hedging_delay if may_hedge() else None
+            rem = remaining()
+            if rem is not None and (wait is None or rem < wait):
+                # bound the wait by the budget + slack: outstanding
+                # attempts self-expire at the deadline and deliver here
+                wait = rem + 1.0
+            try:
+                idx, ok, exc = results.get(timeout=wait)
+            except queue.Empty:
+                if may_hedge():
+                    launch()  # the delay lapsed unresolved: hedge
+                    continue
+                if outstanding > 0:
+                    continue  # attempts carry their own deadline
+                finish()
+                raise last_failure if last_failure is not None else RpcError(
+                    StatusCode.DEADLINE_EXCEEDED,
+                    "deadline exceeded before any hedged attempt resolved")
+            outstanding -= 1
+            if exc is None:
+                resp, call = ok
+                finish(win_idx=idx)
+                if throttle is not None:
+                    throttle.record_success()
+                return resp, call
+            if done[0]:
+                continue  # a cancelled loser reporting in: ignore
+            if isinstance(exc, RpcError):
+                code = _status_of(exc)
+                retryable = (code in hp.non_fatal_codes
+                             and not getattr(exc, "_tpurpc_committed",
+                                             False))
+                if throttle is not None and retryable:
+                    throttle.record_failure()
+                if _pushback_s(exc) is not None:
+                    stop_hedging = True  # the fleet is shedding: no more
+                if retryable:
+                    last_failure = exc
+                    if may_hedge():
+                        launch()  # gRFC A6: non-fatal fires the next
+                        continue  # hedge immediately
+                    if outstanding > 0:
+                        continue
+                    finish()
+                    raise exc
+            # fatal failure (or a non-RpcError bug): resolve now
+            finish()
+            raise exc
+
+    def _call_once(self, request, timeout: Optional[float],
+                   metadata: Optional[Metadata], wait_for_ready: bool = False,
+                   exclude=None, on_call=None):
+        """One wire attempt. ``exclude`` deprioritizes subchannels this
+        logical call already touched (drain migration / hedge spread);
+        ``on_call(call, subchannel)`` fires as soon as the stream is open —
+        the hedging orchestrator registers the Call for cross-attempt
+        cancellation there. A failure carries the subchannel it ran on as
+        ``_tpurpc_sub`` so callers can extend their exclusion set, and
+        ``_tpurpc_committed`` once a response message was delivered."""
+        picked: list = []
+        conn, st, call = self._start(metadata, timeout, first_request=request,
+                                     wait_for_ready=wait_for_ready,
+                                     exclude=exclude, picked=picked)
+        if on_call is not None:
+            on_call(call, picked[-1] if picked else None)
         response = None
         got = False
-        for msg in call.messages():
+        try:
+            for msg in call.messages():
+                if got:
+                    raise RpcError(StatusCode.INTERNAL,
+                                   "unary call received multiple responses")
+                response, got = msg, True
+        except RpcError as exc:
             if got:
-                raise RpcError(StatusCode.INTERNAL,
-                               "unary call received multiple responses")
-            response, got = msg, True
+                # a response message was already delivered: the call is
+                # committed — replaying it would re-execute the handler
+                exc._tpurpc_committed = True
+            if picked:
+                exc._tpurpc_sub = picked[-1]
+            raise
         if not got:
             raise RpcError(StatusCode.INTERNAL, "unary call received no response")
         return response, call
@@ -764,14 +1298,21 @@ class UnaryUnary(_MultiCallable):
     def future(self, request, timeout: Optional[float] = None,
                metadata: Optional[Metadata] = None
                ) -> "concurrent.futures.Future":
-        """Minimal future: runs the call on a daemon thread."""
+        """Minimal future: runs the call on a daemon thread. The caller's
+        ring_hash key (a thread-local) is captured NOW and re-installed in
+        the worker thread, so keyed routing survives the thread hop."""
+        key = getattr(_resolver._call_key, "key", None)
         fut: "concurrent.futures.Future" = concurrent.futures.Future()
 
         def run():
             if not fut.set_running_or_notify_cancel():
                 return
             try:
-                fut.set_result(self(request, timeout, metadata))
+                if key is not None:
+                    with _resolver.ring_hash_key(key):
+                        fut.set_result(self(request, timeout, metadata))
+                else:
+                    fut.set_result(self(request, timeout, metadata))
             except BaseException as exc:
                 fut.set_exception(exc)
 
@@ -911,23 +1452,155 @@ class PipelinedUnary:
         return fut
 
 
+class _RetryingStreamCall:
+    """Call-shaped wrapper retrying a server-streaming RPC that failed
+    BEFORE its first response message (gRPC's retry rule for streams: once
+    anything was delivered the call is committed). The request is unary,
+    so replay is always possible. Start failures (dial, admission) consume
+    retry attempts exactly like stream failures; one attempt/backoff
+    budget spans the whole call. Cancellation during a backoff sleep stops
+    further replays."""
+
+    def __init__(self, mc: "UnaryStream", request, timeout, metadata,
+                 policy: RetryPolicy, wait_for_ready: bool = False,
+                 throttle=None):
+        self._inner: Optional[Call] = None  # first: __getattr__ recursion guard
+        self._mc = mc
+        self._request = request
+        self._deadline = (None if timeout is None
+                          else time.monotonic() + timeout)
+        self._metadata = metadata
+        self._policy = policy
+        self._throttle = throttle  # channel-wide gRFC A6 token bucket
+        self._wait_for_ready = wait_for_ready
+        self._attempt = 0
+        self._backoff = policy.initial_backoff
+        self._cancelled = False
+        self._start_with_retry()  # eager start, grpcio semantics
+
+    def _handle_failure(self, exc: RpcError, committed: bool) -> None:
+        """Count the attempt; sleep for the backoff; or re-raise."""
+        self._attempt += 1
+        retryable = _status_of(exc) in self._policy.retryable_codes
+        if self._throttle is not None and retryable:
+            self._throttle.record_failure()
+        if (self._cancelled or committed
+                or self._attempt >= self._policy.max_attempts
+                or not retryable
+                or (self._throttle is not None
+                    and not self._throttle.allow_retry())):
+            raise exc
+        sleep = self._policy.next_sleep(self._backoff, self._deadline)
+        pushback = _pushback_s(exc)  # admission shed: server-named floor
+        if pushback is not None:
+            sleep = pushback if sleep is None else max(sleep, pushback)
+            if (self._deadline is not None
+                    and time.monotonic() + sleep >= self._deadline):
+                sleep = None
+        if sleep is None:
+            raise exc
+        time.sleep(sleep)
+        self._backoff *= self._policy.backoff_multiplier
+        if self._cancelled:  # cancelled while we slept: stop replaying
+            raise exc
+
+    def _start_with_retry(self) -> None:
+        while True:
+            try:
+                remaining = (None if self._deadline is None
+                             else max(0.0, self._deadline - time.monotonic()))
+                _, _, self._inner = self._mc._start(
+                    self._metadata, remaining, first_request=self._request,
+                    wait_for_ready=self._wait_for_ready)
+                return
+            except RpcError as exc:
+                self._handle_failure(exc, committed=False)
+
+    def messages(self) -> Iterator[object]:
+        while True:
+            delivered = False
+            try:
+                for msg in self._inner.messages():
+                    delivered = True
+                    yield msg
+                if self._throttle is not None:
+                    self._throttle.record_success()
+                return
+            except RpcError as exc:
+                self._handle_failure(exc, committed=delivered)
+                self._start_with_retry()
+
+    def __iter__(self):
+        return self.messages()
+
+    def cancel(self):
+        self._cancelled = True
+        if self._inner is not None:
+            self._inner.cancel()
+
+    def __getattr__(self, name):
+        # the rest of the Call surface (time_remaining, device_ring, ...)
+        # goes to the CURRENT attempt's call
+        return getattr(self._inner, name)
+
+
+def _drain_single_response(messages) -> object:
+    """The exactly-one-response rule of a stream-unary call."""
+    response = None
+    got = False
+    for msg in messages:
+        if got:
+            raise RpcError(StatusCode.INTERNAL,
+                           "unary call received multiple responses")
+        response, got = msg, True
+    if not got:
+        raise RpcError(StatusCode.INTERNAL, "unary response missing")
+    return response
+
+
 class UnaryStream(_MultiCallable):
     def __call__(self, request, timeout: Optional[float] = None,
-                 metadata: Optional[Metadata] = None) -> Call:
-        _, _, call = self._start(metadata, timeout, first_request=request)
-        return call
+                 metadata: Optional[Metadata] = None, **grpcio_kw):
+        _reject_call_credentials(grpcio_kw)
+        policy, timeout, throttle, wfr, _hedging = self._channel._call_plan(
+            self._method, timeout, bool(grpcio_kw.get("wait_for_ready")))
+        if policy is None:
+            _, _, call = self._start(metadata, timeout, first_request=request,
+                                     wait_for_ready=wfr)
+            return call
+        return _RetryingStreamCall(self, request, timeout, metadata, policy,
+                                   wfr, throttle=throttle)
+
+
+class StreamUnary(_MultiCallable):
+    def __call__(self, request_iterator: Iterable,
+                 timeout: Optional[float] = None,
+                 metadata: Optional[Metadata] = None, **grpcio_kw):
+        _reject_call_credentials(grpcio_kw)
+        _, timeout, _, wfr, _hedging = self._channel._call_plan(
+            self._method, timeout, bool(grpcio_kw.get("wait_for_ready")))
+        conn, st, call = self._start(metadata, timeout, wait_for_ready=wfr)
+        sender = threading.Thread(
+            target=self._send_stream, args=(conn, st, request_iterator),
+            daemon=True, name="tpurpc-stream-sender")
+        sender.start()
+        response = _drain_single_response(call.messages())
+        sender.join(timeout=5)
+        return response
 
 
 class StreamStream(_MultiCallable):
     def __call__(self, request_iterator: Iterable,
                  timeout: Optional[float] = None,
-                 metadata: Optional[Metadata] = None) -> Call:
-        conn, st, call = self._start(metadata, timeout)
+                 metadata: Optional[Metadata] = None, **grpcio_kw) -> Call:
+        _reject_call_credentials(grpcio_kw)
+        _, timeout, _, wfr, _hedging = self._channel._call_plan(
+            self._method, timeout, bool(grpcio_kw.get("wait_for_ready")))
+        conn, st, call = self._start(metadata, timeout, wait_for_ready=wfr)
         threading.Thread(target=self._send_stream,
                          args=(conn, st, request_iterator),
                          daemon=True, name="tpurpc-stream-sender").start()
         return call
-
 
 
 def insecure_channel(target: str, **kwargs) -> Channel:

@@ -16,7 +16,8 @@ and a dead backend's keys spill to its ring successor only),
 EWMA pick order with outlier ejection of slow or erroring backends), and
 the composites ``priority`` and ``weighted_target`` (:func:`make_policy`).
 A resolver may deliver a service config with its addresses
-(:class:`Resolution`); the port's channel does not apply one yet.
+(:class:`Resolution`); the channel applies it
+(``tpurpc_torch/rpc/service_config.py``).
 """
 
 from __future__ import annotations

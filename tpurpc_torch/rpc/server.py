@@ -1,8 +1,8 @@
 """Server: listener → per-connection demux → handler dispatch on a pool.
 
-A trimmed copy of ``tpurpc/rpc/server.py`` (no interceptors, inline
-reactor handlers, keepalive/max-age timers, native plane, the control-ring
-plane, channelz or observability). One port serves both wire protocols: the
+A trimmed copy of ``tpurpc/rpc/server.py`` (no inline reactor handlers,
+keepalive/max-age timers, native plane, the control-ring plane, channelz or
+observability). One port serves both wire protocols: the
 first 8 bytes of a connection route the native framing's magic to
 :class:`_ServerConnection` and the HTTP/2 preface to
 ``tpurpc_torch/wire/grpc_h2.py``, so stock gRPC clients call the same
@@ -29,7 +29,8 @@ import threading
 import time
 import types
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, Dict, Iterator, List, Optional, Tuple
+from typing import (Callable, Dict, Iterator, List, Optional, Sequence,
+                    Tuple)
 
 from tpurpc_torch.core import rendezvous as _rdv
 from tpurpc_torch.core.endpoint import (Endpoint, EndpointError,
@@ -510,7 +511,7 @@ class _ServerConnection:
             st.gate = gate  # released exactly once in _finish_stream
         deadline = (None if timeout_us is None
                     else time.monotonic() + timeout_us / 1e6)
-        handler = self.server._lookup(path, metadata)
+        handler = self.server._lookup_intercepted(path, metadata)
         if handler is None:
             self._send_trailers(st, StatusCode.UNIMPLEMENTED,
                                 f"unknown method {path}")
@@ -682,9 +683,12 @@ class _ServerConnection:
 class Server:
     """Thread-pooled RPC server over any Endpoint source."""
 
-    def __init__(self, max_workers: int = 32,
+    def __init__(self, max_workers: int = 32, interceptors: Sequence = (),
                  max_receive_message_length: Optional[int] = None,
                  admission: Optional[AdmissionGate] = None):
+        #: server interceptors (``tpurpc_torch.rpc.interceptors``), applied
+        #: at every handler lookup on both wire planes
+        self.interceptors = list(interceptors)
         #: overload admission gate (None: admit everything)
         self.admission = admission
         self._draining = False
@@ -735,6 +739,17 @@ class Server:
         or ``{path: handler}`` mappings
         (:func:`method_handlers_generic_handler`)."""
         self._generic_handlers.extend(generic_handlers)
+
+    def _lookup_intercepted(self, path: str,
+                            metadata=()) -> Optional[RpcMethodHandler]:
+        """Handler lookup through the server interceptor chain."""
+        handler = self._lookup(path, metadata)
+        if not self.interceptors:
+            return handler
+        from tpurpc_torch.rpc.interceptors import apply_server_interceptors
+
+        return apply_server_interceptors(handler, path, metadata,
+                                         self.interceptors)
 
     def _lookup(self, path: str, metadata=()) -> Optional[RpcMethodHandler]:
         handler = self._methods.get(path)
@@ -1015,13 +1030,10 @@ def server(thread_pool=None, handlers=None, interceptors=None, options=None,
     """grpcio-shaped constructor: accepts the stock call
     ``grpc.server(ThreadPoolExecutor(max_workers=N), options=[...])``
     verbatim. A passed executor contributes its worker count (the Server
-    keeps its own pool), handlers register directly, the
+    keeps its own pool), handlers and interceptors register directly, the
     ``grpc.max_receive_message_length`` option maps onto the Server, and
     ``maximum_concurrent_rpcs`` and ``compression`` are accepted and
-    advisory. A bare int first argument is ``max_workers``. Interceptors
-    are not ported: passing any raises ``ValueError``."""
-    if interceptors:
-        raise ValueError("tpurpc_torch has no server interceptors")
+    advisory. A bare int first argument is ``max_workers``."""
     if isinstance(thread_pool, int):
         max_workers = thread_pool
     elif thread_pool is not None:
@@ -1031,7 +1043,8 @@ def server(thread_pool=None, handlers=None, interceptors=None, options=None,
     max_recv = None
     if options:
         max_recv = dict(options).get("grpc.max_receive_message_length")
-    srv = Server(max_workers=max_workers, max_receive_message_length=max_recv)
+    srv = Server(max_workers=max_workers, interceptors=interceptors or (),
+                 max_receive_message_length=max_recv)
     if handlers:
         srv.add_generic_rpc_handlers(handlers)
     return srv

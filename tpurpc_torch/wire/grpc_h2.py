@@ -561,7 +561,7 @@ class GrpcH2Connection:
             st.requests.put(_H2Stream._END)
         deadline = (None if timeout_s is None
                     else time.monotonic() + timeout_s)
-        handler = self.server._lookup(path, metadata)
+        handler = self.server._lookup_intercepted(path, metadata)
         if handler is None:
             self.send_trailers(st, StatusCode.UNIMPLEMENTED,
                                f"unknown method {path}")
