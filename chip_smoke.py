@@ -162,7 +162,30 @@ fails the run (non-zero exit, no result line) on any error:
    call fails and the drained server serves none after; the client's
    FLAG_REFUSED replays and draining redials are counted. Latency p50/p99
    per part, on the host clock. Skipped under ``--kernels``;
-12. print the kernels line, the card's name and power limit, and last the
+12. TLS on the device-ring path, with the test-only PKI of
+   ``tests/torch_tls/``: (a) phase 3's ResNet-50 weights and 8 requests on
+   ``GRPC_PLATFORM_TYPE=TPU`` with a 16 MiB ``HbmRing``, once through a
+   plaintext port and once through ``add_secure_port`` with
+   ``ssl_server_credentials(..., require_client_auth=True)`` from a
+   ``secure_channel`` with the client's certificate: the ring's bootstrap
+   and notify channel ride the TLS socket; the mTLS replies must be
+   bit-equal to the plaintext ones (and within phase 3's tolerance of the
+   direct run), both kernels must launch as in phase 3 (measured at the
+   server), the ring must come back to capacity, and every handler's
+   ``auth_context()`` must hold ``ssl`` and the client's URI SAN; p50/p99
+   of both runs are printed. (c) a channel trusting only a second CA, an
+   insecure channel and a TLS channel without a client certificate must
+   each fail UNAVAILABLE on the same port, with neither kernel launched
+   and the ring unmoved. (d) on the same server over the mTLS channel: the
+   health service, reflection's ListServices (the tensor and health
+   services named) and channelz ``GetServer``, whose counts must be the
+   calls the phase made there. (b) on the default (TCP) platform, phase
+   10's transformer behind its batcher on one server with a plaintext and
+   a TLS port: 16 sequential calls through an ``H2Channel`` on each, ALPN
+   ``h2`` selected, replies bit-equal to each other and to the direct run,
+   requests/s of each, no kernel launched (h2 decodes on the host). Skipped
+   under ``--kernels``;
+13. print the kernels line, the card's name and power limit, and last the
    one-line result JSON.
 """
 
@@ -2755,8 +2778,10 @@ class CallPlaneServer:
     behind a counting interceptor, placed first so that it sees every
     attempt (``seen``), then ``interceptors``, then a meter.
 
-    ``entered`` gets one entry per handler that started, ``done`` one per
-    handler that finished. An attempt cancelled before its request has
+    ``entered`` gets one entry per handler that started (and ``auth`` its
+    context's ``auth_context()``), ``done`` one per handler that finished.
+    With ``credentials`` (``ssl_server_credentials``'s result) the port is
+    a TLS one. An attempt cancelled before its request has
     arrived is seen but never starts: the server skips its handler. ``launched`` holds this
     server's own kernel launches, measured: the meter, innermost, takes
     :attr:`landing` (one lock for every such server) before the request
@@ -2766,17 +2791,18 @@ class CallPlaneServer:
 
     landing = threading.Lock()
 
-    def __init__(self, fn, interceptors=(), max_workers=16):
+    def __init__(self, fn, interceptors=(), max_workers=16, credentials=None):
         from tpurpc_torch.ops import ring_scatter as rs_mod
         from tpurpc_torch.ops import ring_window as rw_mod
         from tpurpc_torch.rpc.interceptors import ServerInterceptor
         from tpurpc_torch.rpc.server import RpcMethodHandler, Server
         from tpurpc_torch.torchshim.service import add_tensor_method
 
-        self.seen, self.entered, self.done = [], [], []
+        self.seen, self.entered, self.done, self.auth = [], [], [], []
         self.launched = {"ring_scatter": 0, "ring_window": 0}
         held = threading.local()
         seen, entered, launched = self.seen, self.entered, self.launched
+        auth = self.auth
 
         def let_go():
             before = getattr(held, "before", None)
@@ -2802,6 +2828,7 @@ class CallPlaneServer:
 
                 def counted(raw, ctx):
                     entered.append(1)
+                    auth.append(ctx.auth_context())
                     return inner(raw, ctx)
 
                 return wrap(handler, counted)
@@ -2833,7 +2860,9 @@ class CallPlaneServer:
                              interceptors=[Count(), *interceptors, Meter()])
         add_tensor_method(self.server, "Classify", run, device=True)
         self.server.start()
-        self.port = self.server.add_insecure_port("127.0.0.1:0")
+        self.port = (self.server.add_insecure_port("127.0.0.1:0")
+                     if credentials is None else
+                     self.server.add_secure_port("127.0.0.1:0", credentials))
 
     def ring(self):
         conns = list(self.server._connections)
@@ -3114,6 +3143,298 @@ def call_plane(dev, card, size=SIZE, ring=RING, requests=REQUESTS) -> dict:
     return res
 
 
+# -- phase 12 ----------------------------------------------------------------
+
+#: phase 12: the test-only PKI (``tests/torch_tls/make_pki.py`` writes it):
+#: the CA, the server's key and certificate (localhost, 127.0.0.1), the
+#: client's (SAN URI CLIENT_URI), and a second CA that signs nothing here
+PKI_FILES = {"ca": "ca.pem", "srv_key": "server.key", "srv_cert": "server.pem",
+             "cli_key": "client.key", "cli_cert": "client.pem",
+             "other_ca": "other_ca.pem"}
+CLIENT_URI = b"spiffe://tpurpc.test/client"
+#: (b): sequential calls over each of the two H2Channels
+TLS_H2_CALLS = 16
+
+
+def tls_pki() -> dict:
+    """The test PKI's PEM files as bytes, read from the checkout."""
+    here = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "torch_tls")
+    out = {}
+    for key, name in PKI_FILES.items():
+        with open(os.path.join(here, name), "rb") as f:
+            out[key] = f.read()
+    return out
+
+
+def _tls_refusals(port, pki, x) -> list:
+    """(c): three clients the mTLS port must refuse, each with one
+    ``TensorClient.call``; returns each one's status code name."""
+    import torch
+
+    from tpurpc_torch.rpc import (insecure_channel, secure_channel,
+                                  ssl_channel_credentials)
+    from tpurpc_torch.rpc.status import RpcError
+    from tpurpc_torch.torchshim.service import TensorClient
+
+    codes = []
+    for label, ch in (
+            ("a channel trusting only the other CA", secure_channel(
+                f"localhost:{port}",
+                ssl_channel_credentials(root_certificates=pki["other_ca"]))),
+            ("an insecure channel", insecure_channel(f"127.0.0.1:{port}")),
+            ("no client certificate", secure_channel(
+                f"localhost:{port}",
+                ssl_channel_credentials(root_certificates=pki["ca"])))):
+        with ch:
+            try:
+                TensorClient(ch).call("Classify",
+                                      {"images": torch.from_numpy(x)},
+                                      timeout=10)
+            except RpcError as exc:
+                codes.append((label, exc.code().name, exc.details()[:80]))
+                continue
+        fail(f"tls (c): {label} was served by the mTLS port")
+    return codes
+
+
+def _h2_tls_calls(port, rows, credentials=None):
+    """(b): sequential ``TensorClient.call("Generate")`` of every row over
+    one ``H2Channel``; the replies, the wall time (s) and the ALPN
+    protocol the handshake selected (None in plaintext)."""
+    import torch
+
+    from tpurpc_torch.torchshim.service import TensorClient
+    from tpurpc_torch.wire.h2_client import H2Channel
+
+    host = "localhost" if credentials is not None else "127.0.0.1"
+    with H2Channel(f"{host}:{port}", credentials=credentials) as ch:
+        sock = ch._ep._sock
+        alpn = (sock.selected_alpn_protocol()
+                if hasattr(sock, "selected_alpn_protocol") else None)
+        cli = TensorClient(ch)
+        cli.call("Generate", {"tokens": torch.zeros((1, TF_SEQ),
+                                                    dtype=torch.int32)},
+                 timeout=300)
+        t0 = time.perf_counter()
+        out = [cli.call("Generate", {"tokens": torch.from_numpy(r)},
+                        timeout=300) for r in rows]
+        wall = time.perf_counter() - t0
+    return out, wall, alpn
+
+
+def tls_plane(dev, card, size=SIZE, ring=RING, requests=REQUESTS,
+              h2_calls=TLS_H2_CALLS) -> dict:
+    """Phase 12: TLS and mTLS on the device-ring path, the h2 plane over
+    TLS, refusals, and reflection and channelz on the mTLS server
+    (docstring of this file). Returns each part's kernel launches."""
+    import numpy as np
+    import torch
+
+    from tpurpc_torch.models.resnet import make_infer_fn, resnet50
+    from tpurpc_torch.ops import ring_scatter as rs_mod
+    from tpurpc_torch.ops import ring_window as rw_mod
+    from tpurpc_torch.rpc import (add_health_servicer, enable_channelz,
+                                  enable_server_reflection, insecure_channel,
+                                  secure_channel, ssl_channel_credentials,
+                                  ssl_server_credentials)
+    from tpurpc_torch.rpc.channelz_v1 import SERVICE as CZ_SERVICE
+    from tpurpc_torch.rpc.reflection import V1_SERVICE
+    from tpurpc_torch.torchshim.service import serve_torch
+    from tpurpc_torch.wire.protowire import fields, ld, vf
+
+    t_phase = time.perf_counter()
+    pki = tls_pki()
+    saved = {k: os.environ.get(k) for k in RING_ENV}
+    _set_env({"GRPC_PLATFORM_TYPE": "TPU", "TPURPC_TORCH_DEVICE": str(dev),
+              "TPURPC_HBM_RING_SIZE_KB": str(ring >> 10)})
+    torch.manual_seed(SEED)                  # phase 3's weights
+    infer = make_infer_fn(resnet50().to(dev))
+
+    def classify(tree):
+        logits = infer(tree["images"])
+        return {"logits": logits, "top1": logits.argmax(dim=1)}
+
+    rng = np.random.default_rng(SEED)        # phase 3's requests
+    images = [rng.standard_normal((BATCH, size, size, 3)).astype(np.float32)
+              for _ in range(requests)]
+    wants = [infer(torch.from_numpy(x).to(dev)).cpu() for x in images]
+    span = images[0].nbytes
+    wraps = _ring_wraps(requests * span, span, ring)
+    check(wraps > 0, f"tls: no request wraps the {ring}-byte ring")
+    res = {}
+
+    def launches():
+        return {"ring_scatter": rs_mod.launches,
+                "ring_window": rw_mod.launches}
+
+    # (a) the same requests in plaintext, then over mTLS
+    plain = CallPlaneServer(classify)
+    try:
+        with insecure_channel(f"127.0.0.1:{plain.port}") as ch:
+            rs_mod.launches = rw_mod.launches = 0
+            plain_replies, plain_lat = _cp_calls(ch, images, "tls (a) plain")
+            res["a_plaintext"] = launches()
+            plain_stats = plain.ring().stats()
+    finally:
+        plain.server.stop()
+    creds = ssl_server_credentials([(pki["srv_key"], pki["srv_cert"])],
+                                   root_certificates=pki["ca"],
+                                   require_client_auth=True)
+    rig = CallPlaneServer(classify, credentials=creds)
+    add_health_servicer(rig.server)
+    enable_server_reflection(rig.server)
+    enable_channelz(rig.server)
+    mutual = ssl_channel_credentials(root_certificates=pki["ca"],
+                                     private_key=pki["cli_key"],
+                                     certificate_chain=pki["cli_cert"])
+    ch = secure_channel(f"localhost:{rig.port}", mutual)
+    try:
+        rs_mod.launches = rw_mod.launches = 0
+        replies, lat = _cp_calls(ch, images, "tls (a) mTLS")
+        res["a"] = launches()
+        tls_ring = rig.ring()
+        stats = tls_ring.stats()
+        ep = rig.server._connections[0].endpoint
+        notify_tls = hasattr(ep.pair.notify_sock, "getpeercert")
+        worst = _cp_check("tls (a) mTLS", replies, wants)
+        _cp_check("tls (a) plain", plain_replies, wants)
+        for i, (p, t) in enumerate(zip(plain_replies, replies)):
+            check(torch.equal(p["logits"], t["logits"])
+                  and torch.equal(p["top1"], t["top1"]),
+                  f"tls (a): reply {i} over mTLS is not bit-equal to the "
+                  f"plaintext run's")
+        check(res["a"] == {"ring_scatter": wraps, "ring_window": wraps}
+              and rig.launched == res["a"]
+              and res["a_plaintext"] == res["a"],
+              f"tls (a): launches mTLS {res['a']} (measured at the server "
+              f"{rig.launched}), plaintext {res['a_plaintext']}; the "
+              f"{requests} landings wrap {wraps} times")
+        for label, st in (("mTLS", stats), ("plaintext", plain_stats)):
+            check(st["tail"] == requests * span and st["live_spans"] == 0
+                  and st["writable"] == st["capacity"],
+                  f"tls (a): the {label} server's ring not back: {st}")
+        check(notify_tls, "tls (a): the ring's notify socket is not TLS")
+        check(len(rig.auth) == requests and all(
+            a.get("transport_security_type") == [b"ssl"]
+            and a.get("x509_subject_alternative_name") == [CLIENT_URI]
+            for a in rig.auth), f"tls (a): the handlers' auth_context "
+              f"{rig.auth[:1]} lacks ssl or the client's SAN")
+        p50, p99 = np.percentile(lat, [50, 99])
+        q50, q99 = np.percentile(plain_lat, [50, 99])
+        print(f"tls (a): {requests} ResNet-50 calls on the device ring over "
+              f"mTLS (the ring's notify channel a TLS socket), replies "
+              f"bit-equal to the plaintext run's, vs direct run max |diff| / "
+              f"max(1, scale) {worst}; launches {res['a']} (measured at the "
+              f"server {rig.launched}; plaintext {res['a_plaintext']}); ring "
+              f"back to capacity; auth_context {rig.auth[0]}; latency ms "
+              f"mTLS p50 {p50} p99 {p99}, plaintext p50 {q50} p99 {q99} "
+              f"({card})", flush=True)
+
+        # (c) refusals on the same port leave the card untouched
+        before = (launches(), tls_ring.stats())
+        codes = _tls_refusals(rig.port, pki, images[0])
+        res["c"] = {k: launches()[k] - before[0][k] for k in before[0]}
+        after = tls_ring.stats()
+        check(all(code == "UNAVAILABLE" for _, code, _ in codes),
+              f"tls (c): refusals {codes}")
+        check(res["c"] == {"ring_scatter": 0, "ring_window": 0}
+              and after == before[1] and after["live_spans"] == 0
+              and after["writable"] == after["capacity"],
+              f"tls (c): a refused client moved the card: launches "
+              f"{res['c']}, ring {before[1]} -> {after}")
+        check(len(rig.server._connections) == 1, f"tls (c): "
+              f"{len(rig.server._connections)} connections on the server")
+        print("tls (c): refused " + "; ".join(
+            f"{label}: {code} ({det})" for label, code, det in codes)
+              + f"; launches {res['c']}, the ring unmoved and at capacity "
+              f"({card})", flush=True)
+
+        # (d) introspection on the same server, over the mTLS channel
+        health = ch.unary_unary("/grpc.health.v1.Health/Check")(b"",
+                                                                  timeout=10)
+        refl = ch.stream_stream(f"/{V1_SERVICE}/ServerReflectionInfo")
+        reply = [bytes(r) for r in refl(iter([ld(7, b"")]), timeout=10)]
+        names = [bytes(v3).decode()
+                 for f, _, v in fields(reply[0]) if f == 6
+                 for f2, _, v2 in fields(bytes(v)) if f2 == 1
+                 for f3, _, v3 in fields(bytes(v2)) if f3 == 1]
+        check("tpurpc.Tensor" in names and "grpc.health.v1.Health" in names,
+              f"tls (d): reflection lists {names}")
+        made = requests + 2                 # Classify, Check, reflection
+        counters = rig.server.call_counters
+        deadline = time.monotonic() + 10
+        while (counters.succeeded + counters.failed < made
+               and time.monotonic() < deadline):
+            time.sleep(0.01)
+        got = bytes(ch.unary_unary(f"/{CZ_SERVICE}/GetServer")(
+            vf(1, rig.server._channelz_id), timeout=10))
+        data = next(bytes(v2) for f, _, v in fields(got) if f == 1
+                    for f2, _, v2 in fields(bytes(v)) if f2 == 2)
+        nums = {f: v for f, _, v in fields(data) if f in (2, 3, 4)}
+        started, ok, failed = (nums.get(2, 0), nums.get(3, 0),
+                               nums.get(4, 0))
+        # GetServer counts itself started while it runs
+        check(started - 1 == ok + failed == made and failed == 0,
+              f"tls (d): channelz GetServer reads started {started}, "
+              f"succeeded {ok}, failed {failed}; the phase made {made} calls "
+              f"before it on this server")
+        print(f"tls (d): health {bytes(health)!r}; reflection lists {names}; "
+              f"channelz GetServer: calls started {started} (GetServer "
+              f"itself in flight), succeeded {ok}, failed {failed}: the "
+              f"{made} calls the phase made, the refused clients none "
+              f"({card})", flush=True)
+    finally:
+        ch.close()
+        rig.server.stop()
+    _set_env(saved)
+
+    # (b) the h2 plane over TLS on the TCP platform
+    _set_env({"GRPC_PLATFORM_TYPE": None, "TPURPC_HBM_RING_SIZE_KB": None})
+    fn = _fleet_transformer(dev)
+    rng = np.random.default_rng(SEED + 10)    # phase 10's h2 rows
+    rows = [rng.integers(0, 256, (1, TF_SEQ)).astype(np.int32)
+            for _ in range(h2_calls)]
+    srv, port, batcher = serve_torch(fn, name="Generate", batching=True,
+                                     max_batch=MAX_BATCH, max_delay_s=0.005,
+                                     max_workers=WORKERS)
+    tls_port = srv.add_secure_port("127.0.0.1:0", ssl_server_credentials(
+        [(pki["srv_key"], pki["srv_cert"])]))
+    try:
+        rs_mod.launches = rw_mod.launches = 0
+        plain_out, plain_wall, plain_alpn = _h2_tls_calls(port, rows)
+        out, wall, alpn = _h2_tls_calls(
+            tls_port, rows, ssl_channel_credentials(
+                root_certificates=pki["ca"]))
+        res["b"] = launches()
+    finally:
+        srv.stop()
+        batcher.close()
+    _set_env(saved)
+    check(alpn == "h2" and plain_alpn is None,
+          f"tls (b): ALPN {alpn!r} (plaintext {plain_alpn!r})")
+    for i, (p, t) in enumerate(zip(plain_out, out)):
+        check(torch.equal(p["logits"], t["logits"]),
+              f"tls (b): reply {i} over TLS is not bit-equal to plaintext's")
+
+    def direct(x):
+        return fn({"tokens": x})["logits"]
+
+    worst, _, _ = _check_replies("tls (b)", out, rows, direct, dev, 0.0,
+                                 None, floor=1.0)
+    check(res["b"] == {"ring_scatter": 0, "ring_window": 0},
+          f"tls (b): h2 over TLS launched {res['b']}")
+    print(f"tls (b): {h2_calls} sequential Generate calls over an H2Channel "
+          f"with TLS (ALPN {alpn}) and over a plaintext one, on one server: "
+          f"replies bit-equal to each other and to the direct run ({worst}); "
+          f"requests/s TLS {h2_calls / wall}, plaintext "
+          f"{h2_calls / plain_wall}; launches {res['b']} ({card})",
+          flush=True)
+    print(f"tls: phase 12 took {time.perf_counter() - t_phase} s ({card})",
+          flush=True)
+    return res
+
+
 def card_line() -> str:
     """The card's name and power limit, as nvidia-smi reports them."""
     smi = subprocess.run(
@@ -3148,7 +3469,7 @@ def main() -> None:
     if kernels_only:
         launches = {"ring_scatter": None, "ring_window": None}
         stream = tf_launches = train_launches = gen_launches = None
-        fleet_launches = h2_launches = cp_launches = None
+        fleet_launches = h2_launches = cp_launches = tls_launches = None
     else:
         from tpurpc_torch.ops import ring_scatter as rs_mod
         from tpurpc_torch.ops import ring_window as rw_mod
@@ -3206,6 +3527,8 @@ def main() -> None:
               f"{time.perf_counter() - t0} s ({card})", flush=True)
         # phase 11: both kernels on every part, counted per part inside
         cp_launches = call_plane(dev, card)
+        # phase 12: (a) both kernels, plaintext and mTLS; (b) and (c) none
+        tls_launches = tls_plane(dev, card)
 
     sources = {"ring_scatter": "tpurpc/ops/ring_scatter.py:133",
                "ring_window": "tpurpc/ops/ring_window.py:138"}
@@ -3255,7 +3578,14 @@ def main() -> None:
             "call_plane_launches": (None if cp_launches is None else {
                 "a": cp_launches["a"][name],
                 "b": [p[name] for p in cp_launches["b_per_server"]],
-                "c": cp_launches["c"][name]})})
+                "c": cp_launches["c"][name]}),
+            # phase 12, TLS: (a) over mTLS and in plaintext on the device
+            # ring, (b) h2 over TLS, (c) the refusals
+            "tls_launches": (None if tls_launches is None else {
+                "a": tls_launches["a"][name],
+                "a_plaintext": tls_launches["a_plaintext"][name],
+                "b": tls_launches["b"][name],
+                "c": tls_launches["c"][name]})})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     if kernels_only:

@@ -11,16 +11,17 @@ against a side stream's read), the fan-in batcher, device serialization,
 4 MiB tensor streams over rendezvous (landed on the host, and through the
 device ring) and over HTTP/2, the MoE transformer's forward, its serving
 over HTTP/2 with a drain, and its train steps, the generation plane's step
-model, a spawned shard worker's device ring, and the call plane (retries
-behind a seeded fault injector, a hedge's loser) on the device ring run on
-the card.
+model, a spawned shard worker's device ring, the call plane (retries
+behind a seeded fault injector, a hedge's loser) on the device ring, and
+mTLS onto the card ring (bit-equal to plaintext; refused clients leave the
+ring alone) run on the card.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import CallPlaneServer, retry_arithmetic
+from chip_smoke import CLIENT_URI, CallPlaneServer, retry_arithmetic, tls_pki
 from tpurpc_torch.models.resnet import make_infer_fn, resnet18_thin
 from tpurpc_torch.ops import ring_scatter as rs_mod
 from tpurpc_torch.ops import ring_window as rw_mod
@@ -784,3 +785,108 @@ def test_call_plane_hedge_loser_releases_the_card_ring(dev, stream_env,
     assert took < 1.0 and (len(slow.seen), len(fast.seen)) == (1, 1)
     assert stats["tail"] == x.numel() * 4          # the loser landed it
     assert stats["writable"] == stats["capacity"] and not stats["live_spans"]
+
+
+def _tls_rig(infer, pki):
+    from tpurpc_torch.rpc import ssl_server_credentials
+
+    return CallPlaneServer(lambda t: {"y": infer(t["x"])}, max_workers=4,
+                           credentials=ssl_server_credentials(
+                               [(pki["srv_key"], pki["srv_cert"])],
+                               root_certificates=pki["ca"],
+                               require_client_auth=True))
+
+
+def _mutual(pki):
+    from tpurpc_torch.rpc import ssl_channel_credentials
+
+    return ssl_channel_credentials(root_certificates=pki["ca"],
+                                   private_key=pki["cli_key"],
+                                   certificate_chain=pki["cli_cert"])
+
+
+@pytest.mark.cuda
+def test_mtls_call_on_the_card_ring_bit_equal(dev, stream_env, exact_f32):
+    """Phase 12 (a) at a small model: the same 6 float32 [2,32,32,3]
+    requests into a 64 KiB card ring (the 3rd and 6th wrap it) through a
+    plaintext port and through an mTLS port: replies bit-equal, both
+    kernels launched twice on each (measured at the server), each ring
+    back to capacity, and the handlers' contexts hold the client's SAN."""
+    from tpurpc_torch.rpc import insecure_channel, secure_channel
+
+    stream_env("TPU", TPURPC_HBM_RING_SIZE_KB="64")
+    infer = _small_model(dev)
+    pki = tls_pki()
+    rng = np.random.default_rng(9)
+    xs = [torch.from_numpy(rng.standard_normal((2, 32, 32, 3)).astype(
+        np.float32)) for _ in range(6)]
+    runs = []
+    for secure in (False, True):
+        rig = (_tls_rig(infer, pki) if secure else CallPlaneServer(
+            lambda t: {"y": infer(t["x"])}, max_workers=4))
+        try:
+            with (secure_channel(f"localhost:{rig.port}", _mutual(pki))
+                  if secure
+                  else insecure_channel(f"127.0.0.1:{rig.port}")) as ch:
+                before = (rs_mod.launches, rw_mod.launches)
+                outs = [TensorClient(ch).call("Classify", {"x": x},
+                                              timeout=60) for x in xs]
+                launched = (rs_mod.launches - before[0],
+                            rw_mod.launches - before[1])
+                stats = rig.ring().stats()
+        finally:
+            rig.server.stop()
+        runs.append((outs, launched, dict(rig.launched), stats, rig.auth))
+    (plain, p_l, p_m, p_st, p_auth), (tls, t_l, t_m, t_st, t_auth) = runs
+    for p, t in zip(plain, tls):
+        assert torch.equal(p["y"], t["y"])
+    assert p_l == t_l == (2, 2)
+    assert p_m == t_m == {"ring_scatter": 2, "ring_window": 2}
+    for st in (p_st, t_st):
+        assert st["writable"] == st["capacity"] and not st["live_spans"]
+    assert p_auth == [{}] * 6
+    assert all(a["x509_subject_alternative_name"] == [CLIENT_URI]
+               and a["transport_security_type"] == [b"ssl"] for a in t_auth)
+
+
+@pytest.mark.cuda
+def test_refused_plaintext_client_leaves_the_card_ring(dev, stream_env,
+                                                       exact_f32):
+    """Phase 12 (c) at a small model: after one mTLS call onto the card
+    ring, a plaintext client and a certless TLS client are refused at the
+    handshake; neither kernel launches and the ring stays at capacity."""
+    from tpurpc_torch.rpc import (RpcError, insecure_channel, secure_channel,
+                                  ssl_channel_credentials)
+
+    stream_env("TPU", TPURPC_HBM_RING_SIZE_KB="64")
+    infer = _small_model(dev)
+    pki = tls_pki()
+    rig = _tls_rig(infer, pki)
+    x = torch.from_numpy(np.random.default_rng(10).standard_normal(
+        (2, 32, 32, 3)).astype(np.float32))
+    try:
+        with secure_channel(f"localhost:{rig.port}", _mutual(pki)) as ch:
+            out = TensorClient(ch).call("Classify", {"x": x}, timeout=60)
+            ring = rig.ring()
+            before = ((rs_mod.launches, rw_mod.launches), ring.stats())
+            codes = []
+            for bad in (insecure_channel(f"127.0.0.1:{rig.port}"),
+                        secure_channel(f"localhost:{rig.port}",
+                                       ssl_channel_credentials(
+                                           root_certificates=pki["ca"]))):
+                with bad:
+                    with pytest.raises(RpcError) as ei:
+                        TensorClient(bad).call("Classify", {"x": x},
+                                               timeout=10)
+                    codes.append(ei.value.code().name)
+            after = ((rs_mod.launches, rw_mod.launches), ring.stats())
+            conns = len(rig.server._connections)
+    finally:
+        rig.server.stop()
+    want = infer(x.to(dev)).cpu()
+    assert (out["y"] - want).abs().max().item() <= REPLY_TOL * max(
+        1.0, want.abs().max().item())
+    assert codes == ["UNAVAILABLE", "UNAVAILABLE"]
+    assert after == before and conns == 1
+    assert after[1]["writable"] == after[1]["capacity"]
+    assert not after[1]["live_spans"]

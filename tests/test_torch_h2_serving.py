@@ -406,6 +406,11 @@ def test_h2_stream_after_goaway_is_refused_not_served():
         sock.sendall(h2.PREFACE + b"".join(h2.pack_settings({})) + call(1, b"a"))
         read_until(sock, scanner, lambda f: f[0] == h2.HEADERS and f[2] == 1
                    and f[1] & h2.FLAG_END_STREAM)
+        # the server registers a connection after it starts serving it, so
+        # the reply can arrive first
+        deadline = time.monotonic() + 10
+        while not srv._connections and time.monotonic() < deadline:
+            time.sleep(0.01)
         srv._connections[0].goaway(b"test")
         sock.sendall(call(3, b"b"))
         frames = read_until(sock, scanner,
@@ -542,7 +547,11 @@ def test_rpc_surface_exports_only_what_the_port_has():
                  "stream_unary_rpc_method_handler", "register_resolver",
                  "ring_hash_key", "add_health_servicer", "Metadata",
                  "RetryPolicy", "intercept_channel", "ClientInterceptor",
-                 "ServerInterceptor", "FaultConfig", "FaultInjector"):
+                 "ServerInterceptor", "FaultConfig", "FaultInjector",
+                 "secure_channel", "enable_server_reflection",
+                 "enable_channelz", "ChannelCredentials", "ServerCredentials",
+                 "ssl_channel_credentials", "ssl_server_credentials",
+                 "insecure_for_testing_channel_credentials"):
         assert hasattr(trpc, name), name
     assert trpc.H2Channel is H2Channel
     # the package's `server` is the module, callable as grpcio's factory
@@ -550,7 +559,5 @@ def test_rpc_surface_exports_only_what_the_port_has():
 
     assert server_module.LOAD_KEY == "tpurpc-load"
     assert isinstance(trpc.server(1), trpc.Server)
-    for name in ("aio", "NativeChannel", "ChannelConnectivity",
-                 "secure_channel", "enable_server_reflection",
-                 "enable_channelz"):
+    for name in ("aio", "NativeChannel", "ChannelConnectivity"):
         assert not hasattr(trpc, name), name

@@ -192,12 +192,17 @@ def _echo_server(name):
     return srv, port
 
 
+#: sockets that keep dead ports reserved for the process's life
+_HELD = []
+
+
 def _dead_port():
+    """A port that refuses connections: bound, never listening, and held,
+    so that no server of another test process can take it meanwhile."""
     s = socket.socket()
     s.bind(("127.0.0.1", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
+    _HELD.append(s)
+    return s.getsockname()[1]
 
 
 def test_pick_first_fails_over_to_live_address():

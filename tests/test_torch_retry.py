@@ -20,8 +20,8 @@ import time
 import pytest
 
 from torch_call_plane import (PKGS, PORT, REF, Counter, Flaky, both,
-                              code_of, dead_port, observe, poll, serve,
-                              settles_at)
+                              code_of, dead_port, free_dead_port, observe,
+                              poll, serve, settles_at)
 
 SERVERS = ["ref", "port"]
 CALL = 10
@@ -279,8 +279,10 @@ def test_admission_shed_carries_pushback_then_retry_waits_it_out(server):
     """A full admission gate sheds with ``tpurpc-pushback-ms``; a retrying
     call against it waits out the pushback and succeeds once the gate has
     room (tests/test_fleet.py's shed case, then its pushback floor on the
-    wire). The retrying channel is connected before the gate fills: a
-    server with a full gate may refuse new connections too."""
+    wire). Both channels are connected, and the warm-up calls' gate slots
+    released, before the gate fills: a server whose gate is at its soft
+    limit refuses new connections too, and a slot is released only after
+    the reply is on the wire."""
     def scenario(pkg):
         srv_pkg = PKGS[server]
         gate_open = threading.Event()
@@ -304,6 +306,8 @@ def test_admission_shed_carries_pushback_then_retry_waits_it_out(server):
                                         retry_policy=pol) as ch2:
                 warm = bytes(ch2.unary_unary("/fleet.S/Fast")(b"",
                                                              timeout=CALL))
+                ch.unary_unary("/fleet.S/Fast")(b"", timeout=CALL)
+                assert poll(lambda: gate.inflight() == 0)
                 mc = ch.unary_unary("/fleet.S/Slow")
                 fut = mc.future(b"", timeout=CALL)
                 assert poll(lambda: entered.n == 1)
@@ -702,6 +706,7 @@ def test_wait_for_ready_queues_until_the_server_appears(server):
             srv = srv_pkg.server.Server(max_workers=2)
             srv.add_method("/t.S/Echo", srv_pkg.server
                            .unary_unary_rpc_method_handler(lambda r, c: r))
+            free_dead_port(port)
             srv.add_insecure_port(f"127.0.0.1:{port}")
             srv.start()
             try:

@@ -80,12 +80,26 @@ def settles_at(fn, expect, settle_s: float = 0.3, interval: float = 0.02):
     return fn() == expect
 
 
+#: sockets that keep dead ports reserved for the process's life
+_HELD: list = []
+
+
 def dead_port() -> int:
+    """A port that refuses connections: bound, never listening, and held,
+    so that no server of another test process can take it meanwhile (a
+    port closed at once can be reused by one under ``-n 6``)."""
     s = socket.socket()
     s.bind(("127.0.0.1", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
+    _HELD.append(s)
+    return s.getsockname()[1]
+
+
+def free_dead_port(port: int) -> None:
+    """Let a :func:`dead_port` go, just before a server binds it."""
+    for s in list(_HELD):
+        if s.getsockname()[1] == port:
+            _HELD.remove(s)
+            s.close()
 
 
 class Counter:

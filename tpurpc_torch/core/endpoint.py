@@ -1,18 +1,27 @@
 """Endpoint: the swappable byte-pipe seam, and the factory that swaps it.
 
-A trimmed copy of ``tpurpc/core/endpoint.py`` (no TLS, no h2 sniff, no
-accept-storm admission): one blocking endpoint interface with the byte-pipe
+A trimmed copy of ``tpurpc/core/endpoint.py`` (no accept-storm admission,
+no native raw hook): one blocking endpoint interface with the byte-pipe
 chosen by ``GRPC_PLATFORM_TYPE`` at connection time — ``TcpEndpoint`` for
 TCP, ``RingEndpoint`` (a pooled :class:`Pair`) for the ring platforms, and
 ``TpuRingEndpoint`` (a ring endpoint with a device receive ring) for
 ``TPU``. ``read_into`` fills ≥1 byte, returns 0 once at clean EOF, or raises
 :class:`EndpointError`; ``write`` accepts the whole buffer or raises.
+
+TLS sits under the factory: :func:`connect_endpoint` (``ssl_context=``) and
+:class:`EndpointListener` (``ssl_context=``) handshake BEFORE the platform
+dispatch, so a ring bootstrap and its notify channel ride the encrypted
+socket, and a client that fails the handshake reaches no protocol layer.
+``peer_cert`` reads the peer's certificate through whichever lock guards
+the socket's SSL object (OpenSSL forbids concurrent use of one ``SSL*``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import select
 import socket
+import ssl
 import threading
 import time
 from typing import Callable, Optional
@@ -47,6 +56,24 @@ class Endpoint:
     def peer(self) -> str:
         raise NotImplementedError
 
+    @property
+    def local_address(self) -> str:
+        return "unknown:?"
+
+    def peer_cert(self) -> "Optional[dict]":
+        """The peer's TLS certificate (``SSLSocket.getpeercert()``'s dict;
+        ``{}`` when the peer sent none), None on a plaintext transport."""
+        return None
+
+
+def _cert_of(sock) -> dict:
+    """A TLS socket's peer certificate; ``{}`` when the peer sent none.
+    (``getpeercert()`` gives None there on a server that asked for no
+    certificate, and the reference passes that on, so its certless TLS
+    context reads as plaintext: ROADMAP C.)"""
+    cert = sock.getpeercert()
+    return {} if cert is None else cert
+
 
 def _fmt_addr(sock: socket.socket, peer: bool) -> str:
     try:
@@ -67,14 +94,23 @@ class TcpEndpoint(Endpoint):
         self._sock = sock
         #: bytes already consumed by the listener's protocol peek
         self._preread = bytearray(preread)
+        #: TLS only: serializes every OpenSSL call on this socket. CPython
+        #: releases the GIL around SSL_read/SSL_write and OpenSSL forbids
+        #: concurrent use of one SSL*: a reader and a writer racing corrupt
+        #: records. Every locked call is non-blocking, and readiness waits
+        #: happen outside the lock, so neither direction holds up the other.
+        self._ssl_lock = (threading.Lock()
+                          if hasattr(sock, "pending") else None)
         # The socket stays blocking; read deadlines are a poll() ahead of
-        # the recv (settimeout is per-socket state a writer would clobber).
+        # the recv (settimeout is per-socket state a writer would clobber;
+        # a TLS socket flips it, but only under _ssl_lock).
         sock.setblocking(True)
         try:
             sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
         except OSError:
             pass  # unix sockets
         self._peer = _fmt_addr(sock, peer=True)
+        self._local = _fmt_addr(sock, peer=False)
         self._closed = False
 
     def _await_readable(self, timeout: Optional[float]) -> None:
@@ -89,6 +125,57 @@ class TcpEndpoint(Endpoint):
         if not r:
             raise ReadTimeout()
 
+    def _ssl_call(self, fn):
+        """One non-blocking SSL call under the lock: ``(result, 0)``, or
+        ``(None, event)`` when OpenSSL needs the fd ready for ``event``
+        (``POLLIN`` or ``POLLOUT``) first. Never blocks inside the lock: a
+        reader parked there would hold up every write (the reference parks
+        a read there for up to 0.1 s, which delays each reply over TLS on
+        TCP by that much at each end: ROADMAP C)."""
+        with self._ssl_lock:
+            if self._closed:
+                raise EndpointError("endpoint closed")
+            self._sock.settimeout(0.0)
+            try:
+                return fn(), 0
+            except ssl.SSLWantReadError:
+                return None, select.POLLIN
+            except (ssl.SSLWantWriteError, BlockingIOError):
+                return None, select.POLLOUT
+            finally:
+                try:
+                    self._sock.settimeout(None)
+                except OSError:
+                    pass
+
+    def _ssl_wait(self, event: int, slice_s: float) -> None:
+        """Wait off the lock for the fd to be ready for ``event``."""
+        try:
+            p = select.poll()
+            p.register(self._sock.fileno(), event)
+            p.poll(max(0.0, slice_s) * 1000.0)
+        except (OSError, ValueError) as exc:
+            raise EndpointError(f"tcp failed: {exc}") from exc
+
+    def _ssl_recv(self, fn, timeout: Optional[float]):
+        """One serialized SSL read: a locked non-blocking read first
+        (decrypted bytes buffered in OpenSSL are invisible to the raw fd),
+        then a wait for the fd OUTSIDE the lock, so an idle reader holds
+        nothing and a writer is never held up."""
+        deadline = (None if timeout is None
+                    else time.monotonic() + max(0.0, timeout))
+        while True:
+            got, event = self._ssl_call(fn)
+            if not event:
+                return got
+            slice_s = 5.0
+            if deadline is not None:
+                remain = deadline - time.monotonic()
+                if remain <= 0:
+                    raise ReadTimeout()
+                slice_s = min(remain, slice_s)
+            self._ssl_wait(event, slice_s)
+
     def read_into(self, dst, timeout: Optional[float] = None) -> int:
         if self._closed:
             raise EndpointError("read on closed endpoint")
@@ -99,16 +186,40 @@ class TcpEndpoint(Endpoint):
             del self._preread[:n]
             return n
         try:
+            if self._ssl_lock is not None:
+                return self._ssl_recv(lambda: self._sock.recv_into(dst),
+                                      timeout)
             self._await_readable(timeout)
             return self._sock.recv_into(dst)
         except OSError as exc:
             raise EndpointError(f"tcp read failed: {exc}") from exc
 
+    def _ssl_send_all(self, data) -> None:
+        """Serialized SSL write in chunks, each a non-blocking call under
+        the lock. A chunk OpenSSL could not take must be retried with the
+        SAME buffer position, so ``pos`` moves only on success; the wait for
+        room happens off the lock, so the reader can drain meanwhile."""
+        view = memoryview(data).cast("B")
+        pos = 0
+        while pos < len(view):
+            sent, event = self._ssl_call(
+                lambda: self._sock.send(view[pos:pos + 65536]))
+            if event:
+                self._ssl_wait(event, 1.0)
+            else:
+                pos += sent
+
     def write(self, data) -> None:
         if self._closed:
             raise EndpointError("write on closed endpoint")
         try:
-            if isinstance(data, (list, tuple)):
+            if self._ssl_lock is not None:
+                # an SSLSocket has no sendmsg: TLS re-frames into records
+                # anyway, so one join costs what the TLS layer would
+                self._ssl_send_all(b"".join(data)
+                                   if isinstance(data, (list, tuple))
+                                   else data)
+            elif isinstance(data, (list, tuple)):
                 # sendmsg may place partially and takes ≤1024 iovecs per
                 # call: loop until every byte is on the wire
                 views = [memoryview(s).cast("B") for s in data if len(s)]
@@ -127,7 +238,13 @@ class TcpEndpoint(Endpoint):
             raise EndpointError(f"tcp write failed: {exc}") from exc
 
     def close(self) -> None:
-        if not self._closed:
+        # a TLS socket closes under its lock, so no SSL call is running on
+        # the fd: OpenSSL keeps the fd number, and a read still inside it
+        # would go on reading whatever connection the number is given to
+        # next, and corrupt it
+        with self._ssl_lock or contextlib.nullcontext():
+            if self._closed:
+                return
             self._closed = True
             try:
                 self._sock.shutdown(socket.SHUT_RDWR)
@@ -138,6 +255,19 @@ class TcpEndpoint(Endpoint):
     @property
     def peer(self) -> str:
         return self._peer
+
+    @property
+    def local_address(self) -> str:
+        return self._local
+
+    def peer_cert(self) -> "Optional[dict]":
+        if self._ssl_lock is None:
+            return None  # plaintext
+        try:
+            with self._ssl_lock:
+                return _cert_of(self._sock)
+        except (OSError, ValueError):
+            return None
 
 
 def device_ring_of(endpoint: Endpoint):
@@ -162,6 +292,7 @@ class RingEndpoint(Endpoint):
         self.discipline = discipline
         self.pool_key = pool_key
         self._peer_desc = _fmt_addr(sock, peer=True)
+        self._local_desc = _fmt_addr(sock, peer=False)
         self.pair: Pair = PairPool.get().take(pool_key)
         try:
             self.pair.connect_over_socket(sock, preread=preread)
@@ -272,6 +403,24 @@ class RingEndpoint(Endpoint):
     def peer(self) -> str:
         return self._peer_desc
 
+    @property
+    def local_address(self) -> str:
+        return self._local_desc
+
+    def peer_cert(self) -> "Optional[dict]":
+        # a ring keeps the (possibly TLS) bootstrap socket as its pair's
+        # notify channel, whose SSL object the pair's notify lock guards;
+        # the device-ring endpoint inherits this
+        pair = self.pair
+        sock = pair.notify_sock
+        if sock is None or not hasattr(sock, "getpeercert"):
+            return None
+        try:
+            with pair._notify_lock:
+                return _cert_of(sock)
+        except (OSError, ValueError):
+            return None
+
 
 # ---------------------------------------------------------------------------
 # The factory + connectors.
@@ -302,12 +451,36 @@ def create_endpoint(sock: socket.socket, *, is_server: bool,
                         preread=preread)
 
 
+def tls_client_handshake(sock: socket.socket, ssl_context,
+                         server_hostname: str) -> socket.socket:
+    """Client-side TLS wrap with one failure mode (shared by the endpoint
+    factory and the h2 client): the socket is closed and
+    :class:`EndpointError` raised; nothing is ever sent in plaintext."""
+    try:
+        return ssl_context.wrap_socket(sock, server_hostname=server_hostname)
+    except (OSError, ValueError) as exc:
+        sock.close()
+        raise EndpointError(f"TLS handshake failed: {exc}") from exc
+
+
 def connect_endpoint(host: str, port: int,
-                     timeout: Optional[float] = 30) -> Endpoint:
-    """Client side: TCP-connect, then let the factory pick the pipe."""
+                     timeout: Optional[float] = 30,
+                     ssl_context=None,
+                     server_hostname: Optional[str] = None) -> Endpoint:
+    """Client side: TCP-connect, TLS-wrap with ``ssl_context`` (verifying
+    ``server_hostname``, default ``host``), then let the factory pick the
+    pipe. The handshake comes BEFORE the platform dispatch, so a ring's
+    address exchange and notify channel ride the encrypted stream."""
     sock = socket.create_connection((host, port), timeout=timeout)
+    if ssl_context is not None:
+        sock = tls_client_handshake(sock, ssl_context,
+                                    server_hostname or host)
     sock.settimeout(None)
     return create_endpoint(sock, is_server=False, pool_key=f"{host}:{port}")
+
+
+#: a server-side TLS handshake that takes longer is abandoned
+TLS_HANDSHAKE_TIMEOUT_S = 20.0
 
 
 class EndpointListener:
@@ -315,12 +488,17 @@ class EndpointListener:
     its own thread, so one silent client cannot stall other accepts; the
     listener accepts only once ``ready`` is set (grpcio semantics: the port
     is bound at add_port, served at start). ``reuseport`` lets listeners of
-    several processes share one port (``SO_REUSEPORT``)."""
+    several processes share one port (``SO_REUSEPORT``). With
+    ``ssl_context`` every connection handshakes (within
+    :data:`TLS_HANDSHAKE_TIMEOUT_S`) before the factory sees it; one that
+    fails is closed there."""
 
     def __init__(self, host: str, port: int,
                  on_endpoint: Callable[[Endpoint], None],
                  ready: "Optional[threading.Event]" = None,
-                 reuseport: bool = False):
+                 reuseport: bool = False,
+                 ssl_context=None):
+        self._ssl_context = ssl_context
         self._sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
         self._sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
         if reuseport:
@@ -362,6 +540,13 @@ class EndpointListener:
 
     def _bootstrap(self, sock: socket.socket, addr) -> None:
         try:
+            if self._ssl_context is not None:
+                # the handshake comes before the platform sniff, which then
+                # reads decrypted bytes; a plaintext client or a bad
+                # certificate fails here and reaches no protocol layer
+                sock.settimeout(TLS_HANDSHAKE_TIMEOUT_S)
+                sock = self._ssl_context.wrap_socket(sock, server_side=True)
+                sock.settimeout(None)
             # servers key pooled pairs by peer host
             ep = create_endpoint(sock, is_server=True,
                                  pool_key=f"peer:{addr[0]}")

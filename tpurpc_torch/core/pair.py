@@ -9,7 +9,13 @@ native spin or waiter-advertisement words — every send notifies):
 * a :class:`MemoryDomain` implements the one-sided write: in-process buffers
   (``local``) or POSIX shared memory (``shm``, the default);
 * bootstrap swaps :class:`Address` blobs over an already-connected socket,
-  which then stays as the notify/liveness channel;
+  which then stays as the notify/liveness channel. The socket may be an
+  ``ssl.SSLSocket``: the exchange then reads decrypted bytes, every SSL call
+  on it is serialized under ``_notify_lock`` (OpenSSL forbids concurrent use
+  of one ``SSL*``), and the non-consuming probe uses ``pending()`` and a
+  readiness check, since ``MSG_PEEK`` is refused on an ``SSLSocket``. TLS
+  guards the bootstrap and the notify channel; ring payloads stay in the
+  memory domain, as the reference's stay in registered memory;
 * the lifecycle is ``UNINITIALIZED → INITIALIZED → CONNECTED →
   HALF_CLOSED/DISCONNECTED/ERROR``, and ``init()`` revives pooled pairs.
 """
@@ -20,7 +26,9 @@ import contextlib
 import enum
 import json
 import os
+import select
 import socket
+import ssl
 import struct
 import threading
 import time
@@ -469,8 +477,13 @@ class Pair:
         if sock is None:
             return
         try:
+            # locked on every socket: on a TLS one, OpenSSL forbids
+            # concurrent use of one SSL* (a one-byte record either goes
+            # whole or not at all, so a dropped token stays best-effort)
             with self._notify_lock:
                 sock.send(token)
+        except (ssl.SSLWantWriteError, ssl.SSLWantReadError):
+            pass  # TLS record stalled: as a saturated channel
         except (BlockingIOError, InterruptedError):
             pass  # channel saturated — a token is already pending
         except OSError:
@@ -486,12 +499,20 @@ class Pair:
         sock = self.notify_sock
         if sock is None:
             return b""
+        is_tls = hasattr(sock, "pending")
         out = b""
         while True:
             try:
-                chunk = sock.recv(65536)
-            except (BlockingIOError, InterruptedError):
-                break
+                if is_tls:
+                    # serialized with the token sends; the recv is
+                    # non-blocking, so the hold is microseconds
+                    with self._notify_lock:
+                        chunk = sock.recv(65536)
+                else:
+                    chunk = sock.recv(65536)
+            except (BlockingIOError, InterruptedError,
+                    ssl.SSLWantReadError, ssl.SSLWantWriteError):
+                break  # nothing decryptable yet: EAGAIN on a plain socket
             except OSError:
                 # a stale caller may hold a socket from a previous life of
                 # this pooled pair: its EBADF must not poison the new one
@@ -522,6 +543,21 @@ class Pair:
         sock = self.notify_sock
         if sock is None:
             return False
+        if hasattr(sock, "pending"):
+            # an SSLSocket refuses MSG_PEEK (ValueError) and a record
+            # stream has nothing to peek at: decrypted bytes pending, or
+            # ciphertext readable on the fd, is hint enough (a spurious
+            # True makes the owner drain and find nothing)
+            with self._notify_lock:
+                if sock.pending():
+                    return True
+            try:
+                # poll, not select: select fails for fds >= FD_SETSIZE
+                p = select.poll()
+                p.register(sock.fileno(), select.POLLIN)
+                return bool(p.poll(0))
+            except (OSError, ValueError):
+                return True  # racing close: the owner's drain resolves it
         try:
             chunk = sock.recv(1, socket.MSG_PEEK)
         except (BlockingIOError, InterruptedError):
@@ -759,12 +795,18 @@ class Pair:
             if w is not None:
                 setattr(self, attr, None)
                 retry_buffer_op(w.close)
-        if self.notify_sock is not None:
-            try:
-                self.notify_sock.close()
-            except OSError:
-                pass
-            self.notify_sock = None
+        sock = self.notify_sock
+        if sock is not None:
+            # a TLS socket closes under the notify lock, so that no SSL
+            # call is still running on its fd (OpenSSL would go on reading
+            # the fd number, given to the next connection, and corrupt it)
+            with (self._notify_lock if hasattr(sock, "pending")
+                  else contextlib.nullcontext()):
+                try:
+                    sock.close()
+                except OSError:
+                    pass
+                self.notify_sock = None
         for pipes in (self._wake_r, self._wake_w):
             for role, fd in pipes.items():
                 if fd >= 0:

@@ -18,6 +18,10 @@ retryPolicy or hedgingPolicy, retryThrottling) from its resolver, from
 explicit ``retry_policy=RetryPolicy(...)`` / ``hedging_policy=`` arguments;
 ``server(interceptors=[...])`` and ``intercept_channel`` take grpcio-shaped
 interceptors, and ``FaultInjector`` injects aborts and delays.
+``secure_channel`` / ``Server.add_secure_port`` with
+``ssl_channel_credentials`` / ``ssl_server_credentials`` run TLS (and mTLS)
+on every platform; ``enable_server_reflection`` and ``enable_channelz``
+serve grpc.reflection and grpc.channelz.v1 on a server.
 
 ``H2Channel`` (``tpurpc_torch/wire/h2_client.py``) is exported lazily, as
 the reference does: an eager import here would make a program that imports
@@ -25,7 +29,15 @@ the reference does: an eager import here would make a program that imports
 """
 
 from tpurpc_torch.rpc.status import AbortError, Metadata, RpcError, StatusCode
-from tpurpc_torch.rpc.channel import Channel, RetryPolicy, insecure_channel
+from tpurpc_torch.rpc.channel import (Channel, RetryPolicy, insecure_channel,
+                                      secure_channel)
+from tpurpc_torch.rpc.credentials import (
+    ChannelCredentials,
+    ServerCredentials,
+    insecure_for_testing_channel_credentials,
+    ssl_channel_credentials,
+    ssl_server_credentials,
+)
 from tpurpc_torch.rpc.server import (
     RpcMethodHandler,
     Server,
@@ -41,6 +53,8 @@ from tpurpc_torch.rpc.interceptors import (ClientInterceptor, FaultConfig,
                                            intercept_channel)
 from tpurpc_torch.rpc.resolver import register_resolver, ring_hash_key
 from tpurpc_torch.rpc.health import add_health_servicer
+from tpurpc_torch.rpc.reflection import enable_server_reflection
+from tpurpc_torch.rpc.channelz_v1 import enable_channelz
 from tpurpc_torch.rpc import server  # the module, callable as server()
 
 __all__ = [
@@ -54,6 +68,10 @@ __all__ = [
     "ClientInterceptor", "FaultConfig", "FaultInjector",
     "ServerInterceptor", "intercept_channel", "RetryPolicy",
     "H2Channel",
+    "secure_channel", "ChannelCredentials", "ServerCredentials",
+    "ssl_channel_credentials", "ssl_server_credentials",
+    "insecure_for_testing_channel_credentials",
+    "enable_server_reflection", "enable_channelz",
 ]
 
 

@@ -2,10 +2,14 @@
 
 A trimmed copy of ``tpurpc/rpc/channel.py`` (no compression, native fast
 path, keepalive or connectivity state, and none of the reference's
-observability hooks; a dedicated reader thread per connection):
+observability hooks beyond channelz's call counters; a dedicated reader
+thread per connection):
 
 * ``Channel`` resolves its target into subchannels (one per address), each
-  (re)connecting with exponential backoff; an LB policy
+  (re)connecting with exponential backoff, over TLS when given
+  ``credentials`` (:func:`secure_channel`; every dial, replays and redials
+  included, handshakes, and a failed handshake is ``UNAVAILABLE``, never a
+  plaintext retry); an LB policy
   (``tpurpc_torch/rpc/resolver.py``) orders them per call, and transport
   failure maps to ``UNAVAILABLE``. A server's per-response load report is
   stripped from the trailing metadata and fed to the policy;
@@ -444,6 +448,10 @@ class Channel:
     ``retry_policy`` / ``hedging_policy`` apply to every method and win
     over a service config's; without them (gRPC's default) calls are not
     retried unless a service config says so.
+
+    ``credentials`` (:func:`tpurpc_torch.rpc.credentials.
+    ssl_channel_credentials`) makes every dial a TLS one (see
+    :func:`secure_channel`).
     """
 
     #: reconnect backoff: start 50 ms, cap 2 s, ×1.6, 20% jitter
@@ -455,6 +463,7 @@ class Channel:
                  endpoint_factory: Optional[Callable[[], Endpoint]] = None,
                  connect_timeout: float = 30.0,
                  lb_policy: "Union[str, dict]" = "pick_first",
+                 credentials=None,
                  max_receive_message_length: Optional[int] = None,
                  retry_policy: "Optional[RetryPolicy]" = None,
                  hedging_policy: "Optional[HedgingPolicy]" = None,
@@ -486,7 +495,12 @@ class Channel:
         self.max_receive_message_length = get_config().resolve_recv_limit(
             max_receive_message_length)
         self._lb_spec = lb_policy
-        self._connect_timeout = connect_timeout
+        #: every dial's arguments: the TLS context and the hostname to
+        #: verify (None: the target's host) travel with each connect
+        self._conn_kw = dict(
+            timeout=connect_timeout,
+            ssl_context=getattr(credentials, "_context", None),
+            server_hostname=getattr(credentials, "_override_hostname", None))
         if endpoint_factory is None:
             if target is None:
                 raise ValueError("need target or endpoint_factory")
@@ -505,10 +519,15 @@ class Channel:
         self._policy = make_policy(lb_policy, len(self._subchannels))
         self._lock = threading.Lock()  # guards _closed and the membership
         self._closed = False
+        from tpurpc_torch.rpc import channelz as _channelz
+
+        #: channelz ChannelData counters (started/succeeded/failed)
+        self.call_counters = _channelz.CallCounters()
+        _channelz.register_channel(self)
 
     def _addr_factory(self, h: str, p: int) -> Callable[[], Endpoint]:
-        timeout = self._connect_timeout
-        return lambda: connect_endpoint(h, p, timeout=timeout)
+        kw = self._conn_kw
+        return lambda: connect_endpoint(h, p, **kw)
 
     def update_service_config(self, cfg) -> None:
         """Apply a JSON service config (dict or JSON text): per-method
@@ -706,7 +725,8 @@ class Call:
     """In-flight call handle: response iteration, cancel, metadata."""
 
     def __init__(self, conn: _Connection, st: _ClientStream,
-                 deserializer: Deserializer, deadline: Optional[float]):
+                 deserializer: Deserializer, deadline: Optional[float],
+                 counters=None):
         self._conn = conn
         self._st = st
         self._deser = deserializer
@@ -715,6 +735,7 @@ class Call:
         self._code: Optional[StatusCode] = None
         self._details = ""
         self._cancelled = False
+        self._counters = counters  # channelz ChannelData (counted once)
 
     def initial_metadata(self):
         return self._st.initial_metadata or []
@@ -760,6 +781,9 @@ class Call:
 
     def _expire(self) -> None:
         """The deadline passed: RST the server and finish the stream."""
+        if self._counters is not None:  # an expiry counts as failed
+            self._counters.on_finish(False)
+            self._counters = None
         self._code = StatusCode.DEADLINE_EXCEEDED
         self._details = "deadline exceeded"
         try:
@@ -771,6 +795,9 @@ class Call:
         self._conn.close_stream(self._st)
 
     def _finish(self, code: StatusCode, details: str, md) -> None:
+        if self._counters is not None:
+            self._counters.on_finish(code is StatusCode.OK)
+            self._counters = None  # a repeated event must not count twice
         self._code, self._details, self._trailing = code, details, md
         self._conn.close_stream(self._st)
 
@@ -1010,7 +1037,10 @@ class _MultiCallable:
                 if picked:
                     err._tpurpc_sub = picked[-1]
             raise err from exc
-        return conn, st, Call(conn, st, self._deser, deadline)
+        counters = self._channel.call_counters
+        counters.on_start()
+        return conn, st, Call(conn, st, self._deser, deadline,
+                              counters=counters)
 
     def _send_stream(self, conn: _Connection, st: _ClientStream,
                      request_iterator: Iterable) -> None:
@@ -1606,3 +1636,9 @@ class StreamStream(_MultiCallable):
 def insecure_channel(target: str, **kwargs) -> Channel:
     """grpcio-shaped constructor."""
     return Channel(target, **kwargs)
+
+
+def secure_channel(target: str, credentials, **kwargs) -> Channel:
+    """grpcio-shaped constructor: pass
+    :func:`tpurpc_torch.rpc.credentials.ssl_channel_credentials`'s result."""
+    return Channel(target, credentials=credentials, **kwargs)

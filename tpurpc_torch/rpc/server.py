@@ -1,7 +1,7 @@
 """Server: listener → per-connection demux → handler dispatch on a pool.
 
 A trimmed copy of ``tpurpc/rpc/server.py`` (no inline reactor handlers,
-keepalive/max-age timers, native plane, the control-ring plane, channelz or
+keepalive/max-age timers, native plane, the control-ring plane or
 observability). One port serves both wire protocols: the
 first 8 bytes of a connection route the native framing's magic to
 :class:`_ServerConnection` and the HTTP/2 preface to
@@ -13,7 +13,10 @@ load report (:meth:`Server.set_load_provider`, :data:`LOAD_KEY`), listeners
 that share a port (``add_insecure_port(..., reuseport=True)``) and
 :meth:`Server.adopt_socket` for connections accepted elsewhere.
 ``ServerContext`` keeps the grpcio surface the tensor service uses, including
-``device_ring``; handlers use grpcio's four-shape taxonomy. Each connection
+``device_ring`` and ``auth_context``; handlers use grpcio's four-shape
+taxonomy. ``add_secure_port`` serves TLS (and mTLS) on every platform: the
+handshake precedes the protocol sniff. Each server registers with
+channelz (``rpc/channelz.py``) and counts its calls there. Each connection
 carries a rendezvous link (``core/rendezvous.py``): bulk request payloads
 land in this side's landing pool and bulk responses go into the client's.
 """
@@ -206,12 +209,52 @@ class ServerContext:
         self._cancelled = threading.Event()
         self._code: Optional[StatusCode] = None
         self._details = ""
+        self._auth_ctx: Optional[dict] = None
 
     def invocation_metadata(self) -> Metadata:
         return list(self._metadata)
 
     def peer(self) -> str:
         return self._conn.endpoint.peer
+
+    def auth_context(self) -> dict:
+        """grpcio's ServerContext.auth_context: {} on plaintext,
+        ``transport_security_type`` alone on TLS without a client
+        certificate, plus the peer's x509 names under mTLS. Read through the
+        endpoint (a ring keeps the TLS socket as its pair's notify channel)
+        and computed once per context: the certificate cannot change
+        mid-call."""
+        cached = self._auth_ctx
+        if cached is not None:
+            return cached
+        cert = self._conn.endpoint.peer_cert()
+        out: dict = {}
+        if cert is not None:
+            out["transport_security_type"] = [b"ssl"]
+        if cert:
+            # every SAN kind counts as identity (a URI carries SPIFFE ids)
+            sans = [v.encode() if isinstance(v, str) else str(v).encode()
+                    for _kind, v in cert.get("subjectAltName", ())]
+            if sans:
+                out["x509_subject_alternative_name"] = sans
+            for rdn in cert.get("subject", ()):
+                for key, val in rdn:
+                    if key == "commonName":
+                        out.setdefault("x509_common_name", []).append(
+                            val.encode())
+        self._auth_ctx = out
+        return out
+
+    def peer_identity_key(self) -> "Optional[str]":
+        ac = self.auth_context()
+        for key in ("x509_subject_alternative_name", "x509_common_name"):
+            if key in ac:
+                return key
+        return None
+
+    def peer_identities(self):
+        key = self.peer_identity_key()
+        return self.auth_context()[key] if key else None
 
     @property
     def device_ring(self):
@@ -392,6 +435,7 @@ class _ServerConnection:
         self._lock = threading.Lock()
         self.alive = True
         self.draining = False  # GOAWAY sent; no new streams accepted
+        self.streams_started = 0  # channelz SocketData counter
         self._linger_timer: Optional[threading.Timer] = None
         # the rendezvous link, made before the reader starts so that the
         # client's hello never meets an unarmed link
@@ -489,6 +533,7 @@ class _ServerConnection:
                         and not st.is_probe)
             if not rejected:
                 self._streams[f.stream_id] = st
+                self.streams_started += 1
         if rejected:
             self.writer.send(fr.RST, fr.FLAG_REFUSED, f.stream_id,
                              fr.rst_payload(StatusCode.UNAVAILABLE,
@@ -528,6 +573,17 @@ class _ServerConnection:
 
     def _run_handler(self, handler: RpcMethodHandler, st: _ServerStream,
                      ctx: ServerContext, path: str) -> None:
+        counters = self.server.call_counters
+        counters.on_start()
+        ok = False
+        try:
+            ok = bool(self._run_handler_inner(handler, st, ctx, path))
+        finally:
+            counters.on_finish(ok)
+
+    def _run_handler_inner(self, handler: RpcMethodHandler, st: _ServerStream,
+                           ctx: ServerContext, path: str) -> bool:
+        """Run one call to its trailers; True iff it ended OK."""
         try:
             if handler.request_streaming:
                 request_in = st.request_iterator(handler.request_deserializer, ctx)
@@ -567,6 +623,7 @@ class _ServerConnection:
                 if ctx.is_active():
                     code = ctx._code if ctx._code is not None else StatusCode.OK
                     self._send_trailers(st, code, ctx._details, ctx._trailing)
+                    return code is StatusCode.OK
             elif ctx.is_active():
                 # unary response: MESSAGE + TRAILERS in one transport write
                 code = ctx._code if ctx._code is not None else StatusCode.OK
@@ -582,6 +639,8 @@ class _ServerConnection:
                 except fr.FrameError:
                     self._send_trailers(st, StatusCode.INTERNAL,
                                         "trailing metadata too large")
+                    return False
+                return code is StatusCode.OK
         except AbortError as exc:
             self._send_trailers(st, exc.code, exc.details, ctx._trailing)
         except (EndpointError, OSError):
@@ -592,6 +651,7 @@ class _ServerConnection:
                                 f"Exception calling application: {exc}")
         finally:
             self._finish_stream(st)
+        return False
 
     def _send_trailers(self, st: _ServerStream, code: StatusCode, details: str,
                        metadata: Metadata = ()) -> None:
@@ -703,9 +763,15 @@ class Server:
         #: per-message receive bound (None = config default; -1 = unlimited)
         self.max_receive_message_length = get_config().resolve_recv_limit(
             max_receive_message_length)
+        from tpurpc_torch.rpc import channelz as _channelz
+
+        #: channelz ServerData counters (started/succeeded/failed)
+        self.call_counters = _channelz.CallCounters()
+        _channelz.register_server(self)
         self._methods: Dict[str, RpcMethodHandler] = {}
         self._generic_handlers: list = []
         self._listeners: List[EndpointListener] = []
+        self.bound_ports: List[int] = []
         self._connections: List[_ServerConnection] = []
         self._lock = threading.Lock()
         self._stopping = False  # set under _lock before conns are torn down
@@ -786,10 +852,26 @@ class Server:
         the SAME port with ``SO_REUSEPORT`` and the kernel spreads accepts
         across them (see :class:`tpurpc_torch.rpc.shard.ShardedServer`)."""
         host, _, port = address.rpartition(":")
-        listener = EndpointListener(host or "0.0.0.0", int(port),
-                                    self.serve_endpoint, ready=self._serving,
-                                    reuseport=reuseport)
+        return self._open_port(host or "0.0.0.0", int(port),
+                               reuseport=reuseport)
+
+    def add_secure_port(self, address: str, server_credentials) -> int:
+        """A TLS port (grpcio-shaped): every connection handshakes before
+        the protocol sniff, so native framing, a ring bootstrap and h2 all
+        ride the encrypted stream; a plaintext client is closed at the
+        handshake. Pass :func:`tpurpc_torch.rpc.credentials.
+        ssl_server_credentials`'s result."""
+        host, _, port = address.rpartition(":")
+        return self._open_port(host or "0.0.0.0", int(port),
+                               ssl_context=server_credentials._context)
+
+    def _open_port(self, host: str, port: int, ssl_context=None,
+                   reuseport: bool = False) -> int:
+        listener = EndpointListener(host, port, self.serve_endpoint,
+                                    ready=self._serving, reuseport=reuseport,
+                                    ssl_context=ssl_context)
         self._listeners.append(listener)
+        self.bound_ports.append(listener.port)
         return listener.port
 
     def adopt_socket(self, sock: socket.socket) -> None:

@@ -643,6 +643,17 @@ class GrpcH2Connection:
 
     def _run_handler(self, handler, st: _H2Stream, ctx: H2ServerContext,
                      path: str) -> None:
+        counters = self.server.call_counters
+        counters.on_start()
+        ok = False
+        try:
+            ok = bool(self._run_handler_inner(handler, st, ctx, path))
+        finally:
+            counters.on_finish(ok)
+
+    def _run_handler_inner(self, handler, st: _H2Stream,
+                           ctx: H2ServerContext, path: str) -> bool:
+        """Run one call to its trailers; True iff it ended OK."""
         try:
             if handler.request_streaming:
                 request_in = self._request_iterator(
@@ -681,7 +692,7 @@ class GrpcH2Connection:
                 payload = handler.response_serializer(result)
                 if self._send_unary_fused(st, payload, code, ctx._details,
                                           ctx._trailing):
-                    return
+                    return code is StatusCode.OK
                 self.send_response_headers(st)
                 self.send_message(st, payload)
             else:
@@ -689,6 +700,7 @@ class GrpcH2Connection:
             if ctx.is_active():
                 code = ctx._code if ctx._code is not None else StatusCode.OK
                 self.send_trailers(st, code, ctx._details, ctx._trailing)
+                return code is StatusCode.OK
         except AbortError as exc:
             self.send_trailers(st, exc.code, exc.details, ctx._trailing)
         except (EndpointError, h2.H2Error, OSError):
@@ -699,6 +711,7 @@ class GrpcH2Connection:
                                f"Exception calling application: {exc}")
         finally:
             self._finish(st)
+        return False
 
     def _finish(self, st: _H2Stream) -> None:
         with self._lock:

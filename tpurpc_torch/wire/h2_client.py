@@ -18,8 +18,12 @@ table sized to the peer's SETTINGS_HEADER_TABLE_SIZE; PING ack, RST_STREAM
 to a status; and the rendezvous link, negotiated with a peer that
 advertises ``SETTINGS_TPURPC_RDV``.
 
-Left out against the reference: TLS credentials and its flight-recorder,
-metrics, profiler and stats hooks. Beyond it: a GOAWAY with NO_ERROR fails
+``credentials`` (:func:`tpurpc_torch.rpc.credentials.
+ssl_channel_credentials`) dials over TLS with ALPN ``h2``; a failed
+handshake closes the socket and raises, and nothing is sent in plaintext.
+
+Left out against the reference: its flight-recorder, metrics, profiler and
+stats hooks. Beyond it: a GOAWAY with NO_ERROR fails
 only the calls above the stream it names (the server did not take them); the
 calls it took run to their end, new calls fail UNAVAILABLE at once, and the
 connection closes when the last one ends. The reference fails every open
@@ -36,7 +40,8 @@ import time
 from typing import Dict, Iterable, List, Optional, Tuple
 
 from tpurpc_torch.core import rendezvous as _rdv
-from tpurpc_torch.core.endpoint import Endpoint, EndpointError, TcpEndpoint
+from tpurpc_torch.core.endpoint import (Endpoint, EndpointError, TcpEndpoint,
+                                        tls_client_handshake)
 from tpurpc_torch.rpc.status import Metadata, RpcError, StatusCode
 from tpurpc_torch.wire import h2
 from tpurpc_torch.wire.grpc_h2 import (RECV_WINDOW, _decode_metadata_value,
@@ -148,10 +153,15 @@ class H2Channel:
     """
 
     def __init__(self, target: str, connect_timeout: float = 30.0,
-                 authority: Optional[str] = None):
+                 authority: Optional[str] = None, credentials=None):
         host, _, port = target.rpartition(":")
         sock = socket.create_connection((host or "127.0.0.1", int(port)),
                                         timeout=connect_timeout)
+        ssl_ctx = getattr(credentials, "_context", None)
+        if ssl_ctx is not None:
+            hostname = (getattr(credentials, "_override_hostname", None)
+                        or host or "127.0.0.1")
+            sock = tls_client_handshake(sock, ssl_ctx, hostname)
         sock.settimeout(None)
         self._ep: Endpoint = TcpEndpoint(sock)
         self._authority = authority or target
