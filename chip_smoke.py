@@ -185,7 +185,28 @@ fails the run (non-zero exit, no result line) on any error:
    ``h2`` selected, replies bit-equal to each other and to the direct run,
    requests/s of each, no kernel launched (h2 decodes on the host). Skipped
    under ``--kernels``;
-13. print the kernels line, the card's name and power limit, and last the
+13. the asyncio surface on the device-ring path (``GRPC_PLATFORM_TYPE=
+   TPU``, a 16 MiB ``HbmRing``), phase 3's ResNet-50 weights, 8 requests
+   and tolerance: an ``aio.Server`` whose async handlers do what
+   ``add_tensor_method(..., device=True)`` does (land the request with
+   ``decode_tree_to_ring`` on a worker thread, await the forward, serialize
+   the reply off the card with ``tree_from_device``, then release the
+   leases; ``AioRingServer``), called through an ``aio`` channel: after
+   one call of the first request that dials the connection, (a) the 8
+   requests at once (``asyncio.gather``), then one after another; (b)
+   the same 8 in one ``stream_stream`` call, each landing releasing the
+   previous message's leases. Every reply must be bit-equal to the same
+   request's through phase 3's sync device path on a server in the same
+   process (and within phase 3's tolerance of the direct run), (a) must
+   launch both kernels as phase 3 does and every part as its landings
+   wrap the ring (counted by the wrappers and at the server), the ring
+   must come back to capacity after each part, and at least two handlers
+   must have been in flight on the loop at once. Prints (a)'s p50/p99 on
+   the host clock, the wall time of the 8 calls together against in
+   sequence, and requests/s. The protoc plugin (``tpurpc_torch/codegen``)
+   is not driven here: the card's machine has neither protoc nor
+   protobuf. Skipped under ``--kernels``;
+14. print the kernels line, the card's name and power limit, and last the
    one-line result JSON.
 """
 
@@ -2766,11 +2787,12 @@ def retry_arithmetic(seed, requests, fraction, max_attempts, throttle):
     return attempts, aborts, tokens
 
 
-def _ring_wraps(tail: int, span: int, ring: int) -> int:
+def _ring_wraps(tail: int, span: int, ring: int, first: int = 0) -> int:
     """Landings of ``span`` bytes that wrapped a ring of ``ring`` bytes,
-    out of the ``tail // span`` landed back to back from offset 0."""
-    return sum(1 for k in range(tail // span)
-               if (k * span) % ring + span > ring)
+    out of those landed back to back from absolute offset ``first`` up to
+    ``tail``."""
+    return sum(1 for k in range((tail - first) // span)
+               if (first + k * span) % ring + span > ring)
 
 
 class CallPlaneServer:
@@ -3435,6 +3457,296 @@ def tls_plane(dev, card, size=SIZE, ring=RING, requests=REQUESTS,
     return res
 
 
+# -- phase 13 ----------------------------------------------------------------
+
+def _release(leases) -> None:
+    for lease in leases:
+        lease.release()
+    leases.clear()
+
+
+class AioRingServer:
+    """An ``aio.Server`` of ``fn`` on the device ring (start it with ``await
+    rig.server.start()``), with two async handlers that do what
+    ``add_tensor_method(..., device=True)`` does: ``Classify`` (unary) and
+    ``ClassifyStream`` (stream_stream) under ``/tpurpc.Tensor/``.
+
+    A handler lands each request in its connection's ring with
+    ``decode_tree_to_ring`` on a worker thread (a wait for ring credit
+    must not stall the loop the other handlers run on), awaits the forward
+    there, serializes the reply off the device (``tree_from_device``) and
+    only then releases the leases. The stream's handler releases a
+    message's leases when it lands the next one, and the last when the
+    stream ends. The worker pool has a thread for each server worker, so
+    no handler waits on another for a thread.
+
+    ``most`` is the most handlers in flight on the loop at once.
+    ``launched`` holds the kernel launches of this server's landings: each
+    landing takes :attr:`landing` and reads the wrappers' counts around
+    itself."""
+
+    landing = threading.Lock()
+
+    def __init__(self, fn, max_workers=16):
+        from concurrent.futures import ThreadPoolExecutor
+
+        from tpurpc_torch.rpc import aio
+        from tpurpc_torch.torchshim import codec
+        from tpurpc_torch.torchshim.service import TENSOR_SERVICE
+
+        self.fn = fn
+        self.inflight = self.most = 0
+        self.launched = {"ring_scatter": 0, "ring_window": 0}
+        self._count = threading.Lock()
+        self._pool = ThreadPoolExecutor(max_workers=max_workers,
+                                        thread_name_prefix="aio-ring")
+        self.server = aio.Server(max_workers=max_workers)
+        encoded = lambda body: body  # noqa: E731  replies leave encoded
+        self.server.add_method(
+            f"/{TENSOR_SERVICE}/Classify",
+            aio.unary_unary_rpc_method_handler(
+                self._unary, codec.raw_view, encoded))
+        self.server.add_method(
+            f"/{TENSOR_SERVICE}/ClassifyStream",
+            aio.stream_stream_rpc_method_handler(
+                self._stream, codec.raw_view, encoded))
+        self.port = self.server.add_insecure_port("127.0.0.1:0")
+
+    async def stop(self) -> None:
+        await self.server.stop()
+        self._pool.shutdown(wait=False)
+
+    def ring(self):
+        conns = list(self.server._sync._connections)
+        check(len(conns) == 1, f"aio: {len(conns)} server connections")
+        return conns[0].endpoint.device_ring
+
+    def _land(self, ring, raw, held):
+        from tpurpc_torch.ops import ring_scatter as rs_mod
+        from tpurpc_torch.ops import ring_window as rw_mod
+        from tpurpc_torch.tpu.endpoint import decode_tree_to_ring
+
+        if ring is None:
+            raise RuntimeError("aio: the connection has no device ring")
+        _release(held)
+        with AioRingServer.landing:
+            before = (rs_mod.launches, rw_mod.launches)
+            tree, leases = decode_tree_to_ring(ring, raw)
+            self.launched["ring_scatter"] += rs_mod.launches - before[0]
+            self.launched["ring_window"] += rw_mod.launches - before[1]
+        held.extend(leases)
+        return tree
+
+    async def _serve_one(self, ring, raw, held):
+        import asyncio
+
+        from tpurpc_torch.tpu.serialize import tree_from_device
+
+        loop = asyncio.get_running_loop()
+        tree = await loop.run_in_executor(self._pool, self._land, ring, raw,
+                                          held)
+        out = await loop.run_in_executor(self._pool, self.fn, tree)
+        return await loop.run_in_executor(self._pool, tree_from_device, out)
+
+    def _enter(self) -> None:
+        with self._count:
+            self.inflight += 1
+            self.most = max(self.most, self.inflight)
+
+    def _leave(self) -> None:
+        with self._count:
+            self.inflight -= 1
+
+    async def _unary(self, raw, ctx):
+        self._enter()
+        held = []
+        try:
+            return await self._serve_one(ctx.device_ring, raw, held)
+        finally:
+            _release(held)
+            self._leave()
+
+    async def _stream(self, req_aiter, ctx):
+        self._enter()
+        held = []
+        try:
+            async for raw in req_aiter:
+                yield await self._serve_one(ctx.device_ring, raw, held)
+        finally:
+            _release(held)
+            self._leave()
+
+
+async def _aio_drive(rig, images, timeout=120.0) -> dict:
+    """Phase 13's client on one ``aio`` channel: a first call that dials
+    the connection (``warm``), then (a) every request at once
+    (``asyncio.gather``), then one after another; (b) all of them in one
+    ``stream_stream`` call. Per part: replies, host ms per call, wall s,
+    the kernels' launches and the ring's state after it."""
+    import asyncio
+
+    import torch
+
+    from tpurpc_torch.ops import ring_scatter as rs_mod
+    from tpurpc_torch.ops import ring_window as rw_mod
+    from tpurpc_torch.rpc import aio
+    from tpurpc_torch.torchshim import codec
+    from tpurpc_torch.torchshim.service import TENSOR_SERVICE
+
+    await rig.server.start()
+    out = {}
+
+    def launches():
+        return {"ring_scatter": rs_mod.launches,
+                "ring_window": rw_mod.launches}
+
+    def part(name, replies, lat, wall, before):
+        now = launches()
+        out[name] = {"replies": replies, "lat": lat, "wall": wall,
+                     "launches": {k: now[k] - before[k] for k in now},
+                     "stats": rig.ring().stats()}
+
+    try:
+        async with aio.insecure_channel(f"127.0.0.1:{rig.port}") as ch:
+            call = ch.unary_unary(f"/{TENSOR_SERVICE}/Classify",
+                                  codec.tree_serializer,
+                                  codec.tree_deserializer)
+
+            async def timed(x, lat, i):
+                t = time.perf_counter()
+                reply = await call({"images": torch.from_numpy(x)},
+                                   timeout=timeout)
+                lat[i] = (time.perf_counter() - t) * 1e3
+                return reply
+
+            for name, batch in (("warm", images[:1]), ("a", images),
+                                ("a_sequential", images)):
+                lat = [0.0] * len(batch)
+                before = launches()
+                t0 = time.perf_counter()
+                if name == "a":
+                    replies = await asyncio.gather(
+                        *[timed(x, lat, i) for i, x in enumerate(batch)])
+                else:
+                    replies = [await timed(x, lat, i)
+                               for i, x in enumerate(batch)]
+                part(name, list(replies), lat, time.perf_counter() - t0,
+                     before)
+
+            async def trees():
+                for x in images:
+                    yield {"images": torch.from_numpy(x)}
+
+            before = launches()
+            t0 = time.perf_counter()
+            replies = [r async for r in ch.stream_stream(
+                f"/{TENSOR_SERVICE}/ClassifyStream", codec.tree_serializer,
+                codec.tree_deserializer)(trees(), timeout=timeout)]
+            part("b", replies, [], time.perf_counter() - t0, before)
+    finally:
+        await rig.stop()
+    return out
+
+
+def aio_plane(dev, card, size=SIZE, ring=RING, requests=REQUESTS) -> dict:
+    """Phase 13: the asyncio surface on the device-ring path (docstring of
+    this file). Returns each part's kernel launches."""
+    import asyncio
+
+    import numpy as np
+    import torch
+
+    from tpurpc_torch.models.resnet import make_infer_fn, resnet50
+    from tpurpc_torch.ops import ring_scatter as rs_mod
+    from tpurpc_torch.ops import ring_window as rw_mod
+    from tpurpc_torch.rpc import insecure_channel
+
+    t_phase = time.perf_counter()
+    saved = {k: os.environ.get(k) for k in RING_ENV}
+    _set_env({"GRPC_PLATFORM_TYPE": "TPU", "TPURPC_TORCH_DEVICE": str(dev),
+              "TPURPC_HBM_RING_SIZE_KB": str(ring >> 10)})
+    torch.manual_seed(SEED)                  # phase 3's weights
+    infer = make_infer_fn(resnet50().to(dev))
+
+    def classify(tree):
+        logits = infer(tree["images"])
+        return {"logits": logits, "top1": logits.argmax(dim=1)}
+
+    rng = np.random.default_rng(SEED)        # phase 3's requests
+    images = [rng.standard_normal((BATCH, size, size, 3)).astype(np.float32)
+              for _ in range(requests)]
+    wants = [infer(torch.from_numpy(x).to(dev)).cpu() for x in images]
+    span = images[0].nbytes
+    wraps = _ring_wraps(requests * span, span, ring)   # phase 3's launches
+    check(wraps > 0, f"aio: no request wraps the {ring}-byte ring")
+
+    # phase 3's sync device path on a server in this process
+    sync = CallPlaneServer(classify)
+    try:
+        with insecure_channel(f"127.0.0.1:{sync.port}") as ch:
+            sync_replies, _ = _cp_calls(ch, images, "aio: the sync path")
+    finally:
+        sync.server.stop()
+
+    rig = AioRingServer(classify)
+    rs_mod.launches = rw_mod.launches = 0
+    try:
+        got = asyncio.run(_aio_drive(rig, images))
+    except Exception as exc:
+        fail(f"aio: {exc!r}")
+    res = {name: got[name]["launches"] for name in got}
+    _set_env(saved)
+
+    first = 0                                # the ring's tail before a part
+    for name, n in (("warm", 1), ("a", requests), ("a_sequential", requests),
+                    ("b", requests)):
+        replies = got[name]["replies"]
+        check(len(replies) == n, f"aio ({name}): {len(replies)} replies of "
+              f"{n}")
+        got[name]["worst"] = _cp_check(f"aio ({name})", replies, wants[:n])
+        for i, (s, r) in enumerate(zip(sync_replies, replies)):
+            check(torch.equal(s["logits"], r["logits"])
+                  and torch.equal(s["top1"], r["top1"]),
+                  f"aio ({name}): reply {i} is not bit-equal to the sync "
+                  f"device path's")
+        want = _ring_wraps(first + n * span, span, ring, first)
+        st = got[name]["stats"]
+        check(res[name] == {"ring_scatter": want, "ring_window": want},
+              f"aio ({name}): launches {res[name]}; the landings from "
+              f"{first} wrap {want} times")
+        first += n * span
+        check(st["tail"] == first and st["live_spans"] == 0
+              and st["writable"] == st["capacity"],
+              f"aio ({name}): the ring not back: {st}")
+    check(res["a"] == {"ring_scatter": wraps, "ring_window": wraps},
+          f"aio (a): launches {res['a']}, phase 3 gives {wraps} each")
+    total = {k: sum(res[n][k] for n in res) for k in res["a"]}
+    check(rig.launched == total, f"aio: launches measured at the server "
+          f"{rig.launched}, by the wrappers {total}")
+    check(rig.most >= 2, f"aio: at most {rig.most} handler in flight: the "
+          f"handlers did not overlap on the loop")
+    a, seq, b = got["a"], got["a_sequential"], got["b"]
+    p50, p99 = np.percentile(a["lat"], [50, 99])
+    print(f"aio (a): {requests} ResNet-50 calls of float32 [{BATCH},{size},"
+          f"{size},3] at once through an aio channel into async handlers on "
+          f"the device ring, replies bit-equal to the sync device path's, vs "
+          f"direct run max |diff| / max(1, scale) {a['worst']}; launches "
+          f"{res['a']} (phase 3 gives {wraps} each); at most {rig.most} "
+          f"handlers in flight on the loop; latency ms p50 {p50} p99 {p99}; "
+          f"wall s together {a['wall']} against {seq['wall']} in sequence "
+          f"(sequential launches {res['a_sequential']}); requests/s "
+          f"together {requests / a['wall']}, in sequence "
+          f"{requests / seq['wall']}; the ring back to capacity ({card})",
+          flush=True)
+    print(f"aio (b): the same {requests} requests in one stream_stream call, "
+          f"replies bit-equal to the sync path's; launches {res['b']}; "
+          f"{b['wall']} s, requests/s {requests / b['wall']}; the ring back "
+          f"to capacity ({card})", flush=True)
+    print(f"aio: phase 13 took {time.perf_counter() - t_phase} s ({card})",
+          flush=True)
+    return res
+
+
 def card_line() -> str:
     """The card's name and power limit, as nvidia-smi reports them."""
     smi = subprocess.run(
@@ -3470,6 +3782,7 @@ def main() -> None:
         launches = {"ring_scatter": None, "ring_window": None}
         stream = tf_launches = train_launches = gen_launches = None
         fleet_launches = h2_launches = cp_launches = tls_launches = None
+        aio_launches = None
     else:
         from tpurpc_torch.ops import ring_scatter as rs_mod
         from tpurpc_torch.ops import ring_window as rw_mod
@@ -3529,6 +3842,8 @@ def main() -> None:
         cp_launches = call_plane(dev, card)
         # phase 12: (a) both kernels, plaintext and mTLS; (b) and (c) none
         tls_launches = tls_plane(dev, card)
+        # phase 13: both kernels on every part, counted per part inside
+        aio_launches = aio_plane(dev, card)
 
     sources = {"ring_scatter": "tpurpc/ops/ring_scatter.py:133",
                "ring_window": "tpurpc/ops/ring_window.py:138"}
@@ -3585,7 +3900,12 @@ def main() -> None:
                 "a": tls_launches["a"][name],
                 "a_plaintext": tls_launches["a_plaintext"][name],
                 "b": tls_launches["b"][name],
-                "c": tls_launches["c"][name]})})
+                "c": tls_launches["c"][name]}),
+            # phase 13, the asyncio surface on the device ring: (a) the
+            # requests at once, then in sequence, (b) one stream
+            "aio_launches": (None if aio_launches is None else {
+                part: aio_launches[part][name]
+                for part in ("a", "a_sequential", "b")})})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     if kernels_only:

@@ -14,14 +14,16 @@ over HTTP/2 with a drain, and its train steps, the generation plane's step
 model, a spawned shard worker's device ring, the call plane (retries
 behind a seeded fault injector, a hedge's loser) on the device ring, and
 mTLS onto the card ring (bit-equal to plaintext; refused clients leave the
-ring alone) run on the card.
+ring alone), and async handlers of the asyncio surface on the card ring
+(bit-equal to the sync device path) run on the card.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import CLIENT_URI, CallPlaneServer, retry_arithmetic, tls_pki
+from chip_smoke import (CLIENT_URI, AioRingServer, CallPlaneServer,
+                        retry_arithmetic, tls_pki)
 from tpurpc_torch.models.resnet import make_infer_fn, resnet18_thin
 from tpurpc_torch.ops import ring_scatter as rs_mod
 from tpurpc_torch.ops import ring_window as rw_mod
@@ -890,3 +892,59 @@ def test_refused_plaintext_client_leaves_the_card_ring(dev, stream_env,
     assert after == before and conns == 1
     assert after[1]["writable"] == after[1]["capacity"]
     assert not after[1]["live_spans"]
+
+
+@pytest.mark.cuda
+def test_aio_calls_on_the_card_ring_bit_equal_to_sync(dev, stream_env,
+                                                      exact_f32):
+    """Phase 13 (a) at a small model: the same 3 float32 [2,32,32,3]
+    requests into a 64 KiB card ring (the 3rd wraps it) through the sync
+    device path and, all at once, through ``AioRingServer`` over an
+    ``aio`` channel: replies bit-equal, both kernels launched once on
+    each (measured at the server), the ring back to capacity."""
+    import asyncio
+
+    from tpurpc_torch.rpc import aio, insecure_channel
+    from tpurpc_torch.torchshim.service import TENSOR_SERVICE
+
+    stream_env("TPU", TPURPC_HBM_RING_SIZE_KB="64")
+    infer = _small_model(dev)
+
+    def fn(t):
+        return {"y": infer(t["x"])}
+
+    rng = np.random.default_rng(11)
+    xs = [torch.from_numpy(rng.standard_normal((2, 32, 32, 3)).astype(
+        np.float32)) for _ in range(3)]
+    sync = CallPlaneServer(fn, max_workers=4)
+    try:
+        with insecure_channel(f"127.0.0.1:{sync.port}") as ch:
+            want = [TensorClient(ch).call("Classify", {"x": x}, timeout=60)
+                    for x in xs]
+    finally:
+        sync.server.stop()
+    rig = AioRingServer(fn, max_workers=4)
+
+    async def main():
+        await rig.server.start()
+        try:
+            async with aio.insecure_channel(f"127.0.0.1:{rig.port}") as ch:
+                call = ch.unary_unary(f"/{TENSOR_SERVICE}/Classify",
+                                      codec.tree_serializer,
+                                      codec.tree_deserializer)
+                before = (rs_mod.launches, rw_mod.launches)
+                outs = await asyncio.gather(
+                    *[call({"x": x}, timeout=60) for x in xs])
+                launched = (rs_mod.launches - before[0],
+                            rw_mod.launches - before[1])
+                return outs, launched, rig.ring().stats()
+        finally:
+            await rig.stop()
+
+    outs, launched, stats = asyncio.run(main())
+    for w, o in zip(want, outs):
+        assert torch.equal(w["y"], o["y"])
+    assert sync.launched == rig.launched == {"ring_scatter": 1,
+                                             "ring_window": 1}
+    assert launched == (1, 1)
+    assert stats["writable"] == stats["capacity"] and not stats["live_spans"]

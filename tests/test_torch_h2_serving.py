@@ -551,7 +551,7 @@ def test_rpc_surface_exports_only_what_the_port_has():
                  "secure_channel", "enable_server_reflection",
                  "enable_channelz", "ChannelCredentials", "ServerCredentials",
                  "ssl_channel_credentials", "ssl_server_credentials",
-                 "insecure_for_testing_channel_credentials"):
+                 "insecure_for_testing_channel_credentials", "aio"):
         assert hasattr(trpc, name), name
     assert trpc.H2Channel is H2Channel
     # the package's `server` is the module, callable as grpcio's factory
@@ -559,5 +559,5 @@ def test_rpc_surface_exports_only_what_the_port_has():
 
     assert server_module.LOAD_KEY == "tpurpc-load"
     assert isinstance(trpc.server(1), trpc.Server)
-    for name in ("aio", "NativeChannel", "ChannelConnectivity"):
+    for name in ("NativeChannel", "ChannelConnectivity"):
         assert not hasattr(trpc, name), name

@@ -25,7 +25,9 @@ serve grpc.reflection and grpc.channelz.v1 on a server.
 
 ``H2Channel`` (``tpurpc_torch/wire/h2_client.py``) is exported lazily, as
 the reference does: an eager import here would make a program that imports
-``tpurpc_torch.wire.grpc_h2`` first meet this package mid-cycle.
+``tpurpc_torch.wire.grpc_h2`` first meet this package mid-cycle. ``aio``
+(the asyncio surface, ``grpc.aio``'s analog) is lazy too and stays out of
+``__all__``, so the sync path never pays the asyncio import.
 """
 
 from tpurpc_torch.rpc.status import AbortError, Metadata, RpcError, StatusCode
@@ -80,4 +82,8 @@ def __getattr__(name):
         from tpurpc_torch.wire.h2_client import H2Channel
 
         return H2Channel
+    if name == "aio":
+        import tpurpc_torch.rpc.aio as aio
+
+        return aio
     raise AttributeError(f"module 'tpurpc_torch.rpc' has no attribute {name!r}")

@@ -700,23 +700,34 @@ class Channel:
     def __exit__(self, *exc):
         self.close()
 
+    # The factories take and ignore the extra keywords grpcio-generated
+    # stubs pass (``_registered_method=True`` since grpcio 1.60) and read
+    # None codecs as identity, as grpcio does, so a stock
+    # ``*_pb2_grpc.FooStub(channel)`` runs on this channel unchanged. The
+    # reference's ``tpurpc_native`` switch is taken too; the port has no
+    # native plane, so it changes nothing.
+
     def unary_unary(self, method: str, request_serializer: Serializer = _identity,
-                    response_deserializer: Deserializer = _identity) -> "UnaryUnary":
+                    response_deserializer: Deserializer = _identity,
+                    **_grpcio_kwargs) -> "UnaryUnary":
         return UnaryUnary(self, method, request_serializer or _identity,
                           response_deserializer or _identity)
 
     def unary_stream(self, method: str, request_serializer: Serializer = _identity,
-                     response_deserializer: Deserializer = _identity) -> "UnaryStream":
+                     response_deserializer: Deserializer = _identity,
+                     **_grpcio_kwargs) -> "UnaryStream":
         return UnaryStream(self, method, request_serializer or _identity,
                            response_deserializer or _identity)
 
     def stream_unary(self, method: str, request_serializer: Serializer = _identity,
-                     response_deserializer: Deserializer = _identity) -> "StreamUnary":
+                     response_deserializer: Deserializer = _identity,
+                     **_grpcio_kwargs) -> "StreamUnary":
         return StreamUnary(self, method, request_serializer or _identity,
                            response_deserializer or _identity)
 
     def stream_stream(self, method: str, request_serializer: Serializer = _identity,
-                      response_deserializer: Deserializer = _identity) -> "StreamStream":
+                      response_deserializer: Deserializer = _identity,
+                      **_grpcio_kwargs) -> "StreamStream":
         return StreamStream(self, method, request_serializer or _identity,
                             response_deserializer or _identity)
 

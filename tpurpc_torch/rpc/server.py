@@ -799,12 +799,32 @@ class Server:
                                 h.request_deserializer or _identity,
                                 h.response_serializer or _identity)
 
+    def add_generic_handlers(self, handlers: Dict[str, RpcMethodHandler]) -> None:
+        """Register ``{path: handler}`` at once."""
+        self._methods.update(handlers)
+
     def add_generic_rpc_handlers(self, generic_handlers) -> None:
         """grpcio-shaped: a sequence of GenericRpcHandler objects whose
         ``.service(handler_call_details)`` resolves methods at call time,
         or ``{path: handler}`` mappings
         (:func:`method_handlers_generic_handler`)."""
         self._generic_handlers.extend(generic_handlers)
+
+    def add_registered_method_handlers(self, service: str,
+                                       method_handlers) -> None:
+        """grpcio-shaped (grpcio >= 1.60, which generated modules call
+        beside :meth:`add_generic_rpc_handlers`): eager registration of
+        ``{name: handler}``, grpcio's handler objects adapted to ours."""
+        for name, h in dict(method_handlers).items():
+            adapted = self._adapt_foreign_handler(h)
+            if adapted is not None:
+                self._methods[f"/{service}/{name}"] = adapted
+
+    def add_service(self, service: str,
+                    method_handlers: Dict[str, RpcMethodHandler]) -> None:
+        """Register ``{name: handler}`` under ``/service/name``."""
+        self.add_generic_handlers(
+            method_handlers_generic_handler(service, method_handlers))
 
     def _lookup_intercepted(self, path: str,
                             metadata=()) -> Optional[RpcMethodHandler]:
