@@ -206,7 +206,28 @@ fails the run (non-zero exit, no result line) on any error:
    sequence, and requests/s. The protoc plugin (``tpurpc_torch/codegen``)
    is not driven here: the card's machine has neither protoc nor
    protobuf. Skipped under ``--kernels``;
-14. print the kernels line, the card's name and power limit, and last the
+14. look-aside LB and xDS EDS over two device-ring backends, A and B
+   (``GRPC_PLATFORM_TYPE=TPU``, 16 MiB ``HbmRing``s, phase 3's ResNet-50
+   weights and 8 requests, each server a ``CallPlaneServer``); every
+   request is first served directly by each backend. (a) a
+   ``LoadBalancerServicer`` on a server of its own names A, and a
+   ``Channel`` over A and B (``round_robin``) with ``enable_lookaside(...,
+   wire="grpclb")`` sends the 8 requests, all of which must run on A; the
+   balancer then names B and the next 8 must run on B; then the balancer's
+   server stops, the channel must fall back to its resolver's list, and 8
+   more calls must all succeed, 4 on each. (b) an ``XdsServicer`` on the v3
+   ADS stream, ``GRPC_XDS_BOOTSTRAP_CONFIG`` set for this part only, and
+   ``xds_channel("xds:///resnet50")``: 8 calls on A, an EDS update to B, 8
+   on B, then the control plane stops and 8 more must run on B. In both
+   parts every reply must be bit-equal to the same request served directly
+   by the backend that ran it (and within phase 3's tolerance of the direct
+   run), each server's launches (counted at the server) must equal what
+   its rings' offsets give, and every ring must come back to capacity.
+   Prints the time from each update to the channel's move and to the end
+   of the first handler that ran on B, the fallback's time, and p50/p99
+   per part.
+   Skipped under ``--kernels``;
+15. print the kernels line, the card's name and power limit, and last the
    one-line result JSON.
 """
 
@@ -2801,7 +2822,8 @@ class CallPlaneServer:
     attempt (``seen``), then ``interceptors``, then a meter.
 
     ``entered`` gets one entry per handler that started (and ``auth`` its
-    context's ``auth_context()``), ``done`` one per handler that finished.
+    context's ``auth_context()``), ``done`` one per handler that finished:
+    the host clock (``time.perf_counter()``) at which it did.
     With ``credentials`` (``ssl_server_credentials``'s result) the port is
     a TLS one. An attempt cancelled before its request has
     arrived is seen but never starts: the server skips its handler. ``launched`` holds this
@@ -2875,7 +2897,7 @@ class CallPlaneServer:
         def run(tree):
             let_go()
             out = fn(tree)
-            self.done.append(1)
+            self.done.append(time.perf_counter())
             return out
 
         self.server = Server(max_workers=max_workers,
@@ -3747,6 +3769,318 @@ def aio_plane(dev, card, size=SIZE, ring=RING, requests=REQUESTS) -> dict:
     return res
 
 
+# -- phase 14 ----------------------------------------------------------------
+
+#: phase 14: the most a watcher may take to apply a balancer's or control
+#: plane's update, or to fall back, before the part fails
+LB_WAIT_S = 30.0
+#: phase 14: the name the balancer lists and the cluster the control plane
+#: assigns
+LB_NAME = "resnet50"
+XDS_ENV = ("GRPC_XDS_BOOTSTRAP", "GRPC_XDS_BOOTSTRAP_CONFIG")
+
+
+def _await_addrs(ch, want, label) -> float:
+    """Seconds until the channel's membership is ``want`` (polled each
+    millisecond); fails the run after LB_WAIT_S."""
+    t0 = time.perf_counter()
+    while ch._addrs != want:
+        check(time.perf_counter() - t0 < LB_WAIT_S, f"{label}: the channel's "
+              f"addresses {ch._addrs} never became {want}")
+        time.sleep(0.001)
+    return time.perf_counter() - t0
+
+
+def _lb_leg(ch, rigs, rings, images, label):
+    """``_cp_calls`` of every image through ``ch``: the replies, the index
+    of the rig that served each (the one whose ``done`` grew) and each
+    call's host ms. The rigs' rings are recorded while the channel's
+    connections are open."""
+    by, last = [], [len(r.done) for r in rigs]
+
+    def served(i):
+        now = [len(r.done) for r in rigs]
+        ran = [k for k in range(len(rigs)) if now[k] > last[k]]
+        check(len(ran) == 1, f"{label}: call {i} ran on servers {ran}")
+        by.append(ran[0])
+        last[:] = now
+
+    replies, lat = _cp_calls(ch, images, label, after=served)
+    rings.seen()
+    return replies, by, lat
+
+
+class _Rings:
+    """Every device ring of each rig's connections, by identity (the ring
+    objects are held, so an identity is never reused): ``seen`` records
+    them, ``whole`` checks that each is back to capacity, and ``wraps``
+    adds up what ``_ring_wraps`` gives for each ring first seen since
+    ``mark``."""
+
+    def __init__(self, rigs, span, ring):
+        self.rigs, self.span, self.ring = rigs, span, ring
+        self.rings = [{} for _ in rigs]
+        self.before = [set() for _ in rigs]
+
+    def seen(self) -> None:
+        for k, rig in enumerate(self.rigs):
+            for conn in list(rig.server._connections):
+                # the ring a connection has made, if any: ``device_ring``
+                # would make one (again, after the connection closed)
+                r = getattr(conn.endpoint, "_hbm", None)
+                if r is not None:
+                    self.rings[k][id(r)] = r
+
+    def mark(self) -> None:
+        self.seen()
+        self.before = [set(rings) for rings in self.rings]
+
+    def whole(self, label) -> None:
+        self.seen()
+        for k, rings in enumerate(self.rings):
+            for r in rings.values():
+                st = r.stats()
+                check(st["live_spans"] == 0
+                      and st["writable"] == st["capacity"],
+                      f"{label}: a ring of server {'AB'[k]} not back: {st}")
+
+    def wraps(self) -> list:
+        self.seen()
+        return [sum(_ring_wraps(r.stats()["tail"], self.span, self.ring)
+                    for i, r in rings.items() if i not in before)
+                for rings, before in zip(self.rings, self.before)]
+
+
+def _lb_part(label, rigs, images, direct, wants, legs, rings, launches):
+    """Checks the legs of one part and prints them. ``legs`` is a list of
+    (name, (replies, by, lat), the servers each call must have run on (a
+    set), the count each of them must have served or None). Returns each
+    server's launches, measured at the server."""
+    import numpy as np
+    import torch
+
+    lat_all = []
+    for name, (replies, by, lat), allowed, share in legs:
+        check(set(by) <= allowed, f"{label} {name}: calls ran on servers "
+              f"{sorted(set(by))}, want {sorted(allowed)}")
+        if share is not None:
+            counts = [by.count(k) for k in sorted(allowed)]
+            check(counts == share, f"{label} {name}: served {counts}, want "
+                  f"{share}")
+        for i, (r, k) in enumerate(zip(replies, by)):
+            d = direct[k][i]
+            check(torch.equal(r["logits"], d["logits"])
+                  and torch.equal(r["top1"], d["top1"]),
+                  f"{label} {name}: reply {i} is not bit-equal to the same "
+                  f"request served directly by server {'AB'[k]}")
+        _cp_check(f"{label} {name}", replies, wants)
+        lat_all += lat
+    per = [dict(r.launched) for r in rigs]
+    total = {n: sum(p[n] for p in per) for n in launches}
+    check(total == launches, f"{label}: the servers' launches {per} do not "
+          f"add up to the part's {launches}")
+    want = rings.wraps()
+    for k, p in enumerate(per):
+        check(p == {"ring_scatter": want[k], "ring_window": want[k]},
+              f"{label}: server {'AB'[k]} launched {p}, its rings' landings "
+              f"wrap {want[k]} times")
+    rings.whole(label)
+    check(sum(want) > 0, f"{label}: no landing wrapped a ring")
+    p50, p99 = np.percentile(lat_all, [50, 99])
+    return per, p50, p99
+
+
+def lookaside_plane(dev, card, size=SIZE, ring=RING,
+                    requests=REQUESTS) -> dict:
+    """Phase 14: look-aside LB and xDS EDS over device-ring backends
+    (docstring of this file). Returns each part's launches per server."""
+    import numpy as np
+    import torch
+
+    from tpurpc_torch.models.resnet import make_infer_fn, resnet50
+    from tpurpc_torch.ops import ring_scatter as rs_mod
+    from tpurpc_torch.ops import ring_window as rw_mod
+    from tpurpc_torch.rpc import (Channel, LoadBalancerServicer, Server,
+                                  enable_lookaside, insecure_channel)
+    from tpurpc_torch.rpc.xds import XdsServicer, xds_channel
+
+    t_phase = time.perf_counter()
+    saved = {k: os.environ.get(k) for k in RING_ENV}
+    _set_env({"GRPC_PLATFORM_TYPE": "TPU", "TPURPC_TORCH_DEVICE": str(dev),
+              "TPURPC_HBM_RING_SIZE_KB": str(ring >> 10)})
+    torch.manual_seed(SEED)                  # phase 3's weights
+    infer = make_infer_fn(resnet50().to(dev))
+
+    def classify(tree):
+        logits = infer(tree["images"])
+        return {"logits": logits, "top1": logits.argmax(dim=1)}
+
+    rng = np.random.default_rng(SEED)        # phase 3's requests
+    images = [rng.standard_normal((BATCH, size, size, 3)).astype(np.float32)
+              for _ in range(requests)]
+    wants = [infer(torch.from_numpy(x).to(dev)).cpu() for x in images]
+    span = images[0].nbytes
+    rigs = [CallPlaneServer(classify), CallPlaneServer(classify)]
+    addr = [("127.0.0.1", r.port) for r in rigs]
+    hp = [f"{h}:{p}" for h, p in addr]
+    rings = _Rings(rigs, span, ring)
+    res, lines = {}, []
+
+    def launches():
+        return {"ring_scatter": rs_mod.launches,
+                "ring_window": rw_mod.launches}
+
+    def zero():
+        rs_mod.launches = rw_mod.launches = 0
+        for rig in rigs:
+            rig.launched.update(ring_scatter=0, ring_window=0)
+        rings.mark()
+
+    try:
+        # the same requests served directly by each backend
+        direct = []
+        for k, rig in enumerate(rigs):
+            with insecure_channel(hp[k]) as ch:
+                replies, _ = _cp_calls(ch, images,
+                                       f"lookaside: direct to {'AB'[k]}")
+                rings.seen()
+            direct.append(replies)
+
+        # (a) grpclb: a balancer names A, then B, then stops
+        bal_srv = Server(max_workers=4)
+        balancer = LoadBalancerServicer()
+        balancer.attach(bal_srv)
+        bal_port = bal_srv.add_insecure_port("127.0.0.1:0")
+        bal_srv.start()
+        balancer.set_servers(LB_NAME, [hp[0]])
+        legs, times = [], {}
+        try:
+            zero()
+            with Channel("ipv4:" + ",".join(hp),
+                         lb_policy="round_robin") as ch:
+                watcher = enable_lookaside(ch, f"127.0.0.1:{bal_port}",
+                                           LB_NAME, wire="grpclb")
+                try:
+                    times["first_list_s"] = _await_addrs(
+                        ch, [addr[0]], "lookaside (a)")
+                    legs.append(("on A", _lb_leg(ch, rigs, rings, images,
+                                                 "lookaside (a) on A"),
+                                 {0}, None))
+                    n_b = len(rigs[1].done)
+                    t_update = time.perf_counter()
+                    balancer.set_servers(LB_NAME, [hp[1]])
+                    times["switch_s"] = _await_addrs(ch, [addr[1]],
+                                                     "lookaside (a)")
+                    legs.append(("on B", _lb_leg(ch, rigs, rings, images,
+                                                 "lookaside (a) on B"),
+                                 {1}, None))
+                    times["first_on_b_s"] = rigs[1].done[n_b] - t_update
+                    t_stop = time.perf_counter()
+                    bal_srv.stop(grace=0)
+                    times["stop_s"] = time.perf_counter() - t_stop
+                    times["fallback_s"] = _await_addrs(ch, addr,
+                                                       "lookaside (a)")
+                    legs.append(("fallback", _lb_leg(
+                        ch, rigs, rings, images, "lookaside (a) fallback"),
+                        {0, 1}, [requests // 2, requests - requests // 2]))
+                finally:
+                    watcher.stop()
+            res["a"] = launches()
+        finally:
+            bal_srv.stop(grace=0)
+        per, p50, p99 = _lb_part("lookaside (a)", rigs, images, direct,
+                                 wants, legs, rings, res["a"])
+        res["a_per_server"] = per
+        lines.append(
+            f"lookaside (a): grpclb (grpc.lb.v1) balancer on its own server, "
+            f"a channel over A and B (round_robin) moved by enable_lookaside: "
+            f"{requests} ResNet-50 calls on A, {requests} on B, then the "
+            f"balancer stopped and {requests} over the fallback list served "
+            f"{[legs[2][1][1].count(k) for k in (0, 1)]}; every reply "
+            f"bit-equal to the same request served directly by its server; "
+            f"the balancer's first list applied in {times['first_list_s']} "
+            f"s; A -> B: the channel's membership moved {times['switch_s']} "
+            f"s after set_servers, the first request served by B "
+            f"finished its handler {times['first_on_b_s']} s after it; the "
+            f"balancer's stop(grace=0) took {times['stop_s']} s and the "
+            f"fallback applied {times['fallback_s']} s after it; launches "
+            f"{res['a']}, per server (measured) {per}, as the rings' offsets "
+            f"give; every ring back to capacity; latency ms p50 {p50} p99 "
+            f"{p99} ({card})")
+
+        # (b) xDS EDS over the v3 ADS stream
+        xds = XdsServicer()
+        cp = Server(max_workers=4)
+        xds.attach(cp)
+        cp_port = cp.add_insecure_port("127.0.0.1:0")
+        cp.start()
+        xds.set_endpoints(LB_NAME, [hp[0]])
+        saved_xds = {k: os.environ.get(k) for k in XDS_ENV}
+        legs, times = [], {}
+        try:
+            _set_env({"GRPC_XDS_BOOTSTRAP": None,
+                      "GRPC_XDS_BOOTSTRAP_CONFIG": json.dumps(
+                          {"xds_servers": [{"server_uri":
+                                            f"127.0.0.1:{cp_port}"}],
+                           "node": {"id": "chip-smoke"}})})
+            zero()
+            ch, watcher = xds_channel(f"xds:///{LB_NAME}")
+            try:
+                check(ch._addrs == [addr[0]], f"xds (b): the channel starts "
+                      f"on {ch._addrs}, the assignment names {addr[0]}")
+                legs.append(("on A", _lb_leg(ch, rigs, rings, images,
+                                             "xds (b) on A"), {0}, None))
+                n_b = len(rigs[1].done)
+                t_update = time.perf_counter()
+                xds.set_endpoints(LB_NAME, [hp[1]])
+                times["switch_s"] = _await_addrs(ch, [addr[1]], "xds (b)")
+                legs.append(("on B", _lb_leg(ch, rigs, rings, images,
+                                             "xds (b) on B"), {1}, None))
+                times["first_on_b_s"] = rigs[1].done[n_b] - t_update
+                cp.stop(grace=0)
+                time.sleep(0.5)          # the watcher sees the stream end
+                check(ch._addrs == [addr[1]], f"xds (b): the control plane's "
+                      f"loss moved the channel to {ch._addrs}")
+                legs.append(("after the control plane", _lb_leg(
+                    ch, rigs, rings, images, "xds (b) after the control plane"),
+                    {1}, None))
+                check(ch._addrs == [addr[1]], f"xds (b): the channel left "
+                      f"its last assignment: {ch._addrs}")
+                versions = list(watcher.applied_versions)
+            finally:
+                watcher.stop()
+                ch.close()
+            res["b"] = launches()
+        finally:
+            cp.stop(grace=0)
+            _set_env(saved_xds)
+        check(versions, "xds (b): the watcher applied no update")
+        per, p50, p99 = _lb_part("xds (b)", rigs, images, direct, wants,
+                                 legs, rings, res["b"])
+        res["b_per_server"] = per
+        lines.append(
+            f"xds (b): XdsServicer on the v3 ADS stream, xds_channel("
+            f"'xds:///{LB_NAME}') from GRPC_XDS_BOOTSTRAP_CONFIG: "
+            f"{requests} ResNet-50 calls on A, an EDS update to B, "
+            f"{requests} on B, the control plane stopped and {requests} more "
+            f"on B (the last assignment kept); applied versions {versions}; "
+            f"every reply bit-equal to the same request served directly by "
+            f"its server; A -> B: the membership moved {times['switch_s']} s "
+            f"after set_endpoints, the first request served by B "
+            f"finished its handler {times['first_on_b_s']} s after it; launches {res['b']}, per "
+            f"server (measured) {per}, as the rings' offsets give; every "
+            f"ring back to capacity; latency ms p50 {p50} p99 {p99} ({card})")
+    finally:
+        for rig in rigs:
+            rig.server.stop()
+        _set_env(saved)
+    for line in lines:
+        print(line, flush=True)
+    print(f"lookaside: phase 14 took {time.perf_counter() - t_phase} s "
+          f"({card})", flush=True)
+    return res
+
+
 def card_line() -> str:
     """The card's name and power limit, as nvidia-smi reports them."""
     smi = subprocess.run(
@@ -3782,7 +4116,7 @@ def main() -> None:
         launches = {"ring_scatter": None, "ring_window": None}
         stream = tf_launches = train_launches = gen_launches = None
         fleet_launches = h2_launches = cp_launches = tls_launches = None
-        aio_launches = None
+        aio_launches = lb_launches = None
     else:
         from tpurpc_torch.ops import ring_scatter as rs_mod
         from tpurpc_torch.ops import ring_window as rw_mod
@@ -3844,6 +4178,9 @@ def main() -> None:
         tls_launches = tls_plane(dev, card)
         # phase 13: both kernels on every part, counted per part inside
         aio_launches = aio_plane(dev, card)
+        # phase 14: both kernels on every part, counted per part and per
+        # server inside
+        lb_launches = lookaside_plane(dev, card)
 
     sources = {"ring_scatter": "tpurpc/ops/ring_scatter.py:133",
                "ring_window": "tpurpc/ops/ring_window.py:138"}
@@ -3905,7 +4242,13 @@ def main() -> None:
             # requests at once, then in sequence, (b) one stream
             "aio_launches": (None if aio_launches is None else {
                 part: aio_launches[part][name]
-                for part in ("a", "a_sequential", "b")})})
+                for part in ("a", "a_sequential", "b")}),
+            # phase 14 (a), grpclb, and (b), xDS EDS: [server A, server B]
+            "lookaside_launches": (None if lb_launches is None else
+                                   [p[name] for p in
+                                    lb_launches["a_per_server"]]),
+            "xds_launches": (None if lb_launches is None else
+                             [p[name] for p in lb_launches["b_per_server"]])})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     if kernels_only:

@@ -35,14 +35,11 @@ import tpurpc.rpc.aio as ref_aio
 import tpurpc_torch.rpc as trpc
 import tpurpc_torch.rpc.aio as port_aio
 from chip_smoke import AioRingServer, CallPlaneServer
-from tpurpc.core import _native as ref_native
+from torch_call_plane import (counted_plain, platform,  # noqa: F401
+                             small_classify)
 from tpurpc.rpc import channel as ref_channel
 from tpurpc.rpc import resolver as ref_resolver
 from tpurpc.rpc import status as ref_status
-from tpurpc.utils import config as ref_config
-from tpurpc_torch.core.poller import PairPool, Poller
-from tpurpc_torch.ops import ring_scatter as rs_mod
-from tpurpc_torch.ops import ring_window as rw_mod
 from tpurpc_torch.rpc import channel as port_channel
 from tpurpc_torch.rpc import resolver as port_resolver
 from tpurpc_torch.rpc import status as port_status
@@ -50,7 +47,6 @@ from tpurpc_torch.rpc.interceptors import ServerInterceptor
 from tpurpc_torch.torchshim import codec
 from tpurpc_torch.torchshim.service import TENSOR_SERVICE, TensorClient
 from tpurpc_torch.tpu import ledger
-from tpurpc_torch.utils import config as torch_config
 
 AIO = {"ref": ref_aio, "port": port_aio}
 STATUS = {"ref": ref_status, "port": port_status}
@@ -363,30 +359,6 @@ def test_channel_honors_resolver_service_config(client, server):
     assert calls["n"] == 3
 
 
-@pytest.fixture
-def platform(monkeypatch):
-    """``platform(name, **env)``: both packages on ``name``, the port on
-    the CPU; both packages' cached configs and the port's pollers reset
-    afterwards."""
-    # the reference loads (and without native/build first compiles) its
-    # native library on a ring's first use, under a lock other processes
-    # wait on: take that wait here, outside any call's deadline
-    ref_native.load()
-
-    def use(name, **env):
-        monkeypatch.setenv("GRPC_PLATFORM_TYPE", name)
-        monkeypatch.setenv("TPURPC_TORCH_DEVICE", "cpu")
-        for key, val in env.items():
-            monkeypatch.setenv(key, val)
-        ref_config.set_config(None)
-        torch_config.set_config(None)
-    yield use
-    Poller.reset()
-    PairPool.reset()
-    ref_config.set_config(None)
-    torch_config.set_config(None)
-
-
 @pytest.mark.parametrize("client,server", PAIRS, ids=PAIR_IDS)
 def test_four_shapes_on_a_ring_platform(platform, client, server):
     """The four call shapes and the error over the shared-memory ring
@@ -468,39 +440,6 @@ def test_aio_is_lazy_and_out_of_all():
     assert port_aio.__all__ == ref_aio.__all__
 
 
-@pytest.fixture
-def counted_plain(monkeypatch):
-    """Count calls of the kernels' plain versions (the CPU path), in the
-    test's own dict and, as a launch on the card would, in each wrapper
-    module's ``launches`` (restored afterwards)."""
-    calls = {"ring_scatter": 0, "ring_window": 0}
-    monkeypatch.setattr(rs_mod, "launches", rs_mod.launches)
-    monkeypatch.setattr(rw_mod, "launches", rw_mod.launches)
-
-    def counting(name, fn, mod):
-        def wrapped(*a, **kw):
-            calls[name] += 1
-            mod.launches += 1
-            return fn(*a, **kw)
-        return wrapped
-
-    monkeypatch.setattr(rs_mod, "ring_scatter_plain", counting(
-        "ring_scatter", rs_mod.ring_scatter_plain, rs_mod))
-    monkeypatch.setattr(rw_mod, "ring_window_plain", counting(
-        "ring_window", rw_mod.ring_window_plain, rw_mod))
-    return calls
-
-
-def _small_model():
-    torch.manual_seed(3)
-    w = torch.randn(3, 10)
-
-    def classify(tree):
-        logits = tree["images"].mean(dim=(1, 2)) @ w
-        return {"logits": logits, "top1": logits.argmax(dim=1)}
-    return classify
-
-
 def _leaf_bytes(tree) -> int:
     return sum(t.numel() * t.element_size()
                for t in codec.tree_flatten(tree)[0])
@@ -519,7 +458,7 @@ def test_aio_handler_on_the_cpu_device_ring_matches_sync(platform,
     wrap as their offsets say, the ring comes back whole, and the
     handlers overlap on the loop."""
     platform("TPU", TPURPC_HBM_RING_SIZE_KB=str(RING_KB))
-    classify = _small_model()
+    classify = small_classify()
     rng = np.random.default_rng(21)
     xs = [rng.standard_normal(DR_SHAPE).astype(np.float32)
           for _ in range(DR_REQUESTS)]

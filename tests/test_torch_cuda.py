@@ -14,8 +14,9 @@ over HTTP/2 with a drain, and its train steps, the generation plane's step
 model, a spawned shard worker's device ring, the call plane (retries
 behind a seeded fault injector, a hedge's loser) on the device ring, and
 mTLS onto the card ring (bit-equal to plaintext; refused clients leave the
-ring alone), and async handlers of the asyncio surface on the card ring
-(bit-equal to the sync device path) run on the card.
+ring alone), async handlers of the asyncio surface on the card ring
+(bit-equal to the sync device path), and a look-aside balancer moving a
+channel between two card-ring servers run on the card.
 """
 
 import numpy as np
@@ -948,3 +949,85 @@ def test_aio_calls_on_the_card_ring_bit_equal_to_sync(dev, stream_env,
                                              "ring_window": 1}
     assert launched == (1, 1)
     assert stats["writable"] == stats["capacity"] and not stats["live_spans"]
+
+
+@pytest.mark.cuda
+def test_balancer_moves_a_channel_between_card_rings(dev, stream_env,
+                                                     exact_f32):
+    """Phase 14 (a) at a small model: two device-mode servers on the card's
+    rings (64 KiB; from offset 0 the 3rd and 6th float32 [2,32,32,3]
+    requests wrap one), a port balancer on the grpclb wire naming the
+    first, then the second, and a channel over both moved by
+    ``enable_lookaside``. Every reply is bit-equal to the same request
+    served directly by the server that ran it, each server launches both
+    kernels twice for its 6 landings (measured at the server), and every
+    ring comes back whole."""
+    import time
+
+    from tpurpc_torch.rpc import LoadBalancerServicer, enable_lookaside
+
+    stream_env("TPU", TPURPC_HBM_RING_SIZE_KB="64")
+    infer = _small_model(dev)
+    rigs = [CallPlaneServer(lambda t: {"y": infer(t["x"])}, max_workers=4)
+            for _ in range(2)]
+    addr = [("127.0.0.1", r.port) for r in rigs]
+    rng = np.random.default_rng(14)
+    xs = [torch.from_numpy(rng.standard_normal((2, 32, 32, 3)).astype(
+        np.float32)) for _ in range(6)]
+    bal = Server(max_workers=4)
+    balancer = LoadBalancerServicer()
+    balancer.attach(bal)
+    bal_port = bal.add_insecure_port("127.0.0.1:0")
+    bal.start()
+
+    def calls(ch, k):
+        done = len(rigs[k].done)
+        outs = [TensorClient(ch).call("Classify", {"x": x}, timeout=60)
+                for x in xs]
+        assert len(rigs[k].done) - done == len(xs)   # all ran on server k
+        return outs
+
+    def moved(ch, want):
+        deadline = time.monotonic() + 30
+        while ch._addrs != want and time.monotonic() < deadline:
+            time.sleep(0.001)
+        return ch._addrs == want
+
+    try:
+        direct = []
+        for k, rig in enumerate(rigs):
+            with Channel(f"127.0.0.1:{rig.port}") as ch:
+                direct.append(calls(ch, k))
+        for rig in rigs:
+            rig.launched.update(ring_scatter=0, ring_window=0)
+        balancer.set_servers("card", [f"127.0.0.1:{rigs[0].port}"])
+        stats = []
+        with Channel("ipv4:" + ",".join(f"{h}:{p}" for h, p in addr),
+                     lb_policy="round_robin") as ch:
+            watcher = enable_lookaside(ch, f"127.0.0.1:{bal_port}", "card",
+                                       wire="grpclb")
+            try:
+                assert moved(ch, [addr[0]])
+                on_a = calls(ch, 0)
+                stats.append([c.endpoint.device_ring.stats()
+                              for c in list(rigs[0].server._connections)])
+                balancer.set_servers("card", [f"127.0.0.1:{rigs[1].port}"])
+                assert moved(ch, [addr[1]])
+                on_b = calls(ch, 1)
+                stats.append([c.endpoint.device_ring.stats()
+                              for c in list(rigs[1].server._connections)])
+            finally:
+                watcher.stop()
+    finally:
+        bal.stop(grace=0)
+        for rig in rigs:
+            rig.server.stop()
+    for got, want in ((on_a, direct[0]), (on_b, direct[1])):
+        for g, w in zip(got, want):
+            assert torch.equal(g["y"], w["y"])
+    assert [r.launched for r in rigs] == [{"ring_scatter": 2,
+                                           "ring_window": 2}] * 2
+    for rings in stats:
+        assert rings
+        for st in rings:
+            assert st["writable"] == st["capacity"] and not st["live_spans"]

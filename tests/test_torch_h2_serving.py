@@ -551,7 +551,8 @@ def test_rpc_surface_exports_only_what_the_port_has():
                  "secure_channel", "enable_server_reflection",
                  "enable_channelz", "ChannelCredentials", "ServerCredentials",
                  "ssl_channel_credentials", "ssl_server_credentials",
-                 "insecure_for_testing_channel_credentials", "aio"):
+                 "insecure_for_testing_channel_credentials", "aio",
+                 "LoadBalancerServicer", "enable_lookaside"):
         assert hasattr(trpc, name), name
     assert trpc.H2Channel is H2Channel
     # the package's `server` is the module, callable as grpcio's factory

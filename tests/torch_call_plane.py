@@ -5,6 +5,10 @@ service-config and interceptor modules under the same names, so that one
 scenario function runs on either package (or on a client of one and a
 server of the other). Observations are plain values: status codes by
 name, reply bytes, attempt counts, throttle tokens, server indices.
+
+The fixtures ``platform`` and ``counted_plain`` and the model
+``small_classify`` serve the tests that put device-ring servers on the
+CPU; a test file imports them by name.
 """
 
 import importlib
@@ -13,8 +17,17 @@ import threading
 import time
 import types
 
+import pytest
+import torch
+
 import tpurpc.rpc as jrpc
 import tpurpc_torch.rpc as trpc
+from tpurpc.core import _native as ref_native
+from tpurpc.utils import config as ref_config
+from tpurpc_torch.core.poller import PairPool, Poller
+from tpurpc_torch.ops import ring_scatter as rs_mod
+from tpurpc_torch.ops import ring_window as rw_mod
+from tpurpc_torch.utils import config as torch_config
 
 
 def _pkg(name, root):
@@ -139,3 +152,62 @@ def both(scenario, *args):
     got = scenario(PORT, *args)
     assert got == want, (got, want)
     return got
+
+
+@pytest.fixture
+def platform(monkeypatch):
+    """``platform(name, **env)``: both packages on ``name``, the port on
+    the CPU; both packages' cached configs and the port's pollers reset
+    afterwards."""
+    # the reference loads (and without native/build first compiles) its
+    # native library on a ring's first use, under a lock other processes
+    # wait on: take that wait here, outside any call's deadline
+    ref_native.load()
+
+    def use(name, **env):
+        monkeypatch.setenv("GRPC_PLATFORM_TYPE", name)
+        monkeypatch.setenv("TPURPC_TORCH_DEVICE", "cpu")
+        for key, val in env.items():
+            monkeypatch.setenv(key, val)
+        ref_config.set_config(None)
+        torch_config.set_config(None)
+    yield use
+    Poller.reset()
+    PairPool.reset()
+    ref_config.set_config(None)
+    torch_config.set_config(None)
+
+
+@pytest.fixture
+def counted_plain(monkeypatch):
+    """Count calls of the kernels' plain versions (the CPU path), in the
+    test's own dict and, as a launch on the card would, in each wrapper
+    module's ``launches`` (restored afterwards), which is what
+    ``chip_smoke.CallPlaneServer.launched`` reads at each server."""
+    calls = {"ring_scatter": 0, "ring_window": 0}
+    monkeypatch.setattr(rs_mod, "launches", rs_mod.launches)
+    monkeypatch.setattr(rw_mod, "launches", rw_mod.launches)
+
+    def counting(name, fn, mod):
+        def wrapped(*a, **kw):
+            calls[name] += 1
+            mod.launches += 1
+            return fn(*a, **kw)
+        return wrapped
+
+    monkeypatch.setattr(rs_mod, "ring_scatter_plain", counting(
+        "ring_scatter", rs_mod.ring_scatter_plain, rs_mod))
+    monkeypatch.setattr(rw_mod, "ring_window_plain", counting(
+        "ring_window", rw_mod.ring_window_plain, rw_mod))
+    return calls
+
+
+def small_classify():
+    """A seeded stand-in for ``Classify``: logits of the images' means."""
+    torch.manual_seed(3)
+    w = torch.randn(3, 10)
+
+    def classify(tree):
+        logits = tree["images"].mean(dim=(1, 2)) @ w
+        return {"logits": logits, "top1": logits.argmax(dim=1)}
+    return classify

@@ -22,6 +22,10 @@ interceptors, and ``FaultInjector`` injects aborts and delays.
 ``ssl_channel_credentials`` / ``ssl_server_credentials`` run TLS (and mTLS)
 on every platform; ``enable_server_reflection`` and ``enable_channelz``
 serve grpc.reflection and grpc.channelz.v1 on a server.
+``LoadBalancerServicer`` and ``enable_lookaside`` are look-aside load
+balancing (grpclb): a balancer streams server lists and a watcher moves
+the channel's membership with them; ``xds:///service`` targets
+(``tpurpc_torch/rpc/xds.py``) follow an xDS control plane's EDS updates.
 
 ``H2Channel`` (``tpurpc_torch/wire/h2_client.py``) is exported lazily, as
 the reference does: an eager import here would make a program that imports
@@ -56,6 +60,7 @@ from tpurpc_torch.rpc.interceptors import (ClientInterceptor, FaultConfig,
 from tpurpc_torch.rpc.resolver import register_resolver, ring_hash_key
 from tpurpc_torch.rpc.health import add_health_servicer
 from tpurpc_torch.rpc.reflection import enable_server_reflection
+from tpurpc_torch.rpc.lookaside import LoadBalancerServicer, enable_lookaside
 from tpurpc_torch.rpc.channelz_v1 import enable_channelz
 from tpurpc_torch.rpc import server  # the module, callable as server()
 
@@ -74,6 +79,7 @@ __all__ = [
     "ssl_channel_credentials", "ssl_server_credentials",
     "insecure_for_testing_channel_credentials",
     "enable_server_reflection", "enable_channelz",
+    "LoadBalancerServicer", "enable_lookaside",
 ]
 
 

@@ -1,7 +1,9 @@
 """Name resolution and load-balancing policies for the client channel.
 
-A copy of ``tpurpc/rpc/resolver.py`` without the ``xds`` scheme and the
-``lb:least_loaded`` flight events (observability is not ported yet). The
+A copy of ``tpurpc/rpc/resolver.py`` without the ``lb:least_loaded``
+flight events (observability is not ported yet). The ``xds`` scheme is
+registered by ``tpurpc_torch/rpc/xds.py``, imported on the first ``xds:``
+target. The
 reference inherits these from gRPC's client_channel filter. Same target UX:
 
 * ``"host:port"`` / ``"dns:///host:port"`` → DNS resolution (getaddrinfo)
@@ -98,6 +100,10 @@ def resolve_target_full(target: str) -> Resolution:
     """gRPC-style target URI → :class:`Resolution` (addresses + any
     service config the scheme's resolver attached)."""
     scheme, sep, rest = target.partition(":")
+    if sep and scheme == "xds" and scheme not in _RESOLVERS:
+        # lazy: importing the xds module registers its resolver (bootstrap
+        # + an ADS snapshot; tpurpc_torch/rpc/xds.py)
+        import tpurpc_torch.rpc.xds  # noqa: F401
     if sep and scheme in _RESOLVERS:
         return _as_resolution(_RESOLVERS[scheme](rest.lstrip("/")))
     if target.startswith("dns:"):
