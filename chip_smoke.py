@@ -3,8 +3,11 @@
 
 Run from the root of a checkout: ``python3 chip_smoke.py``
 (``python3 chip_smoke.py --kernels`` runs phases 1 and 2 only and ends with
-the kernels line and the card's name and power limit). Phases, each of which
-fails the run (non-zero exit, no result line) on any error:
+the kernels line and the card's name and power limit;
+``python3 chip_smoke.py --ctrl-profile TURNS`` builds the kernels, runs
+phase 15 (a) alone in TURNS turns and ends with its summary, a JSON line).
+Phases, each of which fails the run (non-zero exit, no result line) on any
+error:
 
 1. build the CUDA kernels from ``tpurpc_torch/csrc`` (one nvcc per source,
    started together) and print ptxas's registers, shared memory and spills;
@@ -227,7 +230,42 @@ fails the run (non-zero exit, no result line) on any error:
    of the first handler that ran on B, the fallback's time, and p50/p99
    per part.
    Skipped under ``--kernels``;
-15. print the kernels line, the card's name and power limit, and last the
+15. the head of the transport: the timer wheel, the descriptor-ring
+   control plane, compression on the framed wire and the ``tcp_window``
+   domain. (a) phase 5's legs (a) and (c), the descriptor ring on and off
+   in turns (``TPURPC_CTRL_RING``: on, off, off, on), 3 timed rounds of 64
+   each: every round's sums and samples as phase 5, every payload by
+   rendezvous with no fallback, with the ring on no control op framed by
+   either side (each link's ``ctrl_frames``) and at least one ring post a
+   message, with it off no post; leg (c)'s launches in each round must
+   equal what its landings' offsets in the server's ring give (the ring's
+   tail read before and after the round), the same in every turn. Prints
+   each round's GB/s, and per state the median and quartiles over the
+   rounds after each turn's first, the server's host ms per message, the
+   links' counts, and the turn pairs the ring won. (b) phase 3's 8
+   requests on ``TPU``, each with an int64 index of the images' byte size
+   beside them, sent once with ``compression="gzip"`` and once without,
+   each to a fresh ``CallPlaneServer``: the replies bit-equal, each within
+   phase 3's tolerance of the model run directly, the launches (measured
+   at the server) equal, the ring whole after each run; then 32 MiB of
+   zeros,
+   gzipped, to a server with an 8 MiB receive limit must fail
+   RESOURCE_EXHAUSTED and launch nothing. Prints the bytes the client's
+   endpoint wrote and p50/p99, each way. (c) a spawned server process on
+   the card (``GRPC_PLATFORM_TYPE=TPU``, a 16 MiB ring, cuDNN
+   deterministic) serves phase 3's 8 requests from this process, once with
+   ``TPURPC_RING_DOMAIN=shm`` and once with ``tcp_window``: the replies
+   bit-equal across the two, within phase 3's tolerance of the direct run,
+   the server's launches equal to what its ring's offsets give, the ring
+   whole. Prints p50/p99 on each domain. (d) phase 4's 128 pipelined calls
+   (8 clients at depth 4, float32 ResNet-50 through ``serve_torch(batching=
+   True)``) run without deadlines and then with one each, sampling
+   ``threading.active_count()`` every millisecond: the peaks may differ by
+   at most 8 threads (each deadline is an entry on the timer wheel, not a
+   thread); then one pipelined call with a 0.2 s deadline on a held
+   handler must fail DEADLINE_EXCEEDED at most 0.1 s after it.
+   Skipped under ``--kernels``;
+16. print the kernels line, the card's name and power limit, and last the
    one-line result JSON.
 """
 
@@ -299,7 +337,7 @@ SINK_COPY_BOUND = 64 * 1024
 #: (float64 rounding over 2^20 terms is below 2^20 x 2^-53 of it)
 SINK_SUM_TOL = 1e-9
 SINK_ENV = ("GRPC_PLATFORM_TYPE", "TPURPC_RENDEZVOUS",
-            "TPURPC_HBM_RING_SIZE_KB")
+            "TPURPC_HBM_RING_SIZE_KB", "TPURPC_CTRL_RING")
 #: phase 6: the MoE transformer at TransformerConfig()'s defaults (vocab
 #: 256, d_model 128, 8 heads x 16, d_ff 256, 4 layers, 2 experts, capacity
 #: factor 2.0, 2 microbatches: 821,376 parameters), 128-token sequences
@@ -763,7 +801,8 @@ def check_serialization(dev):
 
 
 def drive_clients(port: int, images, per_client: int, batcher,
-                  method: str = "Infer", key: str = "x"):
+                  method: str = "Infer", key: str = "x",
+                  call_timeout: "float | None" = 300):
     """CLIENTS pipelined clients, each its own Channel and a depth-DEPTH
     pipeline, as bench.py's serving leg: one warm call each, then, from a
     common start, ``per_client`` requests each (client c sends
@@ -772,7 +811,8 @@ def drive_clients(port: int, images, per_client: int, batcher,
     each request's latency in ms (``call_async`` to completion), the wall
     time in s of the timed part, and the batcher's (rows_run, batches_run)
     at the start (None without a batcher in this process): every warm call
-    has completed by then."""
+    has completed by then. Each pipelined call has the deadline
+    ``call_timeout`` (None: none)."""
     import threading
 
     import numpy as np
@@ -802,7 +842,7 @@ def drive_clients(port: int, images, per_client: int, batcher,
                         replies[j] = fut.result(timeout=300)
                     t0 = time.perf_counter()
                     fut = pl.call_async({key: torch.from_numpy(images[i])},
-                                        timeout=300)
+                                        timeout=call_timeout)
                     fut.add_done_callback(
                         lambda _f, i=i, t0=t0: lat.__setitem__(
                             i, (time.perf_counter() - t0) * 1e3))
@@ -1135,7 +1175,9 @@ def sink_leg(label, dev, card, want, env, device_ring=False,
     ``rounds`` timed rounds of the stream. Returns per-round records and
     the leg's GB/s. ``on_link(link)`` sees the client's rendezvous link
     after the warm-up (``sink_profile.py`` times its sends). ``h2``: the
-    client is an ``H2Channel`` (phase 10 (b))."""
+    client is an ``H2Channel`` (phase 10 (b)). With ``device_ring`` each
+    record holds the server's device rings' tails before and after its
+    round (``ring_tails``)."""
     import torch
 
     from tpurpc_torch.ops import ring_scatter as rs_mod
@@ -1183,6 +1225,8 @@ def sink_leg(label, dev, card, want, env, device_ring=False,
                         torch.profiler.ProfilerActivity.CUDA])
                     prof.__enter__()
                 s0 = link.stats() if link is not None else None
+                sv0 = _link_delta(srv)
+                tails0 = _device_ring_tails(srv) if device_ring else None
                 rs_mod.launches = 0
                 rw_mod.launches = 0
                 for key in stages:
@@ -1193,6 +1237,8 @@ def sink_leg(label, dev, card, want, env, device_ring=False,
                     dt = time.perf_counter() - t0
                 launches = {"ring_scatter": rs_mod.launches,
                             "ring_window": rw_mod.launches}
+                tails = (None if tails0 is None else
+                         list(zip(tails0, _device_ring_tails(srv))))
                 err = _check_sink(f"{label} round {r}", replies[-1], n, want)
                 if prof is not None:
                     prof.__exit__(None, None, None)
@@ -1206,15 +1252,17 @@ def sink_leg(label, dev, card, want, env, device_ring=False,
                                                     "host_copy",
                                                     "dma_h2d", "dma_d2d")},
                        "launches": launches, "sum_err": err,
+                       "ring_tails": tails,
                        "server_ms": {k: v * 1e3 / n
                                      for k, v in stages.items()}}
                 if link is not None:
                     s1 = link.stats()
-                    rec["link"] = {k: s1[k] - s0[k] for k in (
-                        "sent", "received", "fallbacks", "ctrl_frames")}
+                    rec["link"] = {k: s1[k] - s0[k] for k in LINK_KEYS}
+                    rec["srv_link"] = _link_delta(srv, sv0)
                 out.append(rec)
                 print(f"{label} round {r}: {rec['gbps']:.4f} GB/s, ledger "
-                      f"{rec['ledger']}, link {rec.get('link')}, launches "
+                      f"{rec['ledger']}, link {rec.get('link')}, server's "
+                      f"links {rec.get('srv_link')}, launches "
                       f"{launches}, server host ms per message "
                       f"{rec['server_ms']}", flush=True)
     finally:
@@ -1227,6 +1275,54 @@ def sink_leg(label, dev, card, want, env, device_ring=False,
           f"{max(r['sum_err'] for r in out)} of the magnitudes ({card})",
           flush=True)
     return out, kept[len(kept) // 2]
+
+
+#: a rendezvous link's counters that a round's record keeps: transfers,
+#: fallbacks, control ops framed and control ops posted into the peer's
+#: descriptor ring
+LINK_KEYS = ("sent", "received", "fallbacks", "ctrl_frames", "ctrl_posts")
+
+
+def _device_ring_tails(srv) -> list:
+    """The tails (absolute bytes ever placed) of the device rings of a
+    server's connections, in the connections' order."""
+    return [c.endpoint.device_ring.stats()["tail"]
+            for c in list(srv._connections)
+            if getattr(c.endpoint, "_hbm", None) is not None]
+
+
+def _landing_launches(first: int, tail: int, leaves, ring: int) -> dict:
+    """The kernel launches that messages of ``leaves`` (their leaves' byte
+    sizes, in the codec's order) give, landed back to back from absolute
+    offset ``first`` up to ``tail`` of a ring of ``ring`` bytes, each by
+    one ``place_many``: a ``ring_scatter`` for each message whose landing
+    wraps, a ``ring_window`` for each leaf whose view wraps."""
+    span = sum(leaves)
+    check((tail - first) % span == 0, f"the ring advanced {tail - first} "
+          f"bytes, not a whole number of {span}-byte messages")
+    got = {"ring_scatter": 0, "ring_window": 0}
+    for k in range((tail - first) // span):
+        pos = first + k * span
+        got["ring_scatter"] += pos % ring + span > ring
+        for n in leaves:
+            got["ring_window"] += pos % ring + n > ring
+            pos += n
+    return got
+
+
+def _link_delta(srv, before=None) -> dict:
+    """The summed counters of a server's connections' rendezvous links, or
+    their change since ``before``."""
+    tot = {k: 0 for k in LINK_KEYS}
+    for conn in list(srv._connections):
+        link = getattr(conn, "rdv", None)
+        if link is not None:
+            st = link.stats()
+            for k in LINK_KEYS:
+                tot[k] += st[k]
+    if before is None:
+        return tot
+    return {k: tot[k] - before[k] for k in LINK_KEYS}
 
 
 def landing_to_torch_ms(dev, x) -> float:
@@ -2835,7 +2931,8 @@ class CallPlaneServer:
 
     landing = threading.Lock()
 
-    def __init__(self, fn, interceptors=(), max_workers=16, credentials=None):
+    def __init__(self, fn, interceptors=(), max_workers=16, credentials=None,
+                 max_receive_message_length=None):
         from tpurpc_torch.ops import ring_scatter as rs_mod
         from tpurpc_torch.ops import ring_window as rw_mod
         from tpurpc_torch.rpc.interceptors import ServerInterceptor
@@ -2900,8 +2997,10 @@ class CallPlaneServer:
             self.done.append(time.perf_counter())
             return out
 
-        self.server = Server(max_workers=max_workers,
-                             interceptors=[Count(), *interceptors, Meter()])
+        self.server = Server(
+            max_workers=max_workers,
+            interceptors=[Count(), *interceptors, Meter()],
+            max_receive_message_length=max_receive_message_length)
         add_tensor_method(self.server, "Classify", run, device=True)
         self.server.start()
         self.port = (self.server.add_insecure_port("127.0.0.1:0")
@@ -4081,6 +4180,582 @@ def lookaside_plane(dev, card, size=SIZE, ring=RING,
     return res
 
 
+# -- phase 15 ----------------------------------------------------------------
+
+#: phase 15 (a): phase 5's legs (a) and (c), the descriptor ring on ("1")
+#: and off ("0") in turns that repeat this pattern, CTRL_ROUNDS timed
+#: rounds of 64 each
+CTRL_PATTERN = ("1", "0", "0", "1")
+CTRL_TURNS = 4
+CTRL_ROUNDS = 3
+#: (b): the receive limit of the server that takes the inflating request,
+#: and that request's one leaf (zeros: a few KiB once gzipped)
+GZ_LIMIT = 8 << 20
+GZ_BOMB = 32 << 20
+#: (c): how long the spawned server may take to print its port, and the
+#: environment the part sets (and restores) for its client
+TCPW_START_S = 180
+TCPW_ENV = ("GRPC_PLATFORM_TYPE", "TPURPC_RING_DOMAIN",
+            "TPURPC_HBM_RING_SIZE_KB", "TPURPC_TORCH_DEVICE",
+            "TPURPC_TCPW_BIND")
+#: (d): a pipelined call whose deadline expires, and how late it may fail
+DEADLINE_S, DEADLINE_LATE_S = 0.2, 0.1
+#: (d): the most threads 128 calls with deadlines may run beyond the same
+#: calls without (the wheel's thread and run_blocking's pool of 4)
+THREAD_SLACK = 8
+
+
+def _ctrl_summary(turns) -> dict:
+    """One leg's turns in one ring state, each turn's first round left out
+    (every turn's slowest: its standing grants and caches warm up): the
+    median and quartiles of GB/s, and the median of the server's host ms
+    per message by stage."""
+    import numpy as np
+
+    recs = [rec for recs in turns for rec in recs[1:]]
+    gbps = [rec["gbps"] for rec in recs]
+    return {"gbps_median": float(np.median(gbps)),
+            "gbps_q1": float(np.percentile(gbps, 25)),
+            "gbps_q3": float(np.percentile(gbps, 75)),
+            "server_ms": {k: float(np.median([rec["server_ms"][k]
+                                              for rec in recs]))
+                          for k in recs[0]["server_ms"]},
+            "rounds": len(recs)}
+
+
+def _ctrl_turns(dev, card, want, rounds, ring,
+                turns=CTRL_TURNS) -> dict:
+    """Phase 15 (a): phase 5's legs (a) and (c), the descriptor ring on and
+    off in ``turns`` turns of CTRL_PATTERN. Checks every round; prints per
+    leg and state every round's GB/s, the median and quartiles over the
+    rounds after each turn's first, the server's host ms per message, the
+    links' counts, and in how many turn pairs (an on turn and the off turn
+    beside it) the ring's median won. Returns leg (c)'s launches per round,
+    by ring state, and the summary."""
+    import numpy as np
+
+    n = len(want[0])
+    check(rounds >= 2, f"transport (a): {rounds} rounds a turn, want at "
+          f"least 2 (each turn's first is left out of the summary)")
+    # a message's leaves in the codec's order: its index (int64) and its
+    # payload
+    leaves = (8, want[0][0].nbytes)
+    legs = (("a", {"GRPC_PLATFORM_TYPE": "RDMA_BPEV"}, False),
+            ("c", {"GRPC_PLATFORM_TYPE": "TPU",
+                   "TPURPC_HBM_RING_SIZE_KB": str(ring >> 10)}, True))
+    got = {(leg, on): [] for leg, _, _ in legs for on in ("1", "0")}
+    order = {leg: [] for leg, _, _ in legs}   # (state, recs) by turn
+    saved = {k: os.environ.get(k) for k in SINK_ENV}
+    try:
+        for turn in range(turns):
+            on = CTRL_PATTERN[turn % len(CTRL_PATTERN)]
+            for leg, env, device_ring in legs:
+                label = (f"transport (a) leg {leg}, ring "
+                         f"{'on' if on == '1' else 'off'}, turn {turn}")
+                recs, _ = sink_leg(label, dev, card, want,
+                                   dict(env, TPURPC_CTRL_RING=on),
+                                   device_ring=device_ring, rounds=rounds)
+                for r, rec in enumerate(recs):
+                    cl, sl = rec["link"], rec["srv_link"]
+                    check(cl["sent"] == n and cl["fallbacks"] == 0,
+                          f"{label} round {r}: not every payload rode "
+                          f"rendezvous: {cl}")
+                    if on == "1":
+                        check(cl["ctrl_frames"] == 0
+                              and sl["ctrl_frames"] == 0
+                              and cl["ctrl_posts"] >= n,
+                              f"{label} round {r}: control ops framed with "
+                              f"the ring on: client {cl}, server {sl}")
+                    else:
+                        check(cl["ctrl_posts"] == 0 and sl["ctrl_posts"] == 0
+                              and cl["ctrl_frames"] >= n,
+                              f"{label} round {r}: ring posts with the ring "
+                              f"off: client {cl}, server {sl}")
+                    if device_ring:
+                        # the round's landings, by the server's rings'
+                        # offsets, give its launches whatever the control
+                        # plane does
+                        tails = rec["ring_tails"]
+                        check(len(tails) == 1 and tails[0][1] - tails[0][0]
+                              == n * sum(leaves),
+                              f"{label} round {r}: the server's rings "
+                              f"advanced {tails}, want one ring by "
+                              f"{n} messages of {leaves} bytes")
+                        want_l = _landing_launches(*tails[0], leaves, ring)
+                        check(rec["launches"] == want_l
+                              and min(want_l.values()) >= 1,
+                              f"{label} round {r}: launched "
+                              f"{rec['launches']}, the landings from "
+                              f"{tails[0][0]} to {tails[0][1]} give "
+                              f"{want_l}")
+                got[(leg, on)].append(recs)
+                order[leg].append((on, recs))
+    finally:
+        _set_env(saved)
+    # the same spans land at the same offsets of a fresh ring in every
+    # turn: the launches per round must not depend on the control plane
+    per_turn = [[rec["launches"] for rec in recs]
+                for on in ("1", "0") for recs in got[("c", on)]]
+    check(all(t == per_turn[0] for t in per_turn),
+          f"transport (a): leg c's launches per round differ between "
+          f"turns: {per_turn}")
+    summary = {}
+    for leg, runs in order.items():
+        out = {}
+        for on in ("1", "0"):
+            state = "on" if on == "1" else "off"
+            turns_on = got[(leg, on)]
+            recs = [rec for rs in turns_on for rec in rs]
+            cl = {k: sum(rec["link"][k] for rec in recs) for k in LINK_KEYS}
+            sl = {k: sum(rec["srv_link"][k] for rec in recs)
+                  for k in LINK_KEYS}
+            out[state] = _ctrl_summary(turns_on)
+            rounds_gbps = [[round(rec["gbps"], 4) for rec in rs]
+                           for rs in turns_on]
+            print(f"transport (a) leg {leg}, ring {state}: GB/s by turn "
+                  f"{rounds_gbps}; after each turn's first round "
+                  f"{out[state]}; over "
+                  f"{len(recs)} rounds of {n} client link {cl}, server "
+                  f"links {sl} ({card})", flush=True)
+        # turn pairs: each on turn against the off turn beside it in the
+        # pattern (turns 0/1, 3/2, 4/5, 7/6, ...)
+        won = pairs = 0
+        for i in range(0, len(runs) - 1, 2):
+            a, b = runs[i], runs[i + 1]
+            on_run, off_run = (a, b) if a[0] == "1" else (b, a)
+            m_on = np.median([r["gbps"] for r in on_run[1][1:]])
+            m_off = np.median([r["gbps"] for r in off_run[1][1:]])
+            pairs += 1
+            won += int(m_on > m_off)
+        out["pairs"], out["ring_won"] = pairs, won
+        summary[leg] = out
+        print(f"transport (a) leg {leg}: the ring's median won {won} of "
+              f"{pairs} turn pairs; on/off median GB/s "
+              f"{out['on']['gbps_median'] / out['off']['gbps_median']} "
+              f"({card})", flush=True)
+    return {"1": [rec["launches"] for recs in got[("c", "1")]
+                  for rec in recs],
+            "0": [rec["launches"] for recs in got[("c", "0")]
+                  for rec in recs],
+            "summary": summary}
+
+
+def _gz_requests(requests, size):
+    """Phase 3's requests, each with a compressible leaf beside its images:
+    an int64 index of the images' byte size."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(SEED)        # phase 3's requests
+    images = [rng.standard_normal((BATCH, size, size, 3)).astype(np.float32)
+              for _ in range(requests)]
+    index = torch.arange(images[0].nbytes // 8, dtype=torch.int64)
+    return images, [{"images": torch.from_numpy(x), "index": index}
+                    for x in images]
+
+
+def _counting_writes(ch) -> list:
+    """Count the bytes the channel's connection writes to its endpoint
+    (dials the connection)."""
+    conn = ch._connection()
+    ep = conn.writer._ep
+    real, wrote = ep.write, [0]
+
+    def write(data):
+        segs = ([data] if isinstance(data, (bytes, bytearray, memoryview))
+                else data)
+        wrote[0] += sum(memoryview(s).nbytes for s in segs)
+        return real(data)
+
+    ep.write = write
+    return wrote
+
+
+def _gz_part(dev, card, classify, size, requests, wants) -> dict:
+    """Phase 15 (b): compression onto the device ring, then a request that
+    inflates past the receive limit. ``wants``: the requests' logits from
+    the model run directly. Returns the launches each way."""
+    import numpy as np
+    import torch
+
+    from tpurpc_torch.ops import ring_scatter as rs_mod
+    from tpurpc_torch.ops import ring_window as rw_mod
+    from tpurpc_torch.rpc.channel import Channel
+    from tpurpc_torch.rpc.status import RpcError, StatusCode
+    from tpurpc_torch.torchshim.service import TensorClient
+    from tpurpc_torch.tpu import ledger
+
+    _, reqs = _gz_requests(requests, size)
+    res = {}
+    for way in ("identity", "gzip"):
+        rig = CallPlaneServer(classify)
+        try:
+            with Channel(f"127.0.0.1:{rig.port}",
+                         compression=None if way == "identity" else way) as ch:
+                wrote = _counting_writes(ch)
+                cli = TensorClient(ch)
+                replies, lat = [], []
+                with ledger.track() as w:
+                    for i, req in enumerate(reqs):
+                        t = time.perf_counter()
+                        try:
+                            replies.append(cli.call("Classify", req,
+                                                    timeout=120))
+                        except Exception as exc:
+                            fail(f"transport (b) {way}: call {i} failed: "
+                                 f"{exc!r}")
+                        lat.append((time.perf_counter() - t) * 1e3)
+                st = rig.ring().stats()
+        finally:
+            rig.server.stop()
+        check(st["live_spans"] == 0 and st["writable"] == st["capacity"],
+              f"transport (b) {way}: the ring is not whole: {st}")
+        res[way] = {"replies": replies, "launched": dict(rig.launched),
+                    "p50": float(np.percentile(lat, 50)),
+                    "p99": float(np.percentile(lat, 99)),
+                    "wrote": wrote[0], "rdma_write": w["rdma_write"],
+                    "stats": st,
+                    "worst": _cp_check(f"transport (b) {way}", replies,
+                                       wants)}
+    a, b = res["identity"], res["gzip"]
+    for i, (x, y) in enumerate(zip(a["replies"], b["replies"])):
+        check(torch.equal(x["logits"], y["logits"])
+              and torch.equal(x["top1"], y["top1"]),
+              f"transport (b): reply {i} with gzip is not bit-equal")
+    check(a["launched"] == b["launched"]
+          and min(a["launched"].values()) >= 1,
+          f"transport (b): launches {a['launched']} without and "
+          f"{b['launched']} with gzip")
+    for way, r in res.items():
+        print(f"transport (b) {way}: client endpoint wrote {r['wrote']} "
+              f"bytes, rendezvous wrote {r['rdma_write']}; p50 "
+              f"{r['p50']:.2f} ms, p99 {r['p99']:.2f} ms over {requests} "
+              f"requests of {reqs[0]['images'].nbytes} + "
+              f"{reqs[0]['index'].nbytes} bytes; launches {r['launched']}; "
+              f"replies within {r['worst']} of the direct run's scale; "
+              f"ring {r['stats']} ({card})", flush=True)
+
+    # a request that inflates past the receive limit: refused at
+    # reassembly, before any tensor reaches the ring
+    rig = CallPlaneServer(classify, max_receive_message_length=GZ_LIMIT)
+    before = (rs_mod.launches, rw_mod.launches)
+    try:
+        with Channel(f"127.0.0.1:{rig.port}", compression="gzip") as ch:
+            wrote = _counting_writes(ch)
+            try:
+                TensorClient(ch).call(
+                    "Classify", {"images": torch.zeros(GZ_BOMB // 4)},
+                    timeout=60)
+                code = StatusCode.OK
+            except RpcError as exc:
+                code = exc.code()
+    finally:
+        rig.server.stop()
+    after = (rs_mod.launches, rw_mod.launches)
+    check(code is StatusCode.RESOURCE_EXHAUSTED,
+          f"transport (b): a {GZ_BOMB}-byte request past a {GZ_LIMIT}-byte "
+          f"limit ended {code}")
+    check(after == before and rig.launched == {"ring_scatter": 0,
+                                               "ring_window": 0},
+          f"transport (b): the refused request launched {after} - {before}")
+    print(f"transport (b): {GZ_BOMB} bytes of zeros, {wrote[0]} bytes on "
+          f"the wire, refused {code.name} past a {GZ_LIMIT}-byte limit, "
+          f"no launch ({card})", flush=True)
+    return {way: r["launched"] for way, r in res.items()}
+
+
+def tcpw_ring_server(conn, env: dict, size: int) -> None:
+    """Phase 15 (c)'s server process (spawned): phase 3's ResNet-50 on the
+    card (``TPURPC_TORCH_DEVICE``) behind a device-ring server on ``env``'s
+    platform and domain, cuDNN in its deterministic mode, warmed at
+    [BATCH, size, size, 3]. Sends its port, serves until told to stop,
+    then sends its launches and its rings' tails."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, here)
+    os.environ.update(env)
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    from tpurpc_torch.models.resnet import make_infer_fn, resnet50
+    from tpurpc_torch.ops import ring_scatter as rs_mod
+    from tpurpc_torch.ops import ring_window as rw_mod
+    from tpurpc_torch.rpc.server import Server
+    from tpurpc_torch.torchshim.service import add_tensor_method
+    from tpurpc_torch.utils.config import get_config
+
+    dev = torch.device(get_config().device)
+    torch.manual_seed(SEED)                  # phase 3's weights
+    infer = make_infer_fn(resnet50().to(dev))
+    infer(torch.zeros(BATCH, size, size, 3, device=dev))
+    _sync(dev)
+
+    def classify(tree):
+        logits = infer(tree["images"])
+        return {"logits": logits, "top1": logits.argmax(dim=1)}
+
+    srv = Server(max_workers=4)
+    add_tensor_method(srv, "Classify", classify, device=True)
+    srv.start()
+    port = srv.add_insecure_port("127.0.0.1:0")
+    rs_mod.launches = rw_mod.launches = 0
+    conn.send({"port": port, "domain": get_config().ring_domain})
+    conn.recv()                              # the client is done
+    rings = [c.endpoint.device_ring.stats() for c in list(srv._connections)
+             if getattr(c.endpoint, "_hbm", None) is not None]
+    conn.send({"launches": {"ring_scatter": rs_mod.launches,
+                            "ring_window": rw_mod.launches},
+               "rings": rings})
+    srv.stop()
+
+
+def _tcpw_part(dev, card, wants, images, ring) -> dict:
+    """Phase 15 (c): phase 3's requests from this process into a spawned
+    server's device ring over ``shm`` and over ``tcp_window``. Returns the
+    server's launches on each domain."""
+    import multiprocessing as mp
+
+    import numpy as np
+    import torch
+
+    from tpurpc_torch.rpc.channel import Channel
+    from tpurpc_torch.torchshim.service import TensorClient
+
+    ctx = mp.get_context("spawn")
+    res = {}
+    saved = {k: os.environ.get(k) for k in TCPW_ENV}
+    try:
+        for domain in ("shm", "tcp_window"):
+            # the record servers of both processes listen on the loopback
+            env = {"GRPC_PLATFORM_TYPE": "TPU", "TPURPC_RING_DOMAIN": domain,
+                   "TPURPC_HBM_RING_SIZE_KB": str(ring >> 10),
+                   "TPURPC_TORCH_DEVICE": str(dev),
+                   "TPURPC_TCPW_BIND": "127.0.0.1"}
+            _set_env(env)
+            here, there = ctx.Pipe()
+            t0 = time.perf_counter()
+            proc = ctx.Process(target=tcpw_ring_server,
+                               args=(there, env, images[0].shape[1]),
+                               daemon=True)
+            proc.start()
+            try:
+                check(here.poll(TCPW_START_S), f"transport (c) {domain}: the "
+                      f"server process printed no port in {TCPW_START_S} s")
+                hello = here.recv()
+                start_s = time.perf_counter() - t0
+                check(hello["domain"] == domain,
+                      f"transport (c): the server runs on {hello['domain']}")
+                with Channel(f"127.0.0.1:{hello['port']}") as ch:
+                    pair = getattr(ch._connection().endpoint, "pair", None)
+                    check(pair is not None and pair.domain.kind == domain,
+                          f"transport (c) {domain}: the client's pair is on "
+                          f"{None if pair is None else pair.domain.kind}")
+                    cli = TensorClient(ch)
+                    replies, lat = [], []
+                    for i, x in enumerate(images):
+                        t = time.perf_counter()
+                        try:
+                            replies.append(cli.call(
+                                "Classify", {"images": torch.from_numpy(x)},
+                                timeout=120))
+                        except Exception as exc:
+                            fail(f"transport (c) {domain}: call {i} "
+                                 f"failed: {exc!r}")
+                        lat.append((time.perf_counter() - t) * 1e3)
+                here.send("stop")
+                check(here.poll(60), f"transport (c) {domain}: no report")
+                report = here.recv()
+            finally:
+                proc.join(30)
+                if proc.is_alive():
+                    proc.kill()
+                    proc.join(10)
+            check(proc.exitcode == 0, f"transport (c) {domain}: the server "
+                  f"process exited {proc.exitcode}")
+            span = images[0].nbytes
+            wraps = sum(_ring_wraps(st["tail"], span, ring)
+                        for st in report["rings"])
+            check(report["launches"] == {"ring_scatter": wraps,
+                                         "ring_window": wraps}
+                  and wraps > 0,
+                  f"transport (c) {domain}: the server launched "
+                  f"{report['launches']}, its ring's landings wrap {wraps} "
+                  f"times")
+            for st in report["rings"]:
+                check(st["live_spans"] == 0
+                      and st["writable"] == st["capacity"],
+                      f"transport (c) {domain}: the ring is not whole: {st}")
+            worst = _cp_check(f"transport (c) {domain}", replies, wants)
+            res[domain] = {"replies": replies, "lat": lat,
+                           "launches": report["launches"], "start": start_s,
+                           "worst": worst}
+    finally:
+        _set_env(saved)
+    for i, (x, y) in enumerate(zip(res["shm"]["replies"],
+                                   res["tcp_window"]["replies"])):
+        check(torch.equal(x["logits"], y["logits"])
+              and torch.equal(x["top1"], y["top1"]),
+              f"transport (c): reply {i} over tcp_window is not bit-equal to "
+              f"the same request's over shm")
+    for domain, r in res.items():
+        print(f"transport (c) {domain}: p50 "
+              f"{float(np.percentile(r['lat'], 50)):.2f} ms, p99 "
+              f"{float(np.percentile(r['lat'], 99)):.2f} ms over "
+              f"{len(r['lat'])} requests; the server launched "
+              f"{r['launches']}; replies within {r['worst']} of the direct "
+              f"run's scale; the server process started in {r['start']:.2f} "
+              f"s ({card})", flush=True)
+    return {domain: r["launches"] for domain, r in res.items()}
+
+
+class _ThreadPeak:
+    """Samples ``threading.active_count()`` every millisecond while on."""
+
+    def __init__(self):
+        self.peak = 0
+        self._stop = threading.Event()
+        self._t = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self):
+        while not self._stop.is_set():
+            self.peak = max(self.peak, threading.active_count())
+            time.sleep(0.001)
+
+    def __enter__(self):
+        self._t.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._t.join(5)
+
+
+def _wheel_part(dev, card) -> dict:
+    """Phase 15 (d): phase 4's 128 pipelined calls (float32, ``serve_torch``
+    as its (b)) without deadlines, then with one each, counting the threads
+    alive; then one call whose deadline expires."""
+    import numpy as np
+    import torch
+
+    from tpurpc_torch.models.resnet import make_infer_fn, resnet50
+    from tpurpc_torch.rpc.channel import Channel
+    from tpurpc_torch.rpc.server import Server, unary_unary_rpc_method_handler
+    from tpurpc_torch.rpc.status import RpcError
+    from tpurpc_torch.torchshim.service import serve_torch
+
+    saved = {k: os.environ.get(k) for k in RING_ENV}
+    _set_env({"GRPC_PLATFORM_TYPE": None, "TPURPC_HBM_RING_SIZE_KB": None})
+    rng = np.random.default_rng(SEED)        # phase 4's images
+    images = [rng.standard_normal((1, SIZE, SIZE, 3)).astype(np.float32)
+              for _ in range(CLIENTS * PER_CLIENT)]
+    torch.manual_seed(SEED)
+    infer32 = make_infer_fn(resnet50().to(dev))
+    infer32(torch.zeros(MAX_BATCH, SIZE, SIZE, 3, device=dev))
+    res = {}
+    try:
+        srv, port, batcher = serve_torch(
+            lambda t: {"logits": infer32(t["x"])}, name="Infer",
+            batching=True, max_batch=MAX_BATCH, max_workers=WORKERS)
+        try:
+            # a first run starts the server's pool threads; then the same
+            # calls without deadlines and with them, each counted
+            drive_clients(port, images, PER_CLIENT, batcher, call_timeout=None)
+            for label, timeout in (("no deadline", None), ("deadline", 300.0)):
+                with _ThreadPeak() as tp:
+                    replies, lat, wall, _ = drive_clients(
+                        port, images, PER_CLIENT, batcher,
+                        call_timeout=timeout)
+                check(all(r is not None and r["logits"].shape[0] >= 1
+                          for r in replies),
+                      f"transport (d) {label}: a reply is missing")
+                res[label] = {"peak": tp.peak, "p50": float(
+                    np.percentile(lat, 50)), "wall": wall}
+        finally:
+            srv.stop()
+            batcher.close()
+
+        gate = threading.Event()
+
+        def held(req, ctx):
+            gate.wait(30)
+            return bytes(req)
+
+        srv = Server(max_workers=2)
+        srv.add_method("/transport.S/Held",
+                       unary_unary_rpc_method_handler(held))
+        srv.start()
+        port = srv.add_insecure_port("127.0.0.1:0")
+        try:
+            with Channel(f"127.0.0.1:{port}") as ch:
+                pipe = ch.unary_unary("/transport.S/Held").pipeline(4)
+                t0 = time.perf_counter()
+                fut = pipe.call_async(b"late", timeout=DEADLINE_S)
+                try:
+                    fut.result(timeout=30)
+                    code = "OK"
+                except RpcError as exc:
+                    code = exc.code().name
+                late = time.perf_counter() - t0 - DEADLINE_S
+        finally:
+            gate.set()
+            srv.stop()
+    finally:
+        _set_env(saved)
+    plain, timed = res["no deadline"], res["deadline"]
+    check(timed["peak"] - plain["peak"] <= THREAD_SLACK,
+          f"transport (d): {timed['peak']} threads with deadlines against "
+          f"{plain['peak']} without")
+    check(code == "DEADLINE_EXCEEDED" and late <= DEADLINE_LATE_S,
+          f"transport (d): a {DEADLINE_S} s deadline ended {code} {late} s "
+          f"after it")
+    print(f"transport (d): {CLIENTS * PER_CLIENT} pipelined calls, peak "
+          f"threads {plain['peak']} without deadlines and {timed['peak']} "
+          f"with (p50 {plain['p50']:.2f} and {timed['p50']:.2f} ms, wall "
+          f"{plain['wall']:.3f} and {timed['wall']:.3f} s); a {DEADLINE_S} s "
+          f"deadline failed {code} {late * 1e3:.2f} ms after it ({card})",
+          flush=True)
+    return {"peak": (plain["peak"], timed["peak"]), "late_s": late}
+
+
+def transport_plane(dev, card, size=SIZE, ring=RING, requests=REQUESTS,
+                    sink_rounds=CTRL_ROUNDS, want=None) -> dict:
+    """Phase 15: the head of the transport (docstring of this file).
+    Returns each part's launches."""
+    import numpy as np
+    import torch
+
+    from tpurpc_torch.models.resnet import make_infer_fn, resnet50
+
+    t_phase = time.perf_counter()
+    res = {"a": _ctrl_turns(dev, card, want or sink_payloads(), sink_rounds,
+                            ring)}
+    print(f"transport: (a) took {time.perf_counter() - t_phase} s",
+          flush=True)
+    saved = {k: os.environ.get(k) for k in RING_ENV}
+    _set_env({"GRPC_PLATFORM_TYPE": "TPU", "TPURPC_TORCH_DEVICE": str(dev),
+              "TPURPC_HBM_RING_SIZE_KB": str(ring >> 10)})
+    try:
+        torch.manual_seed(SEED)                  # phase 3's weights
+        infer = make_infer_fn(resnet50().to(dev))
+
+        def classify(tree):
+            logits = infer(tree["images"])
+            return {"logits": logits, "top1": logits.argmax(dim=1)}
+
+        images, _ = _gz_requests(requests, size)
+        wants = [infer(torch.from_numpy(x).to(dev)).cpu() for x in images]
+        res["b"] = _gz_part(dev, card, classify, size, requests, wants)
+    finally:
+        _set_env(saved)
+    res["c"] = _tcpw_part(dev, card, wants, images, ring)
+    res["d"] = _wheel_part(dev, card)
+    print(f"transport: phase 15 took {time.perf_counter() - t_phase} s "
+          f"({card})", flush=True)
+    return res
+
+
 def card_line() -> str:
     """The card's name and power limit, as nvidia-smi reports them."""
     smi = subprocess.run(
@@ -4094,7 +4769,11 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernels", action="store_true",
                     help="run phases 1 and 2 only; end with the kernels line")
-    kernels_only = ap.parse_args().kernels
+    ap.add_argument("--ctrl-profile", type=int, metavar="TURNS",
+                    help="build the kernels, then run phase 15 (a) alone in "
+                         "TURNS turns and end with its summary")
+    args = ap.parse_args()
+    kernels_only = args.kernels
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
     try:
@@ -4111,12 +4790,19 @@ def main() -> None:
 
     card = card_line()
     build_kernels()
+    if args.ctrl_profile:
+        res = _ctrl_turns(dev, card, sink_payloads(), CTRL_ROUNDS, RING,
+                          turns=args.ctrl_profile)
+        print(json.dumps(dict(res["summary"], card=card,
+                              turns=args.ctrl_profile, rounds=CTRL_ROUNDS)),
+              flush=True)
+        return
     err, timings = check_kernels(dev)
     if kernels_only:
         launches = {"ring_scatter": None, "ring_window": None}
         stream = tf_launches = train_launches = gen_launches = None
         fleet_launches = h2_launches = cp_launches = tls_launches = None
-        aio_launches = lb_launches = None
+        aio_launches = lb_launches = tp_launches = None
     else:
         from tpurpc_torch.ops import ring_scatter as rs_mod
         from tpurpc_torch.ops import ring_window as rw_mod
@@ -4181,6 +4867,9 @@ def main() -> None:
         # phase 14: both kernels on every part, counted per part and per
         # server inside
         lb_launches = lookaside_plane(dev, card)
+        # phase 15: (a) per round of the device-ring leg, (b) per server,
+        # (c) in the spawned server process; (d) launches neither
+        tp_launches = transport_plane(dev, card)
 
     sources = {"ring_scatter": "tpurpc/ops/ring_scatter.py:133",
                "ring_window": "tpurpc/ops/ring_window.py:138"}
@@ -4248,7 +4937,16 @@ def main() -> None:
                                    [p[name] for p in
                                     lb_launches["a_per_server"]]),
             "xds_launches": (None if lb_launches is None else
-                             [p[name] for p in lb_launches["b_per_server"]])})
+                             [p[name] for p in lb_launches["b_per_server"]]),
+            # phase 15, the transport's head: (a) phase 5's device-ring leg
+            # per round with the descriptor ring on and off, (b) with and
+            # without gzip, (c) the spawned server over shm and tcp_window
+            "transport_launches": (None if tp_launches is None else {
+                "a": {"on": [r[name] for r in tp_launches["a"]["1"]],
+                      "off": [r[name] for r in tp_launches["a"]["0"]]},
+                "b": {way: n[name] for way, n in tp_launches["b"].items()},
+                "c": {dom: n[name]
+                      for dom, n in tp_launches["c"].items()}})})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     if kernels_only:

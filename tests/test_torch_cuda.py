@@ -15,8 +15,10 @@ model, a spawned shard worker's device ring, the call plane (retries
 behind a seeded fault injector, a hedge's loser) on the device ring, and
 mTLS onto the card ring (bit-equal to plaintext; refused clients leave the
 ring alone), async handlers of the asyncio surface on the card ring
-(bit-equal to the sync device path), and a look-aside balancer moving a
-channel between two card-ring servers run on the card.
+(bit-equal to the sync device path), a look-aside balancer moving a
+channel between two card-ring servers, and the transport's head (a gzip'd
+request, a stream with its control ops on the descriptor ring, and a
+``tcp_window`` pair feeding the card's ring) run on the card.
 """
 
 import numpy as np
@@ -1031,3 +1033,140 @@ def test_balancer_moves_a_channel_between_card_rings(dev, stream_env,
         assert rings
         for st in rings:
             assert st["writable"] == st["capacity"] and not st["live_spans"]
+
+
+# -- the transport's head (phase 15) ------------------------------------------
+
+@pytest.mark.cuda
+def test_compressed_round_trip_onto_the_card_ring(dev, stream_env,
+                                                 exact_f32):
+    """Phase 15 (b) at a small model: float32 [2,32,32,3] requests, each
+    with an int64 index leaf of the same byte size, into the card's ring
+    (64 KiB) with ``compression="gzip"`` and without: gunzipped at
+    reassembly, then placed as an uncompressed request is. Replies
+    bit-equal, the same launches (measured at the server), the ring whole;
+    a request inflating past the receive limit fails RESOURCE_EXHAUSTED
+    and launches nothing."""
+    from tpurpc_torch.rpc.status import RpcError, StatusCode
+
+    stream_env("TPU", TPURPC_HBM_RING_SIZE_KB="64")
+    infer = _small_model(dev)
+    rng = np.random.default_rng(9)
+    reqs = []
+    for _ in range(6):
+        x = torch.from_numpy(rng.standard_normal((2, 32, 32, 3)).astype(
+            np.float32))
+        reqs.append({"x": x, "index": torch.arange(x.numel() // 2)})
+    runs = {}
+    for way in (None, "gzip"):
+        rig = CallPlaneServer(lambda t: {"y": infer(t["x"])}, max_workers=4)
+        try:
+            with Channel(f"127.0.0.1:{rig.port}", compression=way) as ch:
+                outs = [TensorClient(ch).call("Classify", r, timeout=60)
+                        for r in reqs]
+                stats = rig.ring().stats()
+        finally:
+            rig.server.stop()
+        runs[way] = (outs, dict(rig.launched), stats)
+    (plain, l_plain, s_plain), (gz, l_gz, s_gz) = runs[None], runs["gzip"]
+    for a, b in zip(plain, gz):
+        assert torch.equal(a["y"], b["y"])
+    assert l_gz == l_plain and min(l_plain.values()) >= 1
+    for st in (s_plain, s_gz):
+        assert st["writable"] == st["capacity"] and not st["live_spans"]
+    rig = CallPlaneServer(lambda t: {"y": infer(t["x"])}, max_workers=2,
+                          max_receive_message_length=1 << 20)
+    before = (rs_mod.launches, rw_mod.launches)
+    try:
+        with Channel(f"127.0.0.1:{rig.port}", compression="gzip") as ch:
+            with pytest.raises(RpcError) as ei:
+                TensorClient(ch).call("Classify",
+                                      {"x": torch.zeros(4 << 20)},
+                                      timeout=60)
+    finally:
+        rig.server.stop()
+    assert ei.value.code() is StatusCode.RESOURCE_EXHAUSTED
+    assert (rs_mod.launches, rw_mod.launches) == before
+
+
+def _ring_links(ch, srv):
+    """The client's and the server's rendezvous link counters, summed."""
+    links = [ch._conn.rdv] + [c.rdv for c in list(srv._connections)]
+    return {k: sum(link.stats()[k] for link in links)
+            for k in ("sent", "fallbacks", "ctrl_frames", "ctrl_posts")}
+
+
+def _card_sink_stream(dev, msgs=STREAM_MSGS):
+    """STREAM_MSGS 4 MiB tensors through the device ring to a Sink that
+    reduces each on the card; the reply, the links' counters over the
+    timed stream (after a warm-up), the client's pair and the messages."""
+    rng = np.random.default_rng(4)
+    base = rng.standard_normal(STREAM_SHAPE).astype(np.float32)
+    xs = [base + np.float32(i) for i in range(msgs)]
+
+    def consume(trees):
+        seen, sums = [], []
+        for tree in trees:
+            x = tree["x"]
+            assert x.device.type == "cuda"
+            seen.append(tree["i"].clone())
+            sums.append(x.double().sum())
+        yield {"i": torch.cat(seen).cpu(), "sums": torch.stack(sums).cpu()}
+
+    srv = Server(max_workers=8)
+    add_tensor_method(srv, "Sink", consume, kind="stream_stream",
+                      device=True)
+    srv.start()
+    port = srv.add_insecure_port("127.0.0.1:0")
+
+    def gen(k):
+        for i in range(k):
+            yield {"i": torch.tensor([i]), "x": torch.from_numpy(xs[i])}
+
+    try:
+        with Channel(f"127.0.0.1:{port}") as ch:
+            cli = TensorClient(ch)
+            list(cli.duplex("Sink", gen(2), timeout=120))   # warm-up
+            c0 = _ring_links(ch, srv)
+            reply = list(cli.duplex("Sink", gen(msgs), timeout=120))
+            c1 = _ring_links(ch, srv)
+            pair = ch._conn.endpoint.pair
+            armed = ch._conn.ctrl is not None and ch._conn.ctrl.armed
+    finally:
+        srv.stop()
+    return reply[-1], {k: c1[k] - c0[k] for k in c0}, pair, armed, xs
+
+
+@pytest.mark.cuda
+def test_ring_control_stream_onto_the_card_ring(dev, stream_env):
+    """Phase 15 (a) at 8 messages: 4 MiB tensors over rendezvous into the
+    card's 16 MiB ring with the descriptor ring on (the default): every
+    payload by rendezvous, no control op framed by either side in the
+    steady stream, sums equal, both kernels launched."""
+    stream_env("TPU", TPURPC_HBM_RING_SIZE_KB=str(16 << 10))
+    before = (rs_mod.launches, rw_mod.launches)
+    reply, counts, _, armed, xs = _card_sink_stream(dev)
+    assert armed
+    assert counts["sent"] == STREAM_MSGS and counts["fallbacks"] == 0
+    assert counts["ctrl_frames"] == 0 and counts["ctrl_posts"] >= STREAM_MSGS
+    assert rs_mod.launches > before[0] and rw_mod.launches > before[1]
+    _check_stream(reply, xs)
+
+
+@pytest.mark.cuda
+def test_tcp_window_pair_feeds_the_card_ring(dev, stream_env):
+    """Phase 15 (c) in one process: the same stream with the connection's
+    pair on ``tcp_window`` (every one-sided write a record over a socket);
+    each payload lands one-sided in a tcp_window region, then in the card's
+    ring. Sums equal, both kernels launched, each COMPLETE framed (the
+    record stream orders it after the bytes)."""
+    stream_env("TPU", TPURPC_HBM_RING_SIZE_KB=str(16 << 10),
+               TPURPC_RING_DOMAIN="tcp_window", TPURPC_TCPW_BIND="127.0.0.1",
+               TPURPC_RING_BUFFER_SIZE_KB="1024")
+    before = (rs_mod.launches, rw_mod.launches)
+    reply, counts, pair, _, xs = _card_sink_stream(dev)
+    assert pair.domain.kind == "tcp_window"
+    assert counts["sent"] == STREAM_MSGS and counts["fallbacks"] == 0
+    assert counts["ctrl_frames"] >= STREAM_MSGS
+    assert rs_mod.launches > before[0] and rw_mod.launches > before[1]
+    _check_stream(reply, xs)

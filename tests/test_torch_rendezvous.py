@@ -605,9 +605,10 @@ def test_unary_1mib_both_ways(platform, name):
     assert got == (b"tiny", True, {"sent": 2, "received": 2, "fallbacks": 0})
 
 
-def _sink(pkg):
+def _sink(pkg, each=None):
     """bench.py's Sink: the stream's byte total and a checksum of two
-    elements per message (each read through the decoded alias)."""
+    elements per message (each read through the decoded alias);
+    ``each()`` runs after each message is read."""
     def consume(req_iter):
         total = 0
         checks = 0.0
@@ -615,6 +616,8 @@ def _sink(pkg):
             arr = tree["x"]
             total += arr.nbytes
             checks += float(arr[0, 0]) + float(arr[-1, -1])
+            if each is not None:
+                each()
         yield {"bytes": np.int64(total), "check": np.float64(checks)}
     srv = pkg.server(max_workers=4)
     pkg.add(srv, "Sink", consume, kind="stream_stream")
@@ -623,21 +626,32 @@ def _sink(pkg):
     return srv, port
 
 
-def _scenario_stream_ledger(pkg, n=8):
+def _scenario_stream_ledger(pkg, n=8, step=False):
+    """The stream's ledger. With ``step`` the timed messages go in step
+    with the handler: message i leaves once the handler has read message
+    i-1, so each finds a standing region its doorbell has freed. A sender
+    that runs ahead solicits a claim (an OFFER and a CLAIM framed) whenever
+    the handler lags 2 ms behind, which the host's load decides, in both
+    packages; on the ring platform the pair's ring bills those frames."""
     payload = np.random.default_rng(7).standard_normal(
         (512, 512)).astype(np.float32)   # 1 MiB
+    read = threading.Semaphore(0)
 
-    def gen(k):
-        for _ in range(k):
+    def gen(k, step=False):
+        for i in range(k):
+            if step and i:
+                assert read.acquire(timeout=30), "the handler stalled"
             yield {"x": pkg.tensor(payload)}
 
-    srv, port = _sink(pkg)
+    srv, port = _sink(pkg, each=read.release)
     try:
         with pkg.channel(f"127.0.0.1:{port}") as ch:
             list(pkg.duplex(ch, "Sink", gen(2)))   # warm-up: hello settles
+            while read.acquire(blocking=False):
+                pass                               # the warm-up's reads
             before = pkg.totals(ch, srv)
             with pkg.ledger.track() as w:
-                replies = list(pkg.duplex(ch, "Sink", gen(n)))
+                replies = list(pkg.duplex(ch, "Sink", gen(n, step=step)))
             counts = _delta(pkg.totals(ch, srv), before)
     finally:
         srv.stop(grace=1)
@@ -652,25 +666,35 @@ def _scenario_stream_ledger(pkg, n=8):
 
 @pytest.mark.parametrize("name", ["TCP", "RDMA_BPEV"])
 def test_tensor_stream_ledger_matches_reference(platform, name):
-    # the reference's control ops would ride its descriptor ring, which the
-    # port does not have: off, both frame them, and on the ring platform
-    # the ring bills those frames' bytes as host_copy on both sides
-    platform(name, TPURPC_CTRL_RING="0")
-    res = {m.name: _scenario_stream_ledger(m) for m in BOTH}
+    # descriptor rings off: both packages frame their control ops
     if name == "TCP":
-        got = _same(res)
+        platform(name, TPURPC_CTRL_RING="0")
+        got = _same({m.name: _scenario_stream_ledger(m) for m in BOTH})
     else:
-        # the ring bills each control frame's bytes to host_copy as it
-        # writes and reads them, and the reference coalesces its control
-        # frames into fewer ring writes (its coalescer is not ported): the
-        # payload's movement is equal, the control frames' billing is not
-        # (ROADMAP C)
-        strip = [r[:3] + ({k: v for k, v in r[3].items()
-                           if not k.startswith("host_copy")},) + r[4:]
-                 for r in (res["ref"], res["port"])]
-        assert strip[0] == strip[1], res
-        assert res["ref"][3]["host_copy"] < 64 * 1024
-        got = res["port"]
+        # on the ring platform the pair's ring bills the control frames'
+        # bytes as host_copy on both sides, which the same coalescer makes
+        # equal. The reference's tail-capture trace header (45 bytes on
+        # each HEADERS) and its load report's p99 (its watchdog's, whose
+        # digits follow the process's earlier calls; the port's reads 0.0)
+        # ride those frames: observability the port has not taken yet
+        # (ROADMAP A4), off for the length of the case, and the stream
+        # goes in step with the handler, so that the ledgers compare whole.
+        from tpurpc.obs import tracing as ref_tracing
+
+        platform(name, TPURPC_CTRL_RING="0", TPURPC_LOAD_REPORTS="0")
+        ref_tracing.tail(False)
+        try:
+            res = {m.name: _scenario_stream_ledger(m, step=True)
+                   for m in BOTH}
+        finally:
+            ref_tracing.tail(None)
+        # The number of ring writes and reads that carry those bytes
+        # (host_copy_ops) depends on how the reader's drains batch frames
+        # in time, and varies between runs of one package alike: it is
+        # held to the same bound on both, every other entry compared whole
+        ops = {k: r[3].pop("host_copy_ops") for k, r in res.items()}
+        got = _same(res)
+        assert all(0 < n <= 32 for n in ops.values()), ops
     total, check, counts, delta, want_check, nbytes = got
     assert total == 8 * nbytes and check == want_check
     assert counts == {"sent": 8, "received": 8, "fallbacks": 0}
@@ -1077,6 +1101,9 @@ def test_steady_tensor_calls_reuse_standing_regions(platform):
     finally:
         srv.stop(grace=1)
     assert sums == [float(k) * (75 << 10) for k in range(2, 12)]
-    # one COMPLETE framed a call: no OFFER, so no call solicited a region
-    assert {k: after[k] - before[k] for k in ("sent", "ctrl_frames")} \
-        == {"sent": 10, "ctrl_frames": 10}
+    # one COMPLETE per call, and no OFFER, so no call solicited a region;
+    # the COMPLETE rides the descriptor ring (on by default, as in the
+    # reference, whose rdv_ctrl_frames stays flat here): no control frame
+    assert {k: after[k] - before[k]
+            for k in ("sent", "ctrl_frames", "ctrl_posts")} \
+        == {"sent": 10, "ctrl_frames": 0, "ctrl_posts": 10}

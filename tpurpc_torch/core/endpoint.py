@@ -191,6 +191,8 @@ class TcpEndpoint(Endpoint):
                                       timeout)
             self._await_readable(timeout)
             return self._sock.recv_into(dst)
+        except ReadTimeout:
+            raise  # a TimeoutError, so an OSError: not a transport failure
         except OSError as exc:
             raise EndpointError(f"tcp read failed: {exc}") from exc
 

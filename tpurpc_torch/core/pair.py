@@ -7,7 +7,9 @@ native spin or waiter-advertisement words — every send notifies):
 * the peer one-sided-writes messages into our receive ring and its consumed
   head (credit) and ``peer_exit`` flag into our status page;
 * a :class:`MemoryDomain` implements the one-sided write: in-process buffers
-  (``local``) or POSIX shared memory (``shm``, the default);
+  (``local``), POSIX shared memory (``shm``, the default) or records over a
+  socket to the peer process (``tcp_window``, ``core/tcpw.py``, registered
+  on first use);
 * bootstrap swaps :class:`Address` blobs over an already-connected socket,
   which then stays as the notify/liveness channel. The socket may be an
   ``ssl.SSLSocket``: the exchange then reads decrypted bytes, every SSL call
@@ -77,12 +79,18 @@ def retry_buffer_op(fn: Callable[[], None], timeout_s: float = 2.0) -> None:
 class Region:
     """A chunk of memory owned by this side that the peer writes into."""
 
-    __slots__ = ("handle", "buf", "_close")
+    __slots__ = ("handle", "buf", "_close", "on_write")
 
     def __init__(self, handle: str, buf, close: Callable[[], None] = lambda: None):
         self.handle = handle
         self.buf = memoryview(buf)
         self._close = close
+        #: post-apply hook of an asynchronous domain (tcp_window): called
+        #: by its applier after landing peer bytes here. The peer's notify
+        #: token rides another socket and can arrive before the bytes, so
+        #: this kick is what closes the lost-wakeup window. Synchronous
+        #: domains never call it.
+        self.on_write: Optional[Callable[[], None]] = None
 
     def close(self) -> None:
         retry_buffer_op(self.buf.release)
@@ -91,7 +99,8 @@ class Region:
 
 class Window:
     """A write handle onto the *peer's* region; ``view`` is its mapped
-    memory (both domains here are host-addressable)."""
+    memory, or None for a domain that is not host-addressable from this
+    side (``tcp_window``)."""
 
     __slots__ = ("write", "view", "_close")
 
@@ -228,13 +237,29 @@ _DOMAINS: Dict[str, Callable[[], MemoryDomain]] = {
     "shm": ShmDomain,
 }
 
+#: domains whose module registers itself on first use: ``tcp_window``
+#: starts a record server, so importing it is deferred until asked for
+_LAZY_DOMAINS = {"tcp_window": "tpurpc_torch.core.tcpw"}
+
+
+def register_domain(kind: str, factory: Callable[[], MemoryDomain]) -> None:
+    """Add a domain to the ``TPURPC_RING_DOMAIN`` dispatch."""
+    _DOMAINS[kind] = factory
+
 
 def make_domain(kind: str) -> MemoryDomain:
-    """Instantiate a domain by name (the ``TPURPC_RING_DOMAIN`` dispatch)."""
+    """Instantiate a domain by name (the ``TPURPC_RING_DOMAIN`` dispatch);
+    a lazy domain's module is imported, and registers it, on first use."""
+    if kind not in _DOMAINS and kind in _LAZY_DOMAINS:
+        import importlib
+
+        importlib.import_module(_LAZY_DOMAINS[kind])
     factory = _DOMAINS.get(kind)
     if factory is None:
         raise ValueError(f"unknown ring domain {kind!r} "
                          f"(have {sorted(_DOMAINS)})")
+    # called outside the lookup: a KeyError raised inside a factory must
+    # surface as itself, not as "unknown ring domain"
     return factory()
 
 
@@ -403,6 +428,11 @@ class Pair:
         self._release_regions()
         self.recv_region = self.domain.alloc(self.ring_size)
         self.status_region = self.domain.alloc(STATUS_BYTES)
+        # an asynchronous domain's applier wakes the waiters: data landing
+        # in the ring wakes readers, credits or exit in the status page wake
+        # stalled writers
+        self.recv_region.on_write = self.kick
+        self.status_region.on_write = self.kick
         self.reader = RingReader(self.recv_region.buf, self.ring_size)
         self.writer = None  # created at connect, once the peer ring is known
         self._published_head_mirror = 0
@@ -779,6 +809,12 @@ class Pair:
     def _release_channels(self) -> None:
         """Per-connection state: peer windows, notify socket, wakeup pipes,
         reader view. Kick FIRST so a waiter blocked on these fds wakes."""
+        # detach the asynchronous applier's hook before the wake fds
+        # close: a record landing mid-teardown must not kick a closed (and
+        # possibly reused) fd number
+        for region in (self.recv_region, self.status_region):
+            if region is not None:
+                region.on_write = None
         self.kick()
         sels, self._selectors = self._selectors, {}
         for sel in sels.values():

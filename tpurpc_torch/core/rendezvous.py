@@ -15,9 +15,10 @@ carries only small control frames:
     COMPLETE(lease, nbytes, flags) ───────► deliver a view of the region
                                             (the decode aliases it)
 
-Control frames ride the framed connection, so they keep frame order with
-the small MESSAGEs around them, and a peer that never said hello never sees
-one.
+Control ops ride the framed connection, or the connection's descriptor
+rings (``core/ctrlring.py``), whose records carry the sender's frame count
+so that they keep frame order with the small MESSAGEs around them. A peer
+that never said hello never sees one.
 
 Invariants:
 
@@ -44,10 +45,18 @@ KV plane's unit is the block, so a grant names a scatter of block offsets
 inside one registered arena region, and the sender writes each block
 straight into place through a window it keeps open per region.
 
-Not here (the reference's): the control-frame coalescer of the native
-framing, the descriptor-ring control plane (``ctrl_post``/``ctrl_drain``),
-the inline-pump wait, and flight events, metrics and lens counters. Each
-link counts its transfers in :meth:`RdvLink.stats` instead.
+Control ops leave through :meth:`RdvLink._ctrl_send`: into the peer's
+descriptor ring when the connection armed one (``ctrl_post``, bound by the
+connection from ``core/ctrlring.py``; zero frames), else framed through
+:class:`_CtrlFrameCoalescer`, which writes a burst of ops queued behind an
+in-flight write as one multi-frame send (``send_ops``). ``ctrl_drain``
+lets a waiting sender consume its own ring for standing-grant top-ups.
+
+Not here (the reference's): the ``pump(pred, deadline)`` seam of
+inline-pump transports, which comes with the channel's inline pump, and
+flight events, metrics and lens counters. Each link counts its transfers
+in :meth:`RdvLink.stats` instead (``ctrl_frames``: control ops this side
+framed; ``ctrl_posts``: those it posted into the peer's ring).
 
 Env knobs: ``TPURPC_RENDEZVOUS`` (default on), ``TPURPC_RENDEZVOUS_MIN_KB``
 (size bar, default 256), ``TPURPC_RENDEZVOUS_POOL_MB`` (landing pool budget
@@ -602,21 +611,76 @@ def window_share() -> _WindowShare:
 # The link: one per framed connection, both roles.
 # ---------------------------------------------------------------------------
 
+class _CtrlFrameCoalescer:
+    """Self-clocking combiner for framed control ops: the first sender
+    writes directly; ops that arrive while a write is in flight queue and
+    leave in ONE multi-frame send (``send_ops``), so a burst of COMPLETEs
+    from N streams costs one transport write instead of N. An idle link
+    waits for no timer. Without ``send_ops`` (the h2 planes) each op is
+    sent alone; FIFO order holds either way."""
+
+    def __init__(self, send_op: Callable[[int, int, bytes], None],
+                 send_ops: Optional[Callable] = None):
+        self._send_op = send_op
+        self._send_ops = send_ops
+        self._mu = threading.Lock()
+        self._pending: List[Tuple[int, int, bytes]] = []
+        self._flushing = False
+
+    def send(self, op: int, stream_id: int, payload: bytes) -> None:
+        if self._send_ops is None:
+            self._send_op(op, stream_id, payload)
+            return
+        with self._mu:
+            self._pending.append((op, stream_id, payload))
+            if self._flushing:
+                return  # the in-flight flusher writes it
+            self._flushing = True
+        while True:
+            with self._mu:
+                batch, self._pending = self._pending, []
+                if not batch:
+                    self._flushing = False
+                    return
+            try:
+                if len(batch) == 1:
+                    self._send_op(*batch[0])
+                else:
+                    self._send_ops(batch)
+            except BaseException:
+                # connection dying: drop the queue (every control path
+                # treats sends as best effort; link close releases leases)
+                with self._mu:
+                    self._pending = []
+                    self._flushing = False
+                raise
+
+
 class RdvLink:
     """Rendezvous state of one framed connection: the sender role (offer,
     write, complete) and the receiver role (leases, claims, delivery).
 
     The connection supplies ``send_op(op, stream_id, payload)``, which
-    frames one control message, and ``deliver(stream_id, flags, body)``,
-    which hands a completed payload to the stream layer."""
+    frames one control message, optionally ``send_ops(ops)``, which frames
+    several in one write, and ``deliver(stream_id, flags, body)``, which
+    hands a completed payload to the stream layer."""
 
     def __init__(self, name: str,
                  send_op: Callable[[int, int, bytes], None],
                  deliver: Callable[[int, int, object], None],
                  pool_kinds: Sequence[str] = ("shm",),
-                 open_kinds: Sequence[str] = ("shm", "local")):
+                 open_kinds: Sequence[str] = ("shm", "local"),
+                 send_ops: Optional[Callable] = None):
         self.name = name
         self._send_op = send_op
+        self._coalescer = _CtrlFrameCoalescer(send_op, send_ops)
+        #: descriptor-ring seams, bound by the connection when its ring
+        #: plane arms: ``ctrl_post(op, sid, payload) -> bool`` places a
+        #: control op in the peer's ring (True: the framed path must not
+        #: send it too); ``ctrl_drain()`` consumes this side's ring from a
+        #: sender thread (standing-grant pickup)
+        self.ctrl_post: Optional[Callable[[int, int, bytes], bool]] = None
+        self.ctrl_drain: Optional[Callable[[], int]] = None
         self._deliver = deliver
         self._pool_kinds = tuple(pool_kinds)
         self._open_kinds = tuple(open_kinds)
@@ -641,9 +705,10 @@ class RdvLink:
         self._windows: Dict[Tuple[str, str], _pair.Window] = {}
         self._window_order: List[Tuple[str, str]] = []
         #: transfers sent, received, fallen back to the framed path, offers
-        #: this side refused, and control frames this side sent
+        #: this side refused, control ops this side framed, and control ops
+        #: it posted into the peer's descriptor ring
         self._counts = {"sent": 0, "received": 0, "fallbacks": 0,
-                        "refused": 0, "ctrl_frames": 0}
+                        "refused": 0, "ctrl_frames": 0, "ctrl_posts": 0}
 
     def _count(self, key: str) -> None:
         with self._lock:
@@ -655,15 +720,37 @@ class RdvLink:
         """The peer speaks the rendezvous control frames."""
         self.negotiated = True
 
-    def _ctrl_send(self, op: int, stream_id: int, payload: bytes) -> None:
-        """Frame one control op; transport errors propagate."""
-        self._send_op(op, stream_id, payload)
+    def _ctrl_send(self, op: int, stream_id: int, payload: bytes,
+                   ring_ok: bool = True) -> None:
+        """Send one control op: into the peer's descriptor ring when the
+        link armed one (no frame, no wakeup), else framed through the
+        coalescer. A ring that is full, closed or too small for the payload
+        degrades to the framed path, never a lost op; framed-path transport
+        errors propagate.
+
+        ``ring_ok=False`` pins the op to the framed path: a COMPLETE whose
+        payload went through an asynchronous landing domain (tcp_window
+        records: no host-addressable view) is ordered after the payload
+        only by the record stream the framed connection shares; a
+        ring-posted COMPLETE could overtake the bytes."""
+        post = self.ctrl_post
+        if post is not None and ring_ok:
+            try:
+                if _transport.dispatch("post", self, post, op, stream_id,
+                                       payload):
+                    self._count("ctrl_posts")
+                    return
+            except Exception:
+                pass  # ring tearing down: the framed path still works
+        _transport.dispatch("frame", self, self._coalescer.send, op,
+                            stream_id, payload)
         self._count("ctrl_frames")
 
     # -- sender role ---------------------------------------------------------
 
-    def eligible(self, total: int) -> bool:
+    def eligible(self, total: int, flags_compressed: bool = False) -> bool:
         return (self.negotiated and not self.closed and enabled()
+                and not flags_compressed
                 and total >= min_bytes() and total <= _MAX_TRANSFER
                 and threading.get_ident() != self.disallowed_thread)
 
@@ -677,10 +764,17 @@ class RdvLink:
         claim = self._take_grant(cls, total)
         if claim is None and self._has_standing(cls, total):
             # every standing region's doorbell is behind: the consumer is
-            # still reading. A short yield-poll of the doorbells almost
-            # always turns one up, cheaper than a claim round trip.
+            # still reading. A short yield-poll of the doorbells (draining
+            # our descriptor ring for standing-grant top-ups as we go)
+            # almost always turns one up, cheaper than a claim round trip.
             deadline = time.monotonic() + 0.002
+            drain = self.ctrl_drain
             while claim is None and time.monotonic() < deadline:
+                if drain is not None:
+                    try:
+                        drain()
+                    except Exception:
+                        drain = None
                 time.sleep(0)
                 claim = self._take_grant(cls, total)
         if claim is None:
@@ -860,8 +954,15 @@ class RdvLink:
         with self._lock:
             claim.used += 1
             claim.inflight = False
+            # a write into a mapped view (shm, local) is visible the moment
+            # it returns, so its COMPLETE may ride the ring; an asynchronous
+            # domain's bytes are still on the record stream, and only the
+            # framed path orders the COMPLETE after them
+            win = self._windows.get((claim.kind, claim.handle))
+        sync_write = win is not None and win.view is not None
         self._ctrl_send(OP_COMPLETE, stream_id,
-                        _COMPLETE.pack(claim.lease_id, total, flags & 0xFF))
+                        _COMPLETE.pack(claim.lease_id, total, flags & 0xFF),
+                        ring_ok=sync_write)
 
     def rdv_release(self, claim: _Claim) -> None:
         """Abandon a claimed region without completing: the peer frees it."""
@@ -1200,14 +1301,15 @@ def domains_for_endpoint(endpoint) -> Tuple[Tuple[str, ...],
     """``(pool_kinds, open_kinds)`` of a connection over ``endpoint``.
 
     A ring endpoint prefers its pair's own domain (the memory the
-    connection already trusts); anything else (plain TCP) uses the shm
-    pool. ``open_kinds`` is what this side's sender can open windows into;
+    connection already trusts; for ``tcp_window`` the shared ordered record
+    stream also sequences the COMPLETE after the payload); anything else
+    (plain TCP) uses the shm pool. ``open_kinds`` is what this side's sender can open windows into;
     the receiver picks a pool kind from the offer's list."""
     pair = getattr(endpoint, "pair", None)
     pool: List[str] = []
     if pair is not None:
         kind = pair.domain.kind
-        if kind in ("shm", "local"):
+        if kind in ("shm", "local", "tcp_window"):
             pool.append(kind)
     if "shm" not in pool:
         pool.append("shm")
@@ -1217,12 +1319,15 @@ def domains_for_endpoint(endpoint) -> Tuple[Tuple[str, ...],
 
 def link_for_endpoint(endpoint, name: str,
                       send_op: Callable[[int, int, bytes], None],
-                      deliver: Callable[[int, int, object], None]
+                      deliver: Callable[[int, int, object], None],
+                      send_ops: Optional[Callable] = None
                       ) -> Optional[RdvLink]:
     """An armed, not yet negotiated link for a new framed connection, or
-    None when rendezvous is off."""
+    None when rendezvous is off. ``send_ops(list_of_(op, sid, payload))``
+    is the multi-frame control send the coalescer flushes bursts through
+    (the native framing only)."""
     if not enabled():
         return None
     pool_kinds, open_kinds = domains_for_endpoint(endpoint)
     return RdvLink(name, send_op, deliver, pool_kinds=pool_kinds,
-                   open_kinds=open_kinds)
+                   open_kinds=open_kinds, send_ops=send_ops)

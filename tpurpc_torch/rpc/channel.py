@@ -1,7 +1,7 @@
 """Client channel: multiplexed calls over one endpoint, with reconnect.
 
-A trimmed copy of ``tpurpc/rpc/channel.py`` (no compression, native fast
-path, keepalive or connectivity state, and none of the reference's
+A trimmed copy of ``tpurpc/rpc/channel.py`` (no native fast path,
+keepalive, connectivity state or inline pump, and none of the reference's
 observability hooks beyond channelz's call counters; a dedicated reader
 thread per connection):
 
@@ -15,8 +15,16 @@ thread per connection):
   stripped from the trailing metadata and fed to the policy;
 * ``_Connection`` is one live transport: a reader thread demuxing frames to
   per-stream state, a write path serialized by ``FrameWriter``, odd client
-  stream ids, and a rendezvous link (``core/rendezvous.py``) that moves
-  bulk payloads one-sided;
+  stream ids, a rendezvous link (``core/rendezvous.py``) that moves bulk
+  payloads one-sided, and its descriptor-ring control plane
+  (``core/ctrlring.py``), negotiated in the rendezvous hello, that takes
+  the link's control ops off frames;
+* ``compression=`` (or the ``grpc.default_compression_algorithm`` option:
+  ``gzip``/``2``, ``deflate``/``1``) gzips every request MESSAGE
+  (``FLAG_COMPRESSED``; a port or reference server mirrors it on its
+  replies); an unknown value degrades to identity with a warning, and a
+  per-call ``compression=`` is accepted and advisory, as in the
+  reference;
 * ``UnaryUnary`` / ``UnaryStream`` / ``StreamUnary`` / ``StreamStream``
   mirror grpcio's multicallables; ``Call.device_ring`` is the ring of the
   connection the call ran on;
@@ -44,6 +52,7 @@ import time
 from typing import (Callable, Dict, Iterable, Iterator, List, Optional,
                     Sequence, Tuple, Union)
 
+from tpurpc_torch.core import ctrlring as _ctrl
 from tpurpc_torch.core import rendezvous as _rdv
 from tpurpc_torch.core.endpoint import (Endpoint, EndpointError,
                                         connect_endpoint, device_ring_of)
@@ -56,6 +65,7 @@ from tpurpc_torch.rpc.status import (Deserializer, Metadata, RpcError,
                                      Serializer, StatusCode,
                                      deserialize as _deserialize,
                                      identity_codec as _identity)
+from tpurpc_torch.utils import timers as _timers
 from tpurpc_torch.utils.config import get_config
 
 #: the server's load-report and pushback keys
@@ -110,10 +120,13 @@ class _ClientStream:
         except ValueError:
             pass
 
-    def commit_message(self, more: bool, oversized: bool = False
+    def commit_message(self, more: bool, oversized: bool = False,
+                       compressed: bool = False,
+                       recv_limit: Optional[int] = None
                        ) -> Optional[Tuple[StatusCode, str]]:
         """Returns (code, details) when THIS side failed the stream (an
-        oversized payload): the caller owes the server an RST."""
+        oversized or undecodable payload): the caller owes the server an
+        RST."""
         if more:
             return None
         if oversized:
@@ -124,7 +137,19 @@ class _ClientStream:
             self.deliver_failure(code, details)
             return code, details
         if self._acquire_credit():
-            self.events.put(("message", self.assembly.take()))
+            body = self.assembly.take()
+            if compressed:
+                try:
+                    # the limit binds the inflated size (gzip-bomb guard)
+                    body = fr.decompress_message(body, recv_limit)
+                except fr.DecompressTooLarge as exc:
+                    self.deliver_failure(StatusCode.RESOURCE_EXHAUSTED,
+                                         str(exc))
+                    return StatusCode.RESOURCE_EXHAUSTED, str(exc)
+                except fr.FrameError as exc:
+                    self.deliver_failure(StatusCode.INTERNAL, str(exc))
+                    return StatusCode.INTERNAL, str(exc)
+            self.events.put(("message", body))
         else:
             self.assembly.take()  # stream already finished: drop
         return None
@@ -173,7 +198,9 @@ class _ChannelSink(fr.MessageSink):
         if st is None:
             return
         failed = st.commit_message(bool(flags & fr.FLAG_MORE),
-                                   oversized=st.assembly.oversized)
+                                   oversized=st.assembly.oversized,
+                                   compressed=bool(flags & fr.FLAG_COMPRESSED),
+                                   recv_limit=self.max_message_bytes)
         if failed is not None:
             try:
                 self._conn.writer.send(fr.RST, 0, stream_id,
@@ -206,19 +233,40 @@ class _Connection:
         self.writer.send_preface()
         # the rendezvous link and its hello: a PING any peer echoes; only a
         # rendezvous-capable peer answers with its own hello, which arms the
-        # link. Until then every payload is framed.
+        # link. Until then every payload is framed. The hello also carries
+        # this side's descriptor-ring blob: a peer that opens it (same
+        # host, shm) moves the link's control ops off frames.
         self.rdv = _rdv.link_for_endpoint(
             endpoint, "chan:" + getattr(endpoint, "peer", "?"),
-            self._rdv_send_op, self._rdv_deliver)
+            self._rdv_send_op, self._rdv_deliver,
+            send_ops=self._rdv_send_ops)
         self.writer.rdv = self.rdv
+        #: frames this side's reader dispatched: the ring's ordering gate
+        self._frames_dispatched = 0
+        self.ctrl: Optional[_ctrl.CtrlPlane] = None
+        if self.rdv is not None and _ctrl.enabled():
+            try:
+                self.ctrl = _ctrl.CtrlPlane(
+                    "chan:" + getattr(endpoint, "peer", "?"))
+            except Exception:
+                self.ctrl = None  # no shm: framed control forever
+            if self.ctrl is not None:
+                self.rdv.ctrl_post = self._rdv_ctrl_post
+                self.rdv.ctrl_drain = self._ctrl_drain_nowait
+                # per-stream order across the ring/framed split: control
+                # ops posted before a sink-routed MESSAGE deliver first
+                self.reader.pre_commit = self._ctrl_drain
         if self.rdv is not None:
             self.rdv.recv_limit = max_recv_bytes
             # a ring plane negotiated at the pair bootstrap (Address.caps)
             pair = getattr(endpoint, "pair", None)
             if pair is not None and "rdv" in pair.peer_caps:
                 self.rdv.on_peer_hello()
+            hello = _rdv.HELLO_PAYLOAD
+            if self.ctrl is not None:
+                hello += self.ctrl.hello_blob()
             try:
-                self.writer.send(fr.PING, 0, 0, _rdv.HELLO_PAYLOAD)
+                self.writer.send(fr.PING, 0, 0, hello)
             except (EndpointError, OSError, fr.FrameError):
                 pass  # connection dying; the reader surfaces it
         self._thread = threading.Thread(target=self._read_loop, daemon=True,
@@ -251,17 +299,64 @@ class _Connection:
             self.rdv.disallowed_thread = threading.get_ident()
         try:
             while True:
-                f = self.reader.read_frame()
+                f = self._read_frame_ctrl()
                 if f is None:
                     self._die("server closed connection")
                     return
                 if f is not fr.CONSUMED:  # MESSAGEs are routed via the sink
                     self._dispatch(f)
+                self._frames_dispatched += 1
         except (EndpointError, fr.FrameError, OSError) as exc:
             self._die(str(exc))
 
     def _rdv_send_op(self, op: int, stream_id: int, payload: bytes) -> None:
         self.writer.send(fr.RDV_FRAME_OF_OP[op], 0, stream_id, payload)
+
+    def _rdv_send_ops(self, ops) -> None:
+        """The coalescer's flush: every queued control op in ONE gathered
+        writev."""
+        self.writer.send_many([(fr.RDV_FRAME_OF_OP[op], 0, sid, payload)
+                               for op, sid, payload in ops])
+
+    # -- descriptor-ring control plane ----------------------------------------
+
+    def _rdv_ctrl_post(self, op: int, stream_id: int,
+                       payload: bytes) -> bool:
+        plane = self.ctrl
+        if plane is None:
+            return False
+        return plane.post(op, stream_id, payload, self.writer.frames_sent,
+                          self._ctrl_kick)
+
+    def _ctrl_kick(self) -> None:
+        try:
+            self.writer.send(fr.CTRL_KICK, 0, 0, b"")
+        except (EndpointError, OSError, fr.FrameError):
+            pass  # connection dying; the framed paths surface it
+
+    def _frames_count(self) -> int:
+        return self._frames_dispatched
+
+    def _ctrl_drain(self, wait: bool = True) -> int:
+        """Drain this side's ring. The reader waits out a sender thread's
+        concurrent drain, so that every record the ring holds before a frame
+        is delivered before that frame is dispatched."""
+        plane, rdv = self.ctrl, self.rdv
+        if plane is None or rdv is None:
+            return 0
+        return plane.drain(rdv.on_op, self._frames_count, wait)
+
+    def _ctrl_drain_nowait(self) -> int:
+        """A sender thread's drain (standing-grant pickup): skips when the
+        reader is draining."""
+        return self._ctrl_drain(wait=False)
+
+    def _read_frame_ctrl(self, timeout=None):
+        plane = self.ctrl
+        if plane is None or plane.rx is None:
+            return self.reader.read_frame(timeout=timeout)
+        return _ctrl.read_frame_polled(self.reader.read_frame,
+                                       self._ctrl_drain, plane, timeout)
 
     def _rdv_deliver(self, stream_id: int, flags: int, body) -> None:
         """A completed rendezvous payload is the stream's next message, in
@@ -275,9 +370,14 @@ class _Connection:
         if f.type == fr.PING:
             if (self.rdv is not None
                     and f.payload.startswith(_rdv.HELLO_PAYLOAD)):
+                # the hello's tail is the peer's descriptor-ring blob
                 self.rdv.on_peer_hello(f.payload)
+                if self.ctrl is not None:
+                    self.ctrl.on_hello(f.payload[len(_rdv.HELLO_PAYLOAD):])
             self.writer.send(fr.PONG, 0, 0, f.payload)
             return
+        if f.type == fr.CTRL_KICK:
+            return  # the wake was the delivery: the read loop drains
         if f.type in fr.RDV_OP_OF_FRAME:
             if self.rdv is not None:
                 self.rdv.on_op(fr.RDV_OP_OF_FRAME[f.type], f.stream_id,
@@ -336,6 +436,11 @@ class _Connection:
         if self.rdv is not None:
             # claimed landing regions are released; waiting senders wake
             self.rdv.close()
+        if self.ctrl is not None:
+            # descriptor rings die with the connection: a straggling peer's
+            # late slot store lands in the orphaned mapping, never in a ring
+            # advertised to another connection
+            self.ctrl.close()
         for st in streams:
             st.deliver_failure(StatusCode.UNAVAILABLE, f"transport failed: {why}")
         try:
@@ -441,9 +546,14 @@ class Channel:
     :func:`tpurpc_torch.rpc.resolver.make_policy`. ``options`` takes
     grpcio's ``[("grpc.arg_name", value), ...]``; the port reads
     ``grpc.max_receive_message_length``, ``grpc.lb_policy_name`` (an
-    explicit parameter wins) and ``grpc.service_config`` (a fallback used
-    only when the resolver delivers no config) and ignores the rest, as
-    grpcio ignores unknown channel args.
+    explicit parameter wins), ``grpc.default_compression_algorithm`` and
+    ``grpc.service_config`` (a fallback used only when the resolver
+    delivers no config) and ignores the rest, as grpcio ignores unknown
+    channel args.
+
+    ``compression`` (``"gzip"``/``2``, or ``"deflate"``/``1``, honored with
+    the framing's one codec) sets ``FLAG_COMPRESSED`` on every request
+    MESSAGE; an unknown value degrades to identity with a warning.
 
     ``retry_policy`` / ``hedging_policy`` apply to every method and win
     over a service config's; without them (gRPC's default) calls are not
@@ -467,6 +577,7 @@ class Channel:
                  max_receive_message_length: Optional[int] = None,
                  retry_policy: "Optional[RetryPolicy]" = None,
                  hedging_policy: "Optional[HedgingPolicy]" = None,
+                 compression=None,
                  options=None):
         svc_cfg_fallback = None
         if options:
@@ -476,9 +587,27 @@ class Channel:
                     "grpc.max_receive_message_length")
             if lb_policy == "pick_first" and "grpc.lb_policy_name" in opt:
                 lb_policy = opt["grpc.lb_policy_name"]
+            if compression is None:
+                compression = opt.get("grpc.default_compression_algorithm")
             #: grpcio's service-config channel arg: a JSON FALLBACK used
             #: only when the resolver delivers no config (the resolver wins)
             svc_cfg_fallback = opt.get("grpc.service_config")
+        # The framing's one codec is gzip, so grpcio's Compression.Deflate
+        # (1) is honored as "compress my messages" with it. An unknown
+        # value degrades to identity with a warning: grpcio tolerates
+        # unknown channel args, and a constructor error would break
+        # drop-in call sites.
+        if compression in (None, 0, "identity", False):
+            self._compress_flag = 0
+        elif (compression in ("gzip", "deflate", 1, 2)
+              or str(compression).endswith(("Gzip", "Deflate"))):
+            self._compress_flag = fr.FLAG_COMPRESSED
+        else:
+            import warnings
+            warnings.warn(
+                f"unsupported compression {compression!r}: the tpurpc "
+                "framing speaks gzip only — using identity", stacklevel=2)
+            self._compress_flag = 0
         #: channel-level retry policy for unary-request calls (None = off,
         #: gRPC's default without a service config). An explicit policy
         #: here WINS over any service config the resolver delivers.
@@ -637,6 +766,22 @@ class Channel:
         for sc in removed:
             sc.close()
 
+    def batch_calls(self):
+        """Batch the fused unary sends THIS thread issues inside the block
+        into ONE gathered writev (``FrameWriter.batch``): a burst of small
+        control RPCs, such as a migration drain's sequence handoffs, is one
+        transport write instead of one per call. Pipelined ``call_async``
+        inside the block composes: the sends queue, the responses demux as
+        usual. On a channel with no dialable connection the block runs
+        unbatched (the calls surface the dial failure)."""
+        import contextlib
+
+        try:
+            conn = self._connection()
+        except Exception:
+            return contextlib.nullcontext()
+        return conn.writer.batch()
+
     def _connection(self, exclude=None, picked=None) -> _Connection:
         """LB pick: walk subchannels in policy order, first live or
         dialable wins (client_channel's resolver → LB → subchannel flow).
@@ -737,7 +882,8 @@ class Call:
 
     def __init__(self, conn: _Connection, st: _ClientStream,
                  deserializer: Deserializer, deadline: Optional[float],
-                 counters=None):
+                 counters=None, channel: "Optional[Channel]" = None):
+        self._channel = channel  # for the compression degrade below
         self._conn = conn
         self._st = st
         self._deser = deserializer
@@ -810,6 +956,12 @@ class Call:
             self._counters.on_finish(code is StatusCode.OK)
             self._counters = None  # a repeated event must not count twice
         self._code, self._details, self._trailing = code, details, md
+        if (self._channel is not None and self._channel._compress_flag
+                and code is StatusCode.UNIMPLEMENTED
+                and fr.COMPRESSED_UNSUPPORTED_SENTINEL in details):
+            # the peer cannot decompress: later calls go uncompressed (the
+            # unary path also replays this one, see UnaryUnary.with_call)
+            self._channel._compress_flag = 0
         self._conn.close_stream(self._st)
 
     def _next_event(self):
@@ -1030,8 +1182,9 @@ class _MultiCallable:
             else:
                 conn.writer.send_many([
                     (fr.HEADERS, 0, st.stream_id, hdr),
-                    (fr.MESSAGE, fr.FLAG_END_STREAM, st.stream_id,
-                     self._ser(first_request)),
+                    (fr.MESSAGE,
+                     fr.FLAG_END_STREAM | self._channel._compress_flag,
+                     st.stream_id, self._ser(first_request)),
                 ])
         except fr.FrameError as exc:
             conn.close_stream(st)
@@ -1051,7 +1204,7 @@ class _MultiCallable:
         counters = self._channel.call_counters
         counters.on_start()
         return conn, st, Call(conn, st, self._deser, deadline,
-                              counters=counters)
+                              counters=counters, channel=self._channel)
 
     def _send_stream(self, conn: _Connection, st: _ClientStream,
                      request_iterator: Iterable) -> None:
@@ -1059,7 +1212,8 @@ class _MultiCallable:
             for request in request_iterator:
                 if st.done:
                     return  # server already terminated the call
-                conn.writer.send(fr.MESSAGE, 0, st.stream_id, self._ser(request))
+                conn.writer.send(fr.MESSAGE, self._channel._compress_flag,
+                                 st.stream_id, self._ser(request))
             # pure half-close marker, not an empty message
             conn.writer.send(fr.MESSAGE, fr.FLAG_END_STREAM | fr.FLAG_NO_MESSAGE,
                              st.stream_id, b"")
@@ -1133,12 +1287,21 @@ class UnaryUnary(_MultiCallable):
                     # FLAG_REFUSED is the contract; the "connection
                     # draining" wording stays for servers that send the
                     # RST without the flag
+                    committed = getattr(exc, "_tpurpc_committed", False)
                     refused = ((getattr(exc, "_tpurpc_refused", False)
                                 or (_status_of(exc) is StatusCode.UNAVAILABLE
                                     and "connection draining"
                                     in exc.details()))
-                               and not getattr(exc, "_tpurpc_committed",
-                                               False))
+                               and not committed)
+                    # a peer that cannot decompress rejects the stream
+                    # before any handler ran: Call._finish cleared the
+                    # channel's flag, and the call replays uncompressed
+                    if (not committed and not refused
+                            and _status_of(exc) is StatusCode.UNIMPLEMENTED
+                            and fr.COMPRESSED_UNSUPPORTED_SENTINEL
+                            in exc.details()):
+                        self._channel._compress_flag = 0
+                        refused = True
                     if not refused:
                         raise
                     sub = getattr(exc, "_tpurpc_sub", None)
@@ -1377,8 +1540,8 @@ class PipelinedUnary:
     a ``concurrent.futures.Future``; the connection's reader thread demuxes
     completions by stream id and resolves each future in place, so N
     in-flight calls cost N streams, not N threads waiting on replies. A
-    call with a deadline does start one ``threading.Timer`` thread, which
-    sleeps until the deadline and is cancelled when the call ends. The bounded
+    call's deadline is one entry on the process-wide timer wheel
+    (``utils/timers.py``), cancelled when the call ends. The bounded
     window (``depth``) backpressures callers: the depth+1'th ``call_async``
     blocks until a completion frees a slot, which is what keeps a fast
     client from ballooning server-side queues.
@@ -1478,11 +1641,11 @@ class PipelinedUnary:
                         StatusCode.DEADLINE_EXCEEDED,
                         "deadline exceeded awaiting pipelined response"))
 
-            timer = threading.Timer(max(0.0, deadline - time.monotonic()),
-                                    expire)
-            timer.daemon = True
-            state["timer"] = timer
-            timer.start()
+            # expire writes an RST (an endpoint write that may stall on
+            # backpressure): it runs off the wheel thread
+            state["timer"] = _timers.schedule(
+                max(0.0, deadline - time.monotonic()),
+                lambda: _timers.run_blocking(expire))
         # Hook AFTER the send: the terminal may already have been delivered
         # (fast server + slow caller), in which case st.done is set and the
         # hook will never fire — complete from here instead. state["fired"]

@@ -1,8 +1,7 @@
 """Server: listener → per-connection demux → handler dispatch on a pool.
 
 A trimmed copy of ``tpurpc/rpc/server.py`` (no inline reactor handlers,
-keepalive/max-age timers, native plane, the control-ring plane or
-observability). One port serves both wire protocols: the
+keepalive/max-age timers, native plane or observability). One port serves both wire protocols: the
 first 8 bytes of a connection route the native framing's magic to
 :class:`_ServerConnection` and the HTTP/2 preface to
 ``tpurpc_torch/wire/grpc_h2.py``, so stock gRPC clients call the same
@@ -18,7 +17,14 @@ taxonomy. ``add_secure_port`` serves TLS (and mTLS) on every platform: the
 handshake precedes the protocol sniff. Each server registers with
 channelz (``rpc/channelz.py``) and counts its calls there. Each connection
 carries a rendezvous link (``core/rendezvous.py``): bulk request payloads
-land in this side's landing pool and bulk responses go into the client's.
+land in this side's landing pool and bulk responses go into the client's;
+its control ops ride the connection's descriptor rings
+(``core/ctrlring.py``) once the client's hello advertised one. A request
+MESSAGE sent ``FLAG_COMPRESSED`` is gunzipped at reassembly (the receive
+limit binds the inflated size: RESOURCE_EXHAUSTED past it, INTERNAL for a
+stream that does not gunzip), and the stream's replies mirror the flag.
+Unary responses that complete close together on one connection leave in
+one gathered writev (``FrameWriter(coalesce=True)``).
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import (Callable, Dict, Iterator, List, Optional, Sequence,
                     Tuple)
 
+from tpurpc_torch.core import ctrlring as _ctrl
 from tpurpc_torch.core import rendezvous as _rdv
 from tpurpc_torch.core.endpoint import (Endpoint, EndpointError,
                                         EndpointListener, create_endpoint,
@@ -44,6 +51,7 @@ from tpurpc_torch.rpc.status import (AbortError, Deserializer, Metadata,
                                      Serializer, StatusCode,
                                      deserialize as _deserialize,
                                      identity_codec as _identity)
+from tpurpc_torch.utils import timers as _timers
 from tpurpc_torch.utils.config import get_config
 
 _log = logging.getLogger("tpurpc_torch.server")
@@ -306,6 +314,7 @@ class _ServerStream:
 
     _END = object()
     _OVERSIZED = object()
+    _BAD_COMPRESSION = object()
 
     def __init__(self, stream_id: int, queue_depth: int = 64,
                  recv_limit: Optional[int] = None):
@@ -319,6 +328,9 @@ class _ServerStream:
         self.requests: "queue.Queue[object]" = queue.Queue()
         self.assembly = fr.Assembly()
         self.half_closed = False
+        #: a request arrived FLAG_COMPRESSED: mirror the encoding on the
+        #: replies (the peer demonstrably speaks it)
+        self.peer_compressed = False
         self.context: Optional[ServerContext] = None
         #: backpressure: at most queue_depth completed-but-unconsumed
         #: messages; the connection reader blocks on a credit, which stops
@@ -341,13 +353,29 @@ class _ServerStream:
 
     def commit_message(self, more: bool, end_stream: bool,
                        no_message: bool = False,
-                       oversized: bool = False) -> None:
+                       oversized: bool = False,
+                       compressed: bool = False) -> None:
         if oversized and not more:
             self.assembly.oversized = False
             self.requests.put(self._OVERSIZED)
         elif not no_message and not more:
             if self._acquire_credit():
-                self.requests.put(self.assembly.take())
+                body = self.assembly.take()
+                if compressed:
+                    self.peer_compressed = True
+                    try:
+                        # the limit binds the inflated size (bomb guard)
+                        body = fr.decompress_message(body, self.recv_limit)
+                    except fr.DecompressTooLarge:
+                        self._release_credit()  # sentinels bypass credits
+                        self.requests.put(self._OVERSIZED)
+                        body = None
+                    except fr.FrameError:
+                        self._release_credit()
+                        self.requests.put(self._BAD_COMPRESSION)
+                        body = None
+                if body is not None:
+                    self.requests.put(body)
             else:
                 self.assembly.take()  # stream dead: drop, free the bytes
         if end_stream:
@@ -372,7 +400,8 @@ class _ServerStream:
     def next_request(self, timeout: Optional[float] = None):
         """One queue item with its credit returned; queue.Empty on timeout."""
         item = self.requests.get(timeout=timeout)
-        if item is not self._END and item is not self._OVERSIZED:
+        if (item is not self._END and item is not self._OVERSIZED
+                and item is not self._BAD_COMPRESSION):
             self._release_credit()
         return item
 
@@ -386,6 +415,9 @@ class _ServerStream:
                 raise AbortError(
                     StatusCode.RESOURCE_EXHAUSTED,
                     f"received message larger than max ({self.recv_limit} bytes)")
+            if item is self._BAD_COMPRESSION:
+                raise AbortError(StatusCode.INTERNAL,
+                                 "compressed message failed to decompress")
             if not context.is_active():
                 return
             msg = _deserialize(deserializer, item)
@@ -419,14 +451,17 @@ class _ServerSink(fr.MessageSink):
             st.commit_message(bool(flags & fr.FLAG_MORE),
                               bool(flags & fr.FLAG_END_STREAM),
                               bool(flags & fr.FLAG_NO_MESSAGE),
-                              oversized=st.assembly.oversized)
+                              oversized=st.assembly.oversized,
+                              compressed=bool(flags & fr.FLAG_COMPRESSED))
 
 
 class _ServerConnection:
     def __init__(self, server: "Server", endpoint: Endpoint):
         self.server = server
         self.endpoint = endpoint
-        self.writer = fr.FrameWriter(endpoint)
+        # coalesce=True: unary responses completing close together on this
+        # connection flush as one gathered writev
+        self.writer = fr.FrameWriter(endpoint, coalesce=True)
         # the 8-byte preface was consumed by the server's sniff
         self.reader = fr.FrameReader(endpoint)
         self.reader.sink = _ServerSink(self)
@@ -436,21 +471,42 @@ class _ServerConnection:
         self.alive = True
         self.draining = False  # GOAWAY sent; no new streams accepted
         self.streams_started = 0  # channelz SocketData counter
-        self._linger_timer: Optional[threading.Timer] = None
+        self._linger_timer: Optional[_timers.TimerHandle] = None
         # the rendezvous link, made before the reader starts so that the
         # client's hello never meets an unarmed link
         self.rdv = _rdv.link_for_endpoint(
             endpoint, "srv:" + getattr(endpoint, "peer", "?"),
-            self._rdv_send_op, self._rdv_deliver)
+            self._rdv_send_op, self._rdv_deliver,
+            send_ops=self._rdv_send_ops)
         self.writer.rdv = self.rdv
+        # the descriptor-ring control plane: our receive ring rides the
+        # hello blob; the peer's arrives in its hello and moves this link's
+        # control ops off frames
+        self._frames_dispatched = 0
+        self.ctrl: Optional[_ctrl.CtrlPlane] = None
+        if self.rdv is not None and _ctrl.enabled():
+            try:
+                self.ctrl = _ctrl.CtrlPlane(
+                    "srv:" + getattr(endpoint, "peer", "?"))
+            except Exception:
+                self.ctrl = None  # no shm: framed control forever
+            if self.ctrl is not None:
+                self.rdv.ctrl_post = self._rdv_ctrl_post
+                self.rdv.ctrl_drain = self._ctrl_drain_nowait
+                # control ops posted before a sink-routed MESSAGE deliver
+                # first
+                self.reader.pre_commit = self._ctrl_drain
         if self.rdv is not None:
             self.rdv.recv_limit = server.max_receive_message_length
             # a ring plane negotiated at the pair bootstrap (Address.caps)
             pair = getattr(endpoint, "pair", None)
             if pair is not None and "rdv" in pair.peer_caps:
                 self.rdv.on_peer_hello()
+            hello = _rdv.HELLO_PAYLOAD
+            if self.ctrl is not None:
+                hello += self.ctrl.hello_blob()
             try:
-                self.writer.send(fr.PING, 0, 0, _rdv.HELLO_PAYLOAD)
+                self.writer.send(fr.PING, 0, 0, hello)
             except (EndpointError, OSError, fr.FrameError):
                 pass  # connection dying; the read loop surfaces it
         self._thread = threading.Thread(target=self._read_loop, daemon=True,
@@ -464,11 +520,12 @@ class _ServerConnection:
             self.rdv.disallowed_thread = threading.get_ident()
         try:
             while True:
-                f = self.reader.read_frame()
+                f = self._read_frame_ctrl()
                 if f is None:
                     break
                 if f is not fr.CONSUMED:  # MESSAGEs are routed via the sink
                     self._dispatch(f)
+                self._frames_dispatched += 1
         except (EndpointError, fr.FrameError, OSError) as exc:
             _log.debug("server connection error: %s", exc)
         finally:
@@ -476,6 +533,52 @@ class _ServerConnection:
 
     def _rdv_send_op(self, op: int, stream_id: int, payload: bytes) -> None:
         self.writer.send(fr.RDV_FRAME_OF_OP[op], 0, stream_id, payload)
+
+    def _rdv_send_ops(self, ops) -> None:
+        """The coalescer's flush: every queued control op in ONE gathered
+        writev."""
+        self.writer.send_many([(fr.RDV_FRAME_OF_OP[op], 0, sid, payload)
+                               for op, sid, payload in ops])
+
+    # -- descriptor-ring control plane ----------------------------------------
+
+    def _rdv_ctrl_post(self, op: int, stream_id: int,
+                       payload: bytes) -> bool:
+        plane = self.ctrl
+        if plane is None:
+            return False
+        return plane.post(op, stream_id, payload, self.writer.frames_sent,
+                          self._ctrl_kick)
+
+    def _ctrl_kick(self) -> None:
+        try:
+            self.writer.send(fr.CTRL_KICK, 0, 0, b"")
+        except (EndpointError, OSError, fr.FrameError):
+            pass  # connection dying; the read loop surfaces it
+
+    def _frames_count(self) -> int:
+        return self._frames_dispatched
+
+    def _ctrl_drain(self, wait: bool = True) -> int:
+        """Drain this side's ring. The reader waits out a sender thread's
+        concurrent drain, so that every record the ring holds before a frame
+        is delivered before that frame is dispatched."""
+        plane, rdv = self.ctrl, self.rdv
+        if plane is None or rdv is None:
+            return 0
+        return plane.drain(rdv.on_op, self._frames_count, wait)
+
+    def _ctrl_drain_nowait(self) -> int:
+        """A sender thread's drain (standing-grant pickup): skips when the
+        reader is draining."""
+        return self._ctrl_drain(wait=False)
+
+    def _read_frame_ctrl(self, timeout=None):
+        plane = self.ctrl
+        if plane is None or plane.rx is None:
+            return self.reader.read_frame(timeout=timeout)
+        return _ctrl.read_frame_polled(self.reader.read_frame,
+                                       self._ctrl_drain, plane, timeout)
 
     def _rdv_deliver(self, stream_id: int, flags: int, body) -> None:
         """A completed rendezvous request payload: the stream's next
@@ -489,9 +592,14 @@ class _ServerConnection:
         if f.type == fr.PING:
             if (self.rdv is not None
                     and f.payload.startswith(_rdv.HELLO_PAYLOAD)):
+                # the hello's tail is the peer's descriptor-ring blob
                 self.rdv.on_peer_hello(f.payload)
+                if self.ctrl is not None:
+                    self.ctrl.on_hello(f.payload[len(_rdv.HELLO_PAYLOAD):])
             self.writer.send(fr.PONG, 0, 0, f.payload)
             return
+        if f.type == fr.CTRL_KICK:
+            return  # the wake was the delivery: the read loop drains
         if f.type in fr.RDV_OP_OF_FRAME:
             if self.rdv is not None:
                 self.rdv.on_op(fr.RDV_OP_OF_FRAME[f.type], f.stream_id,
@@ -600,6 +708,11 @@ class _ServerConnection:
                         st, StatusCode.RESOURCE_EXHAUSTED,
                         f"received message larger than max ({st.recv_limit} bytes)")
                     return
+                if item is _ServerStream._BAD_COMPRESSION:
+                    self._send_trailers(
+                        st, StatusCode.INTERNAL,
+                        "compressed message failed to decompress")
+                    return
                 if item is _ServerStream._END or not ctx.is_active():
                     if ctx.is_active():
                         self._send_trailers(
@@ -618,8 +731,13 @@ class _ServerConnection:
                         self._send_trailers(st, StatusCode.DEADLINE_EXCEEDED,
                                             "deadline exceeded", ctx._trailing)
                         return
-                    self.writer.send(fr.MESSAGE, 0, st.stream_id,
-                                     handler.response_serializer(response))
+                    # the mirror is read per send: a request-streaming
+                    # handler sets peer_compressed only once its iterator
+                    # consumed a compressed message
+                    self.writer.send(
+                        fr.MESSAGE,
+                        fr.FLAG_COMPRESSED if st.peer_compressed else 0,
+                        st.stream_id, handler.response_serializer(response))
                 if ctx.is_active():
                     code = ctx._code if ctx._code is not None else StatusCode.OK
                     self._send_trailers(st, code, ctx._details, ctx._trailing)
@@ -629,8 +747,9 @@ class _ServerConnection:
                 code = ctx._code if ctx._code is not None else StatusCode.OK
                 try:
                     self.writer.send_many([
-                        (fr.MESSAGE, 0, st.stream_id,
-                         handler.response_serializer(result)),
+                        (fr.MESSAGE,
+                         fr.FLAG_COMPRESSED if st.peer_compressed else 0,
+                         st.stream_id, handler.response_serializer(result)),
                         (fr.TRAILERS, fr.FLAG_END_STREAM, st.stream_id,
                          fr.trailers_payload(code, ctx._details,
                                              list(ctx._trailing)
@@ -690,10 +809,9 @@ class _ServerConnection:
         with self._lock:
             if self._linger_timer is not None:
                 return
-            self._linger_timer = threading.Timer(self.GOAWAY_LINGER_S,
-                                                 self.close)
-        self._linger_timer.daemon = True
-        self._linger_timer.start()
+            # close() shuts an endpoint: off the wheel thread
+            self._linger_timer = _timers.schedule(
+                self.GOAWAY_LINGER_S, lambda: _timers.run_blocking(self.close))
 
     def goaway(self, why: bytes) -> bool:
         """Mark the connection draining and tell the client; True when it
@@ -722,6 +840,10 @@ class _ServerConnection:
         if self.rdv is not None:
             # peer gone mid-rendezvous: claimed landing regions are released
             self.rdv.close()
+        if self.ctrl is not None:
+            # descriptor rings die with the connection (a straggler's late
+            # slot store lands in the orphaned mapping: dead memory)
+            self.ctrl.close()
         for st in streams:
             gate, st.gate = st.gate, None
             if gate is not None:

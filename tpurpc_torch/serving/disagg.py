@@ -381,6 +381,7 @@ class _KvShipper:
     clean local failure releases the claim so the peer frees."""
 
     def __init__(self, channel):
+        self._channel = channel
         self._offer = channel.unary_unary(_method("OfferKv"),
                                           codec.tree_serializer,
                                           codec.tree_deserializer)
@@ -393,15 +394,22 @@ class _KvShipper:
         self.writer = GrantWriter()
 
     def _burst(self, mc, reqs, timeout: float):
-        """Issue a burst of small control RPCs pipelined on one connection;
-        one result-or-exception per request, in order."""
+        """Issue a burst of small control RPCs pipelined on one connection,
+        their fused sends coalesced into ONE writev (``Channel.batch_calls``
+        over ``FrameWriter.batch``); one result-or-exception per request,
+        in order."""
+        import contextlib
+
         if len(reqs) == 1:
             try:
                 return [mc(reqs[0], timeout=timeout)]
             except Exception as exc:
                 return [exc]
         pipe = mc.pipeline(depth=max(1, len(reqs)))
-        futs = [pipe.call_async(r, timeout=timeout) for r in reqs]
+        batcher = getattr(self._channel, "batch_calls", None)
+        cm = batcher() if batcher is not None else contextlib.nullcontext()
+        with cm:
+            futs = [pipe.call_async(r, timeout=timeout) for r in reqs]
         out = []
         for fut in futs:
             try:

@@ -97,8 +97,14 @@ class Config:
     max_recv_message_length: int = 64 << 20
     #: completed-but-unconsumed messages buffered per stream
     stream_queue_depth: int = 64
-    #: MemoryDomain of the ring's one-sided writes: "shm" or "local"
+    #: MemoryDomain of the ring's one-sided writes: "shm", "local" or
+    #: "tcp_window"
     ring_domain: str = "shm"
+    #: tcp_window: the address peers dial to reach this process's record
+    #: server (advertised inside region handles; a reachable address for
+    #: real cross-host deployments), and the record server's bind address
+    tcpw_host: str = "127.0.0.1"
+    tcpw_bind: str = "0.0.0.0"
     #: where tensors live when a caller names no device
     device: str = "cuda"
 
@@ -168,6 +174,8 @@ class Config:
                 "TPURPC_STREAM_QUEUE_DEPTH", cls.stream_queue_depth),
             ring_domain=(_env("TPURPC_RING_DOMAIN", "GRPC_RDMA_DOMAIN")
                          or cls.ring_domain).strip().lower(),
+            tcpw_host=_env("TPURPC_TCPW_HOST") or cls.tcpw_host,
+            tcpw_bind=_env("TPURPC_TCPW_BIND") or cls.tcpw_bind,
             device=(_env("TPURPC_TORCH_DEVICE") or cls.device).strip().lower(),
         )
 

@@ -37,6 +37,7 @@ from typing import Dict, List, Optional, Tuple
 from tpurpc_torch.core import rendezvous as _rdv
 from tpurpc_torch.core.endpoint import Endpoint, EndpointError
 from tpurpc_torch.rpc.status import AbortError, Metadata, StatusCode
+from tpurpc_torch.utils import timers as _timers
 from tpurpc_torch.wire import h2
 from tpurpc_torch.wire.hpack import HpackDecoder, HpackEncoder, HpackError
 
@@ -229,7 +230,7 @@ class GrpcH2Connection:
         #: GOAWAY sent; streams above ``_last_sid`` are refused
         self.draining = False
         self._last_sid = 0
-        self._linger_timer: Optional[threading.Timer] = None
+        self._linger_timer: Optional[_timers.TimerHandle] = None
         # arm the rendezvous link; the custom SETTINGS id in _send_settings
         # is the capability advert, and only a peer that advertised it back
         # ever sees an RDV frame
@@ -742,10 +743,9 @@ class GrpcH2Connection:
         with self._lock:
             if self._linger_timer is not None:
                 return
-            self._linger_timer = threading.Timer(self.GOAWAY_LINGER_S,
-                                                 self.close)
-        self._linger_timer.daemon = True
-        self._linger_timer.start()
+            # close() shuts an endpoint: off the wheel thread
+            self._linger_timer = _timers.schedule(
+                self.GOAWAY_LINGER_S, lambda: _timers.run_blocking(self.close))
 
     def _shutdown(self) -> None:
         with self._lock:
