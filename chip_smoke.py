@@ -265,7 +265,34 @@ error:
    thread); then one pipelined call with a 0.2 s deadline on a held
    handler must fail DEADLINE_EXCEEDED at most 0.1 s after it.
    Skipped under ``--kernels``;
-16. print the kernels line, the card's name and power limit, and last the
+16. the connection lifecycle, all on ``TPU`` with phase 3's model and
+   requests (each reply checked against the model run directly, or
+   bit-equal to an earlier reply of the same request). Each part's
+   launches (the wrappers' counts set to 0 just before it) must equal what
+   its landings' offsets give (every ``HbmRing`` landing recorded). (a) 64
+   channels, each its own connection, a 16 MiB device ring and 1 MiB host
+   rings, one call each, then a live channel's 16
+   calls; then ``TPURPC_PAIR_PARK_S=0.5`` until every end of the 64 is
+   parked (a predicate with its own timeout), the host rings moved from
+   leased to free in ``RingPool``, a parked end's resident estimate its
+   stub; parking off again, the live channel's 16 calls with the fleet
+   parked, then 8 of the 64 call 3 times each: the first call wakes the
+   pair and lands at the tail the ring had before the park, the ring never
+   moves, every reply bit-equal to the channel's first, and the woken ends
+   lease rings again. Prints the live channel's p50 with the fleet parked
+   and with parking off. (b) 8 calls through ``inproc_channel`` (no ring:
+   0 launches), bit-equal to (a)'s, and 8 inline unary echoes over the
+   device-ring platform. (c) ``get_state`` IDLE → CONNECTING → READY,
+   ``channel_ready_future``, the p50 of 16 pings; a server with a 1 s max
+   connection age serves 16 calls spread over 3 s on at least 3
+   connections with no failure; a channel with keepalive 200/1000 ms idle
+   for 2 s keeps its connection. (d) 32 channels dial one server at once
+   (default ``accept_burst``): all answer bit-equal, none shed; then with
+   ``TPURPC_ADMISSION_MAX_INFLIGHT=4`` and every slot held, new dials are
+   shed before any handshake (counted at the listener), and once released
+   the held calls and new dials complete. The phase must launch both
+   kernels. Skipped under ``--kernels``;
+17. print the kernels line, the card's name and power limit, and last the
    one-line result JSON.
 """
 
@@ -4756,6 +4783,585 @@ def transport_plane(dev, card, size=SIZE, ring=RING, requests=REQUESTS,
     return res
 
 
+# -- phase 16 ----------------------------------------------------------------
+
+#: phase 16 (a): the parked fleet, the channels woken from it, the calls of
+#: each woken channel (its 4th landing wraps its 16 MiB ring), the idle time
+#: before a pair parks, the live channel's calls, and the host ring size
+#: (128 pair ends of 1 MiB + a status page fit the RingPool's 256 MiB cap)
+LC_FLEET, LC_WOKEN, LC_WAKE_CALLS = 64, 8, 3
+LC_PARK_S, LC_LIVE_CALLS, LC_HOST_RING_KB = "0.5", 16, 1024
+LC_PARK_WAIT_S = 60.0
+#: (c): max connection age, its calls and their spread; keepalive knobs and
+#: the idle spell it must survive
+LC_AGE_MS, LC_AGE_CALLS, LC_AGE_SPREAD_S = 1000, 16, 3.0
+LC_KA_TIME_MS, LC_KA_TIMEOUT_MS, LC_KA_IDLE_S = 200, 1000, 2.0
+#: (d): channels that dial at once, and the admission gate's bound
+LC_BURST, LC_MAX_INFLIGHT = 32, 4
+LC_ENV = RING_ENV + ("TPURPC_PAIR_PARK_S", "TPURPC_RING_BUFFER_SIZE_KB",
+                     "TPURPC_MAX_CONNECTION_AGE_MS", "TPURPC_KEEPALIVE_TIME_MS",
+                     "TPURPC_KEEPALIVE_TIMEOUT_MS",
+                     "TPURPC_ADMISSION_MAX_INFLIGHT")
+
+
+class _Landings:
+    """Records every device-ring landing while on (``HbmRing.place`` and
+    ``place_many``): each ring's capacity, the landing's offset and its
+    leaves' sizes, from which :meth:`launches` gives what the offsets give
+    (a ``ring_scatter`` for a landing that wraps, a ``ring_window`` for a
+    leaf whose view wraps)."""
+
+    def __enter__(self):
+        from tpurpc_torch.tpu.hbm_ring import HbmRing
+
+        self._cls = HbmRing
+        self._orig = (HbmRing.place, HbmRing.place_many)
+        place, place_many = self._orig
+        recs, lock = [], threading.Lock()
+        self.recs = recs
+
+        def rec_place(ring, payload, timeout=None):
+            off, n = place(ring, payload, timeout=timeout)
+            if n:
+                with lock:
+                    recs.append((id(ring), ring.capacity, off, (n,)))
+            return off, n
+
+        def rec_many(ring, payloads, timeout=None):
+            spans = place_many(ring, payloads, timeout=timeout)
+            if spans and sum(n for _, n in spans):
+                with lock:
+                    recs.append((id(ring), ring.capacity, spans[0][0],
+                                 tuple(n for _, n in spans)))
+            return spans
+
+        HbmRing.place, HbmRing.place_many = rec_place, rec_many
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.place, self._cls.place_many = self._orig
+
+    def launches(self) -> dict:
+        got = {"ring_scatter": 0, "ring_window": 0}
+        for _, cap, off, leaves in self.recs:
+            got["ring_scatter"] += off % cap + sum(leaves) > cap
+            for n in leaves:
+                got["ring_window"] += off % cap + n > cap
+                off += n
+        return got
+
+
+def _raise_nofile() -> str:
+    """Raise this process's soft open-file limit to its hard limit: the
+    parked fleet holds 128 pair ends, each with a notify socket, wake
+    pipes, selectors and shared-memory mappings."""
+    import resource
+
+    soft, hard = resource.getrlimit(resource.RLIMIT_NOFILE)
+    if soft != hard:
+        resource.setrlimit(resource.RLIMIT_NOFILE, (hard, hard))
+    return f"RLIMIT_NOFILE {soft} -> {hard}"
+
+
+def _conn_of(srv, ch):
+    """The server connection behind the channel's live connection."""
+    local = ch._conn.endpoint.local_address
+    for conn in list(srv._connections):
+        if conn.endpoint.peer == local:
+            return conn
+    fail(f"lifecycle: no server connection for {local}")
+
+
+def _lc_call(label, client, x, timeout=60):
+    import torch
+
+    try:
+        return client.call("Classify", {"images": torch.from_numpy(x)},
+                           timeout=timeout)
+    except Exception as exc:
+        fail(f"{label}: call failed: {exc!r}")
+
+
+def _bit_equal(label, got, want) -> None:
+    import torch
+
+    check(all(torch.equal(got[k], want[k]) for k in ("logits", "top1")),
+          f"{label}: reply not bit-equal to the reference reply")
+
+
+def _await(pred, timeout, label):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if pred():
+            return time.monotonic() - (deadline - timeout)
+        time.sleep(0.01)
+    fail(f"{label}: not within {timeout} s")
+
+
+def _parked_fleet(dev, card, classify, images, wants, fleet, woken,
+                  live_calls) -> dict:
+    """Phase 16 (a): returns the first replies by image, the part's
+    launches, and the figures."""
+    import numpy as np
+
+    from tpurpc_torch.core.pair import STATUS_BYTES, RingPool
+    from tpurpc_torch.core.poller import Poller
+    from tpurpc_torch.rpc.channel import Channel
+    from tpurpc_torch.torchshim.service import TensorClient
+
+    host_ring = LC_HOST_RING_KB << 10
+    per_end = host_ring + STATUS_BYTES
+    _set_env({"TPURPC_PAIR_PARK_S": "0",
+              "TPURPC_RING_BUFFER_SIZE_KB": str(LC_HOST_RING_KB)})
+    rig = CallPlaneServer(classify)
+    chans = [Channel(f"127.0.0.1:{rig.port}") for _ in range(fleet + 1)]
+    live, fleet_chs = chans[-1], chans[:-1]
+    res = {}
+    try:
+        first = []
+        for i, ch in enumerate(fleet_chs):
+            first.append(_lc_call(f"lifecycle (a) fleet call {i}",
+                                  TensorClient(ch),
+                                  images[i % len(images)]))
+        _cp_check("lifecycle (a) fleet", first,
+                  [wants[i % len(images)] for i in range(fleet)])
+        lat_off = []
+        for k in range(live_calls):
+            t = time.perf_counter()
+            _lc_call("lifecycle (a) live, parking off",
+                     TensorClient(live), images[k % len(images)])
+            lat_off.append((time.perf_counter() - t) * 1e3)
+        pairs = ([ch._conn.endpoint.pair for ch in fleet_chs]
+                 + [_conn_of(rig.server, ch).endpoint.pair
+                    for ch in fleet_chs])
+        before = RingPool.get().stats()
+        # parking on: the poller's sweeps park the idle fleet
+        _set_env({"TPURPC_PAIR_PARK_S": LC_PARK_S})
+        # a pair's flag goes up a moment before the poller's parked set
+        # takes it: wait for both
+        t_park = _await(lambda: all(p._parked for p in pairs)
+                        and Poller.get().parked_count() >= 2 * fleet,
+                        LC_PARK_WAIT_S, "lifecycle (a): the fleet parked")
+        parked_n = Poller.get().parked_count()
+        # parking off again: a woken pair stays awake, so the pool's
+        # counts after the wakes are the wakes' alone
+        _set_env({"TPURPC_PAIR_PARK_S": "0"})
+        mid = RingPool.get().stats()
+        stub = {p.resident_bytes_est() for p in pairs}
+        check(stub == {256}, f"lifecycle (a): parked residents {stub}")
+        check(before["leased_bytes"] - mid["leased_bytes"]
+              >= 2 * fleet * per_end
+              and mid["free_bytes"] - before["free_bytes"]
+              >= 2 * fleet * per_end,
+              f"lifecycle (a): RingPool before {before}, parked {mid}: "
+              f"{2 * fleet} ends of {per_end} bytes not moved to free")
+        wake = fleet_chs[:woken]
+        rings = [_conn_of(rig.server, ch).endpoint.device_ring
+                 for ch in wake]
+        kept = [(r.buf.data_ptr(), r.stats()["tail"]) for r in rings]
+        lat_on = []
+        for k in range(live_calls):
+            t = time.perf_counter()
+            _lc_call("lifecycle (a) live, fleet parked",
+                     TensorClient(live), images[k % len(images)])
+            lat_on.append((time.perf_counter() - t) * 1e3)
+        wake_ms = []
+        for i, (ch, ring, (ptr, tail)) in enumerate(zip(wake, rings,
+                                                         kept)):
+            x = images[i % len(images)]
+            for c in range(LC_WAKE_CALLS):
+                t = time.perf_counter()
+                got = _lc_call(f"lifecycle (a) woken channel {i}",
+                               TensorClient(ch), x)
+                if c == 0:
+                    wake_ms.append((time.perf_counter() - t) * 1e3)
+                    check(ring.buf.data_ptr() == ptr
+                          and ring.stats()["tail"] == tail + x.nbytes,
+                          f"lifecycle (a) woken channel {i}: ring at "
+                          f"{ring.buf.data_ptr()} tail "
+                          f"{ring.stats()['tail']}, was {ptr} tail "
+                          f"{tail} (a landing of {x.nbytes})")
+                _bit_equal(f"lifecycle (a) woken channel {i} call {c}",
+                           got, first[i])
+            ends = (ch._conn.endpoint.pair,
+                    _conn_of(rig.server, ch).endpoint.pair)
+            check(not any(p._parked for p in ends),
+                  f"lifecycle (a) woken channel {i}: an end still "
+                  f"parked")
+        after = RingPool.get().stats()
+        check(all(p.parked_epochs >= 1 for p in pairs)
+              and sum(not p._parked for p in pairs) == 2 * woken,
+              f"lifecycle (a): {sum(not p._parked for p in pairs)} "
+              f"fleet ends awake after {woken} channels called")
+        check(after["leased_bytes"] - mid["leased_bytes"]
+              >= 2 * woken * per_end,
+              f"lifecycle (a): RingPool parked {mid}, after the wakes "
+              f"{after}: the woken ends leased no rings")
+    finally:
+        for ch in chans:
+            ch.close()
+        rig.server.stop()
+        _set_env({"TPURPC_PAIR_PARK_S": "0"})
+    p50_off, p50_on = np.percentile(lat_off, 50), np.percentile(lat_on, 50)
+    res.update(first=first[:len(images)], p50_off=p50_off, p50_on=p50_on,
+               pool={"before": before, "parked": mid, "after": after},
+               park_s=t_park)
+    print(f"lifecycle (a): {fleet} device-ring channels (one call each, a "
+          f"{RING >> 20} MiB HbmRing per connection, {LC_HOST_RING_KB} KiB "
+          f"host rings) parked on both ends {t_park:.3f} s after parking "
+          f"was switched on at {LC_PARK_S} s (parked set {parked_n}); "
+          f"RingPool before {before}, parked {mid}, after {woken} wakes "
+          f"{after}; a parked end's resident {stub}; the woken channels' "
+          f"first calls {np.round(wake_ms, 2).tolist()} ms, each ring kept "
+          f"its address and tail, every reply bit-equal to the channel's "
+          f"first; a live channel's {live_calls} calls p50 {p50_on:.2f} ms "
+          f"with the fleet parked, {p50_off:.2f} ms with parking off "
+          f"({card})", flush=True)
+    return res
+
+
+def _inproc_part(dev, card, classify, images, first, requests) -> dict:
+    """Phase 16 (b): the tensor method through ``inproc_channel``, then an
+    inline unary echo over the device ring."""
+    import numpy as np
+
+    from tpurpc_torch.ops import ring_scatter as rs_mod
+    from tpurpc_torch.ops import ring_window as rw_mod
+    from tpurpc_torch.rpc.channel import Channel
+    from tpurpc_torch.rpc.server import (Server, inproc_channel,
+                                         unary_unary_rpc_method_handler)
+    from tpurpc_torch.torchshim.service import TensorClient, add_tensor_method
+
+    srv = Server(max_workers=4)
+    add_tensor_method(srv, "Classify", classify, device=True)
+    srv.start()
+    rs_mod.launches = rw_mod.launches = 0
+    lat = []
+    try:
+        ch = inproc_channel(srv)
+        try:
+            client = TensorClient(ch)
+            for i in range(requests):
+                t = time.perf_counter()
+                got = _lc_call(f"lifecycle (b) inproc call {i}", client,
+                               images[i % len(images)])
+                lat.append((time.perf_counter() - t) * 1e3)
+                _bit_equal(f"lifecycle (b) inproc call {i}", got,
+                           first[i % len(images)])
+        finally:
+            ch.close()
+    finally:
+        srv.stop()
+    launched = {"ring_scatter": rs_mod.launches,
+                "ring_window": rw_mod.launches}
+    check(launched == {"ring_scatter": 0, "ring_window": 0},
+          f"lifecycle (b): the inproc leg launched {launched}")
+    rng = np.random.default_rng(SEED)
+    blobs = [rng.integers(0, 256, 1 << 16, dtype=np.uint8).tobytes()
+             for _ in range(requests)]
+    srv = Server(max_workers=2)
+    srv.add_method("/lifecycle.S/Echo", unary_unary_rpc_method_handler(
+        lambda r, c: bytes(r), inline=True))
+    srv.start()
+    port = srv.add_insecure_port("127.0.0.1:0")
+    try:
+        with Channel(f"127.0.0.1:{port}") as ch:
+            echo = ch.unary_unary("/lifecycle.S/Echo")
+            for i, b in enumerate(blobs):
+                got = echo(b, timeout=30)
+                check(bytes(got) == b,
+                      f"lifecycle (b): inline echo {i} not bit-equal")
+            kind = type(ch._conn.endpoint).__name__
+    finally:
+        srv.stop()
+    p50 = float(np.percentile(lat, 50))
+    print(f"lifecycle (b): {requests} ResNet-50 calls through inproc_channel"
+          f" (a passthru endpoint pair, host decode): replies bit-equal to "
+          f"(a)'s over the device ring, p50 {p50:.2f} ms, launches "
+          f"{launched}; {requests} inline unary echoes of 64 KiB over a "
+          f"{kind} bit-equal ({card})", flush=True)
+    return {"p50": p50}
+
+
+def _lifecycle_part(dev, card, classify, images, first) -> dict:
+    """Phase 16 (c): connectivity, ping, max connection age and keepalive
+    on the device ring."""
+    import numpy as np
+
+    from tpurpc_torch.rpc.channel import Channel, channel_ready_future
+    from tpurpc_torch.rpc.status import ChannelConnectivity as CC
+    from tpurpc_torch.torchshim.service import TensorClient
+
+    res = {}
+    rig = CallPlaneServer(classify)
+    try:
+        with Channel(f"127.0.0.1:{rig.port}") as ch:
+            states = [ch.get_state().name,
+                      ch.get_state(try_to_connect=True).name]
+            _await(lambda: ch.get_state() is CC.READY, 30,
+                   "lifecycle (c): READY")
+            states.append(ch.get_state().name)
+            channel_ready_future(ch).result(timeout=30)
+            check(states == ["IDLE", "CONNECTING", "READY"],
+                  f"lifecycle (c): states {states}")
+            rtts = [ch.ping(timeout=5) * 1e3 for _ in range(16)]
+            res["ping_p50_ms"] = float(np.percentile(rtts, 50))
+            got = _lc_call("lifecycle (c) after ping", TensorClient(ch),
+                           images[0])
+            _bit_equal("lifecycle (c) after ping", got, first[0])
+    finally:
+        rig.server.stop()
+
+    # max connection age: the server GOAWAYs each connection after 1 s
+    _set_env({"TPURPC_MAX_CONNECTION_AGE_MS": str(LC_AGE_MS)})
+    rig = CallPlaneServer(classify)
+    conns, lat = [], []
+    try:
+        with Channel(f"127.0.0.1:{rig.port}") as ch:
+            client = TensorClient(ch)
+            gap = LC_AGE_SPREAD_S / LC_AGE_CALLS
+            for i in range(LC_AGE_CALLS):
+                t = time.perf_counter()
+                got = _lc_call(f"lifecycle (c) max age call {i}", client,
+                               images[i % len(images)])
+                lat.append((time.perf_counter() - t) * 1e3)
+                _bit_equal(f"lifecycle (c) max age call {i}", got,
+                           first[i % len(images)])
+                conn = ch._conn
+                if not conns or conns[-1] is not conn:
+                    conns.append(conn)
+                time.sleep(gap)
+    finally:
+        rig.server.stop()
+        _set_env({"TPURPC_MAX_CONNECTION_AGE_MS": None})
+    check(len(conns) >= 3, f"lifecycle (c): {len(conns)} connections over "
+          f"{LC_AGE_SPREAD_S} s at a {LC_AGE_MS} ms max age: the client "
+          f"redialed {len(conns) - 1} times, want at least 2")
+    res["age_conns"] = len(conns)
+
+    # keepalive: an idle channel keeps its one connection
+    _set_env({"TPURPC_KEEPALIVE_TIME_MS": str(LC_KA_TIME_MS),
+              "TPURPC_KEEPALIVE_TIMEOUT_MS": str(LC_KA_TIMEOUT_MS)})
+    rig = CallPlaneServer(classify)
+    try:
+        with Channel(f"127.0.0.1:{rig.port}") as ch:
+            client = TensorClient(ch)
+            _lc_call("lifecycle (c) keepalive", client, images[0])
+            conn = ch._conn
+            time.sleep(LC_KA_IDLE_S)
+            got = _lc_call("lifecycle (c) keepalive after idle", client,
+                           images[0])
+            _bit_equal("lifecycle (c) keepalive after idle", got, first[0])
+            check(ch._conn is conn and conn.alive and conn.pong_count >= 1,
+                  f"lifecycle (c): keepalive lost the connection (same "
+                  f"{ch._conn is conn}, alive {conn.alive}, pongs "
+                  f"{conn.pong_count})")
+            res["ka_pongs"] = conn.pong_count
+    finally:
+        rig.server.stop()
+        _set_env({"TPURPC_KEEPALIVE_TIME_MS": None,
+                  "TPURPC_KEEPALIVE_TIMEOUT_MS": None})
+    p50 = float(np.percentile(lat, 50))
+    print(f"lifecycle (c): states {states}, channel_ready_future resolved; "
+          f"16 pings p50 {res['ping_p50_ms']:.3f} ms; max age {LC_AGE_MS} "
+          f"ms: {LC_AGE_CALLS} calls over {LC_AGE_SPREAD_S} s on "
+          f"{len(conns)} connections, none failed, every reply bit-equal, "
+          f"p50 {p50:.2f} ms; keepalive "
+          f"{LC_KA_TIME_MS}/{LC_KA_TIMEOUT_MS} ms: idle {LC_KA_IDLE_S} s "
+          f"kept its connection ({res['ka_pongs']} PONGs) ({card})",
+          flush=True)
+    return res
+
+
+def _burst_part(dev, card, classify, images, first) -> dict:
+    """Phase 16 (d): a burst of dials to one device-ring server, then
+    admission pushback at the accept path."""
+    import torch
+
+    from tpurpc_torch.rpc.channel import Channel
+    from tpurpc_torch.rpc.server import Server, unary_unary_rpc_method_handler
+    from tpurpc_torch.rpc.status import RpcError
+    from tpurpc_torch.torchshim.service import TensorClient
+
+    res = {}
+    rig = CallPlaneServer(classify)
+    chans = [Channel(f"127.0.0.1:{rig.port}") for _ in range(LC_BURST)]
+    got, errs = [None] * LC_BURST, []
+    start = threading.Barrier(LC_BURST)
+
+    def dial(i):
+        try:
+            start.wait(30)
+            got[i] = TensorClient(chans[i]).call(
+                "Classify", {"images": torch.from_numpy(
+                    images[i % len(images)])}, timeout=120)
+        except Exception as exc:
+            errs.append(f"{i}: {exc!r}")
+
+    try:
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=dial, args=(i,))
+                   for i in range(LC_BURST)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(180)
+        wall = time.perf_counter() - t0
+        listener = rig.server._listeners[0]
+        shed, burst = listener.shed, listener.max_burst
+    finally:
+        for ch in chans:
+            ch.close()
+        rig.server.stop()
+    check(not errs, f"lifecycle (d): burst calls failed: {errs[:4]}")
+    for i in range(LC_BURST):
+        _bit_equal(f"lifecycle (d) burst call {i}", got[i],
+                   first[i % len(images)])
+    check(shed == 0, f"lifecycle (d): the burst shed {shed} dials")
+
+    # admission: a gate of LC_MAX_INFLIGHT, every slot held on an event
+    _set_env({"TPURPC_ADMISSION_MAX_INFLIGHT": str(LC_MAX_INFLIGHT)})
+    gate = threading.Event()
+    entered = []
+
+    def held(req, ctx):
+        entered.append(1)
+        gate.wait(60)
+        return bytes(req)
+
+    srv = Server(max_workers=LC_MAX_INFLIGHT + 4)
+    srv.add_method("/lifecycle.S/Held", unary_unary_rpc_method_handler(held))
+    srv.start()
+    port = srv.add_insecure_port("127.0.0.1:0")
+    holders = [Channel(f"127.0.0.1:{port}") for _ in range(LC_MAX_INFLIGHT)]
+    outs = [None] * LC_MAX_INFLIGHT
+    extra = []
+
+    def hold(i):
+        try:
+            outs[i] = bytes(holders[i].unary_unary("/lifecycle.S/Held")(
+                b"held%d" % i, timeout=120))
+        except Exception as exc:
+            outs[i] = repr(exc)
+
+    try:
+        threads = [threading.Thread(target=hold, args=(i,))
+                   for i in range(LC_MAX_INFLIGHT)]
+        for t in threads:
+            t.start()
+        _await(lambda: len(entered) == LC_MAX_INFLIGHT, 30,
+               "lifecycle (d): the held calls entered")
+        refused = 0
+        for k in range(LC_MAX_INFLIGHT):
+            ch = Channel(f"127.0.0.1:{port}")
+            extra.append(ch)
+            try:
+                ch.unary_unary("/lifecycle.S/Held")(b"late", timeout=10)
+            except RpcError as exc:
+                refused += exc.code().name == "UNAVAILABLE"
+        shed_n = srv._listeners[0].shed
+        gate.set()
+        for t in threads:
+            t.join(60)
+        after = []
+        for k in range(LC_MAX_INFLIGHT):
+            with Channel(f"127.0.0.1:{port}") as ch:
+                after.append(bytes(ch.unary_unary("/lifecycle.S/Held")(
+                    b"after%d" % k, timeout=30)))
+    finally:
+        gate.set()
+        for ch in holders + extra:
+            ch.close()
+        srv.stop()
+        _set_env({"TPURPC_ADMISSION_MAX_INFLIGHT": None})
+    check(outs == [b"held%d" % i for i in range(LC_MAX_INFLIGHT)],
+          f"lifecycle (d): held calls {outs}")
+    check(refused == LC_MAX_INFLIGHT and shed_n >= LC_MAX_INFLIGHT,
+          f"lifecycle (d): {refused} dials refused, {shed_n} shed at "
+          f"accept, want {LC_MAX_INFLIGHT} each")
+    check(after == [b"after%d" % k for k in range(LC_MAX_INFLIGHT)],
+          f"lifecycle (d): calls after the release {after}")
+    res.update(shed=shed_n, max_burst=burst, wall=wall)
+    print(f"lifecycle (d): {LC_BURST} channels dialed one device-ring server "
+          f"at once: all bootstrapped and answered bit-equal in {wall:.3f} s "
+          f"(largest accept burst {burst}, shed {shed}); with "
+          f"TPURPC_ADMISSION_MAX_INFLIGHT="
+          f"{LC_MAX_INFLIGHT} and every slot held, {refused} new dials "
+          f"refused UNAVAILABLE, {shed_n} shed before any handshake; after "
+          f"the release the held calls and {LC_MAX_INFLIGHT} new dials "
+          f"completed ({card})", flush=True)
+    return res
+
+
+def lifecycle_plane(dev, card, size=SIZE, ring=RING, requests=REQUESTS,
+                    fleet=LC_FLEET, woken=LC_WOKEN,
+                    live_calls=LC_LIVE_CALLS) -> dict:
+    """Phase 16: the connection lifecycle (docstring of this file).
+    Returns each part's launches; (a), (c) and (d) are checked against what
+    their landings' ring offsets give."""
+    import numpy as np
+    import torch
+
+    from tpurpc_torch.models.resnet import make_infer_fn, resnet50
+    from tpurpc_torch.ops import ring_scatter as rs_mod
+    from tpurpc_torch.ops import ring_window as rw_mod
+
+    t_phase = time.perf_counter()
+    print(f"lifecycle: {_raise_nofile()}", flush=True)
+    saved = {k: os.environ.get(k) for k in LC_ENV}
+    _set_env({"GRPC_PLATFORM_TYPE": "TPU", "TPURPC_TORCH_DEVICE": str(dev),
+              "TPURPC_HBM_RING_SIZE_KB": str(ring >> 10)})
+    res = {}
+    try:
+        torch.manual_seed(SEED)                  # phase 3's weights
+        infer = make_infer_fn(resnet50().to(dev))
+
+        def classify(tree):
+            logits = infer(tree["images"].to(dev))
+            return {"logits": logits, "top1": logits.argmax(dim=1)}
+
+        rng = np.random.default_rng(SEED)        # phase 3's requests
+        images = [rng.standard_normal((BATCH, size, size, 3)).astype(
+            np.float32) for _ in range(requests)]
+        wants = [infer(torch.from_numpy(x).to(dev)).cpu() for x in images]
+
+        def part(name, fn, *args):
+            """Run one part with the wrappers' counts set to 0 just
+            before; its launches must be what its landings' ring offsets
+            give."""
+            t = time.perf_counter()
+            with _Landings() as land:
+                rs_mod.launches = rw_mod.launches = 0
+                out = fn(*args)
+                got = {"ring_scatter": rs_mod.launches,
+                       "ring_window": rw_mod.launches}
+            want = land.launches()
+            check(got == want, f"lifecycle ({name}): launched {got}, the "
+                  f"{len(land.recs)} landings' ring offsets give {want}")
+            out["launches"] = got
+            print(f"lifecycle: ({name}) took {time.perf_counter() - t} s",
+                  flush=True)
+            return out
+
+        res["a"] = part("a", _parked_fleet, dev, card, classify, images,
+                        wants, fleet, woken, live_calls)
+        first = res["a"]["first"]
+        res["b"] = part("b", _inproc_part, dev, card, classify, images,
+                        first, requests)
+        res["c"] = part("c", _lifecycle_part, dev, card, classify, images,
+                        first)
+        res["d"] = part("d", _burst_part, dev, card, classify, images,
+                        first)
+    finally:
+        _set_env(saved)
+    total = {k: sum(res[p]["launches"][k] for p in "abcd")
+             for k in ("ring_scatter", "ring_window")}
+    check(min(total.values()) >= 1, f"lifecycle: phase 16 launched {total}")
+    print(f"lifecycle: phase 16 took {time.perf_counter() - t_phase} s, "
+          f"launches {total} ({card})", flush=True)
+    return res
+
+
 def card_line() -> str:
     """The card's name and power limit, as nvidia-smi reports them."""
     smi = subprocess.run(
@@ -4802,7 +5408,7 @@ def main() -> None:
         launches = {"ring_scatter": None, "ring_window": None}
         stream = tf_launches = train_launches = gen_launches = None
         fleet_launches = h2_launches = cp_launches = tls_launches = None
-        aio_launches = lb_launches = tp_launches = None
+        aio_launches = lb_launches = tp_launches = lc_launches = None
     else:
         from tpurpc_torch.ops import ring_scatter as rs_mod
         from tpurpc_torch.ops import ring_window as rw_mod
@@ -4870,6 +5476,9 @@ def main() -> None:
         # phase 15: (a) per round of the device-ring leg, (b) per server,
         # (c) in the spawned server process; (d) launches neither
         tp_launches = transport_plane(dev, card)
+        # phase 16: every part's launches as its landings' offsets give;
+        # (b)'s inproc leg has no ring and launches neither
+        lc_launches = lifecycle_plane(dev, card)
 
     sources = {"ring_scatter": "tpurpc/ops/ring_scatter.py:133",
                "ring_window": "tpurpc/ops/ring_window.py:138"}
@@ -4946,7 +5555,13 @@ def main() -> None:
                       "off": [r[name] for r in tp_launches["a"]["0"]]},
                 "b": {way: n[name] for way, n in tp_launches["b"].items()},
                 "c": {dom: n[name]
-                      for dom, n in tp_launches["c"].items()}})})
+                      for dom, n in tp_launches["c"].items()}}),
+            # phase 16, the connection lifecycle: (a) the parked fleet and
+            # its wakes, (b) inproc and inline, (c) connectivity, max age
+            # and keepalive, (d) the burst and admission
+            "lifecycle_launches": (None if lc_launches is None else {
+                part: lc_launches[part]["launches"][name]
+                for part in "abcd"})})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     if kernels_only:

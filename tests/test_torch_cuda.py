@@ -16,9 +16,11 @@ behind a seeded fault injector, a hedge's loser) on the device ring, and
 mTLS onto the card ring (bit-equal to plaintext; refused clients leave the
 ring alone), async handlers of the asyncio surface on the card ring
 (bit-equal to the sync device path), a look-aside balancer moving a
-channel between two card-ring servers, and the transport's head (a gzip'd
+channel between two card-ring servers, the transport's head (a gzip'd
 request, a stream with its control ops on the descriptor ring, and a
-``tcp_window`` pair feeding the card's ring) run on the card.
+``tcp_window`` pair feeding the card's ring), and the connection lifecycle
+(a parked card-ring connection woken, a call redialed by max connection
+age, ``ping`` on the card ring) run on the card.
 """
 
 import numpy as np
@@ -1170,3 +1172,100 @@ def test_tcp_window_pair_feeds_the_card_ring(dev, stream_env):
     assert counts["ctrl_frames"] >= STREAM_MSGS
     assert rs_mod.launches > before[0] and rw_mod.launches > before[1]
     _check_stream(reply, xs)
+
+
+def _parked_ends(srv, ch, timeout=30.0):
+    import time
+
+    ends = (ch._conn.endpoint.pair, srv._connections[0].endpoint.pair)
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        # a pair's flag goes up a moment before the parked set takes it
+        if all(p._parked for p in ends) and Poller.get().parked_count() >= 2:
+            return ends
+        time.sleep(0.01)
+    raise AssertionError(f"ends not parked: {[p._parked for p in ends]}")
+
+
+@pytest.mark.cuda
+def test_parked_card_ring_connection_wakes_bit_equal(dev, stream_env,
+                                                     exact_f32):
+    """Phase 16 (a) at a small model: a device-ring connection idles until
+    both ends park (host rings to the pool), then the next call wakes it:
+    the card's ring keeps its storage and tail (the request lands where the
+    last one ended), and the reply is bit-equal to the first."""
+    from tpurpc_torch.core.pair import RingPool
+
+    stream_env("TPU", TPURPC_HBM_RING_SIZE_KB="64", TPURPC_PAIR_PARK_S="0.2")
+    infer = _small_model(dev)
+    rig = CallPlaneServer(lambda t: {"y": infer(t["x"])}, max_workers=4)
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (2, 32, 32, 3)).astype(np.float32))
+    try:
+        with Channel(f"127.0.0.1:{rig.port}") as ch:
+            first = TensorClient(ch).call("Classify", {"x": x}, timeout=60)
+            ring = rig.ring()
+            ptr, tail = ring.buf.data_ptr(), ring.stats()["tail"]
+            ends = _parked_ends(rig.server, ch)
+            assert Poller.get().parked_count() >= 2
+            again = TensorClient(ch).call("Classify", {"x": x}, timeout=60)
+            assert not any(p._parked for p in ends)
+            assert ring.buf.data_ptr() == ptr
+            assert ring.stats()["tail"] == tail + x.numpy().nbytes
+            assert torch.equal(first["y"], again["y"])
+    finally:
+        rig.server.stop()
+        RingPool.reset()
+
+
+@pytest.mark.cuda
+def test_max_age_redial_lands_on_a_fresh_card_ring(dev, stream_env,
+                                                   exact_f32):
+    """Phase 16 (c) at a small model: with a 300 ms max connection age the
+    server GOAWAYs the connection; the next call redials transparently,
+    lands at offset 0 of the new connection's card ring and replies
+    bit-equal to the first."""
+    import time
+
+    stream_env("TPU", TPURPC_HBM_RING_SIZE_KB="64",
+               TPURPC_MAX_CONNECTION_AGE_MS="300")
+    infer = _small_model(dev)
+    rig = CallPlaneServer(lambda t: {"y": infer(t["x"])}, max_workers=4)
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (2, 32, 32, 3)).astype(np.float32))
+    try:
+        with Channel(f"127.0.0.1:{rig.port}") as ch:
+            conn1 = ch._subchannels[0].get()
+            first = TensorClient(ch).call("Classify", {"x": x}, timeout=60)
+            deadline = time.monotonic() + 10
+            while ((conn1.alive and not conn1.draining)
+                   and time.monotonic() < deadline):
+                time.sleep(0.02)
+            before = (rs_mod.launches, rw_mod.launches)
+            again = TensorClient(ch).call("Classify", {"x": x}, timeout=60)
+            assert ch._conn is not conn1
+            assert rig.server._connections[-1].endpoint.device_ring.stats()[
+                "tail"] == x.numpy().nbytes
+            assert (rs_mod.launches, rw_mod.launches) == before
+            assert torch.equal(first["y"], again["y"])
+    finally:
+        rig.server.stop()
+
+
+@pytest.mark.cuda
+def test_ping_on_the_card_ring(dev, stream_env):
+    """``Channel.ping`` over a device-ring connection on the card answers,
+    and a call on the same connection still lands on the card's ring."""
+    stream_env("TPU", TPURPC_HBM_RING_SIZE_KB="64")
+    infer = _small_model(dev)
+    rig = CallPlaneServer(lambda t: {"y": infer(t["x"])}, max_workers=4)
+    x = torch.zeros((1, 32, 32, 3))
+    try:
+        with Channel(f"127.0.0.1:{rig.port}") as ch:
+            rtts = [ch.ping(timeout=5.0) for _ in range(8)]
+            assert all(0 <= r < 5.0 for r in rtts)
+            out = TensorClient(ch).call("Classify", {"x": x}, timeout=60)
+            assert out["y"].shape == (1, 10)
+            assert rig.ring().stats()["tail"] == x.numpy().nbytes
+    finally:
+        rig.server.stop()

@@ -218,6 +218,40 @@ def test_h2channel_against_port_server():
         srv.stop(grace=0)
 
 
+def test_h2channel_headers_write_on_a_closed_connection_is_unavailable():
+    """A call whose HEADERS write meets a connection closed under it (the
+    close after a GOAWAY racing a call that took its stream id just
+    before) fails UNAVAILABLE naming the GOAWAY, not with the endpoint's
+    raw error, and leaves no call behind."""
+    from tpurpc_torch.core.endpoint import EndpointError
+
+    srv = trpc.Server(max_workers=4)
+    srv.add_method("/test.Echo/Echo",
+                   trpc.unary_unary_rpc_method_handler(lambda req, ctx: req))
+    port = srv.add_insecure_port("127.0.0.1:0")
+    srv.start()
+    try:
+        with H2Channel(f"127.0.0.1:{port}") as ch:
+            mc = ch.unary_unary("/test.Echo/Echo")
+            assert mc(b"first", timeout=20) == b"first"
+            write = ch._ep.write
+
+            def closed(data):
+                ch._goaway = "server sent GOAWAY (error 0)"
+                raise EndpointError(
+                    "tcp write failed: [Errno 9] Bad file descriptor")
+
+            ch._ep.write = closed
+            with pytest.raises(RpcError) as ei:
+                mc(b"late", timeout=20)
+            ch._ep.write = write
+            assert ei.value.code() is StatusCode.UNAVAILABLE
+            assert "GOAWAY" in ei.value.details()
+            assert not ch._calls
+    finally:
+        srv.stop(grace=0)
+
+
 def test_h2channel_against_gzip_compressing_server():
     """A grpcio server configured for gzip compresses RESPONSES; H2Channel
     advertises gzip and decompresses them."""

@@ -1,12 +1,23 @@
 """Endpoint: the swappable byte-pipe seam, and the factory that swaps it.
 
-A trimmed copy of ``tpurpc/core/endpoint.py`` (no accept-storm admission,
-no native raw hook): one blocking endpoint interface with the byte-pipe
+A trimmed copy of ``tpurpc/core/endpoint.py`` (no native raw hook, which
+comes with the C core; no flight or metrics hooks, among them the
+``accept_shed`` counter, which come with the observability port): one
+blocking endpoint interface with the byte-pipe
 chosen by ``GRPC_PLATFORM_TYPE`` at connection time — ``TcpEndpoint`` for
 TCP, ``RingEndpoint`` (a pooled :class:`Pair`) for the ring platforms, and
 ``TpuRingEndpoint`` (a ring endpoint with a device receive ring) for
 ``TPU``. ``read_into`` fills ≥1 byte, returns 0 once at clean EOF, or raises
-:class:`EndpointError`; ``write`` accepts the whole buffer or raises.
+:class:`EndpointError`; ``read`` is the same as bytes; ``write`` accepts the
+whole buffer or raises. A ring endpoint's pair may park while idle
+(``core/pair.py``): its reads keep waiting through a park, and its writes
+wake the peer. ``MockEndpoint`` and :func:`passthru_endpoint_pair` are the
+scriptable in-memory endpoints the tests and ``inproc_channel`` build on.
+
+:class:`EndpointListener` accepts in bursts of up to ``accept_burst`` per
+wakeup, consults an admission probe for each accepted socket before any
+handshake work, and bounds the bootstrap handshakes in flight: a shed
+connection costs one accept and one close.
 
 TLS sits under the factory: :func:`connect_endpoint` (``ssl_context=``) and
 :class:`EndpointListener` (``ssl_context=``) handshake BEFORE the platform
@@ -19,12 +30,13 @@ the socket's SSL object (OpenSSL forbids concurrent use of one ``SSL*``).
 from __future__ import annotations
 
 import contextlib
+import queue
 import select
 import socket
 import ssl
 import threading
 import time
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 from tpurpc_torch.core.pair import Pair, PairState
 from tpurpc_torch.core.poller import PairPool, Poller, wait_readable, wait_writable
@@ -45,6 +57,14 @@ class Endpoint:
     def read_into(self, dst, timeout: Optional[float] = None) -> int:
         """Read ≥1 byte directly into ``dst``; 0 exactly once at clean EOF."""
         raise NotImplementedError
+
+    def read(self, max_bytes: int = 1 << 20,
+             timeout: Optional[float] = None) -> bytes:
+        """Read ≥1 byte, at most ``max_bytes``; ``b""`` once at clean EOF."""
+        buf = bytearray(max_bytes)
+        n = self.read_into(buf, timeout=timeout)
+        del buf[n:]
+        return bytes(buf)
 
     def write(self, data) -> None:
         raise NotImplementedError
@@ -425,6 +445,117 @@ class RingEndpoint(Endpoint):
 
 
 # ---------------------------------------------------------------------------
+# Test endpoints.
+# ---------------------------------------------------------------------------
+
+class _QueueReadEndpoint(Endpoint):
+    """Reads of a queue-fed test endpoint: the tail of a chunk larger than
+    the read is kept for the next one, and an injected ``b""`` is a sticky
+    EOF."""
+
+    def __init__(self, rx: "queue.Queue[bytes]"):
+        self._rx = rx
+        self._pending = bytearray()
+        self._closed = False
+        self._eof = False
+
+    def read(self, max_bytes: int = 1 << 20,
+             timeout: Optional[float] = None) -> bytes:
+        if self._closed:
+            raise EndpointError("read on closed endpoint")
+        if self._pending:
+            out = bytes(self._pending[:max_bytes])
+            del self._pending[:max_bytes]
+            return out
+        if self._eof:
+            return b""
+        try:
+            data = self._rx.get(timeout=timeout)
+        except queue.Empty:
+            raise ReadTimeout() from None
+        if data == b"":
+            self._eof = True
+        self._pending += data[max_bytes:]
+        return data[:max_bytes]
+
+    def read_into(self, dst, timeout: Optional[float] = None) -> int:
+        dst = memoryview(dst).cast("B")
+        data = self.read(len(dst), timeout=timeout)
+        dst[:len(data)] = data
+        return len(data)
+
+    def close(self) -> None:
+        self._closed = True
+
+
+class MockEndpoint(_QueueReadEndpoint):
+    """Scriptable endpoint: the test injects reads and captures writes."""
+
+    def __init__(self, peer: str = "mock:peer"):
+        super().__init__(queue.Queue())
+        self.written = bytearray()
+        self._peer_name = peer
+
+    def inject(self, data: bytes) -> None:
+        self._rx.put(data)
+
+    def inject_eof(self) -> None:
+        self._rx.put(b"")
+
+    def write(self, data) -> None:
+        if self._closed:
+            raise EndpointError("write on closed endpoint")
+        slices = data if isinstance(data, (list, tuple)) else [data]
+        for s in slices:
+            self.written += bytes(s)
+
+    @property
+    def peer(self) -> str:
+        return self._peer_name
+
+    @property
+    def local_address(self) -> str:
+        return "mock:local"
+
+
+class _PassthruHalf(_QueueReadEndpoint):
+    """One end of :func:`passthru_endpoint_pair`."""
+
+    def __init__(self, rx: queue.Queue, tx: queue.Queue, name: str):
+        super().__init__(rx)
+        self._tx, self._name = tx, name
+
+    def write(self, data) -> None:
+        if self._closed:
+            raise EndpointError("write on closed endpoint")
+        slices = data if isinstance(data, (list, tuple)) else [data]
+        payload = b"".join(bytes(s) for s in slices)
+        if payload:
+            self._tx.put(payload)
+
+    def close(self) -> None:
+        if not self._closed:
+            super().close()
+            self._tx.put(b"")
+
+    @property
+    def peer(self) -> str:
+        return f"passthru:{self._name}:peer"
+
+    @property
+    def local_address(self) -> str:
+        return f"passthru:{self._name}:local"
+
+
+def passthru_endpoint_pair() -> Tuple[Endpoint, Endpoint]:
+    """Two endpoints joined by in-memory queues (the in-process transport);
+    a close is the other end's EOF."""
+    q1: queue.Queue = queue.Queue()
+    q2: queue.Queue = queue.Queue()
+    return _PassthruHalf(q1, q2, "a"), _PassthruHalf(q2, q1, "b")
+
+
+# ---------------------------------------------------------------------------
 # The factory + connectors.
 # ---------------------------------------------------------------------------
 
@@ -486,20 +617,34 @@ TLS_HANDSHAKE_TIMEOUT_S = 20.0
 
 
 class EndpointListener:
-    """Accept loop feeding the factory. Each accepted socket bootstraps on
-    its own thread, so one silent client cannot stall other accepts; the
-    listener accepts only once ``ready`` is set (grpcio semantics: the port
-    is bound at add_port, served at start). ``reuseport`` lets listeners of
-    several processes share one port (``SO_REUSEPORT``). With
-    ``ssl_context`` every connection handshakes (within
-    :data:`TLS_HANDSHAKE_TIMEOUT_S`) before the factory sees it; one that
-    fails is closed there."""
+    """Accept loop feeding the factory. The listener accepts only once
+    ``ready`` is set (grpcio semantics: the port is bound at add_port,
+    served at start). ``reuseport`` lets listeners of several processes
+    share one port (``SO_REUSEPORT``). With ``ssl_context`` every
+    connection handshakes (within :data:`TLS_HANDSHAKE_TIMEOUT_S`) before
+    the factory sees it; one that fails is closed there.
+
+    A reconnect storm lands a whole listen backlog at once. Two defenses,
+    both before any handshake work is spent on a connection:
+
+    * burst accepts: each wakeup takes up to ``accept_burst`` queued
+      connections (one blocking accept, then non-blocking ones), so the
+      backlog clears in a few sweeps while ``close()`` stays responsive;
+    * admission pushback: ``admission()`` (None admits, an int is a
+      pushback in ms; the RPC server wires its admission gate's
+      connection-level face here) is consulted per accepted socket, and
+      the bootstrap handshakes in flight are bounded. A shed connection is
+      closed at once and counted in :attr:`shed`.
+
+    Each admitted socket bootstraps on its own thread, so one silent
+    client cannot stall the others."""
 
     def __init__(self, host: str, port: int,
                  on_endpoint: Callable[[Endpoint], None],
                  ready: "Optional[threading.Event]" = None,
                  reuseport: bool = False,
-                 ssl_context=None):
+                 ssl_context=None,
+                 admission: "Optional[Callable[[], Optional[int]]]" = None):
         self._ssl_context = ssl_context
         self._sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
         self._sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
@@ -513,6 +658,17 @@ class EndpointListener:
         self._sock.listen(128)
         self.port = self._sock.getsockname()[1]
         self._on_endpoint = on_endpoint
+        self._admission = admission
+        self._burst = max(1, get_config().accept_burst)
+        #: bootstrap handshakes in flight, bounded so that a storm cannot
+        #: start unbounded handshake threads; guarded by _handshakes_mu
+        self._handshakes = 0
+        self._max_handshakes = max(self._burst * 4, 64)
+        self._handshakes_mu = threading.Lock()
+        #: connections closed at the accept gate, and the largest burst one
+        #: wakeup took
+        self.shed = 0
+        self.max_burst = 0
         self._ready = ready
         self._stopped = False
         self._thread = threading.Thread(target=self._loop, daemon=True,
@@ -536,11 +692,64 @@ class EndpointListener:
                     return
                 time.sleep(0.05)  # transient (EMFILE...): keep accepting
                 continue
-            threading.Thread(target=self._bootstrap, args=(sock, addr),
-                             daemon=True,
-                             name=f"tpurpc-bootstrap-{self.port}").start()
+            # the rest of the backlog is in the kernel's queue right now:
+            # take up to accept_burst of it in this sweep
+            batch = [(sock, addr)]
+            self._sock.settimeout(0)
+            try:
+                while len(batch) < self._burst and not self._stopped:
+                    try:
+                        s2, a2 = self._sock.accept()
+                    except (BlockingIOError, socket.timeout):
+                        break
+                    except OSError:
+                        break
+                    s2.settimeout(None)
+                    batch.append((s2, a2))
+            finally:
+                self._sock.settimeout(0.2)
+            self.max_burst = max(self.max_burst, len(batch))
+            for s, a in batch:
+                self._dispatch(s, a)
+
+    def _dispatch(self, sock: socket.socket, addr) -> None:
+        """The admission gate, then a bootstrap off the accept thread.
+        Shedding happens here, before TLS, the protocol sniff or any
+        endpoint state."""
+        pushback = None
+        if self._admission is not None:
+            try:
+                pushback = self._admission()
+            except Exception:
+                pushback = None  # a broken probe never sheds
+        with self._handshakes_mu:
+            inflight = self._handshakes
+            if pushback is None and inflight >= self._max_handshakes:
+                # the handshake plane itself is the bottleneck: shed with a
+                # nominal pushback rather than queue threads unboundedly
+                pushback = 50
+            if pushback is None:
+                self._handshakes = inflight + 1
+            else:
+                self.shed += 1
+        if pushback is not None:
+            try:
+                sock.close()
+            except OSError:
+                pass
+            return
+        threading.Thread(target=self._bootstrap, args=(sock, addr),
+                         daemon=True,
+                         name=f"tpurpc-bootstrap-{self.port}").start()
 
     def _bootstrap(self, sock: socket.socket, addr) -> None:
+        try:
+            self._bootstrap_inner(sock, addr)
+        finally:
+            with self._handshakes_mu:
+                self._handshakes = max(0, self._handshakes - 1)
+
+    def _bootstrap_inner(self, sock: socket.socket, addr) -> None:
         try:
             if self._ssl_context is not None:
                 # the handshake comes before the platform sniff, which then

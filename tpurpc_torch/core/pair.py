@@ -1,8 +1,10 @@
 """Pair: one connection's data plane — a receive ring the peer writes into,
 a status page for credits and the close flag, and a notify socket.
 
-A trimmed copy of ``tpurpc/core/pair.py`` (pure Python; no idle parking, no
-native spin or waiter-advertisement words — every send notifies):
+A trimmed copy of ``tpurpc/core/pair.py`` (pure Python; no native spin or
+waiter-advertisement words, so every send notifies: those come with the C
+core; no flight, metrics, lens or profiler hooks, which come with the
+observability port):
 
 * the peer one-sided-writes messages into our receive ring and its consumed
   head (credit) and ``peer_exit`` flag into our status page;
@@ -18,6 +20,14 @@ native spin or waiter-advertisement words — every send notifies):
   readiness check, since ``MSG_PEEK`` is refused on an ``SSLSocket``. TLS
   guards the bootstrap and the notify channel; ring payloads stay in the
   memory domain, as the reference's stay in registered memory;
+* idle-pair parking: a pair quiet for ``pair_park_s`` asks its peer to
+  close its windows into our rings (PARK/ACK on the notify stream), then
+  hands its receive ring and status page to the process-wide
+  :class:`RingPool` and keeps a stub; the next byte either way re-arms it
+  on freshly leased rings (WAKE/REARM). The tokens and the REARM blob are
+  the reference's bytes, so a port pair and a reference pair park against
+  each other. Only host regions park: a device ring above the pair
+  (``tpu/hbm_ring.py``) stays allocated and keeps its tail;
 * the lifecycle is ``UNINITIALIZED → INITIALIZED → CONNECTED →
   HALF_CLOSED/DISCONNECTED/ERROR``, and ``init()`` revives pooled pairs.
 """
@@ -35,7 +45,9 @@ import struct
 import threading
 import time
 import uuid
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
 
 from tpurpc_torch.core import transport as _transport
 from tpurpc_torch.core.ring import RingCorruption, RingReader, RingWriter
@@ -264,6 +276,135 @@ def make_domain(kind: str) -> MemoryDomain:
 
 
 # ---------------------------------------------------------------------------
+# The shared ring-region pool.
+# ---------------------------------------------------------------------------
+
+class RingPool:
+    """Process-wide free list of ring and status regions keyed by
+    ``(domain kind, byte size)``: mostly idle pairs share a few size
+    classes of allocations instead of pinning one ring each.
+
+    A region enters the free list only once no peer window onto it can
+    still write: the park handshake's ACK (the peer closed its windows) is
+    that proof. Free regions are zeroed before shelving, so that a fresh
+    :class:`~tpurpc_torch.core.ring.RingReader` never reads a previous
+    tenant's frame headers. Only plain host domains (``local``, ``shm``)
+    are pooled; any other region is closed on release. A pair's regions
+    are leased here at ``init()`` and at unpark; teardown closes them and
+    :meth:`forget` drops their accounting."""
+
+    _instance: "Optional[RingPool]" = None
+    _instance_lock = threading.Lock()
+
+    _POOLABLE = frozenset({"local", "shm"})
+    _MAX_FREE_BYTES = 256 << 20
+    _MAX_FREE_PER_CLASS = 4096
+
+    @classmethod
+    def get(cls) -> "RingPool":
+        with cls._instance_lock:
+            if cls._instance is None:
+                cls._instance = RingPool()
+            return cls._instance
+
+    @classmethod
+    def reset(cls) -> None:
+        with cls._instance_lock:
+            inst, cls._instance = cls._instance, None
+        if inst is not None:
+            inst.drain()
+
+    def __init__(self):
+        self._free: Dict[Tuple[str, int], List[Region]] = {}
+        self._free_bytes = 0
+        #: id(region) -> nbytes of the regions handed out by lease(): a
+        #: release of a region the pool never leased does not count twice
+        self._out: Dict[int, int] = {}
+        self._lock = threading.Lock()
+
+    def lease(self, domain: MemoryDomain, nbytes: int) -> Region:
+        """A writer-free region of exactly ``nbytes``: from the free list
+        when its size class has one, else a fresh allocation. A caller
+        pairs every lease with a :meth:`release` (or :meth:`forget` before
+        it closes the region) on its failure paths."""
+        key = (domain.kind, nbytes)
+        region = None
+        with self._lock:
+            bucket = self._free.get(key)
+            if bucket:
+                region = bucket.pop()
+                self._free_bytes -= nbytes
+        if region is None:
+            region = domain.alloc(nbytes)
+        with self._lock:
+            self._out[id(region)] = nbytes
+        return region
+
+    def release(self, region: Optional[Region]) -> None:
+        """Return a region to the free list, or close it when its domain is
+        not pooled or the list is full. The caller asserts that no peer
+        window onto it can still write."""
+        if region is None:
+            return
+        region.on_write = None
+        try:
+            nbytes = len(region.buf)
+        except ValueError:
+            nbytes = 0  # already released: nothing to pool
+        kind = region.handle.split(":", 1)[0]
+        with self._lock:
+            self._out.pop(id(region), None)
+            poolable = (nbytes > 0 and kind in self._POOLABLE
+                        and self._free_bytes + nbytes <= self._MAX_FREE_BYTES
+                        and len(self._free.get((kind, nbytes), ()))
+                        < self._MAX_FREE_PER_CLASS)
+        if poolable:
+            try:
+                # the next tenant's reader starts at head 0 and must never
+                # see this tenant's frame headers
+                np.frombuffer(region.buf, dtype=np.uint8).fill(0)
+            except (ValueError, TypeError):
+                poolable = False
+        if not poolable:
+            try:
+                region.close()
+            except Exception:
+                pass
+            return
+        with self._lock:
+            self._free.setdefault((kind, nbytes), []).append(region)
+            self._free_bytes += nbytes
+
+    def forget(self, region: Optional[Region]) -> None:
+        """Drop the lease accounting of a region its owner closes itself
+        (teardown: no window-close ack proves it writer-free, so it must
+        not enter the free list)."""
+        if region is None:
+            return
+        with self._lock:
+            self._out.pop(id(region), None)
+
+    def stats(self) -> Dict[str, int]:
+        with self._lock:
+            return {"free_bytes": self._free_bytes,
+                    "free_regions": sum(len(b) for b in self._free.values()),
+                    "leased_bytes": sum(self._out.values()),
+                    "leased_regions": len(self._out)}
+
+    def drain(self) -> None:
+        """Close every free region."""
+        with self._lock:
+            regions = [r for b in self._free.values() for r in b]
+            self._free.clear()
+            self._free_bytes = 0
+        for r in regions:
+            try:
+                r.close()
+            except Exception:
+                pass
+
+
+# ---------------------------------------------------------------------------
 # Address: what gets exchanged at bootstrap.
 # ---------------------------------------------------------------------------
 
@@ -271,7 +412,8 @@ class Address:
     """Serializable bootstrap blob: tag, domain, ring size and the handles of
     the receive ring and status page. ``caps`` are capability strings: this
     package advertises ``rdv`` (rendezvous on, ``core/rendezvous.py``) and
-    reads only that of the peer's."""
+    ``park`` (it answers the park protocol), and reads those of the
+    peer's."""
 
     def __init__(self, tag: str, domain_kind: str, ring_size: int,
                  ring_handle: str, status_handle: str,
@@ -356,27 +498,76 @@ def peek_protocol(sock: socket.socket, timeout: float = BOOTSTRAP_TIMEOUT_S
 NOTIFY_DATA = b"d"
 NOTIFY_CREDIT = b"c"
 NOTIFY_EXIT = b"x"
+#: the park protocol's tokens, on the same stream. PARK asks the peer to
+#: close its one-sided windows into our regions and answer ACK: only that
+#: ack proves no stale writer remains, which lets the regions enter the
+#: shared RingPool. NACK aborts (the peer is mid-send). WAKE asks a parked
+#: peer to re-arm because we have bytes for it; REARM prefixes a framed
+#: Address blob advertising fresh (or, on a park abort, retained) rings.
+NOTIFY_PARK = b"p"
+NOTIFY_PARK_ACK = b"q"
+NOTIFY_PARK_NACK = b"n"
+NOTIFY_WAKE = b"w"
+#: "r": re-arm onto freshly leased rings (unpark); the peer builds a writer
+#: at position zero. "R": re-arm onto retained rings (park abort, repair);
+#: the peer restores its saved writer position. The frame must say which:
+#: the pool can hand the same region straight back to the same pair, so a
+#: handle cannot tell a fresh lease from retained rings.
+NOTIFY_REARM = b"r"
+NOTIFY_REARM_KEEP = b"R"
+_CLASSIC_TOKENS = b"dcx"
+
+
+class _ParkBusy(Exception):
+    """Raised inside the send guard when a park episode owns the write
+    side. ``Pair.send`` catches it, resolves the episode outside the guard
+    (lock order: ``_park_lock`` before ``_send_guard``) and retries."""
 
 
 class ContentAssertion:
     """Single-entrant tripwire on send/recv: two threads inside one side at
-    once is a caller bug, raised loudly rather than corrupting a ring."""
+    once is a caller bug, raised loudly rather than corrupting a ring.
+
+    The park protocol's handlers need the guard too, but run on a drain or
+    poller thread: a send or recv racing one of them is no caller bug.
+    :meth:`maintenance` marks such a hold, so that a regular entrant gets
+    the retryable :class:`_ParkBusy` instead of the tripwire."""
 
     def __init__(self, name: str):
         self._name = name
         self._flag = False
+        self._maint = False
         self._lock = threading.Lock()
 
     def __enter__(self):
         with self._lock:
             if self._flag:
+                if self._maint:
+                    raise _ParkBusy
                 raise AssertionError(f"concurrent entry into {self._name}")
             self._flag = True
 
     def __exit__(self, *exc):
         with self._lock:
             self._flag = False
+            self._maint = False
         return False
+
+    @contextlib.contextmanager
+    def maintenance(self):
+        """Guard entry for a park-protocol handler: excludes an in-flight
+        send/recv as regular entry does (AssertionError on conflict: the
+        handler aborts or NACKs), but a racing regular entrant gets
+        :class:`_ParkBusy`."""
+        with self._lock:
+            if self._flag:
+                raise AssertionError(f"concurrent entry into {self._name}")
+            self._flag = True
+            self._maint = True
+        try:
+            yield self
+        finally:
+            self.__exit__()
 
 
 class Pair:
@@ -416,18 +607,49 @@ class Pair:
         self.want_write = False  # a sender is stalled waiting for credits
         #: adaptive-hybrid activity score (see core/poller.py)
         self.activity_ewma = 1.0
+        #: monotonic byte counters of the data plane
+        self.total_sent = 0
+        self.total_recv = 0
+        # serializes notify-socket writes: one-byte tokens and the
+        # multi-byte re-arm frame (a token inside a frame would corrupt the
+        # peer's parser)
         self._notify_lock = threading.Lock()
+        # idle-pair parking. Lock order where both are held: _park_lock
+        # before _send_guard (send paths check the park flags inside the
+        # guard and retry outside it, never taking _park_lock under it)
+        self._park_lock = threading.Lock()
+        #: serializes drain_notifications end to end, so that the park
+        #: parser sees the token stream in order
+        self._drain_mu = threading.Lock()
+        self._parked = False          # own regions pooled; a stub remains
+        self._park_pending = False    # PARK sent, ack/nack not yet seen
+        self._park_sent_at = 0.0
+        self._peer_parked = False     # peer's regions gone; writer is None
+        #: (peer ring handle, tail, seq, remote_head) saved when a peer's
+        #: PARK closes our writer, restored if it aborts with the same rings
+        self._saved_wstate: Optional[Tuple[str, int, int, int]] = None
+        self._peer_ring_handle = ""
+        self._notify_buf = b""        # partial re-arm frame reassembly
+        self.last_activity = time.monotonic()
+        self.parked_epochs = 0        # completed park -> unpark round trips
 
     # -- lifecycle ----------------------------------------------------------
 
     def init(self) -> None:
-        """Allocate fresh rings and reset state. Regions are always NEW
-        allocations: a previous peer still holding a window onto the old
-        region must land stale writes there, not in this connection's."""
+        """Lease rings and reset state. Never this pair's old regions: a
+        previous peer still holding a window onto one must land stale
+        writes there, not in this connection's. Teardown closes them, and
+        only regions a park's ACK proved writer-free are in the pool."""
         self._release_channels()
         self._release_regions()
-        self.recv_region = self.domain.alloc(self.ring_size)
-        self.status_region = self.domain.alloc(STATUS_BYTES)
+        pool = RingPool.get()
+        ring = pool.lease(self.domain, self.ring_size)
+        try:
+            status = pool.lease(self.domain, STATUS_BYTES)
+        except BaseException:
+            pool.release(ring)  # never advertised: no peer window onto it
+            raise
+        self.recv_region, self.status_region = ring, status
         # an asynchronous domain's applier wakes the waiters: data landing
         # in the ring wakes readers, credits or exit in the status page wake
         # stalled writers
@@ -439,6 +661,13 @@ class Pair:
         self.error = None
         self.want_write = False
         self.activity_ewma = 1.0
+        # park state never survives a re-init (a fresh connection)
+        self._parked = False
+        self._park_pending = False
+        self._peer_parked = False
+        self._saved_wstate = None
+        self._notify_buf = b""
+        self.last_activity = time.monotonic()
         for role in ("read", "write"):
             r, w = os.pipe()
             os.set_blocking(r, False)
@@ -456,6 +685,9 @@ class Pair:
         if os.environ.get("TPURPC_RENDEZVOUS", "1").lower() not in (
                 "0", "off", "false"):
             caps.append("rdv")
+        # park is two-sided (the peer must ack the window close and honor
+        # WAKE/REARM): maybe_park initiates only against a peer that says so
+        caps.append("park")
         return Address(self.tag, self.domain.kind, self.ring_size,
                        self.recv_region.handle, self.status_region.handle,
                        caps=caps)
@@ -493,6 +725,7 @@ class Pair:
             raise ValueError(f"domain mismatch: {peer.domain_kind} vs {self.domain.kind}")
         self._peer_ring = self.domain.open_window(peer.ring_handle, peer.ring_size)
         self._peer_status = self.domain.open_window(peer.status_handle, STATUS_BYTES)
+        self._peer_ring_handle = peer.ring_handle
         self.peer_caps = peer.caps
         self.writer = RingWriter(peer.ring_size, self._peer_ring.write)
         self.state = PairState.CONNECTED
@@ -507,9 +740,10 @@ class Pair:
         if sock is None:
             return
         try:
-            # locked on every socket: on a TLS one, OpenSSL forbids
-            # concurrent use of one SSL* (a one-byte record either goes
-            # whole or not at all, so a dropped token stays best-effort)
+            # locked on every socket: the stream also carries multi-byte
+            # re-arm frames, and on TLS OpenSSL forbids concurrent use of
+            # one SSL* (a one-byte send goes whole or not at all, so a
+            # dropped token stays best-effort)
             with self._notify_lock:
                 sock.send(token)
         except (ssl.SSLWantWriteError, ssl.SSLWantReadError):
@@ -522,10 +756,55 @@ class Pair:
             # receive-side probe
             pass
 
+    def _send_frame(self, payload: bytes, timeout_s: float = 5.0) -> bool:
+        """Ship a multi-byte park-protocol frame over the notify stream,
+        contiguously (the lock excludes token sends) and whole (a partial
+        frame would corrupt the peer's parser, so a full socket is retried
+        to a deadline, never dropped)."""
+        return bool(_transport.dispatch("frame", self, self._send_frame_raw,
+                                        payload, timeout_s))
+
+    def _send_frame_raw(self, payload: bytes, timeout_s: float = 5.0) -> bool:
+        sock = self.notify_sock
+        if sock is None:
+            return False
+        deadline = time.monotonic() + timeout_s
+        sent = 0
+        with self._notify_lock:
+            while sent < len(payload):
+                try:
+                    sent += sock.send(payload[sent:])
+                except (BlockingIOError, InterruptedError,
+                        ssl.SSLWantWriteError, ssl.SSLWantReadError):
+                    if time.monotonic() >= deadline:
+                        return False
+                    try:
+                        p = select.poll()
+                        p.register(sock.fileno(), select.POLLOUT)
+                        p.poll(50)
+                    except (OSError, ValueError):
+                        return False
+                except OSError:
+                    return False
+        return True
+
     def drain_notifications(self) -> bytes:
-        """Non-blocking drain of the notify channel; returns the tokens seen.
-        An empty read (peer closed) folds the status words, then flips the
-        pair to ERROR unless the peer closed gracefully."""
+        """Non-blocking drain of the notify channel; returns the classic
+        tokens seen (data, credit, exit). Park-protocol bytes are acted on
+        here and stripped. Serialized end to end, since a re-arm frame must
+        be parsed in stream order. An empty read (peer closed) folds the
+        status words, then flips the pair to ERROR unless the peer closed
+        gracefully."""
+        with self._drain_mu:
+            raw = self._drain_raw()
+            if not raw and not self._notify_buf:
+                return raw
+            if not self._notify_buf and not raw.translate(None,
+                                                          _CLASSIC_TOKENS):
+                return raw  # classic tokens only
+            return self._fold_park_tokens(raw)
+
+    def _drain_raw(self) -> bytes:
         sock = self.notify_sock
         if sock is None:
             return b""
@@ -557,6 +836,310 @@ class Pair:
             if len(chunk) < 65536:
                 break
         return out
+
+    # -- idle-pair parking -------------------------------------------------
+
+    def _fold_park_tokens(self, raw: bytes) -> bytes:
+        """Act on and strip park-protocol bytes; return the classic tokens.
+        The caller holds ``_drain_mu``. A re-arm frame split across reads
+        waits in ``_notify_buf``: its sender shipped it whole, so the rest
+        is already in flight."""
+        data = self._notify_buf + raw
+        self._notify_buf = b""
+        out = bytearray()
+        i = 0
+        n = len(data)
+        while i < n:
+            tok = data[i:i + 1]
+            if tok == NOTIFY_PARK:
+                i += 1
+                self._handle_park_request()
+            elif tok == NOTIFY_PARK_ACK:
+                i += 1
+                self._complete_park()
+            elif tok == NOTIFY_PARK_NACK:
+                i += 1
+                with self._park_lock:
+                    self._park_pending = False
+            elif tok == NOTIFY_WAKE:
+                i += 1
+                self._handle_wake_request()
+            elif tok in (NOTIFY_REARM, NOTIFY_REARM_KEEP):
+                frame = data[i + 1:]
+                if len(frame) < 8:
+                    self._notify_buf = data[i:]
+                    break
+                if frame[:4] != _BOOTSTRAP_MAGIC:
+                    self._mark_error("corrupt re-arm frame on notify stream")
+                    break
+                blen = struct.unpack("<I", frame[4:8])[0]
+                if blen > _MAX_BLOB:
+                    self._mark_error("re-arm frame implausibly large")
+                    break
+                if len(frame) < 8 + blen:
+                    self._notify_buf = data[i:]
+                    break
+                self._handle_rearm(frame[8:8 + blen],
+                                   retained=(tok == NOTIFY_REARM_KEEP))
+                i += 1 + 8 + blen
+            else:
+                out += tok
+                i += 1
+        return bytes(out)
+
+    def _close_peer_windows(self) -> None:
+        """Drop the writer and close our windows into the peer's regions.
+        The caller holds the send guard."""
+        self.writer = None
+        for attr in ("_peer_ring", "_peer_status"):
+            win = getattr(self, attr)
+            if win is not None:
+                setattr(self, attr, None)
+                retry_buffer_op(win.close)
+
+    def _handle_park_request(self) -> None:
+        """The peer will park: close our windows into its regions (after
+        this no stale write of ours can land there), save the writer's
+        position for an abort, and ack."""
+        with self._park_lock:
+            if self.state is not PairState.CONNECTED or self.want_write:
+                self._notify(NOTIFY_PARK_NACK)
+                return
+            try:
+                # excludes an in-flight send; a send entering after us gets
+                # the retryable _ParkBusy, not the caller-bug tripwire
+                with self._send_guard.maintenance():
+                    if self.want_write:
+                        self._notify(NOTIFY_PARK_NACK)
+                        return
+                    w = self.writer
+                    if w is not None:
+                        self._saved_wstate = (self._peer_ring_handle, w.tail,
+                                              w.seq, w.remote_head)
+                    self._close_peer_windows()
+                    self._peer_parked = True
+            except AssertionError:
+                # a sender is inside send() right now: the pair is not idle
+                self._notify(NOTIFY_PARK_NACK)
+                return
+        self._notify(NOTIFY_PARK_ACK)
+
+    def _complete_park(self) -> None:
+        """The peer acked our PARK: its windows into our regions are
+        closed, so the regions are writer-free and may enter the pool.
+        Bytes that landed between our park decision and the peer's window
+        close abort the park instead. Only the receive ring and the status
+        page go; the notify socket, the wake pipes and the waiter selectors
+        stay, so a waiter asleep on them is woken by the unpark."""
+        released = 0
+        aborted = False
+        with self._park_lock:
+            if not self._park_pending:
+                return
+            self._park_pending = False
+            if self.state is not PairState.CONNECTED:
+                return
+            try:
+                # a receiver mid-drain means the pair is not idle: abort;
+                # a receiver racing us retries as an empty read
+                with self._recv_guard.maintenance():
+                    if self.readable() or self.has_message():
+                        aborted = True
+                    else:
+                        pool = RingPool.get()
+                        if self.reader is not None:
+                            retry_buffer_op(self.reader.release)
+                            self.reader = None
+                        for attr in ("recv_region", "status_region"):
+                            region = getattr(self, attr)
+                            if region is not None:
+                                setattr(self, attr, None)
+                                try:
+                                    released += len(region.buf)
+                                except ValueError:
+                                    pass
+                                pool.release(region)
+                        self._published_head_mirror = 0
+                        self._parked = True
+                        self.parked_epochs += 1
+            except AssertionError:
+                aborted = True
+        if aborted:
+            # our rings are untouched: re-arm the peer's write side against
+            # the same handles (its saved writer state restores)
+            self._send_rearm(retained=True)
+            self.kick()
+            return
+        from tpurpc_torch.core.poller import Poller
+
+        Poller.note_parked(self)
+
+    def unpark(self, *, remote: bool = False) -> None:
+        """Re-arm a parked pair: lease fresh rings from the pool, rebuild
+        the receive side, and ship the new Address to the peer. Callers'
+        sends and recvs resume on the fresh rings."""
+        with self._park_lock:
+            if not self._parked:
+                return
+            if self.state is not PairState.CONNECTED:
+                return  # dying while parked; teardown forgets the stub
+            pool = RingPool.get()
+            ring = pool.lease(self.domain, self.ring_size)
+            try:
+                status = pool.lease(self.domain, STATUS_BYTES)
+            except BaseException:
+                pool.release(ring)
+                raise
+            try:
+                self.recv_region = ring
+                self.status_region = status
+                self.recv_region.on_write = self.kick
+                self.status_region.on_write = self.kick
+                self.reader = RingReader(self.recv_region.buf, self.ring_size)
+                self._published_head_mirror = 0
+                self._parked = False
+            except BaseException:
+                # a failed re-arm returns both rings to the pool
+                self.recv_region = None
+                self.status_region = None
+                self.reader = None
+                pool.release(ring)
+                pool.release(status)
+                raise
+            self._send_rearm()
+        from tpurpc_torch.core.poller import Poller
+
+        Poller.note_unparked(self)
+        self.kick()
+
+    def _send_rearm(self, *, retained: bool = False) -> None:
+        """Frame our current Address over the notify stream: the peer
+        reopens windows onto these rings and rebuilds its writer."""
+        if (self.recv_region is None or self.status_region is None
+                or self.state not in (PairState.INITIALIZED,
+                                      PairState.CONNECTED)):
+            return
+        blob = self.local_address().to_bytes()
+        tok = NOTIFY_REARM_KEEP if retained else NOTIFY_REARM
+        frame = tok + _BOOTSTRAP_MAGIC + struct.pack("<I", len(blob)) + blob
+        if not self._send_frame(frame):
+            self._mark_error("re-arm frame could not be delivered")
+
+    def _handle_wake_request(self) -> None:
+        """The peer has bytes for us and believes our rings are parked:
+        re-arm. When we are not parked (the WAKE crossed our re-arm, or an
+        overdue ack made the peer give up on a park we did honor), re-send
+        the current Address: the peer ignores a duplicate, and it repairs
+        a peer left with its windows closed."""
+        if self._parked:
+            try:
+                self.unpark(remote=True)
+            except Exception:
+                pass  # pool exhaustion or a racing teardown: state shows it
+        elif self.state is PairState.CONNECTED:
+            self._send_rearm(retained=True)
+            self.kick()
+
+    def _handle_rearm(self, blob: bytes, *, retained: bool = False) -> None:
+        """The peer advertised fresh or retained rings: rebuild our write
+        side. A re-arm for rings we already write is ignored: rebuilding a
+        live writer would reset its position mid-stream."""
+        try:
+            peer = Address.from_bytes(blob)
+        except Exception:
+            self._mark_error("undecodable re-arm frame")
+            return
+        with self._park_lock:
+            saved, self._saved_wstate = self._saved_wstate, None
+            if self.writer is not None:
+                if self._peer_ring_handle == peer.ring_handle:
+                    return  # duplicate
+                # stale windows onto rings the peer replaced: close first
+                try:
+                    with self._send_guard.maintenance():
+                        self._close_peer_windows()
+                except AssertionError:
+                    self._mark_error("re-arm raced an in-flight send")
+                    return
+            try:
+                self._peer_ring = self.domain.open_window(peer.ring_handle,
+                                                          peer.ring_size)
+                self._peer_status = self.domain.open_window(
+                    peer.status_handle, STATUS_BYTES)
+            except Exception as exc:
+                self._mark_error(f"re-arm window open failed: {exc!r}")
+                return
+            self._peer_ring_handle = peer.ring_handle
+            self.writer = RingWriter(peer.ring_size, self._peer_ring.write)
+            if retained:
+                # park abort or repair: the peer kept its rings and its
+                # reader position, so restore our exact write position
+                if saved is not None and saved[0] == peer.ring_handle:
+                    _, self.writer.tail, self.writer.seq, rh = saved
+                    self.writer.remote_head = rh
+                else:
+                    # any guess at the write position corrupts the stream
+                    self._mark_error("retained re-arm without writer state")
+                    return
+            elif self.status_region is not None:
+                # fresh peer rings: its reader restarts at head 0, so the
+                # stale published head in OUR status region must never fold
+                # into the fresh writer (the peer publishes only after
+                # reading data, and none flows until this writer exists)
+                try:
+                    self.status_region.buf[
+                        _STATUS_HEAD_OFF:_STATUS_HEAD_OFF + 8] = bytes(8)
+                except (ValueError, TypeError):
+                    pass  # racing teardown; the state checks surface it
+            self._peer_parked = False
+        if self.want_write:
+            self.process_credits()
+        self.kick()
+
+    def maybe_park(self, now: float, park_s: float) -> bool:
+        """The poller sweep's hook: start (or progress) a park episode of an
+        idle pair. True when a PARK was sent."""
+        if (self._parked or self.notify_sock is None
+                or "park" not in self.peer_caps):
+            return False
+        if self._park_pending:
+            if now - self._park_sent_at > 2.0:
+                with self._park_lock:
+                    self._park_pending = False  # ack lost or peer gone
+            # an ownerless idle pair has no waiter to read the ack: drain
+            # here (and kick: a stolen token is safe only with a kick)
+            if self.drain_notifications():
+                self.kick()
+            return False
+        if (self.state is not PairState.CONNECTED or self.want_write
+                or self.has_message() or self.readable()
+                or now - self.last_activity < park_s):
+            return False
+        with self._park_lock:
+            if self._park_pending or self._parked:
+                return False
+            try:
+                with self._send_guard.maintenance():
+                    if self.want_write or self.has_message():
+                        return False
+                    # visible to any sender entering the guard after us: no
+                    # write can race the peer's window close
+                    self._park_pending = True
+                    self._park_sent_at = now
+            except AssertionError:
+                return False  # a sender is mid-flight: not idle
+        self._notify(NOTIFY_PARK)
+        return True
+
+    def resident_bytes_est(self) -> int:
+        """Host bytes this pair pins: its rings while live, a stub while
+        parked."""
+        n = 256  # object and bookkeeping stub
+        if self.recv_region is not None:
+            n += self.ring_size
+        if self.status_region is not None:
+            n += STATUS_BYTES
+        return n
 
     def _on_notify_closed(self) -> None:
         """Peer's end of the notify socket closed. A graceful close writes
@@ -686,12 +1269,65 @@ class Pair:
         """Send as much of ``slices[byte_idx:]`` as flow control allows;
         returns bytes accepted (partial sends are normal — the caller waits
         for credits). Payloads are chunked to ``send_chunk_size`` per ring
-        message."""
+        message. A park episode is resolved here: a parked pair unparks, a
+        parked peer is sent a WAKE and the send reports 0 accepted."""
         if self.state is not PairState.CONNECTED:
             raise BrokenPipeError(f"pair {self.tag} not sendable: {self.state}"
                                   + (f" ({self.error})" if self.error else ""))
+        while True:
+            try:
+                return self._send_inner(slices, byte_idx)
+            except _ParkBusy:
+                n = self._resolve_park_for_send()
+                if n is not None:
+                    return n
+
+    def _resolve_park_for_send(self) -> Optional[int]:
+        """Resolve the park episode that made ``_send_inner`` raise
+        :class:`_ParkBusy`, outside the send guard (lock order). Returns a
+        byte count for ``send`` (peer parked: 0 accepted, the WAKE in
+        flight, and the caller waits for credits), or None to retry."""
+        with self._park_lock:
+            peer_parked = self._peer_parked
+            parked = self._parked
+            pending = self._park_pending
+        if peer_parked:
+            # each retry re-sends the wake: idempotent, and a lost token is
+            # survived (the endpoint's wait_writable has a timeout)
+            self._notify(NOTIFY_WAKE)
+            self.want_write = True
+            return 0
+        if parked:
+            self.unpark()
+            return None
+        if pending:
+            # our own PARK is in flight: drain for the ack or nack, bounded
+            # so that a dead peer cannot wedge senders
+            deadline = time.monotonic() + 2.5
+            while time.monotonic() < deadline:
+                if self.drain_notifications():
+                    self.kick()  # stolen tokens: waiters re-check
+                with self._park_lock:
+                    if not (self._park_pending or self._parked
+                            or self._peer_parked):
+                        return None
+                    if self._parked or self._peer_parked:
+                        return None  # resolved; the retry takes that branch
+                if self.state is not PairState.CONNECTED:
+                    return None  # the retry surfaces the state error
+                time.sleep(0.001)
+            with self._park_lock:
+                self._park_pending = False  # ack overdue; peer likely gone
+        return None
+
+    def _send_inner(self, slices: Sequence, byte_idx: int = 0) -> int:
         cfg = get_config()
         with self._send_guard:
+            if self._parked or self._park_pending or self._peer_parked:
+                # checked inside the guard, which park initiation and the
+                # ack handler also hold: a sender entering after a park
+                # decision always sees the flag
+                raise _ParkBusy
             views: List[memoryview] = []
             skip = byte_idx
             for s in slices:
@@ -739,16 +1375,29 @@ class Pair:
                     break
             if not views:
                 self.want_write = False
+            self.total_sent += total
             if total:
+                self.last_activity = time.monotonic()
                 self._notify(NOTIFY_DATA)  # one event per send call
             return total
 
     def recv_into(self, dst) -> int:
         """Drain the receive ring into ``dst``; publishes credits as a side
-        effect."""
+        effect. A parked pair reads 0: parked is not closed, and the peer's
+        first byte arrives as a WAKE that re-arms us."""
+        try:
+            return self._recv_into_guarded(dst)
+        except _ParkBusy:
+            # a park completion owns the read side this instant: it aborts
+            # (rings intact, a kick wakes us) or parks (which reads 0)
+            return 0
+
+    def _recv_into_guarded(self, dst) -> int:
         with self._recv_guard:
             reader = self.reader
             if reader is None:
+                if self._parked:
+                    return 0
                 raise ConnectionError("pair is closed")
             try:
                 n, _ = reader.drain_into(dst)
@@ -756,8 +1405,19 @@ class Pair:
                 if "released" in str(exc):
                     raise ConnectionError("pair is closed") from None
                 raise
+            self.total_recv += n
+            if n:
+                self.last_activity = time.monotonic()
             self._publish_credits_if_due()
             return n
+
+    def recv(self, max_bytes: int = 1 << 20) -> bytes:
+        """Drain up to ``max_bytes`` (at most one ring) as bytes."""
+        cap = self.reader.layout.capacity if self.reader is not None else 0
+        buf = bytearray(min(max_bytes, cap))
+        n = self.recv_into(buf)
+        del buf[n:]
+        return bytes(buf)
 
     def has_message(self) -> bool:
         reader = self.reader
@@ -765,6 +1425,13 @@ class Pair:
             return reader is not None and reader.has_message()
         except ValueError:
             return False  # ring released under a racing poller
+
+    def readable(self) -> int:
+        reader = self.reader
+        try:
+            return reader.readable() if reader is not None else 0
+        except ValueError:
+            return 0  # ring released under a racing poller
 
     def has_pending_writes(self) -> bool:
         """True when a sender stalled for credits and space has appeared."""
@@ -815,6 +1482,13 @@ class Pair:
         for region in (self.recv_region, self.status_region):
             if region is not None:
                 region.on_write = None
+        if self._parked or self._park_pending:
+            # a pair dying while parked drops its parked-watcher slot
+            self._parked = False
+            self._park_pending = False
+            from tpurpc_torch.core.poller import Poller
+
+            Poller.forget_parked(self)
         self.kick()
         sels, self._selectors = self._selectors, {}
         for sel in sels.values():
@@ -853,10 +1527,13 @@ class Pair:
                     pipes[role] = -1
 
     def _release_regions(self) -> None:
+        # teardown never pools a region (no window-close ack proves it
+        # writer-free): its lease is forgotten and it closes
         for attr in ("recv_region", "status_region"):
             r = getattr(self, attr)
             if r is not None:
                 setattr(self, attr, None)
+                RingPool.get().forget(r)
                 r.close()
 
     def destroy(self) -> None:
@@ -867,3 +1544,30 @@ class Pair:
         self._release_channels()
         self._release_regions()
         self.state = PairState.UNINITIALIZED
+
+
+def create_loopback_pair(ring_size: int = 1 << 16,
+                         domain: Optional[MemoryDomain] = None
+                         ) -> Tuple[Pair, Pair]:
+    """Two connected in-process pairs over a unix socketpair."""
+    domain = domain or LocalDomain()
+    a = Pair(domain, ring_size)
+    b = Pair(domain, ring_size)
+    a.init()
+    b.init()
+    sa, sb = socket.socketpair()
+    done: List[Optional[BaseException]] = [None]
+
+    def _bside():
+        try:
+            b.connect_over_socket(sb)
+        except BaseException as exc:  # surfaced below
+            done[0] = exc
+
+    t = threading.Thread(target=_bside, daemon=True)
+    t.start()
+    a.connect_over_socket(sa)
+    t.join(timeout=10)
+    if done[0] is not None:
+        raise done[0]
+    return a, b

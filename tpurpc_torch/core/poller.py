@@ -1,12 +1,18 @@
 """Background poller + pair pool — the hybrid (BPEV) wakeup machinery.
 
-A trimmed copy of ``tpurpc/core/poller.py`` (no parked-pair watcher, no
-fleet-wide batch pressure):
+A trimmed copy of ``tpurpc/core/poller.py`` (no flight, metrics,
+profiler or stats hooks, which come with the observability port):
 
 * :class:`Poller` — background threads scan registered pairs and kick a
   pair's wakeup pipes on the false→true edge of a watched condition
-  (message, resumable write, peer event). Its job is recovery from token
-  loss; waiters are normally woken by notify tokens.
+  (message, resumable write, peer event), all the pairs one sweep finds in
+  one burst. Its job is recovery from token loss; waiters are normally
+  woken by notify tokens. Each sweep also starts park episodes of pairs
+  idle for ``pair_park_s`` (at most 64 a sweep) and watches the notify
+  sockets of parked pairs (the parked set), so that an ownerless parked
+  pair still sees its peer's WAKE and REARM.
+* :func:`batch_pressure` — the EWMA of ready pairs per sweep; above
+  ``_BATCH_SPIN_SUPPRESS`` the hybrid waiters skip their spin fleet-wide.
 * :func:`wait_readable` / :func:`wait_writable` — the three wakeup
   disciplines: ``busy`` spins, ``event`` blocks on the notify socket and the
   role's pipe, ``hybrid`` spins up to ``busy_polling_timeout_us`` then
@@ -34,6 +40,26 @@ _EWMA_SPIN_FLOOR = 0.1
 #: an fd wake this soon after parking counts as "a spin would have caught
 #: it" — in multiples of busy_polling_timeout
 _HOT_WAKE_MULTIPLE = 4.0
+
+#: batched wakeups: one sweep kicks every ready pair in a burst, and the
+#: EWMA of that burst size is the fleet-wide load signal. When sweeps keep
+#: finding many ready pairs at once, per-pair busy windows only steal
+#: cycles from each other, so hybrid waiters skip them above the threshold
+#: (a lost update of this float is one sweep of staleness in a smoothed
+#: signal)
+_BATCH_ALPHA = 0.3
+_BATCH_SPIN_SUPPRESS = 8.0
+_batch_ewma = 0.0
+
+
+def _note_batch(n: int) -> None:
+    global _batch_ewma
+    _batch_ewma += _BATCH_ALPHA * (n - _batch_ewma)
+
+
+def batch_pressure() -> float:
+    """EWMA of ready pairs per poller sweep."""
+    return _batch_ewma
 
 
 def _ewma_hit(pair: Pair) -> None:
@@ -76,6 +102,11 @@ class Poller:
         self._threads: List[threading.Thread] = []
         self._running = False
         self._pair_count = 0
+        # the parked set: notify sockets of parked pairs, polled each sweep.
+        # Lock order: _cv before _parked_mu where both are held
+        self._parked_mu = threading.Lock()
+        self._parked_map: Dict[int, Pair] = {}
+        self._parked_sel = None  # a lazy selectors.DefaultSelector
 
     def add_pollable(self, pair: Pair) -> None:
         with self._cv:
@@ -91,6 +122,8 @@ class Poller:
             self._cv.notify_all()
 
     def remove_pollable(self, pair: Pair) -> bool:
+        """True when the pair held a slot (a park remembers it, so that the
+        unpark restores the registration)."""
         with self._cv:
             for i, slot in enumerate(self._pairs):
                 if slot is pair:
@@ -98,6 +131,113 @@ class Poller:
                     self._pair_count -= 1
                     return True
         return False
+
+    # -- the parked set ------------------------------------------------------
+
+    @classmethod
+    def note_parked(cls, pair: Pair) -> None:
+        """A pair completed its park: free its slot (its scan cost drops to
+        zero) and watch its notify socket for the frames that end the
+        episode."""
+        inst = cls.get()
+        pair._poller_was_registered = inst.remove_pollable(pair)
+        inst.add_parked(pair)
+
+    @classmethod
+    def note_unparked(cls, pair: Pair) -> None:
+        inst = cls.get()
+        inst.remove_parked(pair)
+        if getattr(pair, "_poller_was_registered", False):
+            pair._poller_was_registered = False
+            try:
+                inst.add_pollable(pair)
+            except RuntimeError:
+                pass  # refilled while parked: tokens and kicks still wake
+
+    @classmethod
+    def forget_parked(cls, pair: Pair) -> None:
+        """Teardown of a parked pair: drop its watcher slot, nothing else."""
+        with cls._instance_lock:
+            inst = cls._instance
+        if inst is not None:
+            inst.remove_parked(pair)
+
+    def add_parked(self, pair: Pair) -> None:
+        import selectors
+
+        sock = pair.notify_sock
+        if sock is None:
+            return
+        with self._parked_mu:
+            if self._parked_sel is None:
+                self._parked_sel = selectors.DefaultSelector()
+            try:
+                fd = sock.fileno()
+                self._parked_sel.register(sock, selectors.EVENT_READ, pair)
+                self._parked_map[fd] = pair
+            except (KeyError, ValueError, OSError):
+                return  # already watched, or the socket is closing
+        with self._cv:
+            self._cv.notify_all()  # leave the zero-pairs long sleep
+
+    def remove_parked(self, pair: Pair) -> None:
+        with self._parked_mu:
+            sel = self._parked_sel
+            if sel is None:
+                return
+            for fd in [f for f, p in self._parked_map.items() if p is pair]:
+                del self._parked_map[fd]
+                try:
+                    sel.unregister(fd)
+                except (KeyError, ValueError, OSError):
+                    pass
+
+    def parked_count(self) -> int:
+        with self._parked_mu:
+            return len(self._parked_map)
+
+    def _scan_parked(self) -> bool:
+        """Drain the notify streams of parked pairs (one zero-timeout
+        select over all of them); a WAKE or REARM found here runs the
+        unpark inline."""
+        with self._parked_mu:
+            sel = self._parked_sel
+            if sel is None or not self._parked_map:
+                return False
+            try:
+                events = sel.select(timeout=0)
+            except (OSError, ValueError):
+                events = []
+            ready = [key.data for key, _ in events]
+        hot = False
+        for pair in ready:
+            try:
+                if pair.drain_notifications():
+                    pair.kick()
+                hot = True
+                if (pair.state is not PairState.CONNECTED
+                        or not (pair._parked or pair._park_pending)):
+                    self.remove_parked(pair)
+            except Exception:
+                self.remove_parked(pair)
+        return hot
+
+    def _park_sweep(self, snapshot: List[Pair], now: float) -> None:
+        """Start park episodes of idle registered pairs, at most 64 a
+        sweep, so that a fleet gone idle parks over a few sweeps instead of
+        one burst of handshakes."""
+        park_s = get_config().pair_park_s
+        if park_s <= 0:
+            return
+        budget = 64
+        for pair in snapshot:
+            if budget <= 0:
+                return
+            try:
+                if pair.maybe_park(now, park_s):
+                    budget -= 1
+            except Exception:
+                pass  # a dying pair; its owner observes the state
 
     def start(self) -> None:
         with self._cv:
@@ -117,6 +257,11 @@ class Poller:
         for t in self._threads:
             t.join(timeout=5)
         self._threads.clear()
+        with self._parked_mu:
+            sel, self._parked_sel = self._parked_sel, None
+            self._parked_map.clear()
+        if sel is not None:
+            sel.close()  # its epoll fd; the sockets stay their pairs'
 
     def _run(self) -> None:
         # Adaptive cadence: scans that find work keep a 1 ms interval, idle
@@ -126,11 +271,15 @@ class Poller:
             with self._cv:
                 if not self._running:
                     return
-                if self._pair_count == 0:
+                with self._parked_mu:
+                    n_parked = len(self._parked_map)
+                if self._pair_count == 0 and n_parked == 0:
                     self._cv.wait(timeout=self.sleep_timeout_s)
                     interval = 0.001
                     continue
                 snapshot = [p for p in self._pairs if p is not None]
+            # one sweep collects every pair whose watched condition edged,
+            # then kicks them all in a burst
             woken: List[Pair] = []
             for pair in snapshot:
                 try:
@@ -140,12 +289,30 @@ class Poller:
                     pair.kick()  # a dying pair: its owner observes the state
             for pair in woken:
                 pair.kick()
-            interval = 0.001 if woken else min(interval * 2,
-                                               self.sleep_timeout_s)
+            hot = bool(woken)
+            if snapshot:
+                _note_batch(len(woken))
+            if self._scan_parked():
+                hot = True
+            self._park_sweep(snapshot, time.monotonic())
+            interval = 0.001 if hot else min(interval * 2,
+                                             self.sleep_timeout_s)
             with self._cv:
                 if not self._running:
                     return
                 self._cv.wait(timeout=interval)
+
+    @staticmethod
+    def _needs_attention(pair: Pair) -> bool:
+        """Level check of a pair's watched conditions (the non-consuming
+        probe leaves notify tokens for whichever waiter owns them)."""
+        if pair.state in (PairState.ERROR, PairState.HALF_CLOSED):
+            return True
+        if pair.has_message() or pair.has_pending_writes():
+            return True
+        if pair.peek_events():
+            return True
+        return pair.state in (PairState.ERROR, PairState.HALF_CLOSED)
 
     @staticmethod
     def _scan_edges(pair: Pair) -> bool:
@@ -208,8 +375,11 @@ def _wait(pair: Pair, timeout: Optional[float], discipline: Optional[str],
     if discipline == "hybrid" and _effective_cpus() < 2:
         discipline = "event"
 
+    # fleet-wide pressure: sweeps keep finding many ready pairs at once, so
+    # a hybrid waiter takes the event leg whatever its own EWMA
     if discipline == "busy" or (discipline == "hybrid"
-                                and pair.activity_ewma >= _EWMA_SPIN_FLOOR):
+                                and pair.activity_ewma >= _EWMA_SPIN_FLOOR
+                                and batch_pressure() < _BATCH_SPIN_SUPPRESS):
         if discipline == "busy":
             spin_deadline = deadline if deadline is not None else float("inf")
         else:
@@ -318,6 +488,10 @@ class PairPool:
                     and self._idle_total < self.max_idle_total):
                 bucket.append(pair)
                 self._idle_total += 1
+
+    def idle_count(self, key: str) -> int:
+        with self._lock:
+            return len(self._idle.get(key, []))
 
     def drain(self) -> None:
         """Destroy every idle pair."""

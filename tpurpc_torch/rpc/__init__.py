@@ -22,6 +22,9 @@ interceptors, and ``FaultInjector`` injects aborts and delays.
 ``ssl_channel_credentials`` / ``ssl_server_credentials`` run TLS (and mTLS)
 on every platform; ``enable_server_reflection`` and ``enable_channelz``
 serve grpc.reflection and grpc.channelz.v1 on a server.
+``Channel.get_state`` reads ``ChannelConnectivity``, ``channel_ready_future``
+waits for READY, and ``inproc_channel(server)`` is the in-process
+transport.
 ``LoadBalancerServicer`` and ``enable_lookaside`` are look-aside load
 balancing (grpclb): a balancer streams server lists and a watcher moves
 the channel's membership with them; ``xds:///service`` targets
@@ -34,8 +37,10 @@ the reference does: an eager import here would make a program that imports
 ``__all__``, so the sync path never pays the asyncio import.
 """
 
-from tpurpc_torch.rpc.status import AbortError, Metadata, RpcError, StatusCode
-from tpurpc_torch.rpc.channel import (Channel, RetryPolicy, insecure_channel,
+from tpurpc_torch.rpc.status import (AbortError, ChannelConnectivity,
+                                     Metadata, RpcError, StatusCode)
+from tpurpc_torch.rpc.channel import (Channel, RetryPolicy,
+                                      channel_ready_future, insecure_channel,
                                       secure_channel)
 from tpurpc_torch.rpc.credentials import (
     ChannelCredentials,
@@ -48,6 +53,7 @@ from tpurpc_torch.rpc.server import (
     RpcMethodHandler,
     Server,
     ServerContext,
+    inproc_channel,
     method_handlers_generic_handler,
     stream_stream_rpc_method_handler,
     stream_unary_rpc_method_handler,
@@ -65,9 +71,9 @@ from tpurpc_torch.rpc.channelz_v1 import enable_channelz
 from tpurpc_torch.rpc import server  # the module, callable as server()
 
 __all__ = [
-    "AbortError", "Metadata", "RpcError", "StatusCode",
-    "Channel", "insecure_channel",
-    "Server", "ServerContext", "RpcMethodHandler", "server",
+    "AbortError", "ChannelConnectivity", "Metadata", "RpcError", "StatusCode",
+    "Channel", "channel_ready_future", "insecure_channel",
+    "Server", "ServerContext", "RpcMethodHandler", "server", "inproc_channel",
     "method_handlers_generic_handler",
     "unary_unary_rpc_method_handler", "unary_stream_rpc_method_handler",
     "stream_unary_rpc_method_handler", "stream_stream_rpc_method_handler",

@@ -20,8 +20,7 @@ is unchanged, and the asyncio layer adapts at the call boundary:
 Four call shapes on both sides, secure ports and channels included.
 
 Not here: the reference's ``NativeChannel`` (its async face of the C
-core's client, which comes with the port of the C core), and
-``Channel.ping`` (the port's channel has no ping yet). Unlike the
+core's client, which comes with the port of the C core). Unlike the
 reference's, :func:`server` passes ``interceptors`` to the server.
 """
 
@@ -429,6 +428,11 @@ class Channel:
     async def close(self) -> None:
         loop = asyncio.get_running_loop()
         await loop.run_in_executor(None, self._sync.close)
+
+    async def ping(self, timeout: float = 5.0) -> float:
+        loop = asyncio.get_running_loop()
+        return await loop.run_in_executor(
+            None, lambda: self._sync.ping(timeout))
 
     def unary_unary(self, method: str, request_serializer=_identity,
                     response_deserializer=_identity, **grpcio_kwargs):

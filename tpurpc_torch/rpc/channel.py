@@ -1,9 +1,9 @@
 """Client channel: multiplexed calls over one endpoint, with reconnect.
 
-A trimmed copy of ``tpurpc/rpc/channel.py`` (no native fast path,
-keepalive, connectivity state or inline pump, and none of the reference's
-observability hooks beyond channelz's call counters; a dedicated reader
-thread per connection):
+A trimmed copy of ``tpurpc/rpc/channel.py`` (no native fast path, which
+comes with the C core; no inline pump, so a dedicated reader thread per
+connection; none of the reference's observability hooks beyond channelz's
+call counters):
 
 * ``Channel`` resolves its target into subchannels (one per address), each
   (re)connecting with exponential backoff, over TLS when given
@@ -39,7 +39,17 @@ thread per connection):
   its connection turned draining;
 * ``PipelinedUnary`` keeps many unary calls in flight on one connection,
   each resolved as a future by the reader thread (no REFUSED-replay
-  migration, stall watchdog, pump mode or latency histograms).
+  migration, stall watchdog, pump mode or latency histograms);
+* the connection lifecycle: client keepalive (``keepalive_time_ms``: a
+  PING after that much inactivity, and a connection whose PONG misses
+  ``keepalive_timeout_ms`` dies and is redialed) and the idle timeout
+  (``client_idle_timeout_ms``: a connection with no streams is closed and
+  the next call dials fresh), both on the timer wheel, with every endpoint
+  write off the wheel's thread; ``Channel.ping``; ``get_state``
+  (``ChannelConnectivity``: READY with a live connection, CONNECTING while
+  a ``try_to_connect`` dial runs, TRANSIENT_FAILURE in connect backoff,
+  else IDLE, and SHUTDOWN once closed), ``wait_for_state_change`` and
+  :func:`channel_ready_future`.
 """
 
 from __future__ import annotations
@@ -61,8 +71,9 @@ from tpurpc_torch.rpc import resolver as _resolver
 from tpurpc_torch.rpc.resolver import (make_policy, resolve_target,
                                        resolve_target_full)
 from tpurpc_torch.rpc.service_config import ServiceConfig
-from tpurpc_torch.rpc.status import (Deserializer, Metadata, RpcError,
-                                     Serializer, StatusCode,
+from tpurpc_torch.rpc.status import (ChannelConnectivity, Deserializer,
+                                     Metadata, RpcError, Serializer,
+                                     StatusCode,
                                      deserialize as _deserialize,
                                      identity_codec as _identity)
 from tpurpc_torch.utils import timers as _timers
@@ -224,8 +235,13 @@ class _Connection:
         self._streams: Dict[int, _ClientStream] = {}
         self._lock = threading.Lock()
         self._next_stream_id = 1  # odd ids, client-initiated
+        self._pong_waiters: List[threading.Event] = []
+        self.pong_count = 0  # keepalive verdicts compare against this
         self.alive = True
         self.draining = False  # GOAWAY received: no new streams
+        self.last_activity = time.monotonic()
+        self._ka_handle: Optional[_timers.TimerHandle] = None
+        self._idle_handle: Optional[_timers.TimerHandle] = None
         self._on_dead = on_dead
         #: the LB policy's load-report sink for this connection, rebound by
         #: the channel at every pick (None: reports are stripped, unused)
@@ -272,6 +288,96 @@ class _Connection:
         self._thread = threading.Thread(target=self._read_loop, daemon=True,
                                         name="tpurpc-chan-reader")
         self._thread.start()
+        self._start_keepalive()
+        self._start_idle_monitor()
+
+    def _start_keepalive(self) -> None:
+        """Client keepalive (``keepalive_time_ms``, off by default as in
+        gRPC): PING an idle connection; a PONG missing past
+        ``keepalive_timeout_ms`` kills it, so that the channel redials
+        instead of calls hanging on a dead peer. Event-style on the wheel:
+        one tick sends the PING and schedules a verdict that compares
+        ``pong_count``; no thread per connection."""
+        cfg = get_config()
+        if cfg.keepalive_time_ms <= 0:
+            return
+        interval = cfg.keepalive_time_ms / 1000.0
+        timeout = max(0.001, cfg.keepalive_timeout_ms / 1000.0)
+
+        def tick():
+            if not self.alive:
+                return
+            # only an idle connection is pinged: with streams open the one
+            # reader may sit in a credit wait or a long burst with the PONG
+            # unread, and a verdict would kill a healthy connection
+            with self._lock:
+                busy = (bool(self._streams)
+                        or time.monotonic() - self.last_activity < interval)
+                before = self.pong_count
+            if busy:
+                self._ka_handle = _timers.schedule(interval, tick)
+                return
+            sent_at = time.monotonic()
+
+            def send_ping():  # an endpoint write: never on the wheel
+                try:
+                    self.writer.send(fr.PING, 0, 0, b"tpurpc-keepalive")
+                except (EndpointError, OSError, fr.FrameError):
+                    self._die("keepalive ping send failed")
+
+            _timers.run_blocking(send_ping)
+
+            def check():
+                # answered: the next PING an interval after this one;
+                # unanswered past the timeout: reap, off the wheel
+                if not self.alive:
+                    return
+                elapsed = time.monotonic() - sent_at
+                with self._lock:
+                    ponged = self.pong_count > before
+                if ponged:
+                    self._ka_handle = _timers.schedule(
+                        max(0.05, interval - elapsed), tick)
+                elif elapsed >= timeout:
+                    _timers.run_blocking(
+                        lambda: self._die("keepalive ping timed out"))
+                else:
+                    self._ka_handle = _timers.schedule(
+                        min(1.0, max(0.05, timeout - elapsed)), check)
+
+            self._ka_handle = _timers.schedule(min(1.0, timeout), check)
+
+        self._ka_handle = _timers.schedule(interval, tick)
+
+    def _start_idle_monitor(self) -> None:
+        """The client idle filter (``client_idle_timeout_ms``, off by
+        default): a connection with no streams and no activity for the
+        window is closed and the next call dials fresh, freeing the
+        server's per-connection state (pairs, rings)."""
+        cfg = get_config()
+        if cfg.client_idle_timeout_ms <= 0:
+            return
+        window = cfg.client_idle_timeout_ms / 1000.0
+
+        def tick():
+            if not self.alive:
+                return
+            with self._lock:
+                remain = window - (time.monotonic() - self.last_activity)
+                busy = bool(self._streams)
+                idle = not busy and remain <= 0
+                if idle:
+                    # gate before the lock goes: open_stream checks
+                    # draining under it, so a call racing the close is
+                    # redialed instead of failing on a dying connection
+                    self.draining = True
+                delay = window if busy else max(0.05, remain)
+            if idle:
+                _timers.run_blocking(lambda: self._die("client idle timeout"))
+                return
+            self._idle_handle = _timers.schedule(delay, tick)
+
+        self._idle_handle = _timers.schedule(window, tick)
 
     def open_stream(self) -> _ClientStream:
         with self._lock:
@@ -284,11 +390,13 @@ class _Connection:
             st = _ClientStream(sid,
                                queue_depth=get_config().stream_queue_depth)
             self._streams[sid] = st
+            self.last_activity = time.monotonic()
             return st
 
     def close_stream(self, st: _ClientStream) -> None:
         with self._lock:
             self._streams.pop(st.stream_id, None)
+            self.last_activity = time.monotonic()
             finish_drain = self.draining and not self._streams
         if finish_drain:
             self._die("drained after GOAWAY")
@@ -384,6 +492,11 @@ class _Connection:
                                f.payload)
             return
         if f.type == fr.PONG:
+            with self._lock:
+                self.pong_count += 1
+                waiters, self._pong_waiters = self._pong_waiters, []
+            for ev in waiters:
+                ev.set()
             return
         if f.type == fr.GOAWAY:
             # stop opening streams here; in-flight calls run to completion
@@ -426,6 +539,21 @@ class _Connection:
         else:
             raise fr.FrameError(f"unexpected frame {f!r}")
 
+    def ping(self, timeout: float) -> float:
+        """Round-trip one PING; seconds, or raises when no PONG comes."""
+        ev = threading.Event()
+        with self._lock:
+            if not self.alive:
+                raise EndpointError("connection closed")
+            self._pong_waiters.append(ev)
+        t0 = time.perf_counter()
+        self.writer.send(fr.PING, 0, 0, b"tpurpc-ping")
+        if not ev.wait(timeout):
+            raise TimeoutError("ping timed out")
+        if not self.alive:  # waiters are released at death too
+            raise EndpointError("connection died during ping")
+        return time.perf_counter() - t0
+
     def _die(self, why: str) -> None:
         with self._lock:
             if not self.alive:
@@ -433,6 +561,12 @@ class _Connection:
             self.alive = False
             streams = list(self._streams.values())
             self._streams.clear()
+            waiters, self._pong_waiters = self._pong_waiters, []
+        for ev in waiters:
+            ev.set()  # ping() sees the death
+        for h in (self._ka_handle, self._idle_handle):
+            if h is not None:
+                h.cancel()  # the ticks also check alive themselves
         if self.rdv is not None:
             # claimed landing regions are released; waiting senders wake
             self.rdv.close()
@@ -648,6 +782,8 @@ class Channel:
         self._policy = make_policy(lb_policy, len(self._subchannels))
         self._lock = threading.Lock()  # guards _closed and the membership
         self._closed = False
+        #: the background dial a get_state(try_to_connect=True) started
+        self._kicker: Optional[threading.Thread] = None
         from tpurpc_torch.rpc import channelz as _channelz
 
         #: channelz ChannelData counters (started/succeeded/failed)
@@ -831,6 +967,74 @@ class Channel:
         platform. This dials; to decode a response already in hand prefer
         :meth:`Call.device_ring`."""
         return device_ring_of(self._connection().endpoint)
+
+    def ping(self, timeout: float = 5.0) -> float:
+        """Round-trip a PING on the live connection (dialing one if
+        needed); seconds. DEADLINE_EXCEEDED when no PONG comes in time."""
+        conn = self._connection()
+        try:
+            return conn.ping(timeout)
+        except TimeoutError as exc:
+            raise RpcError(StatusCode.DEADLINE_EXCEEDED, str(exc)) from exc
+        except (EndpointError, OSError) as exc:
+            raise RpcError(StatusCode.UNAVAILABLE, str(exc)) from exc
+
+    def get_state(self, try_to_connect: bool = False) -> ChannelConnectivity:
+        """grpcio's ``Channel.get_state``, folded over the subchannels:
+        READY if one holds a live connection; CONNECTING while a kicked
+        dial runs; TRANSIENT_FAILURE if none is live but one is in connect
+        backoff; else IDLE; SHUTDOWN once closed. ``try_to_connect=True``
+        on an idle channel starts one background dial sweep; polls while
+        it runs read CONNECTING and start no other."""
+        CC = ChannelConnectivity
+        with self._lock:
+            if self._closed:
+                return CC.SHUTDOWN
+            subs = list(self._subchannels)
+        now = time.monotonic()
+        backing_off = False
+        for sc in subs:
+            with sc._lock:
+                if sc._live() is not None:
+                    return CC.READY
+                if sc._next_attempt > now:
+                    backing_off = True
+        with self._lock:
+            kicker = self._kicker
+            if kicker is not None and kicker.is_alive():
+                return CC.CONNECTING  # one dial sweep at a time
+            if try_to_connect and subs:
+                self._kicker = threading.Thread(
+                    target=self._kick_connect, daemon=True,
+                    name="tpurpc-try-connect")
+                self._kicker.start()
+                return CC.CONNECTING
+        return CC.TRANSIENT_FAILURE if backing_off else CC.IDLE
+
+    def _kick_connect(self) -> None:
+        # dial each subchannel until one answers: a dead first address must
+        # not mask a live second one
+        with self._lock:
+            subs = list(self._subchannels)
+        for sc in subs:
+            if self._is_closed():
+                return
+            try:
+                sc.get()
+                return
+            except RpcError:
+                continue  # its backoff reads TRANSIENT_FAILURE
+
+    def wait_for_state_change(self, last_observed_state,
+                              timeout: Optional[float] = None) -> bool:
+        """Block until ``get_state()`` differs from
+        ``last_observed_state``; False at the timeout (polled)."""
+        deadline = None if timeout is None else time.monotonic() + timeout
+        while self.get_state() == last_observed_state:
+            if deadline is not None and time.monotonic() >= deadline:
+                return False
+            time.sleep(0.02)
+        return True
 
     def close(self) -> None:
         with self._lock:
@@ -1805,6 +2009,40 @@ class StreamStream(_MultiCallable):
                          args=(conn, st, request_iterator),
                          daemon=True, name="tpurpc-stream-sender").start()
         return call
+
+
+def channel_ready_future(channel: Channel) -> "concurrent.futures.Future":
+    """grpc.channel_ready_future's analog: a Future that resolves (to None)
+    once the channel reads READY, ``get_state(try_to_connect=True)``
+    driving the dial, and fails UNAVAILABLE if the channel closes first.
+    Cancel it to stop waiting; the watcher holds only a weak reference, so
+    an abandoned future never keeps a dropped channel alive."""
+    import weakref
+
+    fut: "concurrent.futures.Future" = concurrent.futures.Future()
+    chref = weakref.ref(channel)
+
+    def watch():
+        while not fut.cancelled():
+            ch = chref()
+            if ch is None:
+                return  # the channel was dropped: nobody can see READY
+            state = ch.get_state(try_to_connect=True)
+            del ch  # do not pin the channel across the sleep
+            if state is ChannelConnectivity.READY:
+                if fut.set_running_or_notify_cancel():
+                    fut.set_result(None)
+                return
+            if state is ChannelConnectivity.SHUTDOWN:
+                if fut.set_running_or_notify_cancel():
+                    fut.set_exception(
+                        RpcError(StatusCode.UNAVAILABLE, "channel closed"))
+                return
+            time.sleep(0.02)
+
+    threading.Thread(target=watch, daemon=True,
+                     name="tpurpc-channel-ready").start()
+    return fut
 
 
 def insecure_channel(target: str, **kwargs) -> Channel:

@@ -1,7 +1,9 @@
 """Server: listener → per-connection demux → handler dispatch on a pool.
 
-A trimmed copy of ``tpurpc/rpc/server.py`` (no inline reactor handlers,
-keepalive/max-age timers, native plane or observability). One port serves both wire protocols: the
+A trimmed copy of ``tpurpc/rpc/server.py`` (no native plane, which comes
+with the C core; no observability hooks, the plain-HTTP scrape answer on the
+serving port or the watchdog's p99 as the admission gate's latency signal,
+which come with the observability port). One port serves both wire protocols: the
 first 8 bytes of a connection route the native framing's magic to
 :class:`_ServerConnection` and the HTTP/2 preface to
 ``tpurpc_torch/wire/grpc_h2.py``, so stock gRPC clients call the same
@@ -25,6 +27,16 @@ limit binds the inflated size: RESOURCE_EXHAUSTED past it, INTERNAL for a
 stream that does not gunzip), and the stream's replies mirror the flag.
 Unary responses that complete close together on one connection leave in
 one gathered writev (``FrameWriter(coalesce=True)``).
+
+The connection lifecycle: server keepalive (a quiet client is PINGed and
+reaped when nothing, not even the PONG, arrives in time) and max connection
+age (GOAWAY, then a one-second linger before the close), both on the timer
+wheel (``utils/timers.py``) with every endpoint write off the wheel's
+thread (``run_blocking``); ``inline=True`` unary handlers, which run on the
+connection's reader thread when the request completes; the admission
+gate's connection-level face consulted by the listener before any
+handshake (:meth:`Server._accept_pushback`); and :func:`inproc_channel`, a
+channel wired to the server over a passthru endpoint pair.
 """
 
 from __future__ import annotations
@@ -133,20 +145,64 @@ class AdmissionGate:
         with self._lock:
             return self._inflight
 
+    def connection_pushback_ms(self) -> Optional[int]:
+        """The accept path's pressure probe: sheds new connections only at
+        hard saturation (``max_inflight`` in flight); between the limits
+        existing clients keep reconnecting and the per-RPC gate sheds. A
+        pure probe: it admits nothing, so no :meth:`release` is owed."""
+        with self._lock:
+            n = self._inflight
+            if n < self.max_inflight:
+                return None
+            excess = max(1, n - self.soft_limit + 1)
+            return min(self.max_pushback_ms,
+                       self.base_pushback_ms * excess)
+
+    @classmethod
+    def from_env(cls) -> "Optional[AdmissionGate]":
+        """The gate ``TPURPC_ADMISSION_MAX_INFLIGHT`` (and optionally
+        ``TPURPC_ADMISSION_SLO_MS``) configures, or None when unset:
+        admission control is opt-in."""
+        raw = os.environ.get("TPURPC_ADMISSION_MAX_INFLIGHT", "")
+        if not raw:
+            return None
+        try:
+            max_inflight = int(raw)
+        except ValueError:
+            return None
+        if max_inflight < 1:
+            return None
+        slo = None
+        raw_slo = os.environ.get("TPURPC_ADMISSION_SLO_MS", "")
+        if raw_slo:
+            try:
+                slo = float(raw_slo)
+            except ValueError:
+                slo = None
+        return cls(max_inflight, latency_slo_ms=slo)
+
 
 class RpcMethodHandler:
-    """One registered method: shape + behavior + codecs (grpcio taxonomy)."""
+    """One registered method: shape + behavior + codecs (grpcio taxonomy).
+
+    ``inline=True`` (unary_unary only) runs the handler on the connection's
+    reader thread when the request completes: no pool handoff. The handler
+    must not block: it stalls every stream of its connection."""
 
     __slots__ = ("kind", "behavior", "request_deserializer",
-                 "response_serializer")
+                 "response_serializer", "inline")
 
     KINDS = ("unary_unary", "unary_stream", "stream_unary", "stream_stream")
 
     def __init__(self, kind: str, behavior: Callable,
                  request_deserializer: Deserializer = _identity,
-                 response_serializer: Serializer = _identity):
+                 response_serializer: Serializer = _identity,
+                 inline: bool = False):
         if kind not in self.KINDS:
             raise ValueError(f"bad handler kind {kind}")
+        if inline and kind != "unary_unary":
+            raise ValueError("inline handlers are unary_unary only")
+        self.inline = inline
         self.kind = kind
         self.behavior = behavior
         self.request_deserializer = request_deserializer
@@ -162,9 +218,10 @@ class RpcMethodHandler:
 
 
 def unary_unary_rpc_method_handler(behavior, request_deserializer=_identity,
-                                   response_serializer=_identity):
+                                   response_serializer=_identity,
+                                   inline: bool = False):
     return RpcMethodHandler("unary_unary", behavior, request_deserializer,
-                            response_serializer)
+                            response_serializer, inline=inline)
 
 
 def unary_stream_rpc_method_handler(behavior, request_deserializer=_identity,
@@ -332,6 +389,10 @@ class _ServerStream:
         #: replies (the peer demonstrably speaks it)
         self.peer_compressed = False
         self.context: Optional[ServerContext] = None
+        #: an inline call parked until its request completes, and the
+        #: deadline watchdog of that wait
+        self.inline_call = None
+        self.inline_timer: Optional[_timers.TimerHandle] = None
         #: backpressure: at most queue_depth completed-but-unconsumed
         #: messages; the connection reader blocks on a credit, which stops
         #: draining the transport and stalls the sender
@@ -453,6 +514,15 @@ class _ServerSink(fr.MessageSink):
                               bool(flags & fr.FLAG_NO_MESSAGE),
                               oversized=st.assembly.oversized,
                               compressed=bool(flags & fr.FLAG_COMPRESSED))
+            if flags & fr.FLAG_END_STREAM:
+                self._conn._inline_complete(st)
+
+
+#: set while a thread runs an inline handler. An inline handler that
+#: completes another request on the same thread (a passthru endpoint or a
+#: loopback self-call can) must not nest dispatches: nested inline work
+#: goes to the pool
+_inline_tls = threading.local()
 
 
 class _ServerConnection:
@@ -471,7 +541,10 @@ class _ServerConnection:
         self.alive = True
         self.draining = False  # GOAWAY sent; no new streams accepted
         self.streams_started = 0  # channelz SocketData counter
+        self.last_frame = time.monotonic()  # any inbound frame refreshes
         self._linger_timer: Optional[_timers.TimerHandle] = None
+        self._ka_handle: Optional[_timers.TimerHandle] = None
+        self._age_timer: Optional[_timers.TimerHandle] = None
         # the rendezvous link, made before the reader starts so that the
         # client's hello never meets an unarmed link
         self.rdv = _rdv.link_for_endpoint(
@@ -512,6 +585,80 @@ class _ServerConnection:
         self._thread = threading.Thread(target=self._read_loop, daemon=True,
                                         name="tpurpc-srv-reader")
         self._thread.start()
+        self._start_age_timer()
+        self._start_keepalive()
+
+    def _start_keepalive(self) -> None:
+        """Server keepalive (the client's ``keepalive_time_ms`` knob): PING
+        a quiet client, and close the connection when nothing, not even
+        the PONG, arrives within ``keepalive_timeout_ms``. A dead client
+        would otherwise pin pooled pairs and rings for good."""
+        cfg = get_config()
+        if cfg.keepalive_time_ms <= 0:
+            return
+        interval = cfg.keepalive_time_ms / 1000.0
+        timeout = max(0.001, cfg.keepalive_timeout_ms / 1000.0)
+        state = {"ping_sent_at": None}  # monotonic stamp of the open PING
+
+        def tick():
+            if not self.alive:
+                return
+            with self._lock:
+                busy = bool(self._streams)
+            if busy:
+                # in-flight streams: the reader may be stalled on a
+                # stream's backpressure with the PONGs unread; a dead peer
+                # mid-stream surfaces as a write error or EOF instead
+                state["ping_sent_at"] = None
+                self._ka_handle = _timers.schedule(min(interval, 1.0), tick)
+                return
+            ping_sent_at = state["ping_sent_at"]
+            if ping_sent_at is not None and self.last_frame >= ping_sent_at:
+                ping_sent_at = state["ping_sent_at"] = None  # answered
+            quiet = time.monotonic() - self.last_frame
+            if quiet < interval:
+                state["ping_sent_at"] = None  # frames flowed: restart
+                self._ka_handle = _timers.schedule(
+                    min(interval - quiet, 1.0), tick)
+                return
+            if ping_sent_at is None:
+                # stamp before the send: the reader may process the PONG
+                # before a stamp taken after it
+                state["ping_sent_at"] = time.monotonic()
+
+                def send_ping():  # an endpoint write: never on the wheel
+                    try:  # one PING per silence window
+                        self.writer.send(fr.PING, 0, 0, b"srv-keepalive")
+                    except (EndpointError, OSError, fr.FrameError):
+                        self._shutdown()
+
+                _timers.run_blocking(send_ping)
+                self._ka_handle = _timers.schedule(min(timeout, 1.0), tick)
+                return
+            if time.monotonic() - ping_sent_at >= timeout:
+                _log.debug("keepalive: client silent %.1fs, closing", quiet)
+                _timers.run_blocking(self._shutdown)
+                return
+            self._ka_handle = _timers.schedule(min(timeout, 1.0), tick)
+
+        self._ka_handle = _timers.schedule(min(interval, 1.0), tick)
+
+    def _start_age_timer(self) -> None:
+        """Max connection age (``max_connection_age_ms``): past the age,
+        GOAWAY the client, which stops opening streams here and dials
+        fresh, then close once the in-flight streams drain."""
+        age_ms = get_config().max_connection_age_ms
+        if age_ms <= 0:
+            return
+
+        def expire():
+            if self.goaway(b"max_connection_age"):
+                self.linger_then_close()
+
+        # the GOAWAY is an endpoint write (it can stall on a credit-wedged
+        # transport): off the wheel's thread
+        self._age_timer = _timers.schedule(
+            age_ms / 1000.0, lambda: _timers.run_blocking(expire))
 
     def _read_loop(self) -> None:
         if self.rdv is not None:
@@ -523,6 +670,7 @@ class _ServerConnection:
                 f = self._read_frame_ctrl()
                 if f is None:
                     break
+                self.last_frame = time.monotonic()  # the client is alive
                 if f is not fr.CONSUMED:  # MESSAGEs are routed via the sink
                     self._dispatch(f)
                 self._frames_dispatched += 1
@@ -566,7 +714,11 @@ class _ServerConnection:
         plane, rdv = self.ctrl, self.rdv
         if plane is None or rdv is None:
             return 0
-        return plane.drain(rdv.on_op, self._frames_count, wait)
+        n = plane.drain(rdv.on_op, self._frames_count, wait)
+        if n:
+            # ring records are client-liveness evidence as frames are
+            self.last_frame = time.monotonic()
+        return n
 
     def _ctrl_drain_nowait(self) -> int:
         """A sender thread's drain (standing-grant pickup): skips when the
@@ -582,11 +734,15 @@ class _ServerConnection:
 
     def _rdv_deliver(self, stream_id: int, flags: int, body) -> None:
         """A completed rendezvous request payload: the stream's next
-        message, aliasing its landing region."""
+        message, aliasing its landing region (and, when it half-closes the
+        stream, the inline claim the sink's commit makes)."""
         with self._lock:
             st = self._streams.get(stream_id)
-        if st is not None:
-            st.commit_external(body, bool(flags & fr.FLAG_END_STREAM))
+        if st is None:
+            return
+        st.commit_external(body, bool(flags & fr.FLAG_END_STREAM))
+        if flags & fr.FLAG_END_STREAM:
+            self._inline_complete(st)
 
     def _dispatch(self, f: fr.Frame) -> None:
         if f.type == fr.PING:
@@ -672,12 +828,65 @@ class _ServerConnection:
             return
         ctx = ServerContext(self, st, metadata, deadline)
         st.context = ctx
+        if getattr(handler, "inline", False):
+            # the reactor path: the sink's commit runs the handler on this
+            # reader thread when the request completes. A declared deadline
+            # gets a watchdog on the wheel: a client that never sends the
+            # body would otherwise park the call (and, with _streams not
+            # empty, the keepalive reaper) for good
+            st.inline_call = (handler, ctx, path)
+            if deadline is not None:
+                st.inline_timer = _timers.schedule(
+                    max(0.0, deadline - time.monotonic()),
+                    lambda: _timers.run_blocking(
+                        lambda: self._inline_deadline(st)))
+            return
+        self._submit(handler, st, ctx, path)
+
+    def _submit(self, handler: RpcMethodHandler, st: _ServerStream,
+                ctx: ServerContext, path: str) -> None:
         try:
             self.server._pool.submit(self._run_handler, handler, st, ctx, path)
         except RuntimeError:  # pool shut down: server is stopping
             self._send_trailers(st, StatusCode.UNAVAILABLE, "server shutting down")
             self._finish_stream(st)
             self.close()  # make the client redial instead of retrying here
+
+    def _claim_inline(self, st: _ServerStream):
+        """Take a parked inline call atomically: the request's completion
+        and the deadline watchdog race for it, and exactly one runs."""
+        with self._lock:
+            ic, st.inline_call = st.inline_call, None
+        if ic is not None and st.inline_timer is not None:
+            st.inline_timer.cancel()
+            st.inline_timer = None
+        return ic
+
+    def _inline_complete(self, st: _ServerStream) -> None:
+        """The request of ``st`` completed: run its inline call, if any."""
+        ic = self._claim_inline(st)
+        if ic is not None:
+            handler, ctx, path = ic
+            self._run_inline(handler, st, ctx, path)
+
+    def _run_inline(self, handler: RpcMethodHandler, st: _ServerStream,
+                    ctx: ServerContext, path: str) -> None:
+        """The first level runs on the calling (reader) thread; a nested
+        inline completion goes to the pool (see ``_inline_tls``)."""
+        if getattr(_inline_tls, "active", False):
+            self._submit(handler, st, ctx, path)
+            return
+        _inline_tls.active = True
+        try:
+            self._run_handler(handler, st, ctx, path)
+        finally:
+            _inline_tls.active = False
+
+    def _inline_deadline(self, st: _ServerStream) -> None:
+        if self._claim_inline(st) is not None:
+            self._send_trailers(st, StatusCode.DEADLINE_EXCEEDED,
+                                "deadline exceeded awaiting request")
+            self._finish_stream(st)
 
     def _run_handler(self, handler: RpcMethodHandler, st: _ServerStream,
                      ctx: ServerContext, path: str) -> None:
@@ -834,9 +1043,9 @@ class _ServerConnection:
             self.alive = False
             streams = list(self._streams.values())
             self._streams.clear()
-            timer = self._linger_timer
-        if timer is not None:
-            timer.cancel()
+        for h in (self._linger_timer, self._ka_handle, self._age_timer):
+            if h is not None:
+                h.cancel()  # wheel handles; the ticks also check alive
         if self.rdv is not None:
             # peer gone mid-rendezvous: claimed landing regions are released
             self.rdv.close()
@@ -871,8 +1080,10 @@ class Server:
         #: server interceptors (``tpurpc_torch.rpc.interceptors``), applied
         #: at every handler lookup on both wire planes
         self.interceptors = list(interceptors)
-        #: overload admission gate (None: admit everything)
-        self.admission = admission
+        #: overload admission gate: the one given, else the environment's
+        #: (``TPURPC_ADMISSION_MAX_INFLIGHT``); None admits everything
+        self.admission = (admission if admission is not None
+                          else AdmissionGate.from_env())
         self._draining = False
         self._health_servicer = None  # set by HealthServicer.add_to_server
         self._load_reports = os.environ.get(
@@ -1011,10 +1222,20 @@ class Server:
                    reuseport: bool = False) -> int:
         listener = EndpointListener(host, port, self.serve_endpoint,
                                     ready=self._serving, reuseport=reuseport,
-                                    ssl_context=ssl_context)
+                                    ssl_context=ssl_context,
+                                    admission=self._accept_pushback)
         self._listeners.append(listener)
         self.bound_ports.append(listener.port)
         return listener.port
+
+    def _accept_pushback(self) -> "Optional[int]":
+        """The admission gate's face on the accept path: the listener sheds
+        new connections before any handshake work while the RPC plane is
+        saturated."""
+        gate = self.admission
+        if gate is None:
+            return None
+        return gate.connection_pushback_ms()
 
     def adopt_socket(self, sock: socket.socket) -> None:
         """Serve a connection that was ACCEPTED ELSEWHERE (the shard
@@ -1272,6 +1493,21 @@ def server(thread_pool=None, handlers=None, interceptors=None, options=None,
     if handlers:
         srv.add_generic_rpc_handlers(handlers)
     return srv
+
+
+def inproc_channel(srv: Server):
+    """A channel wired to ``srv`` in process: each dial is a passthru
+    endpoint pair whose far end the server adopts (the in-process
+    transport; no ring, so no device ring either)."""
+    from tpurpc_torch.core.endpoint import passthru_endpoint_pair
+    from tpurpc_torch.rpc.channel import Channel
+
+    def factory():
+        a, b = passthru_endpoint_pair()
+        srv.serve_endpoint(b)
+        return a
+
+    return Channel(endpoint_factory=factory)
 
 
 class _ServerModule(types.ModuleType):

@@ -1,7 +1,8 @@
 """RPC status codes and errors — the surface contract of every call.
 
 A copy of ``tpurpc/rpc/status.py``: gRPC's 16 canonical codes; transport
-failures surface as ``UNAVAILABLE`` so the client may reconnect and retry.
+failures surface as ``UNAVAILABLE`` so the client may reconnect and retry;
+a channel's connectivity states.
 """
 
 from __future__ import annotations
@@ -53,6 +54,17 @@ class StatusCode(enum.IntEnum):
     UNAVAILABLE = 14
     DATA_LOSS = 15
     UNAUTHENTICATED = 16
+
+
+class ChannelConnectivity(enum.Enum):
+    """grpc.ChannelConnectivity's analog (connectivity_state.h's states),
+    read by :meth:`tpurpc_torch.rpc.channel.Channel.get_state`."""
+
+    IDLE = 0
+    CONNECTING = 1
+    READY = 2
+    TRANSIENT_FAILURE = 3
+    SHUTDOWN = 4
 
 
 class RpcError(Exception):

@@ -4,7 +4,12 @@ A trimmed copy of ``tpurpc/utils/config.py``: the same ``Platform`` spellings
 (``GRPC_PLATFORM_TYPE=TCP|RDMA_BP|RDMA_EVENT|RDMA_BPEV|TPU|RDMA_TPU``) and the
 same ring-size knobs, so one environment drives both packages, plus the
 port's ``device`` field (``TPURPC_TORCH_DEVICE``, default ``cuda``): where
-tensors live when a caller names no device.
+tensors live when a caller names no device. The connection lifecycle's keys
+keep the reference's names, defaults and variables: keepalive, the client's
+idle timeout and the server's max connection age (each 0, off, by default,
+with gRPC's ``GRPC_ARG_*`` spellings accepted), idle-pair parking
+(``TPURPC_PAIR_PARK_S``, 0.0, off) and the accept burst
+(``TPURPC_ACCEPT_BURST``, 64).
 """
 
 from __future__ import annotations
@@ -69,6 +74,16 @@ def _env(name: str, *aliases: str) -> Optional[str]:
     return env_lookup(name, *aliases)[1]
 
 
+def _env_float(name: str, default: float, *aliases: str) -> float:
+    key, val = env_lookup(name, *aliases)
+    if val is None:
+        return default
+    try:
+        return float(val)
+    except ValueError as exc:
+        raise ValueError(f"{key}={val!r} is not a number") from exc
+
+
 def _env_int(name: str, default: int, *aliases: str) -> int:
     key, val = env_lookup(name, *aliases)
     if val is None:
@@ -97,6 +112,17 @@ class Config:
     max_recv_message_length: int = 64 << 20
     #: completed-but-unconsumed messages buffered per stream
     stream_queue_depth: int = 64
+    #: client keepalive: PING the server after this many ms of inactivity;
+    #: 0 or less disables (gRPC's default)
+    keepalive_time_ms: int = 0
+    #: how long the keepalive PONG may take before the connection is dead
+    keepalive_timeout_ms: int = 20000
+    #: close a client connection with no streams after this much
+    #: inactivity; 0 or less disables
+    client_idle_timeout_ms: int = 0
+    #: the server GOAWAYs a connection older than this; in-flight calls
+    #: drain, new calls dial fresh; 0 or less disables
+    max_connection_age_ms: int = 0
     #: MemoryDomain of the ring's one-sided writes: "shm", "local" or
     #: "tcp_window"
     ring_domain: str = "shm"
@@ -105,6 +131,13 @@ class Config:
     #: real cross-host deployments), and the record server's bind address
     tcpw_host: str = "127.0.0.1"
     tcpw_bind: str = "0.0.0.0"
+    #: park a pair whose rings have been quiet this many seconds: its host
+    #: ring regions go to the process's RingPool and its poller slot frees
+    #: until the next byte; 0 (the default) disables parking
+    pair_park_s: float = 0.0
+    #: how many pending connections one listener wakeup may accept (each
+    #: still passes the admission probe before any handshake work)
+    accept_burst: int = 64
     #: where tensors live when a caller names no device
     device: str = "cuda"
 
@@ -172,10 +205,24 @@ class Config:
                 "TPURPC_MAX_RECV_MESSAGE_LENGTH", cls.max_recv_message_length),
             stream_queue_depth=_env_int(
                 "TPURPC_STREAM_QUEUE_DEPTH", cls.stream_queue_depth),
+            keepalive_time_ms=_env_int(
+                "TPURPC_KEEPALIVE_TIME_MS", cls.keepalive_time_ms,
+                "GRPC_ARG_KEEPALIVE_TIME_MS"),
+            keepalive_timeout_ms=_env_int(
+                "TPURPC_KEEPALIVE_TIMEOUT_MS", cls.keepalive_timeout_ms,
+                "GRPC_ARG_KEEPALIVE_TIMEOUT_MS"),
+            client_idle_timeout_ms=_env_int(
+                "TPURPC_CLIENT_IDLE_TIMEOUT_MS", cls.client_idle_timeout_ms,
+                "GRPC_ARG_CLIENT_IDLE_TIMEOUT_MS"),
+            max_connection_age_ms=_env_int(
+                "TPURPC_MAX_CONNECTION_AGE_MS", cls.max_connection_age_ms,
+                "GRPC_ARG_MAX_CONNECTION_AGE_MS"),
             ring_domain=(_env("TPURPC_RING_DOMAIN", "GRPC_RDMA_DOMAIN")
                          or cls.ring_domain).strip().lower(),
             tcpw_host=_env("TPURPC_TCPW_HOST") or cls.tcpw_host,
             tcpw_bind=_env("TPURPC_TCPW_BIND") or cls.tcpw_bind,
+            pair_park_s=_env_float("TPURPC_PAIR_PARK_S", cls.pair_park_s),
+            accept_burst=_env_int("TPURPC_ACCEPT_BURST", cls.accept_burst),
             device=(_env("TPURPC_TORCH_DEVICE") or cls.device).strip().lower(),
         )
 

@@ -516,7 +516,17 @@ class H2Channel:
                     h2.HEADERS if first else h2.CONTINUATION,
                     flags, sid, bytes(chunk)))
                 first = False
-            self._ep.write(frames)
+            try:
+                self._ep.write(frames)
+            except (EndpointError, OSError) as exc:
+                # the connection closed under this HEADERS (a GOAWAY's
+                # close racing a call that took its id just before): the
+                # server never took the stream, so it fails as refused
+                with self._lock:
+                    self._calls.pop(sid, None)
+                    why = self._dead or self._goaway or str(exc)
+                raise RpcError(StatusCode.UNAVAILABLE,
+                               f"channel dead: {why}") from exc
         return call
 
     # -- rendezvous plumbing --------------------------------------------------
