@@ -5,7 +5,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``
 (``python3 chip_smoke.py --kernels`` runs phases 1 and 2 only and ends with
 the kernels line and the card's name and power limit;
 ``python3 chip_smoke.py --ctrl-profile TURNS`` builds the kernels, runs
-phase 15 (a) alone in TURNS turns and ends with its summary, a JSON line).
+phase 15 (a) alone in TURNS turns and ends with its summary, a JSON line;
+``python3 chip_smoke.py --pump-profile TURNS`` builds the kernels, runs
+phase 3, then phase 17 (a) alone in TURNS turns and ends with its
+summary, a JSON line).
 Phases, each of which fails the run (non-zero exit, no result line) on any
 error:
 
@@ -292,7 +295,27 @@ error:
    shed before any handshake (counted at the listener), and once released
    the held calls and new dials complete. The phase must launch both
    kernels. Skipped under ``--kernels``;
-17. print the kernels line, the card's name and power limit, and last the
+17. the inline pump, all on ``TPU`` with phase 3's model, requests and
+   replies: a client ring connection has no reader thread, its callers
+   read it. Each part's launches (the wrappers' counts set to 0 just
+   before it) must equal what its landings' offsets give. (a) phase 3's
+   path in 6 turns, a fresh channel each, dialed with
+   ``TPURPC_INLINE_PUMP`` ``auto`` or ``0``: 2 warm-up and 32 timed calls a
+   turn, every reply bit-equal to phase 3's, a pump-mode connection with no
+   reader thread and a reader-mode one with it; prints p50/p99 per turn
+   and the median per mode. (b) 64 calls through a ``PipelinedUnary`` of
+   depth 16 on one pump-mode connection: every reply bit-equal, one
+   servicing thread while calls are in flight, none 1 s after the window
+   drains. (c) phase 15 (a)'s device-ring leg (descriptor ring on), the
+   pump on and off in 4 turns: every payload by rendezvous with no control
+   op framed, launches per round as the ring's offsets give; prints the
+   GB/s medians. (d) an idle pump-mode connection must read the server's
+   GOAWAY (1.25 s max age) within 1 s of its sending; keepalive 200/1000 ms
+   keeps an idle connection 2 s with at least 2 PONGs; prints the p50 of
+   32 pings. (e) 8 threads make 16 calls each on one pump-mode
+   connection: every reply bit-equal, none past its deadline. Skipped
+   under ``--kernels``;
+18. print the kernels line, the card's name and power limit, and last the
    one-line result JSON.
 """
 
@@ -791,6 +814,7 @@ def main_path(dev):
     print(f"breakdown ms: request p50 {p50:.2f} = model {model_ms:.2f} + "
           f"device landing {land_ms:.2f} + rest (codec, transport, framing, "
           f"reply) {p50 - model_ms - land_ms:.2f}", flush=True)
+    _PHASE3.update(infer=infer, images=images, replies=replies)
     return launches
 
 
@@ -5362,6 +5386,496 @@ def lifecycle_plane(dev, card, size=SIZE, ring=RING, requests=REQUESTS,
     return res
 
 
+# -- phase 17 ----------------------------------------------------------------
+
+#: phase 17 (a): TPURPC_INLINE_PUMP for each turn's fresh channel, and each
+#: turn's warm-up and timed calls
+PUMP_PATTERN = ("auto", "0", "0", "auto", "auto", "0")
+PUMP_WARM, PUMP_CALLS = 2, 32
+#: (b): pipelined calls and the window
+PUMP_PIPE_CALLS, PUMP_PIPE_DEPTH = 64, 16
+#: (b): how long after the window drains the servicing thread may linger
+PUMP_LINGER_S = 1.0
+#: (c): phase 15 (a)'s device-ring leg, the pump on and off in turns
+PUMP_SINK_PATTERN = ("auto", "0", "0", "auto")
+#: (d): the server's max connection age (off the backup pump's 0.5 s grid
+#: from the dial, so the GOAWAY lands between two ticks), the most an idle
+#: pump-mode connection may take to read it (two backup intervals), and
+#: keepalive time, timeout and the idle spell it must survive
+PUMP_AGE_MS, PUMP_GOAWAY_S = 1250, 1.0
+PUMP_KA_TIME_MS, PUMP_KA_TIMEOUT_MS, PUMP_KA_IDLE_S = 200, 1000, 2.0
+PUMP_PINGS = 32
+#: (e): threads on one connection, and the calls each makes
+PUMP_THREADS, PUMP_THREAD_CALLS = 8, 16
+PUMP_ENV = LC_ENV + ("TPURPC_INLINE_PUMP", "TPURPC_CTRL_RING")
+
+#: phase 3's model, requests and replies, kept for phase 17's bit-equality
+_PHASE3: dict = {}
+
+
+def _pump_mode_of(label, conn, want_pump: bool) -> None:
+    thread = getattr(conn, "_thread", None)
+    reader = thread is not None and thread.is_alive()
+    check(conn._pump_mode is want_pump and reader is not want_pump,
+          f"{label}: pump mode {conn._pump_mode}, reader thread {reader}; "
+          f"want pump mode {want_pump}")
+
+
+def _dial_in_mode(port, mode):
+    """A fresh channel whose connection is dialed with TPURPC_INLINE_PUMP
+    set to ``mode`` (read once, at the connection's construction), the
+    variable restored right after the dial."""
+    from tpurpc_torch.rpc.channel import Channel
+
+    saved = os.environ.get("TPURPC_INLINE_PUMP")
+    _set_env({"TPURPC_INLINE_PUMP": mode})
+    try:
+        ch = Channel(f"127.0.0.1:{port}")
+        ch._subchannels[0].get()
+    finally:
+        _set_env({"TPURPC_INLINE_PUMP": saved})
+    return ch
+
+
+def _pump_turns(dev, card, classify, images, first, calls,
+                pattern=PUMP_PATTERN) -> dict:
+    """Phase 17 (a): phase 3's path, one fresh channel a turn, the pump on
+    (``auto``) and off (``0``) in ``pattern``'s turns. Each turn's
+    launches must be what its landings' offsets give."""
+    import numpy as np
+
+    from tpurpc_torch.ops import ring_scatter as rs_mod
+    from tpurpc_torch.ops import ring_window as rw_mod
+    from tpurpc_torch.torchshim.service import TensorClient
+
+    rig = CallPlaneServer(classify)
+    turns, per_turn = [], []
+    try:
+        for turn, mode in enumerate(pattern):
+            label = f"pump (a) turn {turn}, TPURPC_INLINE_PUMP={mode}"
+            with _Landings() as land:
+                rs_mod.launches = rw_mod.launches = 0
+                ch = _dial_in_mode(rig.port, mode)
+                try:
+                    _pump_mode_of(label, ch._conn, mode == "auto")
+                    client = TensorClient(ch)
+                    for i in range(PUMP_WARM):
+                        got = _lc_call(f"{label} warm-up {i}", client,
+                                       images[i % len(images)])
+                        _bit_equal(f"{label} warm-up {i}", got,
+                                   first[i % len(images)])
+                    lat = []
+                    for i in range(calls):
+                        k = (PUMP_WARM + i) % len(images)
+                        t = time.perf_counter()
+                        got = _lc_call(f"{label} call {i}", client, images[k])
+                        lat.append((time.perf_counter() - t) * 1e3)
+                        _bit_equal(f"{label} call {i}", got, first[k])
+                    _pump_mode_of(label, ch._conn, mode == "auto")
+                finally:
+                    ch.close()
+                got_l = {"ring_scatter": rs_mod.launches,
+                         "ring_window": rw_mod.launches}
+            want_l = land.launches()
+            check(got_l == want_l, f"{label}: launched {got_l}, the "
+                  f"{len(land.recs)} landings' ring offsets give {want_l}")
+            rec = {"mode": mode, "p50": float(np.percentile(lat, 50)),
+                   "p99": float(np.percentile(lat, 99)), "launches": got_l}
+            turns.append(rec)
+            per_turn.append(got_l)
+            print(f"{label}: {calls} calls p50 {rec['p50']:.3f} ms p99 "
+                  f"{rec['p99']:.3f} ms, launches {got_l} ({card})",
+                  flush=True)
+    finally:
+        rig.server.stop()
+    # each turn's fresh connection lands from offset 0 of a fresh ring: the
+    # launches must not depend on who reads the connection
+    check(all(t == per_turn[0] for t in per_turn),
+          f"pump (a): launches differ between turns: {per_turn}")
+    out = {"turns": turns}
+    for mode in ("auto", "0"):
+        recs = [r for r in turns if r["mode"] == mode]
+        out[mode] = {"p50_median": float(np.median([r["p50"] for r in recs])),
+                     "p99_median": float(np.median([r["p99"] for r in recs])),
+                     "launches": [r["launches"] for r in recs]}
+    spread = [r["p50"] for r in turns]
+    # turn pairs: each on turn against the off turn beside it (turns 0/1,
+    # 2/3, ...): in how many the pump's p50 read lower
+    won = sum(int(a["p50"] < b["p50"]) if a["mode"] == "auto"
+              else int(b["p50"] < a["p50"])
+              for a, b in zip(turns[::2], turns[1::2]))
+    out["pairs"], out["pump_won"] = len(turns) // 2, won
+    print(f"pump (a): phase 3's path, {len(pattern)} turns of {calls} "
+          f"calls; median p50/p99 ms pump on {out['auto']['p50_median']:.3f}"
+          f"/{out['auto']['p99_median']:.3f}, off "
+          f"{out['0']['p50_median']:.3f}/{out['0']['p99_median']:.3f}; "
+          f"on/off p50 {out['auto']['p50_median'] / out['0']['p50_median']}"
+          f"; turn p50s {min(spread):.3f}..{max(spread):.3f} ms; the pump's "
+          f"p50 lower in {won} of {out['pairs']} turn pairs; replies "
+          f"bit-equal to phase 3's in both modes ({card})", flush=True)
+    return out
+
+
+def _pump_pipeline(dev, card, classify, images, first, n) -> dict:
+    """Phase 17 (b): ``n`` calls through one ``PipelinedUnary`` of depth
+    PUMP_PIPE_DEPTH on one pump-mode device-ring connection."""
+    import torch
+
+    from tpurpc_torch.torchshim.service import TensorClient
+
+    rig = CallPlaneServer(classify)
+    try:
+        ch = _dial_in_mode(rig.port, "auto")
+        try:
+            _pump_mode_of("pump (b)", ch._conn, True)
+            client = TensorClient(ch)
+            pipe = client.pipeline("Classify", depth=PUMP_PIPE_DEPTH)
+
+            def servicing():
+                with pipe._lock:
+                    return [t for t in pipe._pump_threads.values()
+                            if t.is_alive()]
+
+            most, futs = 0, []
+            t0 = time.perf_counter()
+            for i in range(n):
+                futs.append(pipe.call_async(
+                    {"images": torch.from_numpy(images[i % len(images)])},
+                    timeout=120))
+                most = max(most, len(servicing()))
+            replies = [f.result(timeout=120) for f in futs]
+            wall = time.perf_counter() - t0
+            for i, got in enumerate(replies):
+                _bit_equal(f"pump (b) call {i}", got, first[i % len(images)])
+            check(most == 1, f"pump (b): {most} servicing threads while "
+                  f"calls were in flight, want 1")
+            drained = time.monotonic()
+            while servicing() and time.monotonic() - drained < PUMP_LINGER_S:
+                time.sleep(0.005)
+            left = len(servicing())
+            check(left == 0, f"pump (b): {left} servicing threads "
+                  f"{PUMP_LINGER_S} s after the window drained")
+            pipe.close()
+        finally:
+            ch.close()
+    finally:
+        rig.server.stop()
+    print(f"pump (b): {n} pipelined calls at depth {PUMP_PIPE_DEPTH} on one "
+          f"pump-mode connection in {wall:.3f} s ({n / wall:.3f} calls/s), "
+          f"every reply bit-equal to phase 3's, one servicing thread while "
+          f"in flight, none {PUMP_LINGER_S} s after ({card})", flush=True)
+    return {"wall_s": wall}
+
+
+def _pump_sink(dev, card, want, rounds, ring) -> dict:
+    """Phase 17 (c): phase 15 (a)'s device-ring leg (the descriptor ring
+    on), the pump on and off in PUMP_SINK_PATTERN's turns."""
+    n = len(want[0])
+    leaves = (8, want[0][0].nbytes)
+    got = {"auto": [], "0": []}
+    for turn, mode in enumerate(PUMP_SINK_PATTERN):
+        label = f"pump (c) turn {turn}, TPURPC_INLINE_PUMP={mode}"
+        recs, _ = sink_leg(label, dev, card, want,
+                           {"GRPC_PLATFORM_TYPE": "TPU",
+                            "TPURPC_HBM_RING_SIZE_KB": str(ring >> 10),
+                            "TPURPC_CTRL_RING": "1",
+                            "TPURPC_INLINE_PUMP": mode},
+                           device_ring=True, rounds=rounds)
+        _set_env({"TPURPC_INLINE_PUMP": None, "TPURPC_CTRL_RING": None})
+        for r, rec in enumerate(recs):
+            cl = rec["link"]
+            check(cl["sent"] == n and cl["fallbacks"] == 0
+                  and cl["ctrl_frames"] == 0,
+                  f"{label} round {r}: not every payload rode rendezvous "
+                  f"with its control ops on the ring: {cl}")
+            tails = rec["ring_tails"]
+            check(len(tails) == 1
+                  and tails[0][1] - tails[0][0] == n * sum(leaves),
+                  f"{label} round {r}: the server's rings advanced {tails}")
+            want_l = _landing_launches(*tails[0], leaves, ring)
+            check(rec["launches"] == want_l and min(want_l.values()) >= 1,
+                  f"{label} round {r}: launched {rec['launches']}, the "
+                  f"landings give {want_l}")
+        got[mode].append(recs)
+    out = {}
+    for mode, turns in got.items():
+        out[mode] = _ctrl_summary(turns)
+        out[mode]["launches"] = [rec["launches"] for recs in turns
+                                 for rec in recs]
+    ratio = out["auto"]["gbps_median"] / out["0"]["gbps_median"]
+    print(f"pump (c): phase 15 (a)'s device-ring leg, GB/s median (q1, q3) "
+          f"after each turn's first round: pump on "
+          f"{out['auto']['gbps_median']} ({out['auto']['gbps_q1']}, "
+          f"{out['auto']['gbps_q3']}), off {out['0']['gbps_median']} "
+          f"({out['0']['gbps_q1']}, {out['0']['gbps_q3']}); on/off {ratio} "
+          f"({card})", flush=True)
+    return out
+
+
+def _pump_idle(dev, card, classify, images, first) -> dict:
+    """Phase 17 (d): an idle pump-mode connection reads the server's
+    GOAWAY through the backup pump, keepalive keeps a healthy one, and
+    ``ping`` pumps."""
+    import numpy as np
+
+    from tpurpc_torch.torchshim.service import TensorClient
+
+    res = {}
+    _set_env({"TPURPC_MAX_CONNECTION_AGE_MS": str(PUMP_AGE_MS)})
+    rig = CallPlaneServer(classify)
+    try:
+        ch = _dial_in_mode(rig.port, "auto")
+        try:
+            got = _lc_call("pump (d) max age", TensorClient(ch), images[0])
+            _bit_equal("pump (d) max age", got, first[0])
+            conn = ch._conn
+            _pump_mode_of("pump (d) max age", conn, True)
+            sconn = _conn_of(rig.server, ch)
+            sent = {}
+            goaway = sconn.goaway
+
+            def timed_goaway(why):
+                sent.setdefault("t", time.monotonic())
+                return goaway(why)
+
+            sconn.goaway = timed_goaway
+            _await(lambda: not conn.alive, PUMP_AGE_MS / 1e3 + 10,
+                   "pump (d): the idle connection's death")
+            dead = time.monotonic()
+            check("t" in sent, "pump (d): the server sent no GOAWAY")
+            res["goaway_read_s"] = dead - sent["t"]
+            check(conn.draining and res["goaway_read_s"] < PUMP_GOAWAY_S,
+                  f"pump (d): the idle connection died "
+                  f"{res['goaway_read_s']} s after the GOAWAY (draining "
+                  f"{conn.draining}), want it read within {PUMP_GOAWAY_S} s")
+        finally:
+            ch.close()
+    finally:
+        rig.server.stop()
+        _set_env({"TPURPC_MAX_CONNECTION_AGE_MS": None})
+
+    _set_env({"TPURPC_KEEPALIVE_TIME_MS": str(PUMP_KA_TIME_MS),
+              "TPURPC_KEEPALIVE_TIMEOUT_MS": str(PUMP_KA_TIMEOUT_MS)})
+    rig = CallPlaneServer(classify)
+    try:
+        ch = _dial_in_mode(rig.port, "auto")
+        try:
+            client = TensorClient(ch)
+            _lc_call("pump (d) keepalive", client, images[0])
+            conn = ch._conn
+            before = conn.pong_count
+            time.sleep(PUMP_KA_IDLE_S)
+            pongs = conn.pong_count - before
+            check(ch._conn is conn and conn.alive and pongs >= 2,
+                  f"pump (d): keepalive over {PUMP_KA_IDLE_S} s idle: same "
+                  f"connection {ch._conn is conn}, alive {conn.alive}, "
+                  f"{pongs} PONGs (want at least 2)")
+            got = _lc_call("pump (d) keepalive after idle", client,
+                           images[0])
+            _bit_equal("pump (d) keepalive after idle", got, first[0])
+            res["ka_pongs"] = pongs
+            rtts = [ch.ping(timeout=5) * 1e3 for _ in range(PUMP_PINGS)]
+            res["ping_p50_ms"] = float(np.percentile(rtts, 50))
+            res["ping_p99_ms"] = float(np.percentile(rtts, 99))
+        finally:
+            ch.close()
+    finally:
+        rig.server.stop()
+        _set_env({"TPURPC_KEEPALIVE_TIME_MS": None,
+                  "TPURPC_KEEPALIVE_TIMEOUT_MS": None})
+    print(f"pump (d): an idle pump-mode connection read the server's GOAWAY "
+          f"{res['goaway_read_s']:.4f} s after it left (bound "
+          f"{PUMP_GOAWAY_S} s); keepalive {PUMP_KA_TIME_MS}/"
+          f"{PUMP_KA_TIMEOUT_MS} ms kept an idle connection "
+          f"{PUMP_KA_IDLE_S} s with {res['ka_pongs']} PONGs; {PUMP_PINGS} "
+          f"pings p50 {res['ping_p50_ms']:.4f} ms p99 "
+          f"{res['ping_p99_ms']:.4f} ms ({card})", flush=True)
+    return res
+
+
+def _pump_threads(dev, card, classify, images, first, threads,
+                  per_thread) -> dict:
+    """Phase 17 (e): ``threads`` threads make ``per_thread`` calls each on
+    one pump-mode device-ring connection."""
+    import numpy as np
+
+    from tpurpc_torch.torchshim.service import TensorClient
+
+    rig = CallPlaneServer(classify)
+    errors, lat = [], []
+    lock = threading.Lock()
+    try:
+        ch = _dial_in_mode(rig.port, "auto")
+        try:
+            conn = ch._conn
+            client = TensorClient(ch)
+
+            def worker(t):
+                import torch
+
+                for i in range(per_thread):
+                    k = (t + i) % len(images)
+                    try:
+                        t0 = time.perf_counter()
+                        got = client.call(
+                            "Classify",
+                            {"images": torch.from_numpy(images[k])},
+                            timeout=120)
+                        ms = (time.perf_counter() - t0) * 1e3
+                        ok = all(torch.equal(got[n], first[k][n])
+                                 for n in ("logits", "top1"))
+                        with lock:
+                            lat.append(ms)
+                            if not ok:
+                                errors.append(f"thread {t} call {i}: not "
+                                              f"bit-equal")
+                    except Exception as exc:
+                        with lock:
+                            errors.append(f"thread {t} call {i}: {exc!r}")
+
+            ts = [threading.Thread(target=worker, args=(t,))
+                  for t in range(threads)]
+            t0 = time.perf_counter()
+            for t in ts:
+                t.start()
+            for t in ts:
+                t.join(300)
+            wall = time.perf_counter() - t0
+            check(not any(t.is_alive() for t in ts),
+                  "pump (e): a caller thread never finished")
+            check(not errors, f"pump (e): {errors[:4]}")
+            check(ch._conn is conn, "pump (e): the connection was redialed")
+            _pump_mode_of("pump (e)", conn, True)
+        finally:
+            ch.close()
+    finally:
+        rig.server.stop()
+    n = threads * per_thread
+    print(f"pump (e): {threads} threads x {per_thread} calls on one "
+          f"pump-mode connection: every reply bit-equal, none past its "
+          f"deadline, {n / wall:.3f} calls/s, p50 "
+          f"{float(np.percentile(lat, 50)):.3f} ms p99 "
+          f"{float(np.percentile(lat, 99)):.3f} ms ({card})", flush=True)
+    return {"calls_per_s": n / wall}
+
+
+def pump_profile(dev, card, turns: int) -> dict:
+    """Phase 17 (a) alone in ``turns`` turns of PUMP_SINK_PATTERN's order
+    (on, off, off, on, ...), after phase 3, with its checks. Returns the
+    summary: the median p50 and p99 of each mode and the turn pairs the
+    pump won."""
+    saved = {k: os.environ.get(k) for k in PUMP_ENV}
+    _set_env({"GRPC_PLATFORM_TYPE": "TPU", "TPURPC_TORCH_DEVICE": str(dev),
+              "TPURPC_HBM_RING_SIZE_KB": str(RING >> 10),
+              "TPURPC_INLINE_PUMP": None})
+    infer = _PHASE3["infer"]
+
+    def classify(tree):
+        logits = infer(tree["images"].to(dev))
+        return {"logits": logits, "top1": logits.argmax(dim=1)}
+
+    try:
+        res = _pump_turns(dev, card, classify, _PHASE3["images"],
+                          _PHASE3["replies"], PUMP_CALLS,
+                          pattern=tuple(PUMP_SINK_PATTERN[i % 4]
+                                        for i in range(turns)))
+    finally:
+        _set_env(saved)
+    return {mode: {k: res[mode][k] for k in ("p50_median", "p99_median")}
+            for mode in ("auto", "0")} | {"pairs": res["pairs"],
+                                         "pump_won": res["pump_won"]}
+
+
+def pump_plane(dev, card, size=SIZE, ring=RING, requests=REQUESTS,
+               calls=PUMP_CALLS, pipe_calls=PUMP_PIPE_CALLS,
+               sink_rounds=CTRL_ROUNDS, want=None, threads=PUMP_THREADS,
+               per_thread=PUMP_THREAD_CALLS) -> dict:
+    """Phase 17: the inline pump (docstring of this file). Returns each
+    part's launches, each checked against what its landings' ring offsets
+    give."""
+    import numpy as np
+    import torch
+
+    from tpurpc_torch.models.resnet import make_infer_fn, resnet50
+    from tpurpc_torch.ops import ring_scatter as rs_mod
+    from tpurpc_torch.ops import ring_window as rw_mod
+
+    t_phase = time.perf_counter()
+    saved = {k: os.environ.get(k) for k in PUMP_ENV}
+    _set_env({"GRPC_PLATFORM_TYPE": "TPU", "TPURPC_TORCH_DEVICE": str(dev),
+              "TPURPC_HBM_RING_SIZE_KB": str(ring >> 10),
+              "TPURPC_INLINE_PUMP": None})
+    res = {}
+    try:
+        if _PHASE3 and size == SIZE:
+            infer, images = _PHASE3["infer"], _PHASE3["images"]
+        else:   # a rehearsal without phase 3: the same seeds
+            torch.manual_seed(SEED)
+            infer = make_infer_fn(resnet50().to(dev))
+            rng = np.random.default_rng(SEED)
+            images = [rng.standard_normal((BATCH, size, size, 3)).astype(
+                np.float32) for _ in range(requests)]
+
+        def classify(tree):
+            logits = infer(tree["images"].to(dev))
+            return {"logits": logits, "top1": logits.argmax(dim=1)}
+
+        first = (_PHASE3.get("replies") if _PHASE3 and size == SIZE
+                 else None)
+        res["first_from_phase3"] = first is not None
+
+        def part(name, fn, *args):
+            """One part, the wrappers' counts set to 0 just before it; its
+            launches must be what its landings' ring offsets give."""
+            t = time.perf_counter()
+            with _Landings() as land:
+                rs_mod.launches = rw_mod.launches = 0
+                out = fn(*args)
+                got = {"ring_scatter": rs_mod.launches,
+                       "ring_window": rw_mod.launches}
+            want_l = land.launches()
+            check(got == want_l, f"pump ({name}): launched {got}, the "
+                  f"{len(land.recs)} landings' ring offsets give {want_l}")
+            out["launches"] = got
+            print(f"pump: ({name}) took {time.perf_counter() - t} s",
+                  flush=True)
+            return out
+
+        if first is None:   # rehearsal: a reader-mode run sets the replies
+            from tpurpc_torch.torchshim.service import TensorClient
+
+            rig = CallPlaneServer(classify)
+            try:
+                ch = _dial_in_mode(rig.port, "0")
+                try:
+                    client = TensorClient(ch)
+                    first = [_lc_call(f"pump reference reply {i}", client, x)
+                             for i, x in enumerate(images)]
+                finally:
+                    ch.close()
+            finally:
+                rig.server.stop()
+        # (a) and (c) check each turn's launches themselves
+        res["a"] = _pump_turns(dev, card, classify, images, first, calls)
+        res["b"] = part("b", _pump_pipeline, dev, card, classify, images,
+                        first, pipe_calls)
+        res["c"] = _pump_sink(dev, card, want or sink_payloads(),
+                              sink_rounds, ring)
+        res["d"] = part("d", _pump_idle, dev, card, classify, images, first)
+        res["e"] = part("e", _pump_threads, dev, card, classify, images,
+                        first, threads, per_thread)
+    finally:
+        _set_env(saved)
+    total = {k: sum(res[p]["launches"][k] for p in "bde")
+             + sum(r[k] for p in "ac" for m in ("auto", "0")
+                   for r in res[p][m]["launches"])
+             for k in ("ring_scatter", "ring_window")}
+    check(min(total.values()) >= 1, f"pump: phase 17 launched {total}")
+    print(f"pump: phase 17 took {time.perf_counter() - t_phase} s, "
+          f"launches {total} ({card})", flush=True)
+    return res
+
+
 def card_line() -> str:
     """The card's name and power limit, as nvidia-smi reports them."""
     smi = subprocess.run(
@@ -5378,6 +5892,9 @@ def main() -> None:
     ap.add_argument("--ctrl-profile", type=int, metavar="TURNS",
                     help="build the kernels, then run phase 15 (a) alone in "
                          "TURNS turns and end with its summary")
+    ap.add_argument("--pump-profile", type=int, metavar="TURNS",
+                    help="build the kernels, run phase 3, then phase 17 (a) "
+                         "alone in TURNS turns and end with its summary")
     args = ap.parse_args()
     kernels_only = args.kernels
     here = os.path.dirname(os.path.abspath(__file__))
@@ -5403,12 +5920,21 @@ def main() -> None:
                               turns=args.ctrl_profile, rounds=CTRL_ROUNDS)),
               flush=True)
         return
+    if args.pump_profile:
+        main_path(dev)
+        res = pump_profile(dev, card, args.pump_profile)
+        print(json.dumps(dict(res, card=card, turns=args.pump_profile,
+                              calls=PUMP_CALLS,
+                              ctrl_ring=os.environ.get("TPURPC_CTRL_RING"))),
+              flush=True)
+        return
     err, timings = check_kernels(dev)
     if kernels_only:
         launches = {"ring_scatter": None, "ring_window": None}
         stream = tf_launches = train_launches = gen_launches = None
         fleet_launches = h2_launches = cp_launches = tls_launches = None
         aio_launches = lb_launches = tp_launches = lc_launches = None
+        pump_launches = None
     else:
         from tpurpc_torch.ops import ring_scatter as rs_mod
         from tpurpc_torch.ops import ring_window as rw_mod
@@ -5479,6 +6005,9 @@ def main() -> None:
         # phase 16: every part's launches as its landings' offsets give;
         # (b)'s inproc leg has no ring and launches neither
         lc_launches = lifecycle_plane(dev, card)
+        # phase 17: every part's launches as its landings' offsets give;
+        # (c) per round of the device-ring leg, pump on and off
+        pump_launches = pump_plane(dev, card)
 
     sources = {"ring_scatter": "tpurpc/ops/ring_scatter.py:133",
                "ring_window": "tpurpc/ops/ring_window.py:138"}
@@ -5561,7 +6090,19 @@ def main() -> None:
             # and keepalive, (d) the burst and admission
             "lifecycle_launches": (None if lc_launches is None else {
                 part: lc_launches[part]["launches"][name]
-                for part in "abcd"})})
+                for part in "abcd"}),
+            # phase 17, the inline pump: (a) per turn with the pump on
+            # (auto) and off (0), (b) the pipeline, (c) per round of the
+            # device-ring leg on and off, (d) idle servicing, (e) eight
+            # threads on one connection
+            "pump_launches": (None if pump_launches is None else {
+                "a": {mode: [r[name] for r in pump_launches["a"][mode][
+                    "launches"]] for mode in ("auto", "0")},
+                "b": pump_launches["b"]["launches"][name],
+                "c": {mode: [r[name] for r in pump_launches["c"][mode][
+                    "launches"]] for mode in ("auto", "0")},
+                "d": pump_launches["d"]["launches"][name],
+                "e": pump_launches["e"]["launches"][name]})})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     if kernels_only:

@@ -20,7 +20,9 @@ channel between two card-ring servers, the transport's head (a gzip'd
 request, a stream with its control ops on the descriptor ring, and a
 ``tcp_window`` pair feeding the card's ring), and the connection lifecycle
 (a parked card-ring connection woken, a call redialed by max connection
-age, ``ping`` on the card ring) run on the card.
+age, ``ping`` on the card ring), and the inline pump (a pump-mode call
+bit-equal to a reader-mode one, a pipelined window, a rendezvous landing
+whose sender pumped its own CLAIM) run on the card.
 """
 
 import numpy as np
@@ -1269,3 +1271,149 @@ def test_ping_on_the_card_ring(dev, stream_env):
             assert rig.ring().stats()["tail"] == x.numpy().nbytes
     finally:
         rig.server.stop()
+
+
+def _dial(port, mode, monkeypatch):
+    """A channel whose connection is dialed with TPURPC_INLINE_PUMP set to
+    ``mode`` (read once, when the connection is built)."""
+    monkeypatch.setenv("TPURPC_INLINE_PUMP", mode)
+    ch = Channel(f"127.0.0.1:{port}")
+    ch._subchannels[0].get()
+    monkeypatch.delenv("TPURPC_INLINE_PUMP")
+    return ch
+
+
+def _reader(conn):
+    t = getattr(conn, "_thread", None)
+    return t is not None and t.is_alive()
+
+
+@pytest.mark.cuda
+def test_pump_mode_card_ring_call_bit_equal_to_reader_mode(
+        dev, stream_env, exact_f32, monkeypatch):
+    """Phase 17 (a) at a small model: the same request through a pump-mode
+    connection (no reader thread) and a reader-mode one lands on the card's
+    ring and replies bit-equal, launching the same kernels."""
+    stream_env("TPU", TPURPC_HBM_RING_SIZE_KB="64")
+    infer = _small_model(dev)
+    rig = CallPlaneServer(lambda t: {"y": infer(t["x"])}, max_workers=4)
+    x = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (4, 32, 32, 3)).astype(np.float32))   # 48 KiB: the 2nd wraps
+    outs = {}
+    try:
+        for mode in ("0", "auto"):
+            ch = _dial(rig.port, mode, monkeypatch)
+            try:
+                conn = ch._conn
+                assert conn._pump_mode is (mode == "auto")
+                assert _reader(conn) is (mode == "0")
+                before = (rs_mod.launches, rw_mod.launches)
+                outs[mode] = [TensorClient(ch).call("Classify", {"x": x},
+                                                    timeout=60)
+                              for _ in range(2)]
+                outs[mode + "_launches"] = (rs_mod.launches - before[0],
+                                            rw_mod.launches - before[1])
+            finally:
+                ch.close()
+    finally:
+        rig.server.stop()
+    for a, b in zip(outs["0"], outs["auto"]):
+        assert torch.equal(a["y"], b["y"])
+    assert outs["0_launches"] == outs["auto_launches"]
+    assert min(outs["auto_launches"]) >= 1
+
+
+@pytest.mark.cuda
+def test_pipelined_window_in_pump_mode_on_card(dev, stream_env, exact_f32,
+                                               monkeypatch):
+    """Phase 17 (b) at a small model: 32 calls through a pipeline of depth 8
+    on one pump-mode card-ring connection reply bit-equal to sequential
+    calls; one servicing thread while calls are in flight, none a second
+    after the window drains."""
+    import time
+
+    stream_env("TPU", TPURPC_HBM_RING_SIZE_KB="256")
+    infer = _small_model(dev)
+    rig = CallPlaneServer(lambda t: {"y": infer(t["x"])}, max_workers=8)
+    rng = np.random.default_rng(8)
+    xs = [torch.from_numpy(rng.standard_normal((2, 32, 32, 3)).astype(
+        np.float32)) for _ in range(4)]
+    try:
+        ch = _dial(rig.port, "auto", monkeypatch)
+        try:
+            client = TensorClient(ch)
+            want = [client.call("Classify", {"x": x}, timeout=60)
+                    for x in xs]
+            pipe = client.pipeline("Classify", depth=8)
+
+            def servicing():
+                with pipe._lock:
+                    return [t for t in pipe._pump_threads.values()
+                            if t.is_alive()]
+
+            most, futs = 0, []
+            for i in range(32):
+                futs.append(pipe.call_async({"x": xs[i % 4]}, timeout=60))
+                most = max(most, len(servicing()))
+            got = [f.result(timeout=60) for f in futs]
+            deadline = time.monotonic() + 1.0
+            while servicing() and time.monotonic() < deadline:
+                time.sleep(0.005)
+            left = len(servicing())
+            pipe.close()
+            assert ch._conn._pump_mode and not _reader(ch._conn)
+        finally:
+            ch.close()
+    finally:
+        rig.server.stop()
+    assert most == 1 and left == 0
+    for i, out in enumerate(got):
+        assert torch.equal(out["y"], want[i % 4]["y"])
+
+
+@pytest.mark.cuda
+def test_rendezvous_landing_whose_sender_pumped_its_claim(dev, stream_env,
+                                                          monkeypatch):
+    """A 4 MiB request on a fresh pump-mode card-ring connection: with no
+    standing grant the sender OFFERs and pumps the connection itself until
+    its CLAIM arrives, then the payload lands one-sided and on the card's
+    ring, where the handler reduces it."""
+    stream_env("TPU", TPURPC_HBM_RING_SIZE_KB=str(16 << 10))
+
+    def total(tree):
+        x = tree["x"]
+        assert x.device.type == "cuda"
+        return {"sum": x.double().sum().reshape(1).cpu()}
+
+    rig = CallPlaneServer(total, max_workers=4)
+    x = np.random.default_rng(9).standard_normal(STREAM_SHAPE).astype(
+        np.float32)
+    try:
+        ch = _dial(rig.port, "auto", monkeypatch)
+        try:
+            link = ch._conn.rdv
+            pumped = []
+            inner = link._pump
+
+            def spy(pred, deadline):
+                got = inner(pred, deadline)
+                pumped.append(bool(pred()))
+                return got
+
+            link._pump = spy
+            before = link.stats()
+            out = TensorClient(ch).call("Classify",
+                                        {"x": torch.from_numpy(x)},
+                                        timeout=60)
+            after = link.stats()
+            tail = rig.ring().stats()["tail"]
+        finally:
+            ch.close()
+    finally:
+        rig.server.stop()
+    assert pumped and pumped[0]
+    assert after["sent"] - before["sent"] == 1
+    assert after["fallbacks"] == before["fallbacks"]
+    assert tail == x.nbytes
+    x64 = x.astype(np.float64)
+    assert abs(out["sum"].item() - x64.sum()) <= SUM_TOL * np.abs(x64).sum()

@@ -205,7 +205,16 @@ def test_native_plane_linger_closes_on_the_wheel(platform):
             # which can be after the first call returns
             assert poll(lambda: srv._connections)
             conn = srv._connections[0]
+            # ... and retires the call's stream after its reply is written,
+            # which can also be after the call returns: goaway() reports an
+            # idle connection only once it is
+            assert poll(lambda: not conn._streams)
             conn.GOAWAY_LINGER_S = 0.05
+            # the wheel's one thread starts with the process's first entry:
+            # have it running, so that the count below sees the linger's own
+            ran = threading.Event()
+            port_timers.schedule(0.0, ran.set)
+            assert ran.wait(10)
             before = threading.active_count()
             assert conn.goaway(b"drain")
             conn.linger_then_close()

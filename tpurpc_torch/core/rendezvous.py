@@ -52,11 +52,14 @@ connection from ``core/ctrlring.py``; zero frames), else framed through
 in-flight write as one multi-frame send (``send_ops``). ``ctrl_drain``
 lets a waiting sender consume its own ring for standing-grant top-ups.
 
-Not here (the reference's): the ``pump(pred, deadline)`` seam of
-inline-pump transports, which comes with the channel's inline pump, and
-flight events, metrics and lens counters. Each link counts its transfers
-in :meth:`RdvLink.stats` instead (``ctrl_frames``: control ops this side
-framed; ``ctrl_posts``: those it posted into the peer's ring).
+Inline-pump transports (the channel's pump mode) hand the link
+``pump(pred, deadline)``: a sender waiting for its CLAIM drives the
+connection's reader itself, since no reader thread will.
+
+Not here (the reference's): flight events, metrics and lens counters.
+Each link counts its transfers in :meth:`RdvLink.stats` instead
+(``ctrl_frames``: control ops this side framed; ``ctrl_posts``: those it
+posted into the peer's ring).
 
 Env knobs: ``TPURPC_RENDEZVOUS`` (default on), ``TPURPC_RENDEZVOUS_MIN_KB``
 (size bar, default 256), ``TPURPC_RENDEZVOUS_POOL_MB`` (landing pool budget
@@ -663,13 +666,16 @@ class RdvLink:
     The connection supplies ``send_op(op, stream_id, payload)``, which
     frames one control message, optionally ``send_ops(ops)``, which frames
     several in one write, and ``deliver(stream_id, flags, body)``, which
-    hands a completed payload to the stream layer."""
+    hands a completed payload to the stream layer, and optionally
+    ``pump(pred, deadline)`` for inline-pump transports, where the waiting
+    sender must drive the reader itself."""
 
     def __init__(self, name: str,
                  send_op: Callable[[int, int, bytes], None],
                  deliver: Callable[[int, int, object], None],
                  pool_kinds: Sequence[str] = ("shm",),
                  open_kinds: Sequence[str] = ("shm", "local"),
+                 pump: Optional[Callable] = None,
                  send_ops: Optional[Callable] = None):
         self.name = name
         self._send_op = send_op
@@ -684,6 +690,7 @@ class RdvLink:
         self._deliver = deliver
         self._pool_kinds = tuple(pool_kinds)
         self._open_kinds = tuple(open_kinds)
+        self._pump = pump
         self._lock = threading.Lock()
         self._cond = threading.Condition(self._lock)
         self.negotiated = False
@@ -856,9 +863,10 @@ class RdvLink:
 
     def rdv_claim(self, stream_id: int, total: int,
                   cls: int) -> Optional[_Claim]:
-        """OFFER the transfer and wait for the peer's CLAIM. None when it is
-        refused or times out; a timed-out offer is abandoned with a RELEASE
-        so that a claim crossing it frees its region."""
+        """OFFER the transfer and wait (pumping where the transport needs
+        it) for the peer's CLAIM. None when it is refused or times out; a
+        timed-out offer is abandoned with a RELEASE so that a claim crossing
+        it frees its region."""
         req = next(self._req_ids)
         st = {"claim": _SENTINEL_PENDING}
         with self._lock:
@@ -873,12 +881,20 @@ class RdvLink:
                 self._reqs.pop(req, None)
             return None
         deadline = time.monotonic() + _claim_timeout()
-        with self._cond:
-            while st["claim"] is _SENTINEL_PENDING and not self.closed:
-                remain = deadline - time.monotonic()
-                if remain <= 0:
-                    break
-                self._cond.wait(remain)
+
+        def pred() -> bool:
+            return st["claim"] is not _SENTINEL_PENDING or self.closed
+
+        if self._pump is not None:
+            self._pump(pred, deadline)
+        else:
+            with self._cond:
+                while not pred():
+                    remain = deadline - time.monotonic()
+                    if remain <= 0:
+                        break
+                    self._cond.wait(remain)
+        with self._lock:
             self._reqs.pop(req, None)
             claim = st["claim"]
         if claim is _SENTINEL_PENDING:
@@ -1320,14 +1336,16 @@ def domains_for_endpoint(endpoint) -> Tuple[Tuple[str, ...],
 def link_for_endpoint(endpoint, name: str,
                       send_op: Callable[[int, int, bytes], None],
                       deliver: Callable[[int, int, object], None],
+                      pump: Optional[Callable] = None,
                       send_ops: Optional[Callable] = None
                       ) -> Optional[RdvLink]:
     """An armed, not yet negotiated link for a new framed connection, or
     None when rendezvous is off. ``send_ops(list_of_(op, sid, payload))``
     is the multi-frame control send the coalescer flushes bursts through
-    (the native framing only)."""
+    (the native framing only); ``pump`` is the connection's inline-pump
+    wait (pump-mode connections)."""
     if not enabled():
         return None
     pool_kinds, open_kinds = domains_for_endpoint(endpoint)
     return RdvLink(name, send_op, deliver, pool_kinds=pool_kinds,
-                   open_kinds=open_kinds, send_ops=send_ops)
+                   open_kinds=open_kinds, pump=pump, send_ops=send_ops)

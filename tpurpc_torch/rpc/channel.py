@@ -1,9 +1,8 @@
 """Client channel: multiplexed calls over one endpoint, with reconnect.
 
 A trimmed copy of ``tpurpc/rpc/channel.py`` (no native fast path, which
-comes with the C core; no inline pump, so a dedicated reader thread per
-connection; none of the reference's observability hooks beyond channelz's
-call counters):
+comes with the C core; none of the reference's observability hooks beyond
+channelz's call counters):
 
 * ``Channel`` resolves its target into subchannels (one per address), each
   (re)connecting with exponential backoff, over TLS when given
@@ -13,12 +12,19 @@ call counters):
   (``tpurpc_torch/rpc/resolver.py``) orders them per call, and transport
   failure maps to ``UNAVAILABLE``. A server's per-response load report is
   stripped from the trailing metadata and fed to the policy;
-* ``_Connection`` is one live transport: a reader thread demuxing frames to
-  per-stream state, a write path serialized by ``FrameWriter``, odd client
-  stream ids, a rendezvous link (``core/rendezvous.py``) that moves bulk
-  payloads one-sided, and its descriptor-ring control plane
-  (``core/ctrlring.py``), negotiated in the rendezvous hello, that takes
-  the link's control ops off frames;
+* ``_Connection`` is one live transport: frames demuxed to per-stream
+  state, a write path serialized by ``FrameWriter``, odd client stream ids,
+  a rendezvous link (``core/rendezvous.py``) that moves bulk payloads
+  one-sided, and its descriptor-ring control plane (``core/ctrlring.py``),
+  negotiated in the rendezvous hello, that takes the link's control ops
+  off frames. Who reads it is the inline-pump discipline
+  (``TPURPC_INLINE_PUMP``: ``auto``, the default, for endpoints with a
+  ``pair``; ``1``/``on``/``true`` for every endpoint; ``0``/``off``/
+  ``false`` for none): a pump-mode connection has no reader thread, and
+  the thread waiting on it (a call's ``_next_event``, ``ping``, a
+  rendezvous claim wait, a pipeline's servicing thread) reads it itself,
+  one owner at a time, while a timer-wheel tick (the backup pump) services
+  it when nobody waits; any other connection has a reader thread;
 * ``compression=`` (or the ``grpc.default_compression_algorithm`` option:
   ``gzip``/``2``, ``deflate``/``1``) gzips every request MESSAGE
   (``FLAG_COMPRESSED``; a port or reference server mirrors it on its
@@ -38,8 +44,9 @@ call counters):
   on another subchannel, and so is a stream that could not open because
   its connection turned draining;
 * ``PipelinedUnary`` keeps many unary calls in flight on one connection,
-  each resolved as a future by the reader thread (no REFUSED-replay
-  migration, stall watchdog, pump mode or latency histograms);
+  each resolved as a future by the thread that reads the terminal (a
+  servicing thread pumps a pump-mode connection while calls are in flight;
+  no REFUSED-replay migration, stall watchdog or latency histograms);
 * the connection lifecycle: client keepalive (``keepalive_time_ms``: a
   PING after that much inactivity, and a connection whose PONG misses
   ``keepalive_timeout_ms`` dies and is redialed) and the idle timeout
@@ -55,6 +62,7 @@ call counters):
 from __future__ import annotations
 
 import concurrent.futures
+import os
 import queue
 import random
 import threading
@@ -242,19 +250,30 @@ class _Connection:
         self.last_activity = time.monotonic()
         self._ka_handle: Optional[_timers.TimerHandle] = None
         self._idle_handle: Optional[_timers.TimerHandle] = None
+        self._backup_handle: Optional[_timers.TimerHandle] = None
         self._on_dead = on_dead
         #: the LB policy's load-report sink for this connection, rebound by
         #: the channel at every pick (None: reports are stripped, unused)
         self.on_load: Optional[Callable[[object], None]] = None
         self.writer.send_preface()
+        # The inline pump: on ring endpoints the WAITING CALLER reads the
+        # transport itself, which takes the reader-thread-to-caller wakeup
+        # out of every round trip. TPURPC_INLINE_PUMP=auto (the default)
+        # turns it on for endpoints with a pair, =1 for every endpoint, =0
+        # keeps a reader thread everywhere. Read once, here.
+        self._pump_mode = self._pump_enabled(endpoint)
+        self._pumping = False  # one thread owns the FrameReader at a time
+        self._pump_cond = threading.Condition(self._lock)
         # the rendezvous link and its hello: a PING any peer echoes; only a
         # rendezvous-capable peer answers with its own hello, which arms the
         # link. Until then every payload is framed. The hello also carries
         # this side's descriptor-ring blob: a peer that opens it (same
-        # host, shm) moves the link's control ops off frames.
+        # host, shm) moves the link's control ops off frames. In pump mode
+        # a sender waiting for a CLAIM pumps for it (nobody else reads).
         self.rdv = _rdv.link_for_endpoint(
             endpoint, "chan:" + getattr(endpoint, "peer", "?"),
             self._rdv_send_op, self._rdv_deliver,
+            pump=self._pump_wait if self._pump_mode else None,
             send_ops=self._rdv_send_ops)
         self.writer.rdv = self.rdv
         #: frames this side's reader dispatched: the ring's ordering gate
@@ -285,11 +304,26 @@ class _Connection:
                 self.writer.send(fr.PING, 0, 0, hello)
             except (EndpointError, OSError, fr.FrameError):
                 pass  # connection dying; the reader surfaces it
-        self._thread = threading.Thread(target=self._read_loop, daemon=True,
-                                        name="tpurpc-chan-reader")
-        self._thread.start()
+        if self._pump_mode:
+            self._start_backup_pump()
+        else:
+            self._thread = threading.Thread(target=self._read_loop,
+                                            daemon=True,
+                                            name="tpurpc-chan-reader")
+            self._thread.start()
         self._start_keepalive()
         self._start_idle_monitor()
+
+    @staticmethod
+    def _pump_enabled(endpoint: Endpoint) -> bool:
+        mode = os.environ.get("TPURPC_INLINE_PUMP", "auto").lower()
+        if mode in ("0", "off", "false"):
+            return False
+        if mode in ("1", "on", "true"):
+            return True
+        # auto: ring endpoints only (a pair-backed byte pipe); TCP keeps its
+        # blocking reader thread
+        return hasattr(endpoint, "pair")
 
     def _start_keepalive(self) -> None:
         """Client keepalive (``keepalive_time_ms``, off by default as in
@@ -403,7 +437,8 @@ class _Connection:
 
     def _read_loop(self) -> None:
         if self.rdv is not None:
-            # this thread delivers CLAIMs: a big send here must frame
+            # this thread delivers CLAIMs: a big send here must frame (a
+            # pump-mode connection has no such thread: its claim waits pump)
             self.rdv.disallowed_thread = threading.get_ident()
         try:
             while True:
@@ -416,6 +451,133 @@ class _Connection:
                 self._frames_dispatched += 1
         except (EndpointError, fr.FrameError, OSError) as exc:
             self._die(str(exc))
+
+    # -- inline pump (pump-mode connections only) -----------------------------
+
+    def _pump_wait(self, pred: Callable[[], bool],
+                   deadline: Optional[float]) -> bool:
+        """Wait for ``pred`` by PUMPING the transport from this thread.
+
+        One pumper at a time owns the FrameReader (it is not thread-safe);
+        the others park on the condition and are notified after every
+        dispatched frame, so a parked waiter whose pred the owner's pumping
+        satisfied wakes at once; the owner pumps only until its OWN pred
+        holds.
+
+        True when ``pred()`` holds or the connection died (the caller reads
+        the terminal state from its event queue); False only when
+        ``deadline`` (a ``time.monotonic()`` instant) passed."""
+        while True:
+            with self._pump_cond:
+                while True:
+                    if pred() or not self.alive:
+                        return True
+                    remaining = (None if deadline is None
+                                 else deadline - time.monotonic())
+                    if remaining is not None and remaining <= 0:
+                        return False
+                    if not self._pumping:
+                        self._pumping = True
+                        break  # this thread owns the pump now
+                    self._pump_cond.wait(remaining)
+            try:
+                self._pump(pred, deadline)
+            finally:
+                with self._pump_cond:
+                    self._pumping = False
+                    self._pump_cond.notify_all()
+            # loop: re-check pred and deadline under the lock (the pump may
+            # have returned because the connection died mid-frame)
+
+    def _pump(self, pred: Callable[[], bool],
+              deadline: Optional[float]) -> None:
+        """Read frames until pred, deadline or death. Runs WITHOUT the
+        connection lock (a commit's credit wait may block until a consumer
+        drains its queue, and consumers must be able to run), owning the
+        reader through ``_pumping``."""
+        def _stop() -> bool:
+            # a ring drain inside the polled read may satisfy the pred with
+            # no frame arriving: return to the outer loop instead of
+            # blocking out the deadline
+            with self._lock:
+                return pred() or not self.alive
+
+        while True:
+            if _stop():
+                return
+            remaining = (None if deadline is None
+                         else deadline - time.monotonic())
+            if remaining is not None and remaining <= 0:
+                return
+            try:
+                f = self._read_frame_ctrl(remaining, should_stop=_stop)
+            except TimeoutError:
+                return  # deadline or pred: the outer loop re-checks
+            except (EndpointError, fr.FrameError, OSError) as exc:
+                self._die(str(exc))
+                return
+            if f is None:
+                self._die("server closed connection")
+                return
+            if f is not fr.CONSUMED:
+                self._dispatch(f)
+            self._frames_dispatched += 1
+            # every frame (CONSUMED commits included) may satisfy a PARKED
+            # waiter's pred: hand them the wakeup now, not at pump release
+            with self._pump_cond:
+                self._pump_cond.notify_all()
+
+    def _start_backup_pump(self) -> None:
+        """Idle servicing of a pump-mode connection: with no caller waiting
+        nobody pumps, and server PINGs, GOAWAYs and keepalive PONGs would
+        sit unread. A timer-wheel tick takes the pump when it is free and
+        reads whatever is already buffered (the backup poller of gRPC's
+        client, for the same reason)."""
+        # the only reader of an IDLE pump-mode connection must beat the
+        # keepalive verdict, or an unread PONG reaps a healthy connection:
+        # a third of the timeout gives at least two reads inside a window
+        cfg = get_config()
+        interval = 0.5
+        if cfg.keepalive_time_ms > 0:
+            interval = min(interval,
+                           max(0.05, cfg.keepalive_timeout_ms / 1000.0 / 3))
+
+        def service():
+            if not self.alive:
+                return
+            with self._pump_cond:
+                grab = not self._pumping and self.alive
+                if grab:
+                    self._pumping = True
+            if grab:
+                try:
+                    while True:
+                        self._ctrl_drain()
+                        try:
+                            f = self.reader.read_frame(timeout=0.005)
+                        except TimeoutError:
+                            break
+                        except (EndpointError, fr.FrameError, OSError) as exc:
+                            self._die(str(exc))
+                            return
+                        if f is None:
+                            self._die("server closed connection")
+                            return
+                        if f is not fr.CONSUMED:
+                            self._ctrl_drain()  # ring ops sent before f
+                            self._dispatch(f)
+                        self._frames_dispatched += 1
+                finally:
+                    with self._pump_cond:
+                        self._pumping = False
+                        self._pump_cond.notify_all()
+            if self.alive:
+                self._backup_handle = _timers.schedule(interval, tick)
+
+        def tick():  # the read runs off the wheel thread
+            _timers.run_blocking(service)
+
+        self._backup_handle = _timers.schedule(interval, tick)
 
     def _rdv_send_op(self, op: int, stream_id: int, payload: bytes) -> None:
         self.writer.send(fr.RDV_FRAME_OF_OP[op], 0, stream_id, payload)
@@ -446,25 +608,33 @@ class _Connection:
         return self._frames_dispatched
 
     def _ctrl_drain(self, wait: bool = True) -> int:
-        """Drain this side's ring. The reader waits out a sender thread's
+        """Drain this side's ring. The reader (the reader thread, a caller
+        that owns the pump, or the backup pump) waits out a sender thread's
         concurrent drain, so that every record the ring holds before a frame
         is delivered before that frame is dispatched."""
         plane, rdv = self.ctrl, self.rdv
         if plane is None or rdv is None:
             return 0
-        return plane.drain(rdv.on_op, self._frames_count, wait)
+        n = plane.drain(rdv.on_op, self._frames_count, wait)
+        if n and self._pump_mode:
+            # a drained record may satisfy a PARKED pump waiter's pred: the
+            # same handoff the frame path makes after each dispatch
+            with self._pump_cond:
+                self._pump_cond.notify_all()
+        return n
 
     def _ctrl_drain_nowait(self) -> int:
         """A sender thread's drain (standing-grant pickup): skips when the
         reader is draining."""
         return self._ctrl_drain(wait=False)
 
-    def _read_frame_ctrl(self, timeout=None):
+    def _read_frame_ctrl(self, timeout=None, should_stop=None):
         plane = self.ctrl
         if plane is None or plane.rx is None:
             return self.reader.read_frame(timeout=timeout)
         return _ctrl.read_frame_polled(self.reader.read_frame,
-                                       self._ctrl_drain, plane, timeout)
+                                       self._ctrl_drain, plane, timeout,
+                                       should_stop)
 
     def _rdv_deliver(self, stream_id: int, flags: int, body) -> None:
         """A completed rendezvous payload is the stream's next message, in
@@ -546,9 +716,14 @@ class _Connection:
             if not self.alive:
                 raise EndpointError("connection closed")
             self._pong_waiters.append(ev)
+            before = self.pong_count
         t0 = time.perf_counter()
         self.writer.send(fr.PING, 0, 0, b"tpurpc-ping")
-        if not ev.wait(timeout):
+        if self._pump_mode:
+            if not self._pump_wait(lambda: self.pong_count > before,
+                                   time.monotonic() + timeout):
+                raise TimeoutError("ping timed out")
+        elif not ev.wait(timeout):
             raise TimeoutError("ping timed out")
         if not self.alive:  # waiters are released at death too
             raise EndpointError("connection died during ping")
@@ -562,9 +737,12 @@ class _Connection:
             streams = list(self._streams.values())
             self._streams.clear()
             waiters, self._pong_waiters = self._pong_waiters, []
+            # parked pump waiters see the death now, not when the owner's
+            # read fails
+            self._pump_cond.notify_all()
         for ev in waiters:
             ev.set()  # ping() sees the death
-        for h in (self._ka_handle, self._idle_handle):
+        for h in (self._ka_handle, self._idle_handle, self._backup_handle):
             if h is not None:
                 h.cancel()  # the ticks also check alive themselves
         if self.rdv is not None:
@@ -1169,6 +1347,26 @@ class Call:
         self._conn.close_stream(self._st)
 
     def _next_event(self):
+        if self._conn._pump_mode:
+            # the inline pump: THIS thread reads the transport until its
+            # stream has an event, with no reader-thread wakeup in the trip
+            if self._conn._pump_wait(lambda: not self._st.events.empty(),
+                                     self._deadline):
+                try:
+                    return self._st.events.get_nowait()
+                except queue.Empty:
+                    # the pred held through `not alive`: the death path
+                    # delivers the failure right after flipping alive
+                    try:
+                        return self._st.events.get(timeout=5)
+                    except queue.Empty:
+                        raise RpcError(
+                            StatusCode.UNAVAILABLE,
+                            "connection died without delivering status",
+                        ) from None
+            self._expire()
+            raise RpcError(StatusCode.DEADLINE_EXCEEDED,
+                           "deadline exceeded awaiting response") from None
         try:
             return self._st.events.get(timeout=self.time_remaining())
         except queue.Empty:
@@ -1741,26 +1939,41 @@ class PipelinedUnary:
     pipeline's client half).
 
     ``call_async`` sends the fused HEADERS+MESSAGE immediately and returns
-    a ``concurrent.futures.Future``; the connection's reader thread demuxes
-    completions by stream id and resolves each future in place, so N
-    in-flight calls cost N streams, not N threads waiting on replies. A
-    call's deadline is one entry on the process-wide timer wheel
-    (``utils/timers.py``), cancelled when the call ends. The bounded
-    window (``depth``) backpressures callers: the depth+1'th ``call_async``
-    blocks until a completion frees a slot, which is what keeps a fast
-    client from ballooning server-side queues.
+    a ``concurrent.futures.Future``; the connection's reader (its reader
+    thread, or on a pump-mode connection whichever thread owns the pump)
+    demuxes completions by stream id and resolves each future in place, so
+    N in-flight calls cost N streams, not N threads waiting on replies. A
+    pump-mode connection has no reader thread, so one servicing thread per
+    connection pumps it while this pipeline has calls in flight and exits
+    when the window drains. A call's deadline is one entry on the
+    process-wide timer wheel (``utils/timers.py``), cancelled when the call
+    ends. The bounded window (``depth``) backpressures callers: the
+    depth+1'th ``call_async`` blocks until a completion frees a slot, which
+    is what keeps a fast client from ballooning server-side queues.
 
-    Completion (including response deserialization) runs on the reader
+    Completion (including response deserialization) runs on the delivering
     thread — keep deserializers cheap (the tensor codec's zero-copy decode
     qualifies). Out-of-order completion across streams is the point: a
     slow call does not head-of-line-block its siblings' futures.
+
+    Not here (the reference's): the REFUSED-replay migration, the stall
+    watchdog and the latency histograms.
     """
+
+    #: how often a servicing thread returns the pump and re-checks
+    #: ``close()``: a pump wait with no deadline would block on the
+    #: transport until the next frame
+    _SERVICE_SLICE_S = 0.25
 
     def __init__(self, mc: UnaryUnary, depth: int = 16):
         self._mc = mc
         self.depth = max(1, int(depth))
         self._window = threading.BoundedSemaphore(self.depth)
         self._lock = threading.Lock()
+        self._inflight = 0
+        self._closed = False
+        #: id(connection) -> its servicing thread (pump-mode connections)
+        self._pump_threads: Dict[int, threading.Thread] = {}
 
     def call_async(self, request, timeout: Optional[float] = None,
                    metadata: Optional[Metadata] = None
@@ -1781,18 +1994,23 @@ class PipelinedUnary:
                 if state["claimed"]:
                     return False
                 state["claimed"] = True
+                self._inflight -= 1
             self._window.release()
             timer = state["timer"]
             if timer is not None:
                 timer.cancel()
             return True
 
+        with self._lock:
+            self._inflight += 1
         try:
             remaining = (None if deadline is None
                          else max(0.0, deadline - time.monotonic()))
-            _, st, call = self._mc._start(metadata, remaining,
-                                          first_request=request)
+            conn, st, call = self._mc._start(metadata, remaining,
+                                             first_request=request)
         except BaseException:
+            with self._lock:
+                self._inflight -= 1
             self._window.release()
             raise
 
@@ -1857,7 +2075,55 @@ class PipelinedUnary:
         st.on_terminal = complete
         if st.done:
             complete()
+        self._ensure_pump(conn)
         return fut
+
+    # -- pump-mode servicing --------------------------------------------------
+
+    def _ensure_pump(self, conn: _Connection) -> None:
+        """A pump-mode connection has no reader thread: with every caller
+        detached (futures, nobody in ``_pump_wait``) its transport would
+        never be read. One servicing thread per live connection pumps while
+        this pipeline has calls in flight."""
+        if not conn._pump_mode:
+            return
+        key = id(conn)
+        with self._lock:
+            t = self._pump_threads.get(key)
+            if t is not None and t.is_alive():
+                return
+            t = threading.Thread(target=self._pump_loop, args=(conn, key),
+                                 daemon=True, name="tpurpc-pipeline-pump")
+            self._pump_threads[key] = t
+        t.start()
+
+    def _pump_loop(self, conn: _Connection, key: int) -> None:
+        try:
+            while True:
+                conn._pump_wait(lambda: self._idle() or not conn.alive,
+                                time.monotonic() + self._SERVICE_SLICE_S)
+                with self._lock:
+                    if self._idle() or not conn.alive:
+                        self._pump_threads.pop(key, None)
+                        return
+        except Exception:
+            with self._lock:
+                self._pump_threads.pop(key, None)
+
+    def _idle(self) -> bool:
+        return self._inflight == 0 or self._closed
+
+    def close(self) -> None:
+        """Stop servicing. Outstanding futures still resolve when their
+        terminals are read; pump-mode servicing threads wind down."""
+        with self._lock:
+            self._closed = True
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
 
 
 class _RetryingStreamCall:
