@@ -315,7 +315,29 @@ error:
    32 pings. (e) 8 threads make 16 calls each on one pump-mode
    connection: every reply bit-equal, none past its deadline. Skipped
    under ``--kernels``;
-18. print the kernels line, the card's name and power limit, and last the
+18. the pipelined drain migration and the observability core, all on
+   ``TPU`` with phase 3's model, requests and replies. (a) two device-ring
+   servers behind one ``round_robin`` channel, a ``PipelinedUnary`` of
+   depth 4 and 32 calls; server A drains after reply 8 (its GOAWAY held,
+   at most 2 s, until a refused call has replayed): no call fails, every
+   reply is bit-equal to phase 3's, A admits nothing after its drain, the
+   replays counted at the client (every attempt opens its stream through
+   ``_MultiCallable._start``) are at least 1, and each server's measured
+   launches equal what its ring's offsets give, both kernels launched.
+   (b) the obs plane's readings of (a): ``pipeline_call_us`` counted every
+   call, ``srv_calls{method,0}`` every handler run, the flight ring holds
+   the drain's two edges and each connection's ``conn-connect``, the
+   watchdog tripped 0 times, and the rolling p99 and both load reports'
+   p99 are above 0; then one device-ring call with
+   ``TPURPC_TRACE_SAMPLE=1`` leaves ``client-send``, ``wire``,
+   ``dispatch`` and ``respond`` in order, the server's two inside
+   ``wire``. (c) what the plane costs phase 3's path: 20 alternating
+   turns of 16 calls, the plane at its defaults (lens sampler running)
+   and every switch off (watchdog, tail capture, lens, profiling); prints
+   each side's p50, the turn pairs the defaults won and the profiler's
+   ``dispatch`` share. A reading, not a gate. Skipped under
+   ``--kernels``;
+19. print the kernels line, the card's name and power limit, and last the
    one-line result JSON.
 """
 
@@ -4615,9 +4637,12 @@ def _tcpw_part(dev, card, wants, images, ring) -> dict:
                             fail(f"transport (c) {domain}: call {i} "
                                  f"failed: {exc!r}")
                         lat.append((time.perf_counter() - t) * 1e3)
-                here.send("stop")
-                check(here.poll(60), f"transport (c) {domain}: no report")
-                report = here.recv()
+                    # the report reads the rings of the server's open
+                    # connections: ask for it before this one closes
+                    here.send("stop")
+                    check(here.poll(60), f"transport (c) {domain}: no "
+                          f"report")
+                    report = here.recv()
             finally:
                 proc.join(30)
                 if proc.is_alive():
@@ -5876,6 +5901,395 @@ def pump_plane(dev, card, size=SIZE, ring=RING, requests=REQUESTS,
     return res
 
 
+# -- phase 18 ----------------------------------------------------------------
+
+#: phase 18 (a): pipelined calls across the drain of one of two servers
+OBS_CALLS, OBS_DEPTH, OBS_DRAIN_AFTER = 32, 4, 8
+#: (a): how long the drained server's GOAWAY may wait for the first refused
+#: call to replay
+OBS_GOAWAY_HOLD_S = 2.0
+#: (c): alternating turns of the plane at its defaults and switched off
+OBS_TURNS, OBS_TURN_CALLS = 20, 16
+OBS_ENV = PUMP_ENV + ("TPURPC_TRACE_SAMPLE",)
+OBS_METHOD = "/tpurpc.Tensor/Classify"
+
+
+class _CountedStarts:
+    """Counts the attempts of every unary call while on: both a call's
+    first attempt and each of its replays open their stream through
+    ``_MultiCallable._start``."""
+
+    def __enter__(self):
+        from tpurpc_torch.rpc import channel as chmod
+
+        self._cls = chmod._MultiCallable
+        self._orig = self._cls._start
+        self.n = 0
+        lock, orig, me = threading.Lock(), self._orig, self
+
+        def counted(mc, *a, **kw):
+            with lock:
+                me.n += 1
+            return orig(mc, *a, **kw)
+
+        self._cls._start = counted
+        return self
+
+    def __exit__(self, *exc):
+        self._cls._start = self._orig
+
+
+def pipelined_drain(classify, images, first, calls, drain_after, depth,
+                    hold_s=OBS_GOAWAY_HOLD_S, label="obs (a)") -> dict:
+    """Two device-ring servers behind one ``round_robin`` channel, a
+    ``PipelinedUnary`` of ``depth`` and ``calls`` calls; server A drains
+    once reply ``drain_after`` has arrived. A's GOAWAY waits (at most
+    ``hold_s``) until a refused call has replayed, so the drain meets calls
+    already sent to A: the race any drain or max-age GOAWAY meets. Every
+    reply must be bit-equal to ``first``'s of the same request, no call may
+    fail, and A must admit nothing once its drain has finished. Returns the
+    replays, the servers' measured launches, what their rings' offsets give,
+    and the flight events the part left."""
+    import torch
+
+    from tpurpc_torch.obs import flight
+    from tpurpc_torch.rpc.channel import Channel
+    from tpurpc_torch.torchshim.service import TensorClient
+
+    rigs = [CallPlaneServer(classify), CallPlaneServer(classify)]
+    target = "ipv4:" + ",".join(f"127.0.0.1:{r.port}" for r in rigs)
+    t_ns = time.monotonic_ns()
+    issued, drained, seen_at = [0], [], []
+    span = images[0].nbytes
+    try:
+        with Channel(target, lb_policy="round_robin") as ch, \
+                _CountedStarts() as starts:
+            for sc in ch._subchannels:
+                sc.get()
+            _await(lambda: all(len(r.server._connections) == 1
+                               for r in rigs), 10, f"{label}: connections")
+            rings = [r.ring() for r in rigs]
+            conn_a = rigs[0].server._connections[0]
+            goaway = conn_a.goaway
+
+            def held_goaway(*a, **kw):
+                deadline = time.monotonic() + hold_s
+                while (starts.n - issued[0] < 1
+                       and time.monotonic() < deadline):
+                    time.sleep(0.001)
+                return goaway(*a, **kw)
+
+            conn_a.goaway = held_goaway
+
+            def drain():
+                drained.append(rigs[0].server.drain(linger=30.0))
+                seen_at.append(len(rigs[0].seen))
+
+            pipe = TensorClient(ch).pipeline("Classify", depth=depth)
+            futs, drainer = [], threading.Thread(target=drain)
+            for i in range(calls):
+                issued[0] += 1
+                futs.append(pipe.call_async(
+                    {"images": torch.from_numpy(images[i % len(images)])},
+                    timeout=120))
+                if i + 1 == drain_after:
+                    futs[drain_after - 1].add_done_callback(
+                        lambda _f: drainer.start())
+            replies = []
+            for i, f in enumerate(futs):
+                try:
+                    replies.append(f.result(timeout=120))
+                except Exception as exc:
+                    fail(f"{label}: pipelined call {i} failed: {exc!r}")
+            drainer.join(60)
+            pipe.close()
+            replays = starts.n - calls
+        check(drained == [True], f"{label}: drain {drained}")
+        stats = [ring.stats() for ring in rings]
+    finally:
+        for r in rigs:
+            r.server.stop()
+    for i, got in enumerate(replies):
+        _bit_equal(f"{label} call {i}", got, first[i % len(images)])
+    served = [len(r.done) for r in rigs]
+    check(sum(served) == calls, f"{label}: servers ran {served} handlers "
+          f"for {calls} calls")
+    check(len(rigs[0].seen) == seen_at[0], f"{label}: A admitted "
+          f"{len(rigs[0].seen) - seen_at[0]} calls after its drain")
+    check(replays >= 1, f"{label}: no call replayed across the drain")
+    want = [_ring_wraps(st["tail"], span, st["capacity"]) for st in stats]
+    for k, (rig, w, st) in enumerate(zip(rigs, want, stats)):
+        check(rig.launched == {"ring_scatter": w, "ring_window": w},
+              f"{label}: server {'AB'[k]} launched {rig.launched}, its "
+              f"ring's {st['tail'] // span} landings wrap {w} times")
+        check(st["live_spans"] == 0, f"{label}: server {'AB'[k]}'s ring "
+              f"holds live spans: {st}")
+    events = flight.snapshot(since_ns=t_ns)
+    return {"replays": replays, "served": served,
+            "admitted_after_drain": len(rigs[0].seen) - seen_at[0],
+            "launched": [dict(r.launched) for r in rigs], "wraps": want,
+            "events": events, "servers": rigs}
+
+
+def _obs_switch(on: bool) -> None:
+    """(c): the obs plane at its defaults (``on``), or every switch off:
+    the stall watchdog, tail capture, the lens sampler and profile spans
+    (the variables ``TPURPC_WATCHDOG``, ``TPURPC_TRACE_TAIL``,
+    ``TPURPC_LENS``, ``TPURPC_PROFILING``, set on the live modules)."""
+    from tpurpc_torch.obs import profiler, tracing, watchdog
+    from tpurpc_torch.utils import stats
+
+    watchdog.get().enabled = on
+    tracing.tail(None if on else False)
+    stats.enable(None if on else False)
+    if on:
+        profiler.ensure_started()
+    else:
+        profiler.stop()
+
+
+def _obs_cost(dev, card, classify, images, first, turns, per_turn) -> dict:
+    """(c): phase 3's device-ring unary path in alternating turns, the obs
+    plane at its defaults and switched off; a fresh channel each turn."""
+    import numpy as np
+    import torch
+
+    from tpurpc_torch.obs import profiler
+    from tpurpc_torch.ops import ring_scatter as rs_mod
+    from tpurpc_torch.ops import ring_window as rw_mod
+    from tpurpc_torch.rpc.channel import Channel
+    from tpurpc_torch.torchshim.service import TensorClient
+
+    rig = CallPlaneServer(classify)
+    sides = {"on": [], "off": []}
+    turn_p50 = {"on": [], "off": []}
+    launches = {"on": {"ring_scatter": 0, "ring_window": 0},
+                "off": {"ring_scatter": 0, "ring_window": 0}}
+    profiler.get().reset()
+    try:
+        for t in range(turns):
+            side = "on" if t % 2 == 0 else "off"
+            _obs_switch(side == "on")
+            with Channel(f"127.0.0.1:{rig.port}") as ch:
+                client = TensorClient(ch)
+                lat = []
+                with _Landings() as land:
+                    rs_mod.launches = rw_mod.launches = 0
+                    for i in range(per_turn):
+                        x = images[i % len(images)]
+                        t0 = time.perf_counter()
+                        got = _lc_call(f"obs (c) turn {t} call {i}", client,
+                                       x)
+                        lat.append((time.perf_counter() - t0) * 1e3)
+                        _bit_equal(f"obs (c) turn {t} call {i}", got,
+                                   first[i % len(images)])
+                    got_l = {"ring_scatter": rs_mod.launches,
+                             "ring_window": rw_mod.launches}
+                check(got_l == land.launches(), f"obs (c) turn {t}: "
+                      f"launched {got_l}, its landings give "
+                      f"{land.launches()}")
+                for k in got_l:
+                    launches[side][k] += got_l[k]
+            sides[side] += lat
+            turn_p50[side].append(float(np.percentile(lat, 50)))
+            print(f"obs (c) turn {t} ({side}): p50 {turn_p50[side][-1]} ms "
+                  f"p99 {float(np.percentile(lat, 99))} ms", flush=True)
+        prof = profiler.get().snapshot()
+    finally:
+        _obs_switch(True)
+        profiler.stop()
+        rig.server.stop()
+    won = sum(1 for a, b in zip(turn_p50["on"], turn_p50["off"]) if a < b)
+    out = {"p50_on": float(np.percentile(sides["on"], 50)),
+           "p50_off": float(np.percentile(sides["off"], 50)),
+           "turn_p50_on": turn_p50["on"], "turn_p50_off": turn_p50["off"],
+           "pairs_won_by_on": won, "pairs": min(len(turn_p50["on"]),
+                                                len(turn_p50["off"])),
+           "dispatch_pct": prof["stage_pct"].get("dispatch", 0.0),
+           "stage_pct": prof["stage_pct"],
+           "attributed_pct": prof["attributed_pct"],
+           "samples": prof["samples"], "launches": launches}
+    print(f"obs (c): {turns} alternating turns of {per_turn} device-ring "
+          f"calls: p50 with the obs plane at its defaults {out['p50_on']} "
+          f"ms, with every switch off {out['p50_off']} ms; turn pairs where "
+          f"the defaults were faster {won} of {out['pairs']}; the "
+          f"profiler's dispatch stage {out['dispatch_pct']} % of "
+          f"{prof['samples']} attributed thread samples in the defaults' "
+          f"turns (stage shares {prof['stage_pct']}, attributed "
+          f"{prof['attributed_pct']} %); launches {launches} ({card})",
+          flush=True)
+    return out
+
+
+def obs_plane(dev, card, size=SIZE, ring=RING, requests=REQUESTS,
+              calls=OBS_CALLS, drain_after=OBS_DRAIN_AFTER, depth=OBS_DEPTH,
+              turns=OBS_TURNS, per_turn=OBS_TURN_CALLS) -> dict:
+    """Phase 18: the pipelined drain migration and the obs plane (docstring
+    of this file). Returns each part's launches."""
+    import numpy as np
+    import torch
+
+    from tpurpc_torch.models.resnet import make_infer_fn, resnet50
+    from tpurpc_torch.obs import flight, metrics, tracing, watchdog
+    from tpurpc_torch.ops import ring_scatter as rs_mod
+    from tpurpc_torch.ops import ring_window as rw_mod
+    from tpurpc_torch.torchshim.service import TensorClient
+    from tpurpc_torch.rpc.channel import Channel
+
+    t_phase = time.perf_counter()
+    saved = {k: os.environ.get(k) for k in OBS_ENV}
+    _set_env({"GRPC_PLATFORM_TYPE": "TPU", "TPURPC_TORCH_DEVICE": str(dev),
+              "TPURPC_HBM_RING_SIZE_KB": str(ring >> 10),
+              "TPURPC_INLINE_PUMP": None, "TPURPC_TRACE_SAMPLE": None})
+    res = {}
+    try:
+        if _PHASE3 and size == SIZE:
+            infer, images = _PHASE3["infer"], _PHASE3["images"]
+        else:   # a rehearsal without phase 3: the same seeds
+            torch.manual_seed(SEED)
+            infer = make_infer_fn(resnet50().to(dev))
+            rng = np.random.default_rng(SEED)
+            images = [rng.standard_normal((BATCH, size, size, 3)).astype(
+                np.float32) for _ in range(requests)]
+
+        def classify(tree):
+            logits = infer(tree["images"].to(dev))
+            return {"logits": logits, "top1": logits.argmax(dim=1)}
+
+        first = (_PHASE3.get("replies") if _PHASE3 and size == SIZE
+                 else None)
+        if first is None:   # rehearsal: sequential calls set the replies
+            rig = CallPlaneServer(classify)
+            try:
+                with Channel(f"127.0.0.1:{rig.port}") as ch:
+                    client = TensorClient(ch)
+                    first = [_lc_call(f"obs reference reply {i}", client, x)
+                             for i, x in enumerate(images)]
+            finally:
+                rig.server.stop()
+        wd = watchdog.get()
+        trips = metrics.counter("watchdog_trips")
+        call_us = metrics.histogram("pipeline_call_us", kind="latency")
+        calls_fam = metrics.labeled_counter("srv_calls", ("method", "code"))
+        trips0, n0 = trips.snapshot(), call_us.snapshot()["count"]
+        ok0 = calls_fam.snapshot().get((OBS_METHOD, "0"), 0)
+
+        # (a) the pipelined drain migration
+        t = time.perf_counter()
+        rs_mod.launches = rw_mod.launches = 0
+        a = pipelined_drain(classify, images, first, calls, drain_after,
+                            depth)
+        res["a"] = {"ring_scatter": rs_mod.launches,
+                    "ring_window": rw_mod.launches,
+                    "per_server": a["launched"]}
+        total = {k: sum(p[k] for p in a["launched"])
+                 for k in ("ring_scatter", "ring_window")}
+        check(total == {k: res["a"][k] for k in total}, f"obs (a): the "
+              f"servers' launches {a['launched']} do not add up to the "
+              f"part's {res['a']}")
+        check(min(total.values()) >= 1, f"obs (a): launched {total}")
+        print(f"obs (a): {calls} pipelined calls (depth {depth}), "
+              f"round_robin over two device-ring servers, A drained after "
+              f"reply {drain_after} (its GOAWAY held until a refused call "
+              f"replayed): none failed, every reply bit-equal to phase 3's; "
+              f"replays at the client {a['replays']}; served A/B "
+              f"{a['served']}, A admitted {a['admitted_after_drain']} after "
+              f"its drain; launches {res['a']} (the rings' offsets give "
+              f"{a['wraps']} each); took {time.perf_counter() - t} s "
+              f"({card})", flush=True)
+
+        # (b) what the obs plane read of (a), then a sampled unary call
+        rigs = a.pop("servers")
+        ev = a.pop("events")
+        names = [e["event"] for e in ev]
+        drain_edges = [e["event"] for e in ev if e["entity"] == "srv-drain"]
+        conns = sorted({e["entity"] for e in ev
+                        if e["event"] == "conn-connect"})
+        n_calls = call_us.snapshot()["count"] - n0
+        ok_calls = calls_fam.snapshot().get((OBS_METHOD, "0"), 0) - ok0
+        n_trips = trips.snapshot() - trips0
+        p99 = wd.rolling_p99_ns()
+        reports = [r.server._load_md() for r in rigs]
+        check(n_calls == calls, f"obs (b): pipeline_call_us counted "
+              f"{n_calls} of {calls} calls")
+        check(ok_calls == sum(a["served"]), f"obs (b): srv_calls"
+              f"{{{OBS_METHOD},0}} counted {ok_calls}, the servers ran "
+              f"{a['served']}")
+        check(drain_edges == ["drain-begin", "drain-end"], f"obs (b): the "
+              f"drain's flight edges {drain_edges}")
+        check(len(conns) >= 2 and "call-first-ok" in names,
+              f"obs (b): conn-connect for {conns}; events {sorted(set(names))}")
+        check(n_trips == 0, f"obs (b): the watchdog tripped {n_trips} times")
+        check(p99 is not None and p99 > 0, f"obs (b): rolling p99 {p99}")
+        p99s = [float(md[0][1].split(",")[2]) for md in reports if md]
+        check(len(p99s) == 2 and min(p99s) > 0, f"obs (b): load report "
+              f"p99s {reports}")
+        rs_mod.launches = rw_mod.launches = 0
+        os.environ["TPURPC_TRACE_SAMPLE"] = "1"
+        tracing.configure()
+        rig = CallPlaneServer(classify)
+        try:
+            with Channel(f"127.0.0.1:{rig.port}") as ch:
+                got = _lc_call("obs (b) sampled call", TensorClient(ch),
+                               images[0])
+        finally:
+            rig.server.stop()
+            os.environ.pop("TPURPC_TRACE_SAMPLE", None)
+            tracing.configure()
+        _bit_equal("obs (b) sampled call", got, first[0])
+        res["b"] = {"ring_scatter": rs_mod.launches,
+                    "ring_window": rw_mod.launches}
+        check(res["b"] == {"ring_scatter": 0, "ring_window": 0},
+              f"obs (b): one landing at offset 0 launched {res['b']}")
+        tree = None
+        deadline = time.monotonic() + 10
+        while time.monotonic() < deadline:
+            by = {}
+            for sp in tracing.spans():
+                by.setdefault(sp["trace_id"], {})[sp["name"]] = sp
+            full = [d for d in by.values()
+                    if {"client-send", "wire", "dispatch", "respond"} <= set(d)]
+            if full:
+                tree = full[-1]
+                break
+            time.sleep(0.01)
+        check(tree is not None, "obs (b): no sampled span tree")
+        order = ["client-send", "wire", "dispatch", "respond"]
+        t0s = [tree[k]["t0_ns"] for k in order]
+        wire = tree["wire"]
+        inside = all(wire["t0_ns"] <= tree[k]["t0_ns"]
+                     and tree[k]["t0_ns"] + tree[k]["dur_ns"]
+                     <= wire["t0_ns"] + wire["dur_ns"]
+                     for k in ("dispatch", "respond"))
+        check(t0s == sorted(t0s) and inside, f"obs (b): spans out of order "
+              f"{ {k: (tree[k]['t0_ns'], tree[k]['dur_ns']) for k in order} }")
+        res["b_obs"] = {"pipeline_call_us": n_calls, "srv_calls_ok": ok_calls,
+                        "watchdog_trips": n_trips, "p99_ms": p99 / 1e6,
+                        "report_p99_ms": p99s, "conns": conns}
+        print(f"obs (b): pipeline_call_us counted {n_calls} calls, "
+              f"srv_calls{{{OBS_METHOD},0}} {ok_calls} (A/B ran "
+              f"{a['served']}); flight: drain {drain_edges}, conn-connect "
+              f"{conns}; watchdog trips {n_trips}; rolling p99 "
+              f"{p99 / 1e6} ms, load reports' p99 {p99s}; a sampled "
+              f"device-ring call's spans in order {order} (ms "
+              f"{[tree[k]['dur_ns'] / 1e6 for k in order]}), dispatch and "
+              f"respond inside wire; its launches {res['b']} ({card})",
+              flush=True)
+
+        # (c) what the plane costs phase 3's device-ring unary path
+        res["c"] = _obs_cost(dev, card, classify, images, first, turns,
+                             per_turn)
+    finally:
+        os.environ.pop("TPURPC_TRACE_SAMPLE", None)
+        _set_env(saved)
+        tracing.configure()
+        watchdog.get().stop()
+    res["replays"] = a["replays"]
+    print(f"obs: phase 18 took {time.perf_counter() - t_phase} s ({card})",
+          flush=True)
+    return res
+
+
 def card_line() -> str:
     """The card's name and power limit, as nvidia-smi reports them."""
     smi = subprocess.run(
@@ -5934,7 +6348,7 @@ def main() -> None:
         stream = tf_launches = train_launches = gen_launches = None
         fleet_launches = h2_launches = cp_launches = tls_launches = None
         aio_launches = lb_launches = tp_launches = lc_launches = None
-        pump_launches = None
+        pump_launches = obs_launches = None
     else:
         from tpurpc_torch.ops import ring_scatter as rs_mod
         from tpurpc_torch.ops import ring_window as rw_mod
@@ -6008,6 +6422,9 @@ def main() -> None:
         # phase 17: every part's launches as its landings' offsets give;
         # (c) per round of the device-ring leg, pump on and off
         pump_launches = pump_plane(dev, card)
+        # phase 18: (a) per server as their rings' offsets give, (b) one
+        # unwrapped landing, (c) per side as the landings' offsets give
+        obs_launches = obs_plane(dev, card)
 
     sources = {"ring_scatter": "tpurpc/ops/ring_scatter.py:133",
                "ring_window": "tpurpc/ops/ring_window.py:138"}
@@ -6102,7 +6519,14 @@ def main() -> None:
                 "c": {mode: [r[name] for r in pump_launches["c"][mode][
                     "launches"]] for mode in ("auto", "0")},
                 "d": pump_launches["d"]["launches"][name],
-                "e": pump_launches["e"]["launches"][name]})})
+                "e": pump_launches["e"]["launches"][name]}),
+            # phase 18: (a) the pipelined drain [server A, server B], (b)
+            # the sampled call, (c) the obs plane's turns on and off
+            "obs_launches": (None if obs_launches is None else {
+                "a": [p[name] for p in obs_launches["a"]["per_server"]],
+                "b": obs_launches["b"][name],
+                "c": {side: obs_launches["c"]["launches"][side][name]
+                      for side in ("on", "off")}})})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     if kernels_only:

@@ -20,9 +20,10 @@ channel between two card-ring servers, the transport's head (a gzip'd
 request, a stream with its control ops on the descriptor ring, and a
 ``tcp_window`` pair feeding the card's ring), and the connection lifecycle
 (a parked card-ring connection woken, a call redialed by max connection
-age, ``ping`` on the card ring), and the inline pump (a pump-mode call
+age, ``ping`` on the card ring), the inline pump (a pump-mode call
 bit-equal to a reader-mode one, a pipelined window, a rendezvous landing
-whose sender pumped its own CLAIM) run on the card.
+whose sender pumped its own CLAIM), and the pipelined drain migration
+between two card-ring servers run on the card.
 """
 
 import numpy as np
@@ -30,7 +31,7 @@ import pytest
 import torch
 
 from chip_smoke import (CLIENT_URI, AioRingServer, CallPlaneServer,
-                        retry_arithmetic, tls_pki)
+                        pipelined_drain, retry_arithmetic, tls_pki)
 from tpurpc_torch.models.resnet import make_infer_fn, resnet18_thin
 from tpurpc_torch.ops import ring_scatter as rs_mod
 from tpurpc_torch.ops import ring_window as rw_mod
@@ -500,7 +501,10 @@ def test_h2_transformer_serving_bit_equal_and_drain(dev, no_tf32,
     srv, port, batcher = serve_torch(fn, name="Generate", batching=True,
                                      max_batch=8, max_delay_s=0.005)
     got, errors, refused = {}, [], []
+    # the drain starts once every client has made 4 calls, so each of the
+    # 16 rows has been answered before any call can be refused
     go = threading.Event()
+    ready, ready_lock = [0], threading.Lock()
 
     def h2_client(c):
         try:
@@ -509,7 +513,10 @@ def test_h2_transformer_serving_bit_equal_and_drain(dev, no_tf32,
                 for k in range(1000):
                     i = (c + 4 * k) % 16
                     if k == 4:
-                        go.set()
+                        with ready_lock:
+                            ready[0] += 1
+                            if ready[0] == 4:
+                                go.set()
                     try:
                         out = cli.call("Generate", {"tokens": rows[i]},
                                        timeout=120)
@@ -1417,3 +1424,38 @@ def test_rendezvous_landing_whose_sender_pumped_its_claim(dev, stream_env,
     assert tail == x.nbytes
     x64 = x.astype(np.float64)
     assert abs(out["sum"].item() - x64.sum()) <= SUM_TOL * np.abs(x64).sum()
+
+
+@pytest.mark.cuda
+def test_pipelined_drain_migrates_between_card_rings(dev, stream_env,
+                                                     exact_f32):
+    """Phase 18 (a) at a small model: 16 pipelined calls (depth 4) over two
+    card-ring servers behind ``round_robin``, server A drained after reply
+    4: no call fails, every reply is bit-equal to a sequential call's, at
+    least one refused call replayed, A admits nothing after its drain, and
+    each server launched the kernels its ring's offsets give."""
+    stream_env("TPU", TPURPC_HBM_RING_SIZE_KB="64")
+    infer = _small_model(dev)
+
+    def classify(tree):
+        logits = infer(tree["images"])
+        return {"logits": logits, "top1": logits.argmax(dim=1)}
+
+    rng = np.random.default_rng(18)
+    images = [rng.standard_normal((2, 32, 32, 3)).astype(np.float32)
+              for _ in range(4)]   # 24 KiB each: the 3rd landing wraps
+    rig = CallPlaneServer(classify, max_workers=4)
+    try:
+        with Channel(f"127.0.0.1:{rig.port}") as ch:
+            client = TensorClient(ch)
+            first = [client.call("Classify", {"images": torch.from_numpy(x)},
+                                 timeout=60) for x in images]
+    finally:
+        rig.server.stop()
+    got = pipelined_drain(classify, images, first, calls=16, drain_after=4,
+                          depth=4, label="card drain")
+    assert got["replays"] >= 1 and got["admitted_after_drain"] == 0
+    assert sum(got["served"]) == 16
+    assert got["launched"] == [{"ring_scatter": w, "ring_window": w}
+                               for w in got["wraps"]]
+    assert sum(got["wraps"]) >= 1

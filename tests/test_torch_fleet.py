@@ -3,10 +3,9 @@ reference's (``tests/test_fleet.py``'s load-report cases, and
 ``tests/test_serving.py::test_load_provider_reports_waiting_plus_swapped``).
 
 * The ``tpurpc-load`` trailing-metadata value is byte-equal between the
-  packages for the same in-flight count and queue depth (with the
-  reference's watchdog p99 held at 0: the port's report carries a p99 of
-  0.0 until its watchdog is ported — stated in
-  ``test_load_report_p99_is_zero_until_the_watchdog``).
+  packages for the same in-flight count and queue depth (with both
+  watchdogs' p99 held at 0); each carries its watchdog's rolling p99
+  otherwise (``test_load_report_p99_is_zero_until_the_watchdog``).
 * Every channel strips it from the app's trailing metadata, across the
   packages too, and feeds it to the LB policy.
 * ``least_loaded`` over two port servers orders by the reported load,
@@ -30,6 +29,7 @@ from tpurpc.rpc.server import AdmissionGate as JAdmissionGate
 from tpurpc.rpc.server import LOAD_KEY as J_LOAD_KEY
 from tpurpc.rpc.server import PUSHBACK_KEY as J_PUSHBACK_KEY
 from tpurpc.rpc.channel import _LOAD_KEY as J_CHANNEL_LOAD_KEY
+from tpurpc_torch.obs import watchdog as twatchdog
 from tpurpc_torch.rpc import channel as tchannel
 from tpurpc_torch.rpc import server as tserver
 from tpurpc_torch.rpc.channel import Channel
@@ -88,9 +88,11 @@ def cpu_device(monkeypatch):
 
 @pytest.fixture
 def ref_p99_zero(monkeypatch):
-    """The reference's report reads its watchdog's rolling p99; hold it at
-    0 so that the two reports can be compared byte for byte."""
+    """Each package's report reads its watchdog's rolling p99, whose digits
+    follow the process's earlier calls: hold both at 0 so that the two
+    reports can be compared byte for byte."""
     monkeypatch.setattr(jwatchdog.get(), "rolling_p99_ns", lambda: 0)
+    monkeypatch.setattr(twatchdog.get(), "rolling_p99_ns", lambda: 0)
 
 
 def test_metadata_keys_agree_across_modules_and_packages():
@@ -154,7 +156,7 @@ def test_load_report_without_gate_counts_open_streams(ref_p99_zero):
     assert reports["port"] == reports["ref"] == [("tpurpc-load", "3,4,0.0")]
 
 
-def test_load_report_cache_and_switch(monkeypatch):
+def test_load_report_cache_and_switch(monkeypatch, ref_p99_zero):
     depth = [1]
     srv = Server(max_workers=2)
     srv.set_load_provider(lambda: depth[0])
@@ -176,18 +178,29 @@ def test_load_report_cache_and_switch(monkeypatch):
         off.stop(grace=0)
 
 
-def test_load_report_p99_is_zero_until_the_watchdog():
-    """Divergence: the reference's report carries its watchdog's rolling
-    RPC p99; the port has no watchdog yet and always reports 0.0."""
-    srv, port = _server("a", delay=0.01)
+@pytest.mark.parametrize("server_pkg", ["port", "ref"])
+def test_load_report_p99_is_zero_until_the_watchdog(server_pkg):
+    """Each package's report carries its stall watchdog's worst rolling
+    p99 (0.0 only until a method has history): after 12 calls of at least
+    10 ms the server's report gives that p99, to one decimal of a
+    millisecond, and a ``least_loaded`` channel reads it (smoothed) above
+    0."""
+    wd = (jwatchdog if server_pkg == "ref" else twatchdog).get()
+    srv, port = _server("a", pkg=server_pkg if server_pkg == "ref" else None,
+                        delay=0.01)
     try:
         with Channel(f"127.0.0.1:{port}", lb_policy="least_loaded") as ch:
-            for _ in range(5):
+            for _ in range(12):
                 ch.unary_unary(WHO)(b"x", timeout=10)
+            time.sleep(0.025)  # past the 20 ms report cache
+            ch.unary_unary(WHO)(b"x", timeout=10)
             snap = ch._policy.snapshot()
-        assert snap["reported"] == [True] and snap["p99_ms"] == [0.0]
         time.sleep(0.025)
-        assert srv._load_md()[0][1].endswith(",0.0")
+        p99 = wd.rolling_p99_ns()
+        report = srv._load_md()[0][1]
+        assert snap["reported"] == [True] and snap["p99_ms"][0] > 0.0
+        assert p99 is not None and p99 >= 10_000_000
+        assert report.endswith(f",{p99 / 1e6:.1f}")
     finally:
         srv.stop(grace=0)
 
@@ -306,7 +319,7 @@ def test_least_loaded_ejects_slow_outlier():
 
 # -- the serving entry points' providers ---------------------------------------
 
-def test_serve_torch_reports_batcher_queue_depth():
+def test_serve_torch_reports_batcher_queue_depth(ref_p99_zero):
     gate = threading.Event()
     entered = threading.Event()
 
@@ -337,7 +350,7 @@ def test_serve_torch_reports_batcher_queue_depth():
         batcher.close()
 
 
-def test_serve_torch_unbatched_reports_inflight_only():
+def test_serve_torch_unbatched_reports_inflight_only(ref_p99_zero):
     srv, port, batcher = serve_torch(lambda t: t)
     try:
         assert batcher is None and srv._load_extra is None
@@ -346,7 +359,7 @@ def test_serve_torch_unbatched_reports_inflight_only():
         srv.stop(grace=0)
 
 
-def test_serve_generation_reports_waiting_plus_swapped():
+def test_serve_generation_reports_waiting_plus_swapped(ref_p99_zero):
     """The reference's test_load_provider_reports_waiting_plus_swapped."""
     srv, port, sched = serve_generation(ToyDecodeModel(device="cpu"),
                                         max_batch=2)
@@ -363,7 +376,7 @@ def test_serve_generation_reports_waiting_plus_swapped():
         sched.close()
 
 
-def test_serve_decode_reports_waiting_plus_swapped():
+def test_serve_decode_reports_waiting_plus_swapped(ref_p99_zero):
     srv, port, sched, state = serve_decode(
         ToyDecodeModel(device="cpu"), kv_blocks=16, block_bytes=256,
         kv_kind="local", name="fleet-dec")
@@ -380,7 +393,7 @@ def test_serve_decode_reports_waiting_plus_swapped():
         state.mgr.close()
 
 
-def test_load_report_rides_every_terminal_response():
+def test_load_report_rides_every_terminal_response(ref_p99_zero):
     """Errors and streams end with the report too (the policy's feed)."""
     srv = Server(max_workers=4)
     srv.set_load_provider(lambda: 5)

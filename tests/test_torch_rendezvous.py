@@ -673,21 +673,13 @@ def test_tensor_stream_ledger_matches_reference(platform, name):
     else:
         # on the ring platform the pair's ring bills the control frames'
         # bytes as host_copy on both sides, which the same coalescer makes
-        # equal. The reference's tail-capture trace header (45 bytes on
-        # each HEADERS) and its load report's p99 (its watchdog's, whose
-        # digits follow the process's earlier calls; the port's reads 0.0)
-        # ride those frames: observability the port has not taken yet
-        # (ROADMAP A4), off for the length of the case, and the stream
-        # goes in step with the handler, so that the ledgers compare whole.
-        from tpurpc.obs import tracing as ref_tracing
-
+        # equal. Both channels' tail-capture trace header rides each
+        # HEADERS alike; the load report's p99 (each watchdog's, whose
+        # digits follow the process's earlier calls) is off for the length
+        # of the case, and the stream goes in step with the handler, so
+        # that the ledgers compare whole.
         platform(name, TPURPC_CTRL_RING="0", TPURPC_LOAD_REPORTS="0")
-        ref_tracing.tail(False)
-        try:
-            res = {m.name: _scenario_stream_ledger(m, step=True)
-                   for m in BOTH}
-        finally:
-            ref_tracing.tail(None)
+        res = {m.name: _scenario_stream_ledger(m, step=True) for m in BOTH}
         # The number of ring writes and reads that carry those bytes
         # (host_copy_ops) depends on how the reader's drains batch frames
         # in time, and varies between runs of one package alike: it is

@@ -306,6 +306,9 @@ def test_admission_shed_carries_pushback_then_retry_waits_it_out(server):
                                         retry_policy=pol) as ch2:
                 warm = bytes(ch2.unary_unary("/fleet.S/Fast")(b"",
                                                              timeout=CALL))
+                # ch dials only now: wait for the warm call's slot first,
+                # or the gate at its soft limit refuses the connection
+                assert poll(lambda: gate.inflight() == 0)
                 ch.unary_unary("/fleet.S/Fast")(b"", timeout=CALL)
                 assert poll(lambda: gate.inflight() == 0)
                 mc = ch.unary_unary("/fleet.S/Slow")

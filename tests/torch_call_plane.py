@@ -1,9 +1,11 @@
 """Both packages' call planes side by side, for the port's call-plane tests.
 
 ``REF`` and ``PORT`` carry each package's channel, server, resolver,
-service-config and interceptor modules under the same names, so that one
-scenario function runs on either package (or on a client of one and a
-server of the other). Observations are plain values: status codes by
+service-config and interceptor modules, and its observability core
+(``metrics``, ``tracing``, ``flight``, ``watchdog``, ``lens``,
+``profiler``, ``stats``, ``trace`` and the copy ``ledger``), under the
+same names, so that one scenario function runs on either package (or on
+a client of one and a server of the other). Observations are plain values: status codes by
 name, reply bytes, attempt counts, throttle tokens, server indices.
 
 The fixtures ``platform`` and ``counted_plain`` and the model
@@ -34,6 +36,13 @@ def _pkg(name, root):
     mods = {m: importlib.import_module(f"{root}.rpc.{m}")
             for m in ("channel", "server", "resolver", "service_config",
                       "interceptors", "status")}
+    # the observability core, for the obs tests (tests/torch_obs.py)
+    mods.update({m: importlib.import_module(f"{root}.obs.{m}")
+                 for m in ("metrics", "tracing", "flight", "watchdog",
+                           "lens", "profiler")})
+    mods["stats"] = importlib.import_module(f"{root}.utils.stats")
+    mods["trace"] = importlib.import_module(f"{root}.utils.trace")
+    mods["ledger"] = importlib.import_module(f"{root}.tpu.ledger")
     return types.SimpleNamespace(name=name, rpc=jrpc if name == "ref" else trpc,
                                  **mods)
 
@@ -41,6 +50,7 @@ def _pkg(name, root):
 REF = _pkg("ref", "tpurpc")
 PORT = _pkg("port", "tpurpc_torch")
 PKGS = {"ref": REF, "port": PORT}
+BOTH = (REF, PORT)
 
 
 def code_name(exc) -> str:

@@ -620,30 +620,50 @@ class _CtrlFrameCoalescer:
     leave in ONE multi-frame send (``send_ops``), so a burst of COMPLETEs
     from N streams costs one transport write instead of N. An idle link
     waits for no timer. Without ``send_ops`` (the h2 planes) each op is
-    sent alone; FIFO order holds either way."""
+    sent alone; FIFO order holds either way.
+
+    ``send(..., wait=True)`` returns only once the op has been written,
+    by this thread or by the flusher that took it: a COMPLETE must be on
+    the wire before its sender writes the stream's next frame (a reply's
+    TRAILERS), or the peer closes the stream before the message arrives.
+    The reference returns as soon as the op is queued and loses replies
+    under concurrent calls (a stated divergence)."""
 
     def __init__(self, send_op: Callable[[int, int, bytes], None],
                  send_ops: Optional[Callable] = None):
         self._send_op = send_op
         self._send_ops = send_ops
         self._mu = threading.Lock()
+        self._done = threading.Condition(self._mu)
         self._pending: List[Tuple[int, int, bytes]] = []
         self._flushing = False
+        #: ops queued so far, and ops written (or dropped by a failed
+        #: write) so far: a waiter's op is out once ``_out`` reaches it
+        self._queued = 0
+        self._out = 0
 
-    def send(self, op: int, stream_id: int, payload: bytes) -> None:
+    def send(self, op: int, stream_id: int, payload: bytes,
+             wait: bool = False) -> None:
         if self._send_ops is None:
             self._send_op(op, stream_id, payload)
             return
         with self._mu:
             self._pending.append((op, stream_id, payload))
+            self._queued += 1
+            mine = self._queued
             if self._flushing:
-                return  # the in-flight flusher writes it
+                # the in-flight flusher writes it (or drops it with the
+                # connection); it leaves only with the queue empty
+                while wait and self._out < mine:
+                    self._done.wait()
+                return
             self._flushing = True
         while True:
             with self._mu:
                 batch, self._pending = self._pending, []
                 if not batch:
                     self._flushing = False
+                    self._done.notify_all()
                     return
             try:
                 if len(batch) == 1:
@@ -654,9 +674,14 @@ class _CtrlFrameCoalescer:
                 # connection dying: drop the queue (every control path
                 # treats sends as best effort; link close releases leases)
                 with self._mu:
+                    self._out = self._queued
                     self._pending = []
                     self._flushing = False
+                    self._done.notify_all()
                 raise
+            with self._mu:
+                self._out += len(batch)
+                self._done.notify_all()
 
 
 class RdvLink:
@@ -750,7 +775,7 @@ class RdvLink:
             except Exception:
                 pass  # ring tearing down: the framed path still works
         _transport.dispatch("frame", self, self._coalescer.send, op,
-                            stream_id, payload)
+                            stream_id, payload, wait=op == OP_COMPLETE)
         self._count("ctrl_frames")
 
     # -- sender role ---------------------------------------------------------

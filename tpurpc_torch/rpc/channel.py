@@ -1,8 +1,7 @@
 """Client channel: multiplexed calls over one endpoint, with reconnect.
 
 A trimmed copy of ``tpurpc/rpc/channel.py`` (no native fast path, which
-comes with the C core; none of the reference's observability hooks beyond
-channelz's call counters):
+comes with the C core):
 
 * ``Channel`` resolves its target into subchannels (one per address), each
   (re)connecting with exponential backoff, over TLS when given
@@ -45,8 +44,8 @@ channelz's call counters):
   its connection turned draining;
 * ``PipelinedUnary`` keeps many unary calls in flight on one connection,
   each resolved as a future by the thread that reads the terminal (a
-  servicing thread pumps a pump-mode connection while calls are in flight;
-  no REFUSED-replay migration, stall watchdog or latency histograms);
+  servicing thread pumps a pump-mode connection while calls are in flight);
+  a call a draining server refused replays on another subchannel;
 * the connection lifecycle: client keepalive (``keepalive_time_ms``: a
   PING after that much inactivity, and a connection whose PONG misses
   ``keepalive_timeout_ms`` dies and is redialed) and the idle timeout
@@ -56,7 +55,15 @@ channelz's call counters):
   (``ChannelConnectivity``: READY with a live connection, CONNECTING while
   a ``try_to_connect`` dial runs, TRANSIENT_FAILURE in connect backoff,
   else IDLE, and SHUTDOWN once closed), ``wait_for_state_change`` and
-  :func:`channel_ready_future`.
+  :func:`channel_ready_future`;
+* the call plane's observability (``tpurpc_torch/obs``, the reference's
+  names): the ``tpurpc-trace`` context on every HEADERS while tracing or
+  tail capture is live, with the ``client-send`` and ``wire`` spans and
+  the client's tail decision; the flight events ``CONN_CONNECT``,
+  ``CONN_DEAD``, ``RECONNECT``, ``CALL_FIRST_OK``, ``DEADLINE_EXPIRED`` and
+  the ``hedge`` tag's ``HEDGE_FIRED``/``HEDGE_WON``/``HEDGE_CANCELLED``;
+  ``hedges_fired``, ``hedges_won`` and ``deadline_exceeded{method}``; and
+  the ``cli_unary`` profile span while ``TPURPC_PROFILING`` is on.
 """
 
 from __future__ import annotations
@@ -74,6 +81,10 @@ from tpurpc_torch.core import ctrlring as _ctrl
 from tpurpc_torch.core import rendezvous as _rdv
 from tpurpc_torch.core.endpoint import (Endpoint, EndpointError,
                                         connect_endpoint, device_ring_of)
+from tpurpc_torch.obs import flight as _flight
+from tpurpc_torch.obs import metrics as _obs_metrics
+from tpurpc_torch.obs import tracing as _tracing
+from tpurpc_torch.obs import watchdog as _watchdog
 from tpurpc_torch.rpc import frame as fr
 from tpurpc_torch.rpc import resolver as _resolver
 from tpurpc_torch.rpc.resolver import (make_policy, resolve_target,
@@ -84,8 +95,29 @@ from tpurpc_torch.rpc.status import (ChannelConnectivity, Deserializer,
                                      StatusCode,
                                      deserialize as _deserialize,
                                      identity_codec as _identity)
+from tpurpc_torch.utils import stats as _stats
 from tpurpc_torch.utils import timers as _timers
 from tpurpc_torch.utils.config import get_config
+
+# The call plane's observability (the reference's names): in-flight depth
+# is a scrape-time fleet gauge over live PipelinedUnary windows; the two
+# latency histograms record once per pipelined call (microseconds):
+# call_us is send to future resolved, demux_us the delivering thread's hop
+# from the terminal to the resolution.
+_PIPELINES_INFLIGHT = _obs_metrics.fleet("pipeline_inflight",
+                                         lambda pl: pl._inflight)
+_PIPE_CALL_US = _obs_metrics.histogram("pipeline_call_us", kind="latency")
+_PIPE_DEMUX_US = _obs_metrics.histogram("pipeline_demux_us", kind="latency")
+#: client-observed deadline expiries per method (the pipeline's timer and
+#: the blocking unary path both feed it)
+_DEADLINE_EXCEEDED = _obs_metrics.labeled_counter("deadline_exceeded",
+                                                  ("method",))
+_HEDGES_FIRED = _obs_metrics.counter("hedges_fired")
+_HEDGES_WON = _obs_metrics.counter("hedges_won")
+_HEDGE_TAG = _flight.tag_for("hedge")
+#: no sampling decision was made upstream: ``_start`` draws one (None is a
+#: decision, unsampled, and is not redrawn)
+_TRACE_UNSET = object()
 
 #: the server's load-report and pushback keys
 #: (``tpurpc_torch.rpc.server.LOAD_KEY`` / ``PUSHBACK_KEY``), literals here
@@ -126,6 +158,13 @@ class _ClientStream:
         self.on_terminal: Optional[Callable[[], None]] = None
         #: backpressure: bounded completed-but-unconsumed responses
         self._credits = threading.BoundedSemaphore(max(1, queue_depth))
+        #: the open "wire" span of a traced call, closed at the terminal
+        self._wire_span: Optional[list] = None
+        #: perf_counter_ns at the terminal (the pipeline's demux histogram)
+        self._t_terminal = 0
+        #: (trace context, t0_ns, method): the client's tail decision and
+        #: deadline labels at the terminal
+        self._tail: Optional[tuple] = None
 
     def _acquire_credit(self) -> bool:
         while not self._credits.acquire(timeout=0.25):
@@ -185,6 +224,11 @@ class _ClientStream:
         # events at once and must find the trailers there
         self.events.put(("trailers", code, details, md))
         self.done = True
+        sp = self._wire_span
+        if sp is not None:
+            self._wire_span = None
+            _tracing.finish(sp)
+        self._t_terminal = time.perf_counter_ns()
         cb = self.on_terminal
         if cb is not None:
             try:
@@ -255,6 +299,12 @@ class _Connection:
         #: the LB policy's load-report sink for this connection, rebound by
         #: the channel at every pick (None: reports are stripped, unused)
         self.on_load: Optional[Callable[[object], None]] = None
+        #: the connection's lifecycle in the flight ring: the
+        #: disconnect, reconnect, first-OK sequence a postmortem replays
+        self._ftag = _flight.tag_for("conn:" + getattr(endpoint, "peer",
+                                                       "?"))
+        self._flight_first_ok = False
+        _flight.emit(_flight.CONN_CONNECT, self._ftag)
         self.writer.send_preface()
         # The inline pump: on ring endpoints the WAITING CALLER reads the
         # transport itself, which takes the reader-thread-to-caller wakeup
@@ -745,6 +795,8 @@ class _Connection:
         for h in (self._ka_handle, self._idle_handle, self._backup_handle):
             if h is not None:
                 h.cancel()  # the ticks also check alive themselves
+        graceful = "GOAWAY" in why or "closed" in why or "idle" in why
+        _flight.emit(_flight.CONN_DEAD, self._ftag, 1 if graceful else 0)
         if self.rdv is not None:
             # claimed landing regions are released; waiting senders wake
             self.rdv.close()
@@ -777,6 +829,7 @@ class _Subchannel:
         self._connect_lock = threading.Lock()  # serializes dial attempts only
         self._backoff = Channel._BACKOFF_INITIAL
         self._next_attempt = 0.0
+        self._lost_conn = False  # a connection died: the next is a RECONNECT
 
     def _live(self) -> Optional[_Connection]:
         conn = self._conn
@@ -830,12 +883,16 @@ class _Subchannel:
                     raise RpcError(StatusCode.UNAVAILABLE, "channel closed")
                 self._backoff = Channel._BACKOFF_INITIAL
                 self._conn = conn
+                was_lost, self._lost_conn = self._lost_conn, False
+            if was_lost:
+                _flight.emit(_flight.RECONNECT, conn._ftag)
             return conn
 
     def _on_conn_dead(self, conn: _Connection) -> None:
         with self._lock:
             if self._conn is conn:
                 self._conn = None
+            self._lost_conn = True
 
     def close(self) -> None:
         with self._lock:
@@ -1318,6 +1375,18 @@ class Call:
         platform); never dials."""
         return device_ring_of(self._conn.endpoint)
 
+    def _tail_decide(self, error: bool) -> None:
+        """The client half of the tail-capture decision: commit this call's
+        provisional span tree iff it was slow or failed (either end
+        committing promotes the shared trace)."""
+        stash = self._st._tail
+        if stash is None:
+            return
+        self._st._tail = None  # decide once per stream
+        tctx, t0, method = stash
+        _tracing.tail_decide(tctx, time.monotonic_ns() - t0,
+                             error=error, method=method)
+
     def _expire(self) -> None:
         """The deadline passed: RST the server and finish the stream."""
         if self._counters is not None:  # an expiry counts as failed
@@ -1325,6 +1394,12 @@ class Call:
             self._counters = None
         self._code = StatusCode.DEADLINE_EXCEEDED
         self._details = "deadline exceeded"
+        stash = self._st._tail
+        if stash is not None and stash[2]:
+            _DEADLINE_EXCEEDED.labels(stash[2]).inc()
+        _flight.emit(_flight.DEADLINE_EXPIRED, self._conn._ftag,
+                     self._st.stream_id)
+        self._tail_decide(error=True)
         try:
             self._conn.writer.send(fr.RST, 0, self._st.stream_id,
                                    fr.rst_payload(StatusCode.DEADLINE_EXCEEDED,
@@ -1338,6 +1413,10 @@ class Call:
             self._counters.on_finish(code is StatusCode.OK)
             self._counters = None  # a repeated event must not count twice
         self._code, self._details, self._trailing = code, details, md
+        self._tail_decide(error=code is not StatusCode.OK)
+        if code is StatusCode.OK and not self._conn._flight_first_ok:
+            self._conn._flight_first_ok = True
+            _flight.emit(_flight.CALL_FIRST_OK, self._conn._ftag)
         if (self._channel is not None and self._channel._compress_flag
                 and code is StatusCode.UNIMPLEMENTED
                 and fr.COMPRESSED_UNSUPPORTED_SENTINEL in details):
@@ -1551,7 +1630,7 @@ class _MultiCallable:
 
     def _start(self, metadata: Optional[Metadata], timeout: Optional[float],
                first_request=_NO_REQUEST, wait_for_ready: bool = False,
-               exclude=None, picked=None
+               exclude=None, picked=None, trace_ctx=_TRACE_UNSET
                ) -> Tuple[_Connection, _ClientStream, Call]:
         """Open a stream and send HEADERS — fused with the only MESSAGE when
         the request is known upfront (one transport write per unary call).
@@ -1575,19 +1654,42 @@ class _MultiCallable:
         else:
             raise RpcError(StatusCode.UNAVAILABLE,
                            "no non-draining connection after 3 dials")
+        # trace propagation: a sampled (or tail-captured) call carries its
+        # context in ordinary metadata; the send is the "client-send"
+        # span, and the open "wire" span rides the stream until the
+        # terminal closes it on the delivering thread. A caller that drew
+        # the sampling decision already passes it as trace_ctx.
+        if trace_ctx is _TRACE_UNSET:
+            tctx = _tracing.maybe_sample() if _tracing.LIVE else None
+        else:
+            tctx = trace_ctx
+        send_sp = None
+        if tctx is not None:
+            tctx = tctx.child()  # this call's own span id
+            metadata = list(metadata or ())
+            metadata.append((_tracing.HEADER, tctx.encode()))
+            send_sp = _tracing.begin("client-send", tctx)
+            # open the wire span BEFORE the write: on a loopback transport
+            # the server can parse HEADERS before send_many returns, and
+            # the wire interval must enclose every server-side span
+            st._wire_span = _tracing.begin("wire", tctx)
+        st._tail = (tctx, time.monotonic_ns(), self._method)
         try:
             timeout_us = (None if deadline is None else
                           max(0, int((deadline - time.monotonic()) * 1e6)))
             hdr = fr.headers_payload(self._method, metadata or (), timeout_us)
-            if first_request is _NO_REQUEST:
-                conn.writer.send(fr.HEADERS, 0, st.stream_id, hdr)
-            else:
-                conn.writer.send_many([
-                    (fr.HEADERS, 0, st.stream_id, hdr),
-                    (fr.MESSAGE,
-                     fr.FLAG_END_STREAM | self._channel._compress_flag,
-                     st.stream_id, self._ser(first_request)),
-                ])
+            with _tracing.use(tctx) if tctx is not None \
+                    else _tracing.NULL_CM:
+                if first_request is _NO_REQUEST:
+                    conn.writer.send(fr.HEADERS, 0, st.stream_id, hdr)
+                else:
+                    conn.writer.send_many([
+                        (fr.HEADERS, 0, st.stream_id, hdr),
+                        (fr.MESSAGE,
+                         fr.FLAG_END_STREAM | self._channel._compress_flag,
+                         st.stream_id, self._ser(first_request)),
+                    ])
+            _tracing.finish(send_sp)
         except fr.FrameError as exc:
             conn.close_stream(st)
             raise RpcError(StatusCode.RESOURCE_EXHAUSTED, str(exc)) from exc
@@ -1600,8 +1702,16 @@ class _MultiCallable:
                 # fails, but the refusal stands, and the call may be replayed.
                 # (The reference fails such a call with this detail.)
                 err._tpurpc_refused = True
-                if picked:
-                    err._tpurpc_sub = picked[-1]
+            elif conn.draining:
+                # Its GOAWAY arrived first and the drained connection closed
+                # before the request was whole: no handler ran. Only
+                # PipelinedUnary replays on this mark; every other path
+                # fails UNAVAILABLE, as the reference does.
+                err._tpurpc_unsent = True
+            else:
+                raise err from exc
+            if picked:
+                err._tpurpc_sub = picked[-1]
             raise err from exc
         counters = self._channel.call_counters
         counters.on_start()
@@ -1648,16 +1758,32 @@ def _reject_call_credentials(grpcio_kw: dict) -> None:
 class UnaryUnary(_MultiCallable):
     def __call__(self, request, timeout: Optional[float] = None,
                  metadata: Optional[Metadata] = None, **grpcio_kw):
+        # one sampling decision per call, drawn here and handed down to
+        # every retry and hedge attempt, which share its trace id
+        tctx = _tracing.maybe_sample() if _tracing.LIVE else None
         response, _ = self.with_call(request, timeout=timeout,
-                                     metadata=metadata, **grpcio_kw)
+                                     metadata=metadata, _trace_ctx=tctx,
+                                     **grpcio_kw)
         return response
 
     def with_call(self, request, timeout: Optional[float] = None,
-                  metadata: Optional[Metadata] = None, **grpcio_kw):
+                  metadata: Optional[Metadata] = None,
+                  _trace_ctx=_TRACE_UNSET, **grpcio_kw):
         """``(response, call)``; the call carries the trailing metadata and
         the connection's device ring. Runs under the call plan: a retry
         policy, else a hedging policy, else one attempt — each with the
-        transparent replay of refused streams."""
+        transparent replay of refused streams. With profiling on
+        (``TPURPC_PROFILING``) the whole call is the ``cli_unary`` span.
+        ``_trace_ctx`` is ``__call__``'s sampling decision, which every
+        attempt shares; called directly, each attempt draws its own, as in
+        the reference."""
+        with _stats.profile("cli_unary"):
+            return self._with_call_impl(request, timeout, metadata,
+                                        _trace_ctx, **grpcio_kw)
+
+    def _with_call_impl(self, request, timeout: Optional[float],
+                        metadata: Optional[Metadata], _trace_ctx,
+                        **grpcio_kw):
         _reject_call_credentials(grpcio_kw)
         policy, timeout, throttle, eff_wfr, hedging = \
             self._channel._call_plan(
@@ -1665,7 +1791,7 @@ class UnaryUnary(_MultiCallable):
         deadline = None if timeout is None else time.monotonic() + timeout
         if policy is None and hedging is not None:
             return self._hedged_call(request, deadline, metadata, eff_wfr,
-                                     hedging, throttle)
+                                     hedging, throttle, _trace_ctx)
         #: subchannels that REFUSED this logical call (drain): the replay
         #: deprioritizes them, so a draining backend's traffic migrates
         #: instead of re-racing the same GOAWAY
@@ -1683,7 +1809,7 @@ class UnaryUnary(_MultiCallable):
             for _ in range(3):
                 try:
                     return self._call_once(request, remaining(), metadata,
-                                           eff_wfr,
+                                           eff_wfr, trace_ctx=_trace_ctx,
                                            exclude=refused_subs or None)
                 except RpcError as exc:
                     # FLAG_REFUSED is the contract; the "connection
@@ -1710,6 +1836,7 @@ class UnaryUnary(_MultiCallable):
                     if sub is not None:
                         refused_subs.add(sub)
             return self._call_once(request, remaining(), metadata, eff_wfr,
+                                   trace_ctx=_trace_ctx,
                                    exclude=refused_subs or None)
 
         if policy is None:
@@ -1718,7 +1845,7 @@ class UnaryUnary(_MultiCallable):
 
     def _hedged_call(self, request, deadline: Optional[float],
                      metadata: Optional[Metadata], wait_for_ready: bool,
-                     hp: HedgingPolicy, throttle):
+                     hp: HedgingPolicy, throttle, trace_ctx):
         """The gRFC A6 hedging state machine. The caller's thread drives
         one thread per attempt:
 
@@ -1768,7 +1895,8 @@ class UnaryUnary(_MultiCallable):
                 try:
                     resp, call = self._call_once(
                         request, remaining(), metadata, wait_for_ready,
-                        exclude=excl or None, on_call=on_call_for(idx))
+                        trace_ctx=trace_ctx, exclude=excl or None,
+                        on_call=on_call_for(idx))
                     results.put((idx, (resp, call), None))
                     return
                 except RpcError as exc:
@@ -1800,18 +1928,23 @@ class UnaryUnary(_MultiCallable):
             idx = launched
             launched += 1
             outstanding += 1
+            if idx > 0:
+                _HEDGES_FIRED.inc()
+                _flight.emit(_flight.HEDGE_FIRED, _HEDGE_TAG, idx)
             threading.Thread(target=run_attempt, args=(idx,), daemon=True,
                              name="tpurpc-hedge").start()
 
         def finish(win_idx=None):
             with lock:
                 done[0] = True
-                losers = [c for i, c in calls.items() if i != win_idx]
-            for call in losers:
+                losers = [(i, c) for i, c in calls.items() if i != win_idx]
+            for i, call in losers:
                 try:
                     call.cancel()
                 except Exception:
                     pass
+                if win_idx is not None:
+                    _flight.emit(_flight.HEDGE_CANCELLED, _HEDGE_TAG, i)
 
         launch()
         last_failure = None
@@ -1837,6 +1970,9 @@ class UnaryUnary(_MultiCallable):
             outstanding -= 1
             if exc is None:
                 resp, call = ok
+                if idx > 0:
+                    _HEDGES_WON.inc()
+                _flight.emit(_flight.HEDGE_WON, _HEDGE_TAG, idx)
                 finish(win_idx=idx)
                 if throttle is not None:
                     throttle.record_success()
@@ -1867,7 +2003,7 @@ class UnaryUnary(_MultiCallable):
 
     def _call_once(self, request, timeout: Optional[float],
                    metadata: Optional[Metadata], wait_for_ready: bool = False,
-                   exclude=None, on_call=None):
+                   trace_ctx=_TRACE_UNSET, exclude=None, on_call=None):
         """One wire attempt. ``exclude`` deprioritizes subchannels this
         logical call already touched (drain migration / hedge spread);
         ``on_call(call, subchannel)`` fires as soon as the stream is open —
@@ -1878,6 +2014,7 @@ class UnaryUnary(_MultiCallable):
         picked: list = []
         conn, st, call = self._start(metadata, timeout, first_request=request,
                                      wait_for_ready=wait_for_ready,
+                                     trace_ctx=trace_ctx,
                                      exclude=exclude, picked=picked)
         if on_call is not None:
             on_call(call, picked[-1] if picked else None)
@@ -1956,14 +2093,18 @@ class PipelinedUnary:
     qualifies). Out-of-order completion across streams is the point: a
     slow call does not head-of-line-block its siblings' futures.
 
-    Not here (the reference's): the REFUSED-replay migration, the stall
-    watchdog and the latency histograms.
+    A refused call migrates (:meth:`call_async`). Each attempt registers
+    with the stall watchdog; every resolved call records
+    ``pipeline_call_us`` and ``pipeline_demux_us``, and the window's
+    in-flight count is the ``pipeline_inflight`` fleet gauge.
     """
 
     #: how often a servicing thread returns the pump and re-checks
     #: ``close()``: a pump wait with no deadline would block on the
     #: transport until the next frame
     _SERVICE_SLICE_S = 0.25
+    #: replays of a refused call (the reference's cap)
+    _MAX_REPLAYS = 3
 
     def __init__(self, mc: UnaryUnary, depth: int = 16):
         self._mc = mc
@@ -1974,22 +2115,37 @@ class PipelinedUnary:
         self._closed = False
         #: id(connection) -> its servicing thread (pump-mode connections)
         self._pump_threads: Dict[int, threading.Thread] = {}
+        _PIPELINES_INFLIGHT.track(self)
 
     def call_async(self, request, timeout: Optional[float] = None,
                    metadata: Optional[Metadata] = None
                    ) -> "concurrent.futures.Future":
         """One pipelined call; returns a Future of the deserialized
         response. Blocks only for a window slot (backpressure), never for
-        the response."""
+        the response.
+
+        A REFUSED terminal (a draining server, or a max-age GOAWAY race:
+        the server certifies no handler ran) replays on another
+        subchannel instead of failing the future, up to
+        :data:`_MAX_REPLAYS` times under the original deadline: the
+        refusing subchannel joins the call's exclusion set, and the next
+        attempt dials off the delivering thread, on ``run_blocking``'s
+        pool. A replay that raises fails the future; a refusal that is
+        final fails it with ``_tpurpc_refused`` set."""
         deadline = None if timeout is None else time.monotonic() + timeout
         if not self._window.acquire(timeout=timeout):
             raise RpcError(StatusCode.DEADLINE_EXCEEDED,
                            "deadline exceeded waiting for pipeline window")
+        t_start = time.perf_counter_ns()
         fut: "concurrent.futures.Future" = concurrent.futures.Future()
-        state = {"claimed": False, "fired": False, "timer": None}
+        #: ``cur`` is the current attempt: its stream, call, watchdog token
+        #: and subchannel; a replay replaces it
+        state = {"claimed": False, "timer": None, "replays": 0,
+                 "exclude": set(), "cur": None}
 
         def claim() -> bool:
-            """Once-only: the terminal or the deadline resolves the call."""
+            """Once-only: the terminal, the deadline or a failed replay
+            resolves the call."""
             with self._lock:
                 if state["claimed"]:
                     return False
@@ -2001,63 +2157,156 @@ class PipelinedUnary:
                 timer.cancel()
             return True
 
+        def fail(exc: BaseException) -> None:
+            if claim() and fut.set_running_or_notify_cancel():
+                fut.set_exception(exc)
+
+        def replay() -> None:
+            if state["claimed"]:
+                return  # expired while queued
+            try:
+                start_attempt()
+            except BaseException as exc:
+                fail(exc)
+
+        def refused_again(exc: BaseException) -> bool:
+            """Count one more replay of a refused call, excluding the
+            refusing subchannel; False once the replays are spent."""
+            with self._lock:
+                if (not getattr(exc, "_tpurpc_refused", False)
+                        or state["replays"] >= self._MAX_REPLAYS
+                        or state["claimed"]):
+                    return False
+                state["replays"] += 1
+            sub = getattr(exc, "_tpurpc_sub", None)
+            if sub is not None:
+                state["exclude"].add(sub)
+            return True
+
+        def start_attempt() -> None:
+            while True:
+                remaining = (None if deadline is None
+                             else max(0.0, deadline - time.monotonic()))
+                picked: list = []
+                try:
+                    conn, st, call = self._mc._start(
+                        metadata, remaining, first_request=request,
+                        exclude=state["exclude"] or None, picked=picked)
+                    break
+                except RpcError as exc:
+                    # the request's write failed on a connection a draining
+                    # server refused or closed: no handler ran, so replay
+                    # at once, on this thread (a divergence: the reference
+                    # raises from call_async)
+                    if getattr(exc, "_tpurpc_unsent", False):
+                        exc._tpurpc_refused = True
+                    if not refused_again(exc):
+                        raise
+            # no thread waits on a pipelined call: the stall watchdog is
+            # the only observer that can see it wedge and name the stage
+            tctx = st._tail[0] if st._tail is not None else None
+            wd_tok = _watchdog.call_started(
+                self._mc._method, tctx.trace_id if tctx is not None else 0,
+                kind="client")
+            cur = {"st": st, "call": call, "wd": wd_tok, "fired": False,
+                   "sub": picked[-1] if picked else None}
+            state["cur"] = cur
+
+            def complete():
+                with self._lock:
+                    if cur["fired"]:
+                        return  # hook + done-fallback both ran: once only
+                    cur["fired"] = True
+                msgs = []
+                code, details, md = None, "", []
+                while True:
+                    try:
+                        ev = st.events.get_nowait()
+                    except queue.Empty:
+                        break
+                    if ev[0] == "message":
+                        st.release_credit()  # the reader may commit more
+                        msgs.append(ev[1])
+                    elif ev[0] == "trailers":
+                        _, code, details, md = ev
+                if code is None:  # terminal hook without a queued trailer
+                    code, details = (StatusCode.INTERNAL,
+                                     "terminal without status")
+                refused = (code is not StatusCode.OK and not msgs
+                           and st.refused)
+                exc = None
+                if code is not StatusCode.OK:
+                    exc = RpcError(code, details, md)
+                    if refused:
+                        exc._tpurpc_refused = True
+                        exc._tpurpc_sub = cur["sub"]
+                if refused and refused_again(exc):
+                    # migrate: the refusing subchannel is excluded and the
+                    # call replays, off this (delivering) thread, which
+                    # must not block in a dial
+                    call._finish(code, details, md)
+                    _watchdog.call_finished(wd_tok, error=True)
+                    _timers.run_blocking(replay)
+                    return
+                if not claim():
+                    # the deadline already failed the future; an attempt
+                    # it did not see (a replay dialed while it fired) still
+                    # ends its call and its watchdog registration here
+                    call._finish(code, details, md)
+                    _watchdog.call_finished(wd_tok, error=True)
+                    return
+                call._finish(code, details, md)
+                _watchdog.call_finished(wd_tok,
+                                        error=code is not StatusCode.OK)
+                if not fut.set_running_or_notify_cancel():
+                    return  # the caller cancelled the future
+                if code is not StatusCode.OK:
+                    fut.set_exception(exc)
+                elif len(msgs) != 1:
+                    fut.set_exception(RpcError(
+                        StatusCode.INTERNAL,
+                        "unary call received no response" if not msgs
+                        else "unary call received multiple responses"))
+                else:
+                    try:
+                        fut.set_result(_deserialize(self._mc._deser,
+                                                    msgs[0]))
+                    except BaseException as exc:  # a raising deserializer
+                        fut.set_exception(exc)    # fails, never hangs
+                now = time.perf_counter_ns()
+                _PIPE_CALL_US.record((now - t_start) // 1000)
+                if st._t_terminal:
+                    _PIPE_DEMUX_US.record((now - st._t_terminal) // 1000)
+
+            # Hook AFTER the send: the terminal may already have been
+            # delivered (fast server + slow caller), in which case st.done
+            # is set and the hook will never fire — complete from here
+            # instead. cur["fired"] makes the two funnels once-only.
+            st.on_terminal = complete
+            if st.done:
+                complete()
+            self._ensure_pump(conn)
+
         with self._lock:
             self._inflight += 1
         try:
-            remaining = (None if deadline is None
-                         else max(0.0, deadline - time.monotonic()))
-            conn, st, call = self._mc._start(metadata, remaining,
-                                             first_request=request)
+            start_attempt()
         except BaseException:
             with self._lock:
                 self._inflight -= 1
             self._window.release()
             raise
-
-        def complete():
-            with self._lock:
-                if state["fired"]:
-                    return  # hook + done-fallback both ran: once only
-                state["fired"] = True
-            msgs = []
-            code, details, md = None, "", []
-            while True:
-                try:
-                    ev = st.events.get_nowait()
-                except queue.Empty:
-                    break
-                if ev[0] == "message":
-                    st.release_credit()  # the reader may commit the next
-                    msgs.append(ev[1])
-                elif ev[0] == "trailers":
-                    _, code, details, md = ev
-            if code is None:  # terminal hook without a queued trailer
-                code, details = StatusCode.INTERNAL, "terminal without status"
-            if not claim():
-                return  # the deadline already failed the future
-            call._finish(code, details, md)
-            if not fut.set_running_or_notify_cancel():
-                return  # the caller cancelled the future; drop the result
-            if code is not StatusCode.OK:
-                fut.set_exception(RpcError(code, details, md))
-            elif len(msgs) != 1:
-                fut.set_exception(RpcError(
-                    StatusCode.INTERNAL,
-                    "unary call received no response" if not msgs
-                    else "unary call received multiple responses"))
-            else:
-                try:
-                    fut.set_result(_deserialize(self._mc._deser, msgs[0]))
-                except BaseException as exc:  # a raising deserializer
-                    fut.set_exception(exc)    # fails, never hangs
-
         if deadline is not None:
             # No thread waits on this call, so the deadline needs its own
-            # timer: expire RSTs the stream and fails the future.
+            # timer: expire RSTs the CURRENT attempt's stream and fails the
+            # future. One absolute deadline covers every replay.
             def expire():
                 if not claim():
                     return
-                call._expire()
+                cur = state["cur"]
+                if cur is not None:
+                    cur["call"]._expire()
+                    _watchdog.call_finished(cur["wd"], error=True)
                 if fut.set_running_or_notify_cancel():
                     fut.set_exception(RpcError(
                         StatusCode.DEADLINE_EXCEEDED,
@@ -2065,17 +2314,11 @@ class PipelinedUnary:
 
             # expire writes an RST (an endpoint write that may stall on
             # backpressure): it runs off the wheel thread
-            state["timer"] = _timers.schedule(
-                max(0.0, deadline - time.monotonic()),
-                lambda: _timers.run_blocking(expire))
-        # Hook AFTER the send: the terminal may already have been delivered
-        # (fast server + slow caller), in which case st.done is set and the
-        # hook will never fire — complete from here instead. state["fired"]
-        # makes the two funnels once-only.
-        st.on_terminal = complete
-        if st.done:
-            complete()
-        self._ensure_pump(conn)
+            with self._lock:
+                if not state["claimed"]:
+                    state["timer"] = _timers.schedule(
+                        max(0.0, deadline - time.monotonic()),
+                        lambda: _timers.run_blocking(expire))
         return fut
 
     # -- pump-mode servicing --------------------------------------------------

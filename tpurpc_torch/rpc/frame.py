@@ -20,7 +20,8 @@ keylen, key-utf8, u32 vallen, value``; keys ending in ``-bin`` carry binary
 values.
 
 ``FrameWriter`` counts the frames it committed (``frames_sent``, the
-descriptor ring's ordering gate), coalesces unary responses across streams
+descriptor ring's ordering gate; unlike the reference's, a direct write
+counts under its write lock, so the count never trails the wire), coalesces unary responses across streams
 on a ``coalesce=True`` writer (one gathered writev while another is in
 flight), and batches one thread's frames into one writev inside
 ``FrameWriter.batch()``.
@@ -309,8 +310,11 @@ class FrameWriter:
         #: tpurpc-pulse: frames this writer has committed to the wire, in
         #: order.  Descriptor-ring control records stamp this count at post
         #: time so the receiver can order them against in-flight frames
-        #: (core/ctrlring.py frame_seq gate).  Guarded by its own lock —
-        #: bumps happen under _lock on some paths and _pend_lock on others.
+        #: (core/ctrlring.py frame_seq gate).  Guarded by its own lock.
+        #: The count never trails the wire: a direct write counts its
+        #: frames before it lets go of _lock, and a queued (coalesced or
+        #: thread-batched) frame is counted before it is written, so a
+        #: record posted after a frame is never stamped below it.
         self.frames_sent = 0
         self._fs_lock = threading.Lock()
         #: per-thread frame batch (FrameWriter.batch): frames queue here
@@ -370,7 +374,7 @@ class FrameWriter:
             with self._lock:
                 self._ep.write(
                     [HEADER_FMT.pack(ftype, flags, stream_id, total)] + segs)
-            self._count_frames(1)
+                self._count_frames(1)
             return
         self._flush_thread_batch()  # oversized frame: preserve order
         if ftype != MESSAGE:
@@ -410,7 +414,7 @@ class FrameWriter:
             with self._lock:
                 self._ep.write(
                     [HEADER_FMT.pack(MESSAGE, fl, stream_id, n)] + frame_segs)
-            self._count_frames(1)
+                self._count_frames(1)
 
     def send_many(self, frames: Sequence[Tuple[int, int, int, "bytes | Sequence"]]
                   ) -> None:
@@ -471,7 +475,7 @@ class FrameWriter:
                     if batch:
                         with self._lock:
                             self._ep.write(batch)
-                        self._count_frames(nframes)
+                            self._count_frames(nframes)
                         batch, nframes = [], 0
                     self._send_fragmented(flags, stream_id, segs, total)
                     continue
@@ -482,7 +486,7 @@ class FrameWriter:
             if batch:
                 with self._lock:
                     self._ep.write(batch)
-                self._count_frames(nframes)
+                    self._count_frames(nframes)
             return
         tb = getattr(self._tls, "batch", None)
         batch = tb[1] if tb is not None else []
@@ -501,7 +505,7 @@ class FrameWriter:
         if not self._coalesce:
             with self._lock:
                 self._ep.write(batch)
-            self._count_frames(len(encoded))
+                self._count_frames(len(encoded))
             return
         # counted at queue time: the frames are committed (in order) even
         # though the flusher writes them — a ring record posted after this

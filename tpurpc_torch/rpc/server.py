@@ -1,9 +1,9 @@
 """Server: listener → per-connection demux → handler dispatch on a pool.
 
 A trimmed copy of ``tpurpc/rpc/server.py`` (no native plane, which comes
-with the C core; no observability hooks, the plain-HTTP scrape answer on the
-serving port or the watchdog's p99 as the admission gate's latency signal,
-which come with the observability port). One port serves both wire protocols: the
+with the C core; no plain-HTTP scrape answer on the serving port, and no
+history or alerting planes started at ``start()``, which come with ROADMAP
+A4 (c)). One port serves both wire protocols: the
 first 8 bytes of a connection route the native framing's magic to
 :class:`_ServerConnection` and the HTTP/2 preface to
 ``tpurpc_torch/wire/grpc_h2.py``, so stock gRPC clients call the same
@@ -37,6 +37,17 @@ connection's reader thread when the request completes; the admission
 gate's connection-level face consulted by the listener before any
 handshake (:meth:`Server._accept_pushback`); and :func:`inproc_channel`, a
 channel wired to the server over a passthru endpoint pair.
+
+The call plane's observability (``tpurpc_torch/obs``, the reference's
+names): a caller's ``tpurpc-trace`` context is adopted (and stripped from
+the handler's metadata) with the ``dispatch`` and ``respond`` spans and the
+server's tail decision; each handler registers with the stall watchdog,
+whose rolling p99 is the admission gate's default latency signal and the
+load report's p99; ``srv_call_us``, ``srv_calls{method,code}`` and
+``srv_admission_rejected``; the flight events ``ADMIT_REJECT``, the inline
+path's ``DEADLINE_EXPIRED``, ``DRAIN_BEGIN`` and ``DRAIN_END``; the
+profiler's ``dispatch`` stage over the handler frames; and the
+``srv_handler`` profile span while ``TPURPC_PROFILING`` is on.
 """
 
 from __future__ import annotations
@@ -58,15 +69,40 @@ from tpurpc_torch.core import rendezvous as _rdv
 from tpurpc_torch.core.endpoint import (Endpoint, EndpointError,
                                         EndpointListener, create_endpoint,
                                         device_ring_of)
+from tpurpc_torch.obs import flight as _flight
+from tpurpc_torch.obs import metrics as _obs_metrics
+from tpurpc_torch.obs import profiler as _obs_profiler
+from tpurpc_torch.obs import tracing as _tracing
+from tpurpc_torch.obs import watchdog as _watchdog
 from tpurpc_torch.rpc import frame as fr
 from tpurpc_torch.rpc.status import (AbortError, Deserializer, Metadata,
                                      Serializer, StatusCode,
                                      deserialize as _deserialize,
                                      identity_codec as _identity)
+from tpurpc_torch.utils import stats as _stats
 from tpurpc_torch.utils import timers as _timers
 from tpurpc_torch.utils.config import get_config
 
 _log = logging.getLogger("tpurpc_torch.server")
+
+#: the sampling profiler's frame markers: handler dispatch on either
+#: execution path is the ``dispatch`` stage
+_LENS_STAGES = {
+    "_run_handler": "dispatch",
+    "_run_handler_inner": "dispatch",
+    "_run_inline": "dispatch",
+}
+_obs_profiler.register_stages(__file__, _LENS_STAGES)
+
+#: handler latency (one perf_counter pair and one histogram record a call)
+_SRV_CALL_US = _obs_metrics.histogram("srv_call_us", kind="latency")
+#: per-method, per-status-code RED counters
+_SRV_CALLS = _obs_metrics.labeled_counter("srv_calls", ("method", "code"))
+#: admission sheds, and the interned flight tags of the emission sites
+_SRV_SHED = _obs_metrics.counter("srv_admission_rejected")
+_SRV_INLINE_TAG = _flight.tag_for("srv-inline")
+_SRV_ADMIT_TAG = _flight.tag_for("srv-admission")
+_SRV_DRAIN_TAG = _flight.tag_for("srv-drain")
 
 #: trailing-metadata key carrying the ORCA-style per-response load report
 #: (``"<inflight>,<queue_depth>,<p99_ms>"`` — see Server._load_md); the
@@ -75,6 +111,20 @@ LOAD_KEY = "tpurpc-load"
 #: trailing-metadata key on admission rejections: how long the client
 #: should back off before retrying (milliseconds)
 PUSHBACK_KEY = "tpurpc-pushback-ms"
+
+
+def _extract_trace(metadata) -> "Optional[_tracing.TraceContext]":
+    """The ``tpurpc-trace`` context a client attached (sampled or
+    tail-provisional), stripped from ``metadata`` IN PLACE: the context is
+    transport-internal and must not reach handlers (with tail capture on,
+    every call carries it)."""
+    if not _tracing.LIVE:
+        return None
+    for i, (key, value) in enumerate(metadata):
+        if key == _tracing.HEADER:
+            del metadata[i]
+            return _tracing.adopt(value)
+    return None
 
 
 class AdmissionGate:
@@ -109,12 +159,15 @@ class AdmissionGate:
         self.rejected = 0
 
     def _latency_ms(self) -> Optional[float]:
-        if self.latency_ms_fn is None:
-            return None  # no signal: not slow
-        try:
-            return self.latency_ms_fn()
-        except Exception:
-            return None  # a broken probe never blocks admission
+        """``latency_ms_fn()`` when given, else the stall watchdog's worst
+        rolling p99 (None, not slow, until a method has history)."""
+        if self.latency_ms_fn is not None:
+            try:
+                return self.latency_ms_fn()
+            except Exception:
+                return None  # a broken probe never blocks admission
+        p99 = _watchdog.get().rolling_p99_ns()
+        return None if p99 is None else p99 / 1e6
 
     def try_admit(self) -> Optional[int]:
         """None = admitted (the caller owes a :meth:`release`); an int =
@@ -393,6 +446,12 @@ class _ServerStream:
         #: deadline watchdog of that wait
         self.inline_call = None
         self.inline_timer: Optional[_timers.TimerHandle] = None
+        #: the status the trailers carried (``srv_calls``' code label)
+        self.final_code: Optional[StatusCode] = None
+        #: the caller's trace context and the HEADERS arrival stamp (the
+        #: start of the "dispatch" span)
+        self.trace_ctx: "Optional[_tracing.TraceContext]" = None
+        self.trace_t0 = 0
         #: backpressure: at most queue_depth completed-but-unconsumed
         #: messages; the connection reader blocks on a credit, which stops
         #: draining the transport and stalls the sender
@@ -809,10 +868,14 @@ class _ServerConnection:
         if gate is not None and not st.is_probe:
             pushback_ms = gate.try_admit()
             if pushback_ms is not None:
+                _SRV_SHED.inc()
+                inflight_now = gate.inflight()
+                _flight.emit(_flight.ADMIT_REJECT, _SRV_ADMIT_TAG,
+                             inflight_now, pushback_ms)
                 self._send_trailers(
                     st, StatusCode.UNAVAILABLE,
                     f"server overloaded: admission rejected "
-                    f"({gate.inflight()} in flight); retry after "
+                    f"({inflight_now} in flight); retry after "
                     f"{pushback_ms}ms",
                     [(PUSHBACK_KEY, str(pushback_ms))])
                 self._finish_stream(st)
@@ -820,6 +883,10 @@ class _ServerConnection:
             st.gate = gate  # released exactly once in _finish_stream
         deadline = (None if timeout_us is None
                     else time.monotonic() + timeout_us / 1e6)
+        # a traced caller's context: the HEADERS-to-handler-start interval
+        # becomes the "dispatch" span
+        st.trace_ctx = _extract_trace(metadata)
+        st.trace_t0 = time.monotonic_ns() if st.trace_ctx is not None else 0
         handler = self.server._lookup_intercepted(path, metadata)
         if handler is None:
             self._send_trailers(st, StatusCode.UNIMPLEMENTED,
@@ -884,6 +951,8 @@ class _ServerConnection:
 
     def _inline_deadline(self, st: _ServerStream) -> None:
         if self._claim_inline(st) is not None:
+            _flight.emit(_flight.DEADLINE_EXPIRED, _SRV_INLINE_TAG,
+                         st.stream_id)
             self._send_trailers(st, StatusCode.DEADLINE_EXCEEDED,
                                 "deadline exceeded awaiting request")
             self._finish_stream(st)
@@ -893,10 +962,32 @@ class _ServerConnection:
         counters = self.server.call_counters
         counters.on_start()
         ok = False
+        tctx = st.trace_ctx
+        if tctx is not None and st.trace_t0:
+            # HEADERS arrival to handler start: the queue/handoff interval
+            _tracing.record("dispatch", tctx, st.trace_t0,
+                            time.monotonic_ns() - st.trace_t0, method=path)
+        # the stall watchdog sweeps in-flight handlers and names the stage
+        # of any call past its method's rolling-p99 multiple
+        wd_tok = _watchdog.call_started(
+            path, tctx.trace_id if tctx is not None else 0)
+        t0 = time.perf_counter_ns()
+        t0_mono = time.monotonic_ns()
         try:
-            ok = bool(self._run_handler_inner(handler, st, ctx, path))
+            with (_tracing.use(tctx) if tctx is not None
+                  else _tracing.NULL_CM), _stats.profile("srv_handler"):
+                ok = bool(self._run_handler_inner(handler, st, ctx, path))
         finally:
             counters.on_finish(ok)
+            _SRV_CALL_US.record((time.perf_counter_ns() - t0) // 1000)
+            code = (st.final_code if st.final_code is not None
+                    else StatusCode.CANCELLED)
+            _SRV_CALLS.labels(path, int(code)).inc()
+            _watchdog.call_finished(wd_tok, error=not ok)
+            # tail capture: commit the provisional span tree iff the call
+            # was slow for its method or failed
+            _tracing.tail_decide(tctx, time.monotonic_ns() - t0_mono,
+                                 error=not ok, method=path)
 
     def _run_handler_inner(self, handler: RpcMethodHandler, st: _ServerStream,
                            ctx: ServerContext, path: str) -> bool:
@@ -954,16 +1045,23 @@ class _ServerConnection:
             elif ctx.is_active():
                 # unary response: MESSAGE + TRAILERS in one transport write
                 code = ctx._code if ctx._code is not None else StatusCode.OK
+                st.final_code = code
                 try:
-                    self.writer.send_many([
-                        (fr.MESSAGE,
-                         fr.FLAG_COMPRESSED if st.peer_compressed else 0,
-                         st.stream_id, handler.response_serializer(result)),
-                        (fr.TRAILERS, fr.FLAG_END_STREAM, st.stream_id,
-                         fr.trailers_payload(code, ctx._details,
-                                             list(ctx._trailing)
-                                             + self.server._load_md())),
-                    ])
+                    # serialization and the gathered write: "respond"
+                    with (_tracing.span("respond", st.trace_ctx)
+                          if st.trace_ctx is not None
+                          else _tracing.NULL_CM):
+                        self.writer.send_many([
+                            (fr.MESSAGE,
+                             fr.FLAG_COMPRESSED if st.peer_compressed
+                             else 0,
+                             st.stream_id,
+                             handler.response_serializer(result)),
+                            (fr.TRAILERS, fr.FLAG_END_STREAM, st.stream_id,
+                             fr.trailers_payload(code, ctx._details,
+                                                 list(ctx._trailing)
+                                                 + self.server._load_md())),
+                        ])
                 except fr.FrameError:
                     self._send_trailers(st, StatusCode.INTERNAL,
                                         "trailing metadata too large")
@@ -985,6 +1083,7 @@ class _ServerConnection:
                        metadata: Metadata = ()) -> None:
         # every terminal response piggybacks the (cached) load report —
         # the least_loaded policy's per-response feed
+        st.final_code = code
         md = list(metadata) + self.server._load_md()
         try:
             try:
@@ -1379,8 +1478,8 @@ class Server:
         list concat — load is a trend, not a fence, and the client-side
         EWMA smooths staleness anyway. Inflight comes from the admission
         gate's own counter when one is installed, else from
-        :meth:`inflight_requests`. The p99 field is ``0.0``: the reference
-        reads it from its watchdog, which the port does not have yet."""
+        :meth:`inflight_requests`. The p99 is the stall watchdog's worst
+        rolling p99 (``0.0`` until a method has history)."""
         if not self._load_reports:
             return []
         now = time.monotonic()
@@ -1398,6 +1497,9 @@ class Server:
             except Exception:
                 qdepth = 0
         p99_ms = 0.0
+        p99 = _watchdog.get().rolling_p99_ns()
+        if p99:
+            p99_ms = p99 / 1e6
         md = [(LOAD_KEY, f"{inflight},{qdepth},{p99_ms:.1f}")]
         self._load_cache = (now, md)
         return md
@@ -1428,6 +1530,7 @@ class Server:
             self._draining = True
             conns = list(self._connections)
         if first:
+            _flight.emit(_flight.DRAIN_BEGIN, _SRV_DRAIN_TAG, len(conns))
             hs = self._health_servicer
             if hs is not None:
                 from tpurpc_torch.rpc.health import ServingStatus
@@ -1452,6 +1555,8 @@ class Server:
             if remaining == 0 or time.monotonic() >= deadline:
                 break
             time.sleep(0.01)
+        if first:
+            _flight.emit(_flight.DRAIN_END, _SRV_DRAIN_TAG, remaining)
         return remaining == 0
 
     def wait_for_termination(self, timeout: Optional[float] = None) -> bool:

@@ -12,6 +12,9 @@ here, so "zero-copy" is a measured claim:
 * ``rdma_write`` — one-sided placement into a peer's landing region
 
 Counters are process-wide and monotonic; :func:`track` snapshots a window.
+They live in the metrics registry (:mod:`tpurpc_torch.obs.metrics`) as
+``ledger_<kind>`` and ``ledger_<kind>_ops``, so one store feeds both faces;
+a registry ``reset()`` zeroes them too, so measure deltas, never totals.
 """
 
 from __future__ import annotations
@@ -20,30 +23,25 @@ import contextlib
 import threading
 from typing import Dict
 
+from tpurpc_torch.obs import metrics as _metrics
+
+_KINDS = ("host_copy", "dma_h2d", "dma_d2h", "dma_d2d", "zero_copy",
+          "rdma_write")
+
 _lock = threading.Lock()
-_counters: Dict[str, int] = {
-    "host_copy": 0,
-    "dma_h2d": 0,
-    "dma_d2h": 0,
-    "dma_d2d": 0,
-    "zero_copy": 0,
-    "rdma_write": 0,
-    # op counts (one per reported movement) beside the byte totals, so
-    # "this placement was exactly ONE device write" is assertable
-    "host_copy_ops": 0,
-    "dma_h2d_ops": 0,
-    "dma_d2h_ops": 0,
-    "dma_d2d_ops": 0,
-    "zero_copy_ops": 0,
-    "rdma_write_ops": 0,
-}
+#: the store is the metrics registry: one counter per kind (bytes) and one
+#: per kind's op count (one per reported movement, so "this placement was
+#: exactly ONE device write" is assertable), named ``ledger_<key>``
+_counters: Dict[str, _metrics.Counter] = {
+    key: _metrics.counter(f"ledger_{key}")
+    for key in _KINDS + tuple(k + "_ops" for k in _KINDS)}
 
 
 def add(kind: str, nbytes: int) -> None:
     if nbytes:
         with _lock:
-            _counters[kind] += nbytes
-            _counters[kind + "_ops"] += 1
+            _counters[kind].inc(nbytes)
+            _counters[kind + "_ops"].inc()
 
 
 def host_copy(nbytes: int) -> None:
@@ -72,13 +70,13 @@ def rdma_write(nbytes: int) -> None:
 
 def snapshot() -> Dict[str, int]:
     with _lock:
-        return dict(_counters)
+        return {k: c.value for k, c in _counters.items()}
 
 
 def reset() -> None:
     with _lock:
-        for k in _counters:
-            _counters[k] = 0
+        for c in _counters.values():
+            c.reset()
 
 
 class Window:
