@@ -337,7 +337,25 @@ error:
    each side's p50, the turn pairs the defaults won and the profiler's
    ``dispatch`` share. A reading, not a gate. Skipped under
    ``--kernels``;
-19. print the kernels line, the card's name and power limit, and last the
+19. the other planes' observability hooks, all on ``TPU`` with phase 3's
+   model, requests and replies. (a) 64 device-ring calls of phase 3's
+   request under the stage profiler at its default rate: prints each
+   stage's share of the attributed samples and thread ms per call, then
+   the idle, unattributed and outside-the-package shares; the transport's
+   stages together must draw samples. (b) phase 5's device-ring stream
+   (2 warm-up and 16 messages): prints each lens hop's bytes, busy ms and
+   GB/s; the ``hbm`` hop's bytes, ``hbm_place_bytes`` and
+   ``hbm_place_msgs`` must equal the payload bytes and leaves landed at
+   the server, and ``ring_scatter``'s launches what the landings' offsets
+   give. (c) one rendezvous transfer's offer, claim, write and complete
+   under one link's tag, and a 1.5 s handler on the device ring diagnosed
+   ``device-infer``. (d) the hooks' cost: phase 3's path in 20 alternating
+   turns of 8 calls, the plane at its defaults and every switch off (as
+   18 (c)), and one counted turn: flight emits, counter adds and
+   histogram records per call. (e) 16 calls over one ``H2Channel``:
+   ``srv_calls{method,0}`` reads 16, ``h2_server_connections`` 1 while
+   the channel is open and 0 after. Skipped under ``--kernels``;
+20. print the kernels line, the card's name and power limit, and last the
    one-line result JSON.
 """
 
@@ -6048,9 +6066,11 @@ def _obs_switch(on: bool) -> None:
         profiler.stop()
 
 
-def _obs_cost(dev, card, classify, images, first, turns, per_turn) -> dict:
+def _obs_cost(dev, card, classify, images, first, turns, per_turn,
+              label="obs (c)") -> dict:
     """(c): phase 3's device-ring unary path in alternating turns, the obs
-    plane at its defaults and switched off; a fresh channel each turn."""
+    plane at its defaults and switched off; a fresh channel each turn.
+    ``label`` names the part in what it prints."""
     import numpy as np
     import torch
 
@@ -6078,21 +6098,21 @@ def _obs_cost(dev, card, classify, images, first, turns, per_turn) -> dict:
                     for i in range(per_turn):
                         x = images[i % len(images)]
                         t0 = time.perf_counter()
-                        got = _lc_call(f"obs (c) turn {t} call {i}", client,
+                        got = _lc_call(f"{label} turn {t} call {i}", client,
                                        x)
                         lat.append((time.perf_counter() - t0) * 1e3)
-                        _bit_equal(f"obs (c) turn {t} call {i}", got,
+                        _bit_equal(f"{label} turn {t} call {i}", got,
                                    first[i % len(images)])
                     got_l = {"ring_scatter": rs_mod.launches,
                              "ring_window": rw_mod.launches}
-                check(got_l == land.launches(), f"obs (c) turn {t}: "
+                check(got_l == land.launches(), f"{label} turn {t}: "
                       f"launched {got_l}, its landings give "
                       f"{land.launches()}")
                 for k in got_l:
                     launches[side][k] += got_l[k]
             sides[side] += lat
             turn_p50[side].append(float(np.percentile(lat, 50)))
-            print(f"obs (c) turn {t} ({side}): p50 {turn_p50[side][-1]} ms "
+            print(f"{label} turn {t} ({side}): p50 {turn_p50[side][-1]} ms "
                   f"p99 {float(np.percentile(lat, 99))} ms", flush=True)
         prof = profiler.get().snapshot()
     finally:
@@ -6109,7 +6129,7 @@ def _obs_cost(dev, card, classify, images, first, turns, per_turn) -> dict:
            "stage_pct": prof["stage_pct"],
            "attributed_pct": prof["attributed_pct"],
            "samples": prof["samples"], "launches": launches}
-    print(f"obs (c): {turns} alternating turns of {per_turn} device-ring "
+    print(f"{label}: {turns} alternating turns of {per_turn} device-ring "
           f"calls: p50 with the obs plane at its defaults {out['p50_on']} "
           f"ms, with every switch off {out['p50_off']} ms; turn pairs where "
           f"the defaults were faster {won} of {out['pairs']}; the "
@@ -6290,6 +6310,436 @@ def obs_plane(dev, card, size=SIZE, ring=RING, requests=REQUESTS,
     return res
 
 
+# -- phase 19 ----------------------------------------------------------------
+
+#: (a): phase 3's device-ring unary calls under the sampling profiler
+HOOK_CALLS = 64
+#: the profiler stages the transport's hooks brought (the call plane's
+#: ``dispatch`` came before them)
+NEW_STAGES = ("ring-read", "ring-write", "pair-send", "poller-wait",
+              "ctrl-ring", "rendezvous", "codec", "hbm-place",
+              "device-dispatch", "batcher", "h2-framing", "wire")
+#: (b): messages of phase 5's device-ring stream, after its warm-up
+HOOK_STREAM_MSGS = 16
+#: (d): alternating turns, calls a turn
+HOOK_TURNS, HOOK_TURN_CALLS = 20, 8
+#: (e): calls over one H2Channel
+HOOK_H2_CALLS = 16
+HOOK_METHOD = "/obs19.S/Echo"
+
+
+class _HookCounts:
+    """While on, counts the obs plane's per-event work in this process:
+    flight emits, counter adds and histogram records (labelled counters'
+    children are counters)."""
+
+    def __enter__(self):
+        from tpurpc_torch.obs import flight, metrics
+
+        self.n = {"flight_emits": 0, "counter_adds": 0, "hist_records": 0}
+        n, lock = self.n, threading.Lock()
+        self._saved = [(flight, "emit", flight.emit),
+                       (metrics.Counter, "inc", metrics.Counter.inc),
+                       (metrics.Histogram, "record",
+                        metrics.Histogram.record)]
+
+        def counted(key, fn):
+            def wrapper(*a, **kw):
+                with lock:
+                    n[key] += 1
+                return fn(*a, **kw)
+            return wrapper
+
+        flight.emit = counted("flight_emits", flight.emit)
+        metrics.Counter.inc = counted("counter_adds", metrics.Counter.inc)
+        metrics.Histogram.record = counted("hist_records",
+                                           metrics.Histogram.record)
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, fn in self._saved:
+            setattr(obj, name, fn)
+
+
+def _hooks_profile(card, classify, images, first, calls) -> dict:
+    """(a): ``calls`` device-ring unary calls of phase 3's request under the
+    stage profiler at its default rate; each stage's share of the
+    attributed samples, then the idle, unattributed and unmarked shares."""
+    from tpurpc_torch.obs import profiler
+    from tpurpc_torch.rpc.channel import Channel
+    from tpurpc_torch.torchshim.service import TensorClient
+
+    rig = CallPlaneServer(classify)
+    prof = profiler.get()
+    try:
+        with Channel(f"127.0.0.1:{rig.port}") as ch:
+            client = TensorClient(ch)
+            _bit_equal("hooks (a) warm-up", _lc_call(
+                "hooks (a) warm-up", client, images[0]), first[0])
+            prof.stop()
+            prof.reset()
+            check(profiler.ensure_started(), "hooks (a): the lens is off")
+            with _Landings() as land:
+                t0 = time.perf_counter()
+                for i in range(calls):
+                    got = _lc_call(f"hooks (a) call {i}", client,
+                                   images[i % len(images)])
+                    _bit_equal(f"hooks (a) call {i}", got,
+                               first[i % len(images)])
+                wall = time.perf_counter() - t0
+            profiler.stop()
+            snap = prof.snapshot()
+    finally:
+        profiler.stop()
+        rig.server.stop()
+    stages = snap["stages"]
+    other = stages.get("other", 0)
+    denom = snap["samples"] - other
+    idle = stages.get("idle", 0)
+    unatt = stages.get("unattributed", 0)
+    attributed = denom - unatt
+    work = {k: v for k, v in stages.items()
+            if k not in ("other", "idle", "unattributed")}
+    share = {k: (100.0 * v / attributed if attributed else 0.0)
+             for k, v in sorted(work.items(), key=lambda kv: -kv[1])}
+    per_call_ms = {k: 1e3 * v / snap["hz"] / calls for k, v in work.items()}
+    new = sum(work.get(k, 0) for k in NEW_STAGES)
+    check(new > 0, f"hooks (a): the transport's stages drew no sample: "
+          f"{stages}")
+    out = {"calls": calls, "wall_ms_per_call": 1e3 * wall / calls,
+           "hz": snap["hz"], "samples": snap["samples"], "stages": stages,
+           "share_of_attributed_pct": share,
+           "thread_ms_per_call": per_call_ms,
+           "idle_pct": 100.0 * idle / denom if denom else 0.0,
+           "unattributed_pct": 100.0 * unatt / denom if denom else 0.0,
+           "other_samples": other, "new_stage_samples": new,
+           "launches": land.launches(), "launched": dict(rig.launched)}
+    check(rig.launched == land.launches(), f"hooks (a): launched "
+          f"{rig.launched}, the landings give {land.launches()}")
+    print(f"hooks (a): {calls} device-ring calls of phase 3's request, "
+          f"{out['wall_ms_per_call']} ms each by host clock, profiled at "
+          f"{snap['hz']} Hz ({snap['samples']} thread samples): share of "
+          f"the attributed samples by stage {share} %; thread ms per call "
+          f"by stage {per_call_ms}; of this package's samples idle "
+          f"{out['idle_pct']} %, unattributed {out['unattributed_pct']} %; "
+          f"samples outside the package {other}; the transport's stages "
+          f"drew {new}; launches {rig.launched} ({card})", flush=True)
+    return out
+
+
+def _hooks_waterfall(dev, card, ring, msgs) -> dict:
+    """(b): phase 5's device-ring stream, one round of ``msgs`` after its
+    warm-up: each hop's bytes, busy time and GB/s, and the landings the
+    ``hbm`` hop and ``hbm_place_*`` must equal."""
+    from tpurpc_torch.obs import lens, metrics
+    from tpurpc_torch.ops import ring_scatter as rs_mod
+    from tpurpc_torch.ops import ring_window as rw_mod
+
+    want = sink_payloads(msgs=msgs)
+    hops = {h: lens.hop_counters(h) for h in lens.HOP_NAMES}
+    before = {h: tuple(c.snapshot() for c in cs) for h, cs in hops.items()}
+    places = metrics.counter("hbm_place_msgs")
+    pbytes = metrics.counter("hbm_place_bytes")
+    m0, b0 = places.snapshot(), pbytes.snapshot()
+    rs0, rw0 = rs_mod.launches, rw_mod.launches
+    saved = {k: os.environ.get(k) for k in SINK_ENV}
+    try:
+        with _Landings() as land:
+            recs, _ = sink_leg("hooks (b) device-ring stream", dev, card,
+                                  want, {"GRPC_PLATFORM_TYPE": "TPU",
+                                         "TPURPC_HBM_RING_SIZE_KB":
+                                         str(ring >> 10)},
+                                  device_ring=True, rounds=1)
+    finally:
+        _set_env(saved)
+    launched = {"ring_scatter": rs_mod.launches - rs0,
+                "ring_window": rw_mod.launches - rw0}
+    rows = {}
+    for h, cs in hops.items():
+        b, ns, cp = (c.snapshot() - x for c, x in zip(cs, before[h]))
+        rows[h] = {"bytes": b, "busy_ms": ns / 1e6, "copy_bytes": cp,
+                   "gbps": b / ns if ns else 0.0}
+    n_msgs = SINK_WARM + msgs
+    leaves = [len(r[3]) for r in land.recs]
+    landed = sum(sum(r[3]) for r in land.recs)
+    payload = n_msgs * (want[0][0].nbytes + 8)   # x and the int64 index
+    got = {"hbm_place_msgs": places.snapshot() - m0,
+           "hbm_place_bytes": pbytes.snapshot() - b0,
+           "hbm_hop_bytes": rows["hbm"]["bytes"]}
+    check(landed == payload and got["hbm_place_bytes"] == payload
+          and got["hbm_hop_bytes"] == payload,
+          f"hooks (b): {payload} payload bytes, landings {landed}, "
+          f"readings {got}")
+    check(got["hbm_place_msgs"] == sum(leaves) == 2 * n_msgs,
+          f"hooks (b): {n_msgs} messages of 2 leaves, landings {leaves}, "
+          f"hbm_place_msgs {got['hbm_place_msgs']}")
+    check(launched == land.launches(), f"hooks (b): launched {launched}, "
+          f"the landings' offsets give {land.launches()}")
+    print(f"hooks (b): phase 5's device-ring stream, {n_msgs} messages "
+          f"({payload} payload bytes, {recs[0]['gbps']} GB/s): waterfall "
+          f"{ {h: r for h, r in rows.items() if r['bytes']} }; "
+          f"{got} equal the landings; launches {launched} as the offsets "
+          f"give ({card})", flush=True)
+    return {"rows": rows, "readings": got, "launches": launched,
+            "payload": payload, "gbps": recs[0]["gbps"]}
+
+
+def _hooks_flight(card, classify, images) -> dict:
+    """(c): one rendezvous transfer's edges under its link's tag, and a
+    slow handler on the device ring named ``device-infer``."""
+    import torch
+
+    from tpurpc_torch.obs import flight, watchdog
+    from tpurpc_torch.rpc.channel import Channel
+    from tpurpc_torch.rpc.server import Server, unary_unary_rpc_method_handler
+    from tpurpc_torch.torchshim.service import TensorClient
+
+    t_ns = time.monotonic_ns()
+    srv = Server(max_workers=4)
+    srv.add_method(HOOK_METHOD, unary_unary_rpc_method_handler(
+        lambda req, ctx: bytes(req)))
+    port = srv.add_insecure_port("127.0.0.1:0")
+    srv.start()
+    big = bytes(range(256)) * 4096
+    try:
+        with Channel(f"127.0.0.1:{port}") as ch:
+            mc = ch.unary_unary(HOOK_METHOD)
+            check(bytes(mc(b"warm", timeout=30)) == b"warm",
+                  "hooks (c): warm-up")
+            check(bytes(mc(big, timeout=30)) == big, "hooks (c): echo")
+    finally:
+        srv.stop()
+    evs = [e for e in flight.snapshot(since_ns=t_ns)
+           if e["entity"].startswith("rdv:")]
+    seq = None
+    for w in (e for e in evs if e["event"] == "rdv-write"):
+        same = [e for e in evs if e["tag"] == w["tag"]]
+        claim = [e for e in same if e["event"] == "rdv-claim"
+                 and e["a2"] == w["a1"] and e["t_ns"] <= w["t_ns"]]
+        if not claim:
+            continue
+        offer = [e for e in same if e["event"] == "rdv-offer"
+                 and e["a1"] == claim[-1]["a1"]
+                 and e["t_ns"] <= claim[-1]["t_ns"]]
+        done = [e for e in same if e["event"] == "rdv-complete"
+                and e["a1"] == w["a1"] and e["t_ns"] >= w["t_ns"]]
+        if offer and done:
+            seq = (w["entity"], [(e["event"], e["a1"], e["a2"]) for e in
+                                 (offer[-1], claim[-1], w, done[0])])
+            break
+    check(seq is not None, f"hooks (c): no offer-claim-write-complete "
+          f"under one tag in {[(e['entity'], e['event']) for e in evs]}")
+
+    # the handler's method has a history (phase 3's calls): its stall bar is
+    # the larger of 0.3 s and its rolling p99 (a multiple of 1), below the
+    # 1.5 s the handler sleeps even where cold first calls fill the window
+    wd = watchdog.get()
+    prev = (wd.min_stall_s, wd.sweep_s, wd.mult)
+    wd.min_stall_s, wd.sweep_s, wd.mult = 0.3, 0.1, 1.0
+
+    def slow(tree):
+        time.sleep(1.5)
+        return classify(tree)
+
+    rig = CallPlaneServer(slow)
+    diag = None
+    try:
+        with Channel(f"127.0.0.1:{rig.port}") as ch:
+            client = TensorClient(ch)
+            out = []
+            t = threading.Thread(target=lambda: out.append(client.call(
+                "Classify", {"images": torch.from_numpy(images[0])},
+                timeout=60)))
+            t.start()
+            deadline = time.monotonic() + 10
+            while diag is None and time.monotonic() < deadline:
+                time.sleep(0.1)
+                diag = next((d for d in wd.sweep_once()
+                             if d["method"] == OBS_METHOD
+                             and d["kind"] == "server"), None)
+            t.join(60)
+    finally:
+        wd.min_stall_s, wd.sweep_s, wd.mult = prev
+        rig.server.stop()
+    check(diag is not None and diag["stage"] == "device-infer",
+          f"hooks (c): the slow handler's diagnosis {diag}")
+    check(len(out) == 1, "hooks (c): the slow call did not complete")
+    print(f"hooks (c): one rendezvous transfer's edges under "
+          f"{seq[0]}: {seq[1]}; a 1.5 s handler on the device ring "
+          f"diagnosed {diag['stage']!r} ({diag['detail']}); launches "
+          f"{rig.launched} ({card})", flush=True)
+    return {"rdv": seq, "stage": diag["stage"],
+            "launches": dict(rig.launched)}
+
+
+def _hooks_counted(card, classify, images, first, calls) -> dict:
+    """(d), the counted turn: the obs plane's events per device-ring call
+    of phase 3's request (untimed)."""
+    from tpurpc_torch.rpc.channel import Channel
+    from tpurpc_torch.torchshim.service import TensorClient
+
+    rig = CallPlaneServer(classify)
+    try:
+        with Channel(f"127.0.0.1:{rig.port}") as ch:
+            client = TensorClient(ch)
+            _bit_equal("hooks (d) warm-up", _lc_call(
+                "hooks (d) warm-up", client, images[0]), first[0])
+            with _HookCounts() as hc:
+                for i in range(calls):
+                    _bit_equal(f"hooks (d) counted call {i}", _lc_call(
+                        f"hooks (d) counted call {i}", client,
+                        images[i % len(images)]), first[i % len(images)])
+    finally:
+        rig.server.stop()
+    per_call = {k: v / calls for k, v in hc.n.items()}
+    print(f"hooks (d): per device-ring call, both ends in this process: "
+          f"{per_call} ({card})", flush=True)
+    return {"per_call": per_call, "launches": dict(rig.launched)}
+
+
+def _hooks_h2(card, calls) -> dict:
+    """(e): ``calls`` unary calls over one ``H2Channel``: every one in
+    ``srv_calls{method,0}``, and the server's connection in
+    ``h2_server_connections`` while the channel is open, gone after."""
+    import gc
+
+    from tpurpc_torch.obs import metrics
+    from tpurpc_torch.rpc.server import Server, unary_unary_rpc_method_handler
+    from tpurpc_torch.wire.h2_client import H2Channel
+
+    fam = metrics.labeled_counter("srv_calls", ("method", "code"))
+    gauge = metrics.fleet("h2_server_connections")
+    ok0 = fam.snapshot().get((HOOK_METHOD, "0"), 0)
+    srv = Server(max_workers=4)
+    srv.add_method(HOOK_METHOD, unary_unary_rpc_method_handler(
+        lambda req, ctx: bytes(req)))
+    port = srv.add_insecure_port("127.0.0.1:0")
+    srv.start()
+
+    def live():
+        gc.collect()
+        return sum(1 for c in list(gauge._refs) if c.server is srv)
+
+    try:
+        with H2Channel(f"127.0.0.1:{port}") as ch:
+            mc = ch.unary_unary(HOOK_METHOD)
+            for i in range(calls):
+                check(bytes(mc(b"%d" % i, timeout=30)) == b"%d" % i,
+                      f"hooks (e) call {i}")
+            open_n = live()
+        _await(lambda: live() == 0, 10, "hooks (e): the closed connection")
+        _await(lambda: fam.snapshot().get((HOOK_METHOD, "0"), 0) - ok0
+               == calls, 10, "hooks (e): srv_calls")
+    finally:
+        srv.stop()
+    ok = fam.snapshot().get((HOOK_METHOD, "0"), 0) - ok0
+    check(open_n == 1, f"hooks (e): h2_server_connections read {open_n} "
+          f"with the channel open")
+    print(f"hooks (e): {calls} calls over one H2Channel: srv_calls"
+          f"{{{HOOK_METHOD},0}} read {ok}; h2_server_connections read "
+          f"{open_n} open, 0 after ({card})", flush=True)
+    return {"srv_calls_ok": ok, "open": open_n}
+
+
+def obs_hooks_plane(dev, card, ring=RING, calls=HOOK_CALLS,
+                    msgs=HOOK_STREAM_MSGS, turns=HOOK_TURNS,
+                    per_turn=HOOK_TURN_CALLS, h2_calls=HOOK_H2_CALLS) -> dict:
+    """Phase 19: the other planes' obs hooks on the card (docstring of this
+    file). Returns each part's launches."""
+    import numpy as np
+    import torch
+
+    from tpurpc_torch.models.resnet import make_infer_fn, resnet50
+    from tpurpc_torch.obs import watchdog
+    from tpurpc_torch.ops import ring_scatter as rs_mod
+    from tpurpc_torch.ops import ring_window as rw_mod
+
+    t_phase = time.perf_counter()
+    saved = {k: os.environ.get(k) for k in OBS_ENV}
+    _set_env({"GRPC_PLATFORM_TYPE": "TPU", "TPURPC_TORCH_DEVICE": str(dev),
+              "TPURPC_HBM_RING_SIZE_KB": str(ring >> 10),
+              "TPURPC_INLINE_PUMP": None, "TPURPC_TRACE_SAMPLE": None})
+    res = {}
+    try:
+        if _PHASE3:
+            infer, images = _PHASE3["infer"], _PHASE3["images"]
+            first = _PHASE3["replies"]
+        else:   # a rehearsal without phase 3: the same seeds
+            torch.manual_seed(SEED)
+            infer = make_infer_fn(resnet50().to(dev))
+            rng = np.random.default_rng(SEED)
+            images = [rng.standard_normal((BATCH, SIZE, SIZE, 3)).astype(
+                np.float32) for _ in range(REQUESTS)]
+            first = None
+
+        def classify(tree):
+            logits = infer(tree["images"].to(dev))
+            return {"logits": logits, "top1": logits.argmax(dim=1)}
+
+        if first is None:
+            from tpurpc_torch.rpc.channel import Channel
+            from tpurpc_torch.torchshim.service import TensorClient
+
+            rig = CallPlaneServer(classify)
+            try:
+                with Channel(f"127.0.0.1:{rig.port}") as ch:
+                    client = TensorClient(ch)
+                    first = [_lc_call(f"hooks reference reply {i}", client, x)
+                             for i, x in enumerate(images)]
+            finally:
+                rig.server.stop()
+
+        def part(key, fn):
+            t = time.perf_counter()
+            rs_mod.launches = rw_mod.launches = 0
+            res[key] = fn()
+            res[key]["part_launches"] = {"ring_scatter": rs_mod.launches,
+                                         "ring_window": rw_mod.launches}
+            print(f"hooks ({key}) took {time.perf_counter() - t} s; "
+                  f"launches {res[key]['part_launches']}", flush=True)
+
+        part("a", lambda: _hooks_profile(card, classify, images, first,
+                                         calls))
+        check(res["a"]["part_launches"] == res["a"]["launches"],
+              f"hooks (a): launched {res['a']['part_launches']}, the "
+              f"landings give {res['a']['launches']}")
+        # phase 5's ring, whatever the phase's own
+        part("b", lambda: _hooks_waterfall(dev, card, RING, msgs))
+        _set_env({"GRPC_PLATFORM_TYPE": "TPU",
+                  "TPURPC_HBM_RING_SIZE_KB": str(ring >> 10)})
+        part("c", lambda: _hooks_flight(card, classify, images))
+
+        def cost():
+            out = _obs_cost(dev, card, classify, images, first, turns,
+                            per_turn, label="hooks (d)")
+            rs_mod.launches = rw_mod.launches = 0   # the counted turn's
+            out["counted"] = _hooks_counted(card, classify, images, first,
+                                            per_turn)
+            print(f"hooks (d): p50 with the plane at its defaults "
+                  f"{out['p50_on']} ms, every switch off {out['p50_off']} "
+                  f"ms (+{out['p50_on'] - out['p50_off']} ms), {turns} "
+                  f"alternating turns of {per_turn}; per call "
+                  f"{out['counted']['per_call']} ({card})", flush=True)
+            return out
+
+        part("d", cost)
+        check(res["d"]["part_launches"] == res["d"]["counted"]["launches"],
+              f"hooks (d): the counted turn launched "
+              f"{res['d']['part_launches']}, its server measured "
+              f"{res['d']['counted']['launches']}")
+        part("e", lambda: _hooks_h2(card, h2_calls))
+        check(res["e"]["part_launches"] == {"ring_scatter": 0,
+                                            "ring_window": 0},
+              f"hooks (e): no device-ring landing, launched "
+              f"{res['e']['part_launches']}")
+    finally:
+        _set_env(saved)
+        watchdog.get().stop()
+    print(f"hooks: phase 19 took {time.perf_counter() - t_phase} s ({card})",
+          flush=True)
+    return res
+
+
 def card_line() -> str:
     """The card's name and power limit, as nvidia-smi reports them."""
     smi = subprocess.run(
@@ -6348,7 +6798,7 @@ def main() -> None:
         stream = tf_launches = train_launches = gen_launches = None
         fleet_launches = h2_launches = cp_launches = tls_launches = None
         aio_launches = lb_launches = tp_launches = lc_launches = None
-        pump_launches = obs_launches = None
+        pump_launches = obs_launches = hook_launches = None
     else:
         from tpurpc_torch.ops import ring_scatter as rs_mod
         from tpurpc_torch.ops import ring_window as rw_mod
@@ -6425,6 +6875,10 @@ def main() -> None:
         # phase 18: (a) per server as their rings' offsets give, (b) one
         # unwrapped landing, (c) per side as the landings' offsets give
         obs_launches = obs_plane(dev, card)
+        # phase 19: (a) and (b) as their landings' offsets give, (c) the
+        # slow call's landing, (d) per side as the landings' offsets give,
+        # (e) none (no device-ring landing)
+        hook_launches = obs_hooks_plane(dev, card)
 
     sources = {"ring_scatter": "tpurpc/ops/ring_scatter.py:133",
                "ring_window": "tpurpc/ops/ring_window.py:138"}
@@ -6526,7 +6980,19 @@ def main() -> None:
                 "a": [p[name] for p in obs_launches["a"]["per_server"]],
                 "b": obs_launches["b"][name],
                 "c": {side: obs_launches["c"]["launches"][side][name]
-                      for side in ("on", "off")}})})
+                      for side in ("on", "off")}}),
+            # phase 19, the other planes' obs hooks: (a) the profiled
+            # calls, (b) the device-ring stream, (c) the slow call, (d) the
+            # turns on and off and the counted turn, (e) the h2 calls
+            "obs_hooks_launches": (None if hook_launches is None else {
+                "a": hook_launches["a"]["part_launches"][name],
+                "b": hook_launches["b"]["part_launches"][name],
+                "c": hook_launches["c"]["part_launches"][name],
+                "d": {**{side: hook_launches["d"]["launches"][side][name]
+                         for side in ("on", "off")},
+                      "counted": hook_launches["d"]["counted"]["launches"][
+                          name]},
+                "e": hook_launches["e"]["part_launches"][name]})})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     if kernels_only:

@@ -9,6 +9,7 @@ observations are compared. Each package keeps its own process-wide
 registry, so ids differ between them; counts and shapes must not.
 """
 
+import itertools
 import json
 import threading
 import time
@@ -31,6 +32,10 @@ PAIRS = [("ref", "ref"), ("port", "port"), ("ref", "port"), ("port", "ref")]
 PAIR_IDS = [f"{c}-to-{s}" for c, s in PAIRS]
 SERVICE = port_v1.SERVICE
 _ID = lambda b: b  # noqa: E731
+#: numbers for the method that names one test's server in a snapshot: a
+#: stopped server of an earlier test can stay listed on a port the OS has
+#: since handed to this one
+_MARKS = itertools.count(1)
 
 
 def _submsgs(raw, field_no):
@@ -76,9 +81,13 @@ def ctx_code(ctx):
 
 
 def _counters(cli, srv_name):
-    """Two OK calls, one aborted, then the JSON snapshot over RPC."""
+    """Two OK calls, one aborted, then the JSON snapshot over RPC. The
+    snapshot's entry for this server is the one on its port that also
+    serves a method no other server has."""
+    mark = f"/t.S/Mark{next(_MARKS)}"
     srv, port = _server(srv_name, {"/t.S/Ok": lambda r, c: r,
-                                   "/t.S/Bad": _bad}, json_service=True)
+                                   "/t.S/Bad": _bad, mark: lambda r, c: r},
+                        json_service=True)
     try:
         with PKGS[cli].Channel(f"127.0.0.1:{port}") as ch:
             ch.unary_unary("/t.S/Ok")(b"1", timeout=10)
@@ -93,17 +102,20 @@ def _counters(cli, srv_name):
             chan = CZ[cli].channel_info(ch)
             counters = ch.call_counters.as_dict()
         remote = json.loads(bytes(raw).decode())
-        mine = [s for s in remote["servers"] if port in s["ports"]]
+        mine = [s for s in remote["servers"]
+                if port in s["ports"] and mark in s["methods"]]
         return {"started": info["calls_started"],
                 "succeeded": info["calls_succeeded"],
                 "failed": info["calls_failed"],
-                "methods": info["methods"], "ports": info["ports"],
+                "methods": [m for m in info["methods"] if m != mark],
+                "ports": info["ports"],
                 "channel": {k: chan[k] for k in ("subchannels", "connected",
                                                  "lb_policy", "closed")},
                 "channel_counters": (counters["calls_started"],
                                      counters["calls_succeeded"],
                                      counters["calls_failed"]),
-                "remote_methods": mine[0]["methods"] if mine else None}
+                "remote_methods": ([m for m in mine[0]["methods"] if m != mark]
+                                   if len(mine) == 1 else mine)}
     finally:
         srv.stop(grace=0)
 
@@ -181,6 +193,8 @@ def _get_servers(srv_name, served):
     for s in _submsgs(resp, 1):
         ref = _field(s, 1)
         assert ref is not None and _field(ref, 1, 0) > 0
+        if _field(ref, 1, 0) != srv._channelz_id:
+            continue  # another server (a stale one may share the port)
         for sock in _submsgs(s, 3):
             if _field(sock, 2) == f"listen:{port}".encode():
                 found.append(_field(sock, 1, 0) > 0)

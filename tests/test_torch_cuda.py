@@ -14,7 +14,8 @@ over HTTP/2 with a drain, and its train steps, the generation plane's step
 model, a spawned shard worker's device ring, the call plane (retries
 behind a seeded fault injector, a hedge's loser) on the device ring, and
 mTLS onto the card ring (bit-equal to plaintext; refused clients leave the
-ring alone), async handlers of the asyncio surface on the card ring
+ring alone), the device ring's obs hooks (exact landing counts, no device
+synchronization), async handlers of the asyncio surface on the card ring
 (bit-equal to the sync device path), a look-aside balancer moving a
 channel between two card-ring servers, the transport's head (a gzip'd
 request, a stream with its control ops on the descriptor ring, and a
@@ -1459,3 +1460,90 @@ def test_pipelined_drain_migrates_between_card_rings(dev, stream_env,
     assert got["launched"] == [{"ring_scatter": w, "ring_window": w}
                                for w in got["wraps"]]
     assert sum(got["wraps"]) >= 1
+
+
+def _hbm_readings():
+    from tpurpc_torch.obs import lens, metrics
+
+    b, ns, cp = lens.hop_counters("hbm")
+    return (metrics.counter("hbm_place_msgs").snapshot(),
+            metrics.counter("hbm_place_bytes").snapshot(),
+            b.snapshot(), cp.snapshot(), ns.snapshot())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wrap", [False, True], ids=["unwrapped", "wrapped"])
+def test_hbm_hooks_count_card_landings(dev, wrap):
+    """On a card ring the ``hbm`` hop and ``hbm_place_*`` move by exactly
+    the bytes and messages landed, across the wrap point too (a
+    ``place_many`` of two leaves is one landing of two messages), and
+    ``hbm_ring_occupancy_bytes`` reads ``tail - head`` as leases come and
+    go."""
+    from tpurpc_torch.obs import metrics
+
+    ring = HbmRing(CAP, device=dev)
+    occ = metrics.fleet("hbm_ring_occupancy_bytes")
+    if wrap:
+        ring.view(*ring.place(np.zeros(CAP - 1000, np.uint8))).release()
+    rng = np.random.default_rng(19)
+    a = rng.integers(0, 256, 1500, dtype=np.uint8)
+    b = rng.integers(0, 256, 900, dtype=np.uint8)
+    r0 = _hbm_readings()
+    spans = ring.place_many([a, b])
+    r1 = _hbm_readings()
+    assert ((spans[0][0] % CAP) + 2400 > CAP) == wrap
+    assert [y - x for x, y in zip(r0[:4], r1[:4])] == [2, 2400, 2400, 2400]
+    assert r1[4] > r0[4]
+    assert occ._fn(ring) == 2400 and ring in set(occ._refs)
+    leases = [ring.view(o, n) for o, n in spans]
+    for le, want in zip(leases, (a, b)):
+        np.testing.assert_array_equal(le.array.cpu().numpy(), want)
+    leases[0].release()
+    assert occ._fn(ring) == 900          # the head passed the first span
+    leases[1].release()
+    assert occ._fn(ring) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wrap", [False, True], ids=["unwrapped", "wrapped"])
+def test_hbm_hooks_wait_on_no_device(dev, wrap, monkeypatch):
+    """No hook waits on the device: a landing and a view call no
+    ``torch.cuda.synchronize``, no stream or event ``synchronize`` and no
+    ``.item()`` (a landing over a released span makes its *stream* wait on
+    the release's event, ``Event.wait``: the device waits, the host does
+    not); and a view (an alias, or the ``ring_window`` gather) returns
+    while work queued ahead of it on the stream still runs."""
+    ring = HbmRing(CAP, device=dev)
+    warm = HbmRing(64, device=dev)     # both kernels built first
+    warm.view(*warm.place(np.zeros(48, np.uint8))).release()
+    warm.view(*warm.place(np.zeros(32, np.uint8))).release()
+    if wrap:
+        ring.view(*ring.place(np.zeros(CAP - 1000, np.uint8))).release()
+    calls = []
+
+    def counted(name, fn):
+        def wrapper(*a, **kw):
+            calls.append(name)
+            return fn(*a, **kw)
+        return wrapper
+
+    for obj, name in ((torch.cuda, "synchronize"),
+                      (torch.cuda.Stream, "synchronize"),
+                      (torch.cuda.Event, "synchronize"),
+                      (torch.Tensor, "item")):
+        monkeypatch.setattr(obj, name, counted(name, getattr(obj, name)))
+    off, n = ring.place(np.arange(3000, dtype=np.uint8))
+    assert ((off % CAP) + n > CAP) == wrap
+    assert calls == []                  # the landing
+    torch.cuda.synchronize(dev)
+    calls.clear()
+    done = torch.cuda.Event()
+    torch.cuda._sleep(200_000_000)      # about 0.1 s of the card's clock
+    done.record()
+    lease = ring.view(off, n)
+    still_busy = not done.query()
+    assert calls == [] and still_busy
+    assert lease.aliased != wrap
+    np.testing.assert_array_equal(lease.array.cpu().numpy(),
+                                  np.arange(3000, dtype=np.uint8))
+    lease.release()

@@ -16,7 +16,9 @@ import time
 import numpy as np
 import pytest
 
-from torch_call_plane import BOTH, PORT, Flaky, both, serve
+import torch
+
+from torch_call_plane import BOTH, PORT, REF, Flaky, both, poll, serve
 from torch_obs import clean_obs  # noqa: F401
 
 
@@ -382,17 +384,95 @@ def _traced_pipeline(srv_root, cli_root):
         srv.stop(grace=0)
 
 
+def _traced_fanin(pkg):
+    """Depth-4 pipelined tensor calls into ``pkg``'s own fan-in batching
+    server: the replies' first values, the traces that carry all five
+    spans, whether each orders them ``client-send <= wire <= batch-wait <=
+    infer <= respond``, and whether ``fanin_batch`` counted every batch."""
+    import importlib
+
+    svc = importlib.import_module(
+        "tpurpc.jaxshim.service" if pkg is REF
+        else "tpurpc_torch.torchshim.service")
+    fanin = pkg.metrics.histogram("fanin_batch")
+    f0 = fanin.snapshot()["count"]
+
+    def fn(t):
+        return {"y": t["x"] * 2}
+
+    if pkg is REF:
+        import jax
+
+        srv, port, batcher = svc.serve_jax(jax.jit(fn), batching=True,
+                                           max_batch=4, max_delay_s=0.01)
+        wrap = np.asarray
+    else:
+        srv, port, batcher = svc.serve_torch(fn, batching=True, max_batch=4,
+                                             max_delay_s=0.01)
+        wrap = torch.from_numpy
+    try:
+        with pkg.channel.Channel(f"127.0.0.1:{port}") as ch:
+            cli = svc.TensorClient(ch, depth=4)
+            futs = [cli.call_async("Call",
+                                   {"x": wrap(np.full((1, 3), i, np.float32))},
+                                   timeout=60)
+                    for i in range(8)]
+            firsts = [float(np.asarray(f.result(60)["y"]).ravel()[0])
+                      for f in futs]
+            for pl in cli._pipelines.values():
+                pl.close()
+        names = ("client-send", "wire", "batch-wait", "infer", "respond")
+        deadline = time.monotonic() + 10
+        while True:
+            by_trace = {}
+            for s in pkg.tracing.spans():
+                by_trace.setdefault(s["trace_id"], []).append(s)
+            done = {tid: ss for tid, ss in by_trace.items()
+                    if set(names) <= {s["name"] for s in ss}}
+            if len(done) >= 8 or time.monotonic() >= deadline:
+                break
+            time.sleep(0.02)
+        ordered = True
+        for ss in done.values():
+            t0 = [min(s["t0_ns"] for s in ss if s["name"] == n)
+                  for n in names]
+            ordered &= t0 == sorted(t0)
+        counted = poll(lambda: fanin.snapshot()["count"] - f0
+                       == batcher.batches_run, 5)
+        return firsts, len(done), ordered, bool(counted)
+    finally:
+        srv.stop(grace=0)
+        batcher.close()
+
+
 @pytest.mark.parametrize("srv,cli", [("tpurpc", "tpurpc_torch"),
                                      ("tpurpc_torch", "tpurpc"),
-                                     ("tpurpc_torch", "tpurpc_torch")])
-def test_depth4_pipeline_trace_python_plane(clean_obs, srv, cli):
+                                     ("tpurpc_torch", "tpurpc_torch"),
+                                     ("fanin", "both")])
+def test_depth4_pipeline_trace_python_plane(clean_obs, monkeypatch, srv,
+                                            cli):
     """Every pipelined request leaves one trace whose spans
     (``client-send``, ``wire``, ``dispatch``, ``respond``) were recorded
     across the two ends, the port's context adopted by the reference's
     server and the reverse; the spans of a process's two packages meet by
-    trace id."""
+    trace id. Through each package's fan-in batcher every trace also
+    carries ``batch-wait`` and ``infer``, in order, and ``fanin_batch``
+    counts every batch."""
     for pkg in BOTH:
         pkg.tracing.force(True)
+    if srv == "fanin":
+        from tpurpc_torch.utils import config as torch_config
+
+        monkeypatch.setenv("TPURPC_TORCH_DEVICE", "cpu")
+        torch_config.set_config(None)
+        try:
+            firsts, traces, ordered, counted = both(_traced_fanin)
+        finally:
+            monkeypatch.undo()
+            torch_config.set_config(None)
+        assert firsts == [2.0 * i for i in range(8)]
+        assert traces == 8 and ordered and counted
+        return
     replies, traces, ordered = _traced_pipeline(srv, cli)
     assert replies == [b"%d" % i * 2 for i in range(8)]
     assert traces == 8 and ordered

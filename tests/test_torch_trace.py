@@ -21,7 +21,9 @@ import pytest
 
 from tpurpc.utils import trace as ref_trace
 from tpurpc_torch.utils import trace as port_trace
-import tpurpc.rpc  # noqa: F401  (registers "channel", the reference's own)
+import tpurpc.rpc  # noqa: F401
+import tpurpc.rpc.native_server  # noqa: F401  (registers "native_server",
+#                                  the reference's own until the C core)
 import tpurpc_torch.rpc  # noqa: F401  (registers the port's "lookaside")
 
 TRACE_VARS = ("TPURPC_TRACE", "GRPC_TRACE")
@@ -136,19 +138,20 @@ def test_list_tracers_token_prints_registry_once(clean_trace_env, capfd):
     assert err.count("available tracers:") == 1
     assert "ring: on" in err and "endpoint: off" in err
     # the port's registry only: a reference-only flag is not listed
-    assert "channel:" not in err
+    assert "native_server:" not in err
     bool(port_trace.trace_ring)  # one-shot: no second print
     assert "available tracers:" not in capfd.readouterr().err
     assert bool(ref_trace.trace_ring)
     err = capfd.readouterr().err
-    assert err.count("available tracers:") == 1 and "channel: off" in err
+    assert (err.count("available tracers:") == 1
+            and "native_server: off" in err)
 
 
 def test_port_registry_is_separate(clean_trace_env):
     """A flag made in the port's registry is listed there only; the
     reference's own flags are not in the port's."""
-    assert "channel" in ref_trace.list_tracers()
-    assert "channel" not in port_trace.list_tracers()
+    assert "native_server" in ref_trace.list_tracers()
+    assert "native_server" not in port_trace.list_tracers()
     assert port_trace.TraceFlag is not ref_trace.TraceFlag
     clean_trace_env.setenv("TPURPC_TRACE", "torch_trace_probe")
     try:

@@ -1,7 +1,12 @@
 """Shared-memory descriptor rings for the rendezvous control plane.
 
-A copy of ``tpurpc/core/ctrlring.py`` without its flight events, metrics,
-lens hop and watchdog gauge. The rendezvous plane moves bulk payloads
+A copy of ``tpurpc/core/ctrlring.py``, with its observability hooks under
+the reference's names: the ``ctrl`` lens hop, the ``ctrl-ring`` profiler
+stage, the ``ctrl_ring_posts``, ``_records``, ``_kicks`` and
+``_full_fallbacks`` counters, the ``ctrl_ring_backlog`` fleet gauge (the
+watchdog's ``ctrl-ring`` evidence), the ``ctrl_ring_batch`` histogram and
+the ``CTRL_STALL_*``, ``CTRL_ADOPT``, ``CTRL_SPIN`` and ``CTRL_PARK`` flight
+edges under ``ctrl:<name>``. The rendezvous plane moves bulk payloads
 one-sided, and what is left per message is control: OFFER, CLAIM, COMPLETE,
 RELEASE. Framed, each is a frame encode, a notify and a wakeup of the other
 side's reader. Here the control plane rides polled descriptor rings: per
@@ -60,11 +65,38 @@ from typing import Callable, Dict, Optional
 from tpurpc_torch.analysis.locks import make_lock
 from tpurpc_torch.core import pair as _pair
 from tpurpc_torch.core import transport as _transport
+from tpurpc_torch.obs import flight as _flight
+from tpurpc_torch.obs import lens as _lens
+from tpurpc_torch.obs import metrics as _metrics
+from tpurpc_torch.obs import profiler as _profiler
+from tpurpc_torch.utils import stats as _stats
+
+# a thread polling, draining or posting descriptor rings does control-plane
+# work: the `ctrl` hop carries its bytes, these markers its CPU
+_LENS_STAGES = {
+    "read_frame_polled": "ctrl-ring",
+    "drain": "ctrl-ring",
+    "post": "ctrl-ring",
+}
+_profiler.register_stages(__file__, _LENS_STAGES)
 
 __all__ = [
     "CtrlRing", "CtrlPeer", "CtrlPlane", "enabled", "read_frame_polled",
     "TEST_HOOKS", "SLOT_BYTES", "MAX_CTRL_PAYLOAD",
 ]
+
+# control-plane work (ring posts and drains, and framed control sends) is
+# its own lens hop
+_LENS_CTRL_BYTES, _LENS_CTRL_NS, _LENS_CTRL_COPY = _lens.hop_counters("ctrl")
+
+_POSTS = _metrics.counter("ctrl_ring_posts")
+_RECORDS = _metrics.counter("ctrl_ring_records")
+_KICKS = _metrics.counter("ctrl_ring_kicks")
+_FULL = _metrics.counter("ctrl_ring_full_fallbacks")
+
+#: scrape-time truth for the watchdog's `ctrl-ring` stage: records posted
+#: into peers' rings that their consumers have not yet drained
+_BACKLOG = _metrics.fleet("ctrl_ring_backlog", lambda p: p.backlog())
 
 #: test seam: ``freeze_drain`` makes every consumer's drain a no-op, so
 #: posted records age in the ring
@@ -173,6 +205,8 @@ class CtrlRing:
                 return 0
             buf = self.region.buf
             n = 0
+            t0 = time.monotonic_ns()
+            nbytes = 0
             while True:
                 slot = _HDR_BYTES + (self.head % self.nslots) \
                     * self.slot_bytes
@@ -189,12 +223,18 @@ class CtrlRing:
                 # with-statement pattern can't see a try-acquire/finally)
                 self.head += 1  # tpr: allow(lock)
                 n += 1
+                nbytes += ln
                 on_op(op, stream_id, payload)
             if n:
                 # one doorbell store per drained batch — the consumer-done
                 # gate the producer's full-check reads through its window
                 _CONS_HEAD.pack_into(buf, _CONS_HEAD_OFF, self.head)
                 self._published = self.head
+                _RECORDS.inc(n)
+                dt = time.monotonic_ns() - t0
+                _LENS_CTRL_BYTES.inc(nbytes)
+                _LENS_CTRL_NS.inc(dt)
+                _stats.batch_hist("ctrl_ring_batch").record(n)
             return n
         finally:
             self._lock.release()
@@ -221,10 +261,10 @@ class CtrlPeer:
     returns 0 (not posted — framed fallback), 1 (posted) or 2 (posted AND
     the consumer is parked — send one framed kick)."""
 
-    _GUARDED_BY = {"seq": "_lock", "closed": "_lock"}
+    _GUARDED_BY = {"seq": "_lock", "closed": "_lock", "_stalled": "_lock"}
 
     def __init__(self, kind: str, handle: str, nslots: int, slot_bytes: int,
-                 nbytes: int, nonce: bytes):
+                 nbytes: int, nonce: bytes, ftag: int = 0):
         if slot_bytes != SLOT_BYTES:
             raise ValueError(f"peer ring slot_bytes {slot_bytes} != "
                              f"{SLOT_BYTES}")
@@ -248,10 +288,14 @@ class CtrlPeer:
         self.slot_bytes = slot_bytes
         self.seq = 0        # next record index (stamp = seq+1)
         self.closed = False
+        self._stalled = False  # ring-full edge (a flight stall bracket)
+        self._ftag = ftag
         self._lock = make_lock("CtrlPeer._lock")
+        _BACKLOG.track(self)
 
     def backlog(self) -> int:
-        """Records posted but not yet consumed by the peer."""
+        """Records posted but not yet consumed by the peer (the fleet
+        gauge the watchdog's `ctrl-ring` stage reads)."""
         if self.closed:
             return 0
         try:
@@ -274,8 +318,18 @@ class CtrlPeer:
                 return 0
             if self.seq - head >= self.nslots:
                 # ring full: degrade to the framed path (never overwrite an
-                # unconsumed slot)
+                # unconsumed slot). The full -> not-full transition is a
+                # flight stall bracket: aged open, it is the watchdog's
+                # evidence that the consumer stopped draining
+                if not self._stalled:
+                    self._stalled = True
+                    _flight.emit(_flight.CTRL_STALL_BEGIN, self._ftag,
+                                 self.seq - head)
+                _FULL.inc()
                 return 0
+            if self._stalled:
+                self._stalled = False
+                _flight.emit(_flight.CTRL_STALL_END, self._ftag, 0)
             slot = _HDR_BYTES + (self.seq % self.nslots) * self.slot_bytes
             # payload and fields FIRST ...
             view[slot + _SLOT_HDR_BYTES:
@@ -286,6 +340,7 @@ class CtrlPeer:
             # whole record
             _STAMP.pack_into(view, slot, self.seq + 1)
             self.seq += 1
+            _POSTS.inc()
             # parked is read strictly AFTER the stamp store: either the
             # consumer's park-then-redrain sees our record, or we see its
             # parked flag and kick — the lost-wakeup race has no third leg
@@ -329,14 +384,13 @@ class CtrlPlane:
 
     def __init__(self, name: str, kind: str = "shm"):
         self.name = name
+        self._ftag = _flight.tag_for("ctrl:" + name)
         self.rx: Optional[CtrlRing] = None
         self.tx: Optional[CtrlPeer] = None
         self.armed = False
         self._ewma = 0.0       # cold start: parked until the first hit
         self._mode_hot = False
         self._closed = False
-        #: framed kicks this side sent to a parked peer consumer
-        self.kicks = 0
         try:
             self.rx = CtrlRing(kind=kind)
         except Exception:
@@ -366,10 +420,11 @@ class CtrlPlane:
             kind = blob[pos:pos + klen].decode()
             handle = blob[pos + klen:].decode()
             self.tx = CtrlPeer(kind, handle, nslots, slot_bytes, nbytes,
-                               nonce)
+                               nonce, ftag=self._ftag)
         except Exception:
             return False
         self.armed = True
+        _flight.emit(_flight.CTRL_ADOPT, self._ftag, nslots, slot_bytes)
         return True
 
     # -- producer face --------------------------------------------------------
@@ -382,12 +437,17 @@ class CtrlPlane:
         tx = self.tx
         if tx is None or not self.armed:
             return False
+        t0 = time.monotonic_ns()
         r = _transport.dispatch("post", self, tx.post, op, stream_id,
                                 payload, frame_seq)
         if not r:
             return False
+        n = len(payload)
+        dt = time.monotonic_ns() - t0
+        _LENS_CTRL_BYTES.inc(n)
+        _LENS_CTRL_NS.inc(dt)
         if r == 2:
-            self.kicks += 1
+            _KICKS.inc()
             try:
                 _transport.dispatch("kick", self, kick)
             except Exception:
@@ -405,7 +465,9 @@ class CtrlPlane:
         n = rx.drain(on_op, frames_dispatched, wait)
         if n:
             self._ewma = self._ewma + _EWMA_HIT * (1.0 - self._ewma)
-            self._mode_hot = True
+            if not self._mode_hot:
+                self._mode_hot = True
+                _flight.emit(_flight.CTRL_SPIN, self._ftag, rx.head)
         return n
 
     def note_miss(self) -> None:
@@ -421,7 +483,10 @@ class CtrlPlane:
         rx = self.rx
         if rx is not None:
             rx.set_parked(True)
-        self._mode_hot = False
+        if self._mode_hot:
+            self._mode_hot = False
+            _flight.emit(_flight.CTRL_PARK, self._ftag,
+                         rx.head if rx is not None else 0)
 
     def unpark(self) -> None:
         rx = self.rx

@@ -1,8 +1,10 @@
 """Endpoint: the swappable byte-pipe seam, and the factory that swaps it.
 
 A trimmed copy of ``tpurpc/core/endpoint.py`` (no native raw hook, which
-comes with the C core; no flight or metrics hooks, among them the
-``accept_shed`` counter, which come with the observability port): one
+comes with the C core, ROADMAP A7 (a)). Its observability hooks carry the
+reference's names: the ``wire`` lens hop of a socket write, the ``wire``
+and ``poller-wait`` profiler stages, the ``accept_shed`` counter and the
+``ACCEPT_SHED`` flight event under ``accept:<port>``. One
 blocking endpoint interface with the byte-pipe
 chosen by ``GRPC_PLATFORM_TYPE`` at connection time — ``TcpEndpoint`` for
 TCP, ``RingEndpoint`` (a pooled :class:`Pair`) for the ring platforms, and
@@ -40,7 +42,24 @@ from typing import Callable, Optional, Tuple
 
 from tpurpc_torch.core.pair import Pair, PairState
 from tpurpc_torch.core.poller import PairPool, Poller, wait_readable, wait_writable
+from tpurpc_torch.obs import flight as _flight
+from tpurpc_torch.obs import lens as _lens
+from tpurpc_torch.obs import metrics as _metrics
+from tpurpc_torch.obs import profiler as _profiler
 from tpurpc_torch.utils.config import Platform, get_config
+
+# on the framed (h2-over-TCP) plane the `wire` hop is the socket write; the
+# pair plane's is Pair.send (core/pair.py)
+_LENS_WIRE_BYTES, _LENS_WIRE_NS, _LENS_WIRE_COPY = _lens.hop_counters("wire")
+
+_LENS_STAGES = {
+    "write": "wire",
+    "_ssl_send_all": "wire",
+    "read": "wire",
+    "read_into": "wire",
+    "_await_readable": "poller-wait",
+}
+_profiler.register_stages(__file__, _LENS_STAGES)
 
 
 class EndpointError(ConnectionError):
@@ -234,17 +253,21 @@ class TcpEndpoint(Endpoint):
     def write(self, data) -> None:
         if self._closed:
             raise EndpointError("write on closed endpoint")
+        t0 = time.monotonic_ns()
+        total = 0
         try:
             if self._ssl_lock is not None:
                 # an SSLSocket has no sendmsg: TLS re-frames into records
                 # anyway, so one join costs what the TLS layer would
-                self._ssl_send_all(b"".join(data)
-                                   if isinstance(data, (list, tuple))
-                                   else data)
+                blob = (b"".join(data) if isinstance(data, (list, tuple))
+                        else data)
+                total = len(blob)
+                self._ssl_send_all(blob)
             elif isinstance(data, (list, tuple)):
                 # sendmsg may place partially and takes ≤1024 iovecs per
                 # call: loop until every byte is on the wire
                 views = [memoryview(s).cast("B") for s in data if len(s)]
+                total = sum(len(v) for v in views)
                 while views:
                     sent = self._sock.sendmsg(views[:1024])
                     while sent:
@@ -255,9 +278,17 @@ class TcpEndpoint(Endpoint):
                             views[0] = views[0][sent:]
                             sent = 0
             else:
+                total = len(memoryview(data).cast("B"))
                 self._sock.sendall(data)
         except OSError as exc:
             raise EndpointError(f"tcp write failed: {exc}") from exc
+        finally:
+            # the `wire` hop: socket bytes and the nanoseconds the kernel
+            # handoff took (a full socket buffer is wire time)
+            dt = time.monotonic_ns() - t0
+            _LENS_WIRE_NS.inc(dt)
+            _LENS_WIRE_BYTES.inc(total)
+            _LENS_WIRE_COPY.inc(total)
 
     def close(self) -> None:
         # a TLS socket closes under its lock, so no SSL call is running on
@@ -616,6 +647,10 @@ def connect_endpoint(host: str, port: int,
 TLS_HANDSHAKE_TIMEOUT_S = 20.0
 
 
+#: connections closed at the accept gate before any handshake work
+_ACCEPT_SHED = _metrics.counter("accept_shed")
+
+
 class EndpointListener:
     """Accept loop feeding the factory. The listener accepts only once
     ``ready`` is set (grpcio semantics: the port is bound at add_port,
@@ -669,6 +704,7 @@ class EndpointListener:
         #: wakeup took
         self.shed = 0
         self.max_burst = 0
+        self._ftag = _flight.tag_for(f"accept:{self.port}")
         self._ready = ready
         self._stopped = False
         self._thread = threading.Thread(target=self._loop, daemon=True,
@@ -733,6 +769,10 @@ class EndpointListener:
             else:
                 self.shed += 1
         if pushback is not None:
+            pushback = int(pushback)
+            _ACCEPT_SHED.inc()
+            _flight.emit(_flight.ACCEPT_SHED, self._ftag, inflight,
+                         pushback)
             try:
                 sock.close()
             except OSError:

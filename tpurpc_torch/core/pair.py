@@ -2,9 +2,17 @@
 a status page for credits and the close flag, and a notify socket.
 
 A trimmed copy of ``tpurpc/core/pair.py`` (pure Python; no native spin or
-waiter-advertisement words, so every send notifies: those come with the C
-core; no flight, metrics, lens or profiler hooks, which come with the
-observability port):
+waiter-advertisement words, so every send notifies, and no fused native
+send: those come with the C core, ROADMAP A7 (a)). It carries the
+reference's observability hooks under the reference's names: the
+``pairs_connected``, ``pairs_write_stalled``, ``pairs_msg_waiting``,
+``pairs_parked`` and ``pair_resident_bytes_est`` fleet gauges, the pool's
+``ring_pool_*`` gauges and counters, ``pair_park``,
+``pair_park_requested`` and ``pair_unpark``, the ``PAIR_*``,
+``WRITE_STALL_*``, ``CREDIT_STARVE_*`` and ``PEER_DEATH`` flight edges
+under ``pair:<tag>``, the ``send-lease`` span, the ``pair_send`` profile,
+the ``ring_write`` and ``ring_drain`` batch histograms, the ``wire`` lens
+hop and the ``pair-send``, ``ring-read`` and ``poller-wait`` stages:
 
 * the peer one-sided-writes messages into our receive ring and its consumed
   head (credit) and ``peer_exit`` flag into our status page;
@@ -51,7 +59,47 @@ import numpy as np
 
 from tpurpc_torch.core import transport as _transport
 from tpurpc_torch.core.ring import RingCorruption, RingReader, RingWriter
+from tpurpc_torch.obs import flight as _flight
+from tpurpc_torch.obs import lens as _lens
+from tpurpc_torch.obs import metrics as _metrics
+from tpurpc_torch.obs import profiler as _profiler
+from tpurpc_torch.obs import tracing as _tracing
+from tpurpc_torch.utils import stats as _stats
 from tpurpc_torch.utils.config import get_config
+from tpurpc_torch.utils.trace import trace_ring
+
+# fleet gauges, evaluated at scrape time over the weakly referenced live
+# pairs: the hot path pays nothing for them
+_PAIRS_CONNECTED = _metrics.fleet(
+    "pairs_connected", lambda p: 1.0 if p.state.name == "CONNECTED" else 0.0)
+_PAIRS_WRITE_STALLED = _metrics.fleet(
+    "pairs_write_stalled",
+    # CONNECTED only: a pair that died mid-stall is not evidence
+    lambda p: 1.0 if (p.want_write and p.state.name == "CONNECTED")
+    else 0.0)
+#: a CONNECTED pair with a complete message undrained: the watchdog's
+#: poller-wake evidence
+_PAIRS_MSG_WAITING = _metrics.fleet(
+    "pairs_msg_waiting",
+    lambda p: 1.0 if (p.state.name == "CONNECTED" and p.has_message())
+    else 0.0)
+_PAIRS_PARKED = _metrics.fleet(
+    "pairs_parked", lambda p: 1.0 if p._parked else 0.0)
+_PAIR_RESIDENT = _metrics.fleet(
+    "pair_resident_bytes_est", lambda p: float(p.resident_bytes_est()))
+
+# the `wire` lens hop on this plane is Pair.send's one-sided placement
+# (credit fold, chunking and ring encode included)
+_LENS_WIRE_BYTES, _LENS_WIRE_NS, _LENS_WIRE_COPY = _lens.hop_counters("wire")
+
+_LENS_STAGES = {
+    "send": "pair-send",
+    "_send_inner": "pair-send",
+    "recv_into": "ring-read",
+    "recv": "ring-read",
+    "spin": "poller-wait",
+}
+_profiler.register_stages(__file__, _LENS_STAGES)
 
 _U64 = struct.Struct("<Q")
 
@@ -279,6 +327,10 @@ def make_domain(kind: str) -> MemoryDomain:
 # The shared ring-region pool.
 # ---------------------------------------------------------------------------
 
+_POOL_LEASED_BYTES = _metrics.gauge("ring_pool_leased_bytes")
+_POOL_FREE_BYTES = _metrics.gauge("ring_pool_free_bytes")
+
+
 class RingPool:
     """Process-wide free list of ring and status regions keyed by
     ``(domain kind, byte size)``: mostly idle pairs share a few size
@@ -336,8 +388,13 @@ class RingPool:
                 self._free_bytes -= nbytes
         if region is None:
             region = domain.alloc(nbytes)
+            _stats.counter_inc("ring_pool_alloc")
+        else:
+            _stats.counter_inc("ring_pool_hit")
         with self._lock:
             self._out[id(region)] = nbytes
+            _POOL_LEASED_BYTES.set(float(sum(self._out.values())))
+            _POOL_FREE_BYTES.set(float(self._free_bytes))
         return region
 
     def release(self, region: Optional[Region]) -> None:
@@ -370,10 +427,14 @@ class RingPool:
                 region.close()
             except Exception:
                 pass
+            with self._lock:
+                _POOL_LEASED_BYTES.set(float(sum(self._out.values())))
             return
         with self._lock:
             self._free.setdefault((kind, nbytes), []).append(region)
             self._free_bytes += nbytes
+            _POOL_LEASED_BYTES.set(float(sum(self._out.values())))
+            _POOL_FREE_BYTES.set(float(self._free_bytes))
 
     def forget(self, region: Optional[Region]) -> None:
         """Drop the lease accounting of a region its owner closes itself
@@ -382,7 +443,8 @@ class RingPool:
         if region is None:
             return
         with self._lock:
-            self._out.pop(id(region), None)
+            if self._out.pop(id(region), None) is not None:
+                _POOL_LEASED_BYTES.set(float(sum(self._out.values())))
 
     def stats(self) -> Dict[str, int]:
         with self._lock:
@@ -397,6 +459,7 @@ class RingPool:
             regions = [r for b in self._free.values() for r in b]
             self._free.clear()
             self._free_bytes = 0
+            _POOL_FREE_BYTES.set(0.0)
         for r in regions:
             try:
                 r.close()
@@ -632,6 +695,17 @@ class Pair:
         self._notify_buf = b""        # partial re-arm frame reassembly
         self.last_activity = time.monotonic()
         self.parked_epochs = 0        # completed park -> unpark round trips
+        #: interned flight tag (plain ints on the hot path), the open
+        #: credit-starvation edge and the poller's adaptive mode: all
+        #: edge-triggered, so a healthy pair emits nothing per message
+        self._ftag = _flight.tag_for("pair:" + self.tag)
+        self._starve_open = False
+        self._flight_mode = "bp"
+        _PAIRS_CONNECTED.track(self)
+        _PAIRS_WRITE_STALLED.track(self)
+        _PAIRS_MSG_WAITING.track(self)
+        _PAIRS_PARKED.track(self)
+        _PAIR_RESIDENT.track(self)
 
     # -- lifecycle ----------------------------------------------------------
 
@@ -728,7 +802,11 @@ class Pair:
         self._peer_ring_handle = peer.ring_handle
         self.peer_caps = peer.caps
         self.writer = RingWriter(peer.ring_size, self._peer_ring.write)
+        self.writer.flight_tag = self._ftag
         self.state = PairState.CONNECTED
+        _flight.emit(_flight.PAIR_CONNECT, self._ftag, peer.ring_size)
+        trace_ring.log("pair %s connected (peer tag %s, ring %d)",
+                       self.tag, peer.tag, peer.ring_size)
 
     # -- notify channel -------------------------------------------------------
 
@@ -970,14 +1048,19 @@ class Pair:
             self._send_rearm(retained=True)
             self.kick()
             return
+        _flight.emit(_flight.PAIR_PARK, self._ftag, released)
+        _stats.counter_inc("pair_park")
         from tpurpc_torch.core.poller import Poller
 
         Poller.note_parked(self)
+        trace_ring.log("pair %s parked (%d ring bytes pooled)",
+                       self.tag, released)
 
     def unpark(self, *, remote: bool = False) -> None:
         """Re-arm a parked pair: lease fresh rings from the pool, rebuild
         the receive side, and ship the new Address to the peer. Callers'
         sends and recvs resume on the fresh rings."""
+        leased = 0
         with self._park_lock:
             if not self._parked:
                 return
@@ -1006,7 +1089,11 @@ class Pair:
                 pool.release(ring)
                 pool.release(status)
                 raise
+            leased = self.ring_size + STATUS_BYTES
             self._send_rearm()
+        _flight.emit(_flight.PAIR_UNPARK, self._ftag, leased,
+                     1 if remote else 0)
+        _stats.counter_inc("pair_unpark")
         from tpurpc_torch.core.poller import Poller
 
         Poller.note_unparked(self)
@@ -1071,6 +1158,7 @@ class Pair:
                 return
             self._peer_ring_handle = peer.ring_handle
             self.writer = RingWriter(peer.ring_size, self._peer_ring.write)
+            self.writer.flight_tag = self._ftag
             if retained:
                 # park abort or repair: the peer kept its rings and its
                 # reader position, so restore our exact write position
@@ -1129,6 +1217,7 @@ class Pair:
             except AssertionError:
                 return False  # a sender is mid-flight: not idle
         self._notify(NOTIFY_PARK)
+        _stats.counter_inc("pair_park_requested")
         return True
 
     def resident_bytes_est(self) -> int:
@@ -1274,13 +1363,28 @@ class Pair:
         if self.state is not PairState.CONNECTED:
             raise BrokenPipeError(f"pair {self.tag} not sendable: {self.state}"
                                   + (f" ({self.error})" if self.error else ""))
+        t0 = time.monotonic_ns()
         while True:
             try:
-                return self._send_inner(slices, byte_idx)
+                if _tracing.LIVE and _tracing.current() is not None:
+                    # a traced call on this thread: the ring-encode interval
+                    # is its "send-lease" span
+                    with _tracing.span("send-lease"):
+                        n = self._send_traced(slices, byte_idx)
+                else:
+                    n = self._send_traced(slices, byte_idx)
+                break
             except _ParkBusy:
                 n = self._resolve_park_for_send()
                 if n is not None:
-                    return n
+                    break  # peer parked: 0 accepted, the wake in flight
+        # the `wire` hop: bytes accepted across the transport boundary and
+        # the nanoseconds the placement took, one set of bumps per send
+        dt = time.monotonic_ns() - t0
+        _LENS_WIRE_NS.inc(dt)
+        _LENS_WIRE_BYTES.inc(n)
+        _LENS_WIRE_COPY.inc(n)
+        return n
 
     def _resolve_park_for_send(self) -> Optional[int]:
         """Resolve the park episode that made ``_send_inner`` raise
@@ -1320,6 +1424,37 @@ class Pair:
                 self._park_pending = False  # ack overdue; peer likely gone
         return None
 
+    def _send_traced(self, slices: Sequence, byte_idx: int = 0) -> int:
+        if _stats.profiling_on():
+            with _stats.profile("pair_send"):
+                return self._send_profiled(slices, byte_idx)
+        return self._send_profiled(slices, byte_idx)
+
+    def _send_profiled(self, slices: Sequence, byte_idx: int = 0) -> int:
+        # want_write EDGES only (stall begin and end): the compare in the
+        # finally is the whole per-send cost
+        was_stalled = self.want_write
+        try:
+            return self._send_inner(slices, byte_idx)
+        finally:
+            now_stalled = self.want_write
+            if now_stalled != was_stalled:
+                if now_stalled:
+                    _flight.emit(_flight.WRITE_STALL_BEGIN, self._ftag)
+                    # a stall with zero writable payload is a starvation
+                    # edge, not just a partial send re-armed
+                    w = self.writer
+                    if (w is not None and not self._starve_open
+                            and w.writable_payload() == 0):
+                        self._starve_open = True
+                        _flight.emit(_flight.CREDIT_STARVE_BEGIN,
+                                     self._ftag, w.tail - w.remote_head)
+                else:
+                    _flight.emit(_flight.WRITE_STALL_END, self._ftag)
+                    if self._starve_open:
+                        self._starve_open = False
+                        _flight.emit(_flight.CREDIT_STARVE_END, self._ftag)
+
     def _send_inner(self, slices: Sequence, byte_idx: int = 0) -> int:
         cfg = get_config()
         with self._send_guard:
@@ -1345,6 +1480,11 @@ class Pair:
                 budget = self.writer.writable_payload()
                 if budget == 0:
                     self.want_write = True
+                    if not self._starve_open:
+                        self._starve_open = True
+                        _flight.emit(_flight.CREDIT_STARVE_BEGIN, self._ftag,
+                                     self.writer.tail
+                                     - self.writer.remote_head)
                     break
                 chunks: List[List[memoryview]] = []
                 n = 0
@@ -1366,6 +1506,8 @@ class Pair:
                     # every chunk's framing eats writable payload
                     budget = max(0, budget - (c + 24))
                 wrote_msgs, wrote_bytes = self.writer.write_many(chunks)
+                if wrote_msgs:
+                    _stats.batch_hist("ring_write").record(wrote_msgs)
                 total += wrote_bytes
                 if wrote_msgs < len(chunks):
                     # credits moved under us: re-queue the unwritten chunks
@@ -1400,11 +1542,13 @@ class Pair:
                     return 0
                 raise ConnectionError("pair is closed")
             try:
-                n, _ = reader.drain_into(dst)
+                n, nmsgs = reader.drain_into(dst)
             except (RingCorruption, ValueError) as exc:
                 if "released" in str(exc):
                     raise ConnectionError("pair is closed") from None
                 raise
+            if nmsgs:
+                _stats.batch_hist("ring_drain").record(nmsgs)
             self.total_recv += n
             if n:
                 self.last_activity = time.monotonic()
@@ -1463,15 +1607,25 @@ class Pair:
                 self._notify(NOTIFY_EXIT)
             except Exception:
                 pass
+            _flight.emit(_flight.PAIR_DISCONNECT, self._ftag)
         self.state = PairState.DISCONNECTED
+        if self.want_write:
+            # a dead pair's stall is over: an unclosed begin would keep the
+            # watchdog naming credit starvation after the peer is gone
+            _flight.emit(_flight.WRITE_STALL_END, self._ftag)
         self.want_write = False
 
     def _mark_error(self, why: str) -> None:
         if self.state is not PairState.DISCONNECTED:
             self.state = PairState.ERROR
+            _flight.emit(_flight.PEER_DEATH, self._ftag)
+            if self.want_write:
+                # peer death mid-stall ends the stall, as in disconnect()
+                _flight.emit(_flight.WRITE_STALL_END, self._ftag)
         if self.error is None:
             self.error = why
         self.kick()  # the state change is the waiters' wake condition
+        trace_ring.log("pair %s -> ERROR: %s", self.tag, why)
 
     def _release_channels(self) -> None:
         """Per-connection state: peer windows, notify socket, wakeup pipes,

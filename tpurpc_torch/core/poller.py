@@ -1,7 +1,12 @@
 """Background poller + pair pool — the hybrid (BPEV) wakeup machinery.
 
-A trimmed copy of ``tpurpc/core/poller.py`` (no flight, metrics,
-profiler or stats hooks, which come with the observability port):
+A trimmed copy of ``tpurpc/core/poller.py`` (no native spin: a slice
+yields once, ROADMAP A7 (a)). Its observability hooks carry the
+reference's names: the ``poller_registered_pairs`` fleet gauge, the
+``poller_unpark_slotless``, ``poller_scan_hot``/``_idle``,
+``wait_spin_*`` and ``wait_sleep`` counters, the ``poller_batch_wakeups``
+histogram, the ``POLLER_EV``/``POLLER_BP`` flight edges of a hybrid
+waiter's mode flips, and the ``poller-wait`` profiler stage:
 
 * :class:`Poller` — background threads scan registered pairs and kick a
   pair's wakeup pipes on the false→true edge of a watched condition
@@ -29,7 +34,26 @@ from collections import defaultdict
 from typing import Callable, Dict, List, Optional
 
 from tpurpc_torch.core.pair import Pair, PairState, make_domain
+from tpurpc_torch.obs import flight as _flight
+from tpurpc_torch.obs import metrics as _metrics
+from tpurpc_torch.obs import profiler as _profiler
+from tpurpc_torch.utils import stats as _stats
 from tpurpc_torch.utils.config import get_config
+from tpurpc_torch.utils.trace import trace_ring
+
+#: a thread parked or spinning under these functions is in poller-wait
+_LENS_STAGES = {
+    "_wait": "poller-wait",
+    "wait_readable": "poller-wait",
+    "wait_writable": "poller-wait",
+    "_scan_edges": "poller-wait",
+    "_run": "poller-wait",
+}
+_profiler.register_stages(__file__, _LENS_STAGES)
+
+#: scrape-time gauge: pairs registered with live pollers
+_POLLER_PAIRS = _metrics.fleet("poller_registered_pairs",
+                               lambda p: p._pair_count)
 
 #: adaptive-spin EWMA: a hit (spin fired / fast wake) pulls the pair's score
 #: toward 1, a miss halves it; below the floor the hybrid waiter parks on
@@ -107,6 +131,7 @@ class Poller:
         self._parked_mu = threading.Lock()
         self._parked_map: Dict[int, Pair] = {}
         self._parked_sel = None  # a lazy selectors.DefaultSelector
+        _POLLER_PAIRS.track(self)
 
     def add_pollable(self, pair: Pair) -> None:
         with self._cv:
@@ -152,7 +177,8 @@ class Poller:
             try:
                 inst.add_pollable(pair)
             except RuntimeError:
-                pass  # refilled while parked: tokens and kicks still wake
+                # refilled while parked: tokens and kicks still wake
+                _stats.counter_inc("poller_unpark_slotless")
 
     @classmethod
     def forget_parked(cls, pair: Pair) -> None:
@@ -249,6 +275,7 @@ class Poller:
                                  daemon=True)
             t.start()
             self._threads.append(t)
+        trace_ring.log("poller started (%d threads)", self.thread_num)
 
     def stop(self) -> None:
         with self._cv:
@@ -292,11 +319,17 @@ class Poller:
             hot = bool(woken)
             if snapshot:
                 _note_batch(len(woken))
+            if woken:
+                _stats.batch_hist("poller_batch_wakeups").record(len(woken))
             if self._scan_parked():
                 hot = True
             self._park_sweep(snapshot, time.monotonic())
-            interval = 0.001 if hot else min(interval * 2,
-                                             self.sleep_timeout_s)
+            if hot:
+                _stats.counter_inc("poller_scan_hot")
+                interval = 0.001
+            else:
+                _stats.counter_inc("poller_scan_idle")
+                interval = min(interval * 2, self.sleep_timeout_s)
             with self._cv:
                 if not self._running:
                     return
@@ -375,21 +408,42 @@ def _wait(pair: Pair, timeout: Optional[float], discipline: Optional[str],
     if discipline == "hybrid" and _effective_cpus() < 2:
         discipline = "event"
 
-    # fleet-wide pressure: sweeps keep finding many ready pairs at once, so
-    # a hybrid waiter takes the event leg whatever its own EWMA
-    if discipline == "busy" or (discipline == "hybrid"
-                                and pair.activity_ewma >= _EWMA_SPIN_FLOOR
-                                and batch_pressure() < _BATCH_SPIN_SUPPRESS):
-        if discipline == "busy":
-            spin_deadline = deadline if deadline is not None else float("inf")
+    if discipline in ("busy", "hybrid"):
+        # a hybrid pair whose activity EWMA decayed below the floor skips
+        # the busy window; mode flips (BP and EV adoption) are flight edges
+        suppressed = False
+        if (discipline == "hybrid"
+                and batch_pressure() >= _BATCH_SPIN_SUPPRESS):
+            # fleet-wide pressure: sweeps keep finding many ready pairs at
+            # once, so a hybrid waiter takes the event leg whatever its EWMA
+            suppressed = True
+            _stats.counter_inc("wait_spin_suppressed_batch")
+        if discipline == "hybrid" and (suppressed
+                                       or pair.activity_ewma
+                                       < _EWMA_SPIN_FLOOR):
+            _stats.counter_inc("wait_spin_skipped")
+            if getattr(pair, "_flight_mode", "bp") != "ev":
+                pair._flight_mode = "ev"
+                _flight.emit(_flight.POLLER_EV, getattr(pair, "_ftag", 0))
         else:
-            spin_deadline = time.monotonic() + cfg.busy_polling_timeout_us / 1e6
-        while time.monotonic() < spin_deadline:
-            pair.spin(role, 500)
-            if ready():
-                _ewma_hit(pair)
-                return True
-        _ewma_miss(pair)
+            if (discipline == "hybrid"
+                    and getattr(pair, "_flight_mode", "bp") != "bp"):
+                pair._flight_mode = "bp"
+                _flight.emit(_flight.POLLER_BP, getattr(pair, "_ftag", 0))
+            if discipline == "busy":
+                spin_deadline = (deadline if deadline is not None
+                                 else float("inf"))
+            else:
+                spin_deadline = (time.monotonic()
+                                 + cfg.busy_polling_timeout_us / 1e6)
+            while time.monotonic() < spin_deadline:
+                pair.spin(role, 500)
+                if ready():
+                    _ewma_hit(pair)
+                    _stats.counter_inc("wait_spin_hit")
+                    return True
+            _ewma_miss(pair)
+            _stats.counter_inc("wait_spin_miss")
         if discipline == "busy":
             return ready()
 
@@ -399,6 +453,7 @@ def _wait(pair: Pair, timeout: Optional[float], discipline: Optional[str],
     sel = pair.waiter_selector(role)
     if not sel.get_map():
         return ready()  # channels released: never block on an empty selector
+    _stats.counter_inc("wait_sleep")
     sleep_t0 = time.monotonic()
     hot_window_s = _HOT_WAKE_MULTIPLE * cfg.busy_polling_timeout_us / 1e6
     while True:

@@ -56,10 +56,16 @@ Inline-pump transports (the channel's pump mode) hand the link
 ``pump(pred, deadline)``: a sender waiting for its CLAIM drives the
 connection's reader itself, since no reader thread will.
 
-Not here (the reference's): flight events, metrics and lens counters.
-Each link counts its transfers in :meth:`RdvLink.stats` instead
-(``ctrl_frames``: control ops this side framed; ``ctrl_posts``: those it
-posted into the peer's ring).
+Observability, under the reference's names: the ``rendezvous`` and
+``ctrl`` lens hops, the ``rendezvous`` profiler stage, the process-wide
+``rdv_transfers_sent``/``_received``, ``rdv_fallbacks``,
+``rdv_claims_refused``, ``rdv_ctrl_frames`` and ``rdv_window_share_hits``
+counters, the ``ctrl_coalesce`` histogram, and the ``RDV_OFFER``,
+``RDV_CLAIM``, ``RDV_WRITE``, ``RDV_COMPLETE`` and ``RDV_RELEASE`` flight
+edges of solicited transfers under ``rdv:<name>`` (standing-grant reuse is
+traffic and stays silent). Each link also counts its own transfers in
+:meth:`RdvLink.stats` (``ctrl_frames``: control ops this side framed;
+``ctrl_posts``: those it posted into the peer's ring).
 
 Env knobs: ``TPURPC_RENDEZVOUS`` (default on), ``TPURPC_RENDEZVOUS_MIN_KB``
 (size bar, default 256), ``TPURPC_RENDEZVOUS_POOL_MB`` (landing pool budget
@@ -82,13 +88,48 @@ import numpy as np
 
 from tpurpc_torch.core import pair as _pair
 from tpurpc_torch.core import transport as _transport
+from tpurpc_torch.obs import flight as _flight
+from tpurpc_torch.obs import lens as _lens
+from tpurpc_torch.obs import metrics as _metrics
+from tpurpc_torch.obs import profiler as _profiler
 from tpurpc_torch.tpu import ledger as _ledger
+from tpurpc_torch.utils import stats as _stats
+from tpurpc_torch.utils.trace import trace_endpoint
 
 __all__ = [
     "LandingPool", "RegionLease", "RdvLink", "landing_pool",
     "link_for_endpoint", "enabled", "min_bytes", "size_class",
     "OP_OFFER", "OP_CLAIM", "OP_COMPLETE", "OP_RELEASE", "HELLO_PAYLOAD",
 ]
+
+# the one-sided bulk write is its own lens hop: the bytes that no longer
+# flow through wire/send_ring show up here
+_LENS_RDV_BYTES, _LENS_RDV_NS, _LENS_RDV_COPY = _lens.hop_counters(
+    "rendezvous")
+
+_LENS_STAGES = {
+    "send_message": "rendezvous",
+    "_rdv_write": "rendezvous",
+    "rdv_claim": "rendezvous",
+    "on_offer": "rendezvous",
+    "on_complete": "rendezvous",
+}
+_profiler.register_stages(__file__, _LENS_STAGES)
+
+#: transfers negotiated, completed and fallen back: whether the bulk plane
+#: carries traffic at all
+_RDV_SENT = _metrics.counter("rdv_transfers_sent")
+_RDV_RECV = _metrics.counter("rdv_transfers_received")
+_RDV_FALLBACK = _metrics.counter("rdv_fallbacks")
+_RDV_REFUSED = _metrics.counter("rdv_claims_refused")
+#: control ops that rode the framed path (a descriptor-ring link in steady
+#: state holds it flat)
+_RDV_CTRL_FRAMES = _metrics.counter("rdv_ctrl_frames")
+
+# framed control sends are control-plane busy time, the same hop as the
+# descriptor rings' posts and drains (core/ctrlring.py)
+_LENS_CTRL_BYTES, _LENS_CTRL_NS, _LENS_CTRL_COPY = _lens.hop_counters(
+    "ctrl")
 
 # control ops (small ints; the framing maps them onto frame types 8..11)
 OP_OFFER = 1
@@ -512,6 +553,10 @@ def _unpack_claim(payload) -> Tuple[int, Optional[_Claim]]:
 # Shared peer windows.
 # ---------------------------------------------------------------------------
 
+#: cross-link window reuse: every hit is an attach not repeated
+_WINDOW_SHARE_HITS = _metrics.counter("rdv_window_share_hits")
+
+
 class _WindowShare:
     """Process-wide refcounted cache of open windows onto peer regions,
     keyed ``(kind, handle)``: links writing into the same peer region share
@@ -553,6 +598,7 @@ class _WindowShare:
                         except ValueError:
                             pass
                     e[1] += 1
+                    _WINDOW_SHARE_HITS.inc()
                     return e[0]
                 if e[1] == 0:
                     # undersized and idle: retire it, reopen bigger below
@@ -670,6 +716,7 @@ class _CtrlFrameCoalescer:
                     self._send_op(*batch[0])
                 else:
                     self._send_ops(batch)
+                    _stats.batch_hist("ctrl_coalesce").record(len(batch))
             except BaseException:
                 # connection dying: drop the queue (every control path
                 # treats sends as best effort; link close releases leases)
@@ -741,6 +788,7 @@ class RdvLink:
         #: it posted into the peer's descriptor ring
         self._counts = {"sent": 0, "received": 0, "fallbacks": 0,
                         "refused": 0, "ctrl_frames": 0, "ctrl_posts": 0}
+        self._ftag = _flight.tag_for("rdv:" + name)
 
     def _count(self, key: str) -> None:
         with self._lock:
@@ -774,9 +822,15 @@ class RdvLink:
                     return
             except Exception:
                 pass  # ring tearing down: the framed path still works
+        t0 = time.monotonic_ns()
         _transport.dispatch("frame", self, self._coalescer.send, op,
                             stream_id, payload, wait=op == OP_COMPLETE)
         self._count("ctrl_frames")
+        _RDV_CTRL_FRAMES.inc()
+        n = len(payload)
+        dt = time.monotonic_ns() - t0
+        _LENS_CTRL_BYTES.inc(n)
+        _LENS_CTRL_NS.inc(dt)
 
     # -- sender role ---------------------------------------------------------
 
@@ -813,6 +867,7 @@ class RdvLink:
             claim = self.rdv_claim(stream_id, total, cls)
         if claim is None:
             self._count("fallbacks")
+            _RDV_FALLBACK.inc()
             return False
         try:
             self._rdv_write(claim, segs, total)
@@ -820,9 +875,11 @@ class RdvLink:
             self._drop_grant(claim)
             self.rdv_release(claim)
             self._count("fallbacks")
+            _RDV_FALLBACK.inc()
             return False
         self.rdv_complete(claim, stream_id, flags, total)
         self._count("sent")
+        _RDV_SENT.inc()
         return True
 
     def _take_grant(self, cls: int, total: int) -> Optional[_Claim]:
@@ -898,6 +955,7 @@ class RdvLink:
             if self.closed:
                 return None
             self._reqs[req] = st
+        _flight.emit(_flight.RDV_OFFER, self._ftag, req, total)
         try:
             self._ctrl_send(OP_OFFER, stream_id,
                             _pack_offer(req, total, self._open_kinds))
@@ -925,6 +983,7 @@ class RdvLink:
         if claim is _SENTINEL_PENDING:
             # timed out: a claim crossing this release finds no request and
             # is handed back by on_claim
+            _flight.emit(_flight.RDV_RELEASE, self._ftag, 0, req)
             try:
                 self._ctrl_send(OP_RELEASE, 0, _RELEASE.pack(0, req))
             except Exception:
@@ -932,6 +991,7 @@ class RdvLink:
             return None
         if claim is _SENTINEL_REFUSED or claim is None:
             return None
+        _flight.emit(_flight.RDV_CLAIM, self._ftag, req, claim.lease_id)
         return claim
 
     def _window_for(self, claim: _Claim) -> _pair.Window:
@@ -967,6 +1027,7 @@ class RdvLink:
         Into a mapped window the copy is ``numpy.copyto``, which lets go of
         the GIL: a 4 MiB memoryview copy holds it for milliseconds, while
         the receiver's handler in the same process waits to run."""
+        t0 = time.monotonic_ns()
         win = self._window_for(claim)
         view = win.view
         if view is not None and claim.nonce and bytes(
@@ -989,9 +1050,20 @@ class RdvLink:
 
         _transport.dispatch("write", self, _place)
         _ledger.rdma_write(total)
+        dt = time.monotonic_ns() - t0
+        _LENS_RDV_NS.inc(dt)
+        _LENS_RDV_BYTES.inc(total)
+        _LENS_RDV_COPY.inc(total)
 
     def rdv_complete(self, claim: _Claim, stream_id: int, flags: int,
                      total: int) -> None:
+        if not claim.standing:
+            # solicited transfers are edges; standing-region reuse is
+            # steady traffic and stays silent
+            _flight.emit(_flight.RDV_WRITE, self._ftag, claim.lease_id,
+                         total)
+            _flight.emit(_flight.RDV_COMPLETE, self._ftag, claim.lease_id,
+                         total)
         with self._lock:
             claim.used += 1
             claim.inflight = False
@@ -1007,6 +1079,7 @@ class RdvLink:
 
     def rdv_release(self, claim: _Claim) -> None:
         """Abandon a claimed region without completing: the peer frees it."""
+        _flight.emit(_flight.RDV_RELEASE, self._ftag, claim.lease_id, 0)
         try:
             self._ctrl_send(OP_RELEASE, 0, _RELEASE.pack(claim.lease_id, 0))
         except Exception:
@@ -1028,13 +1101,15 @@ class RdvLink:
             elif op == OP_RELEASE:
                 self.on_release(payload)
         except Exception:
-            pass
+            trace_endpoint.log("rendezvous control op %d failed", op)
 
     def on_offer(self, stream_id: int, payload) -> None:
         req, nbytes, kinds = _unpack_offer(payload)
+        _flight.emit(_flight.RDV_OFFER, self._ftag, req, nbytes)
         lease = self._lease_for(nbytes, kinds)
         if lease is None:
             self._count("refused")
+            _RDV_REFUSED.inc()
             self._ctrl_send(OP_CLAIM, stream_id, _pack_claim(req, None))
             return
         with self._lock:
@@ -1043,6 +1118,7 @@ class RdvLink:
                 return
             self._leases[lease.lease_id] = lease
             self._req_lease[req] = lease.lease_id
+        _flight.emit(_flight.RDV_CLAIM, self._ftag, req, lease.lease_id)
         self._ctrl_send(OP_CLAIM, stream_id, _pack_claim(req, lease))
 
     def _lease_for(self, nbytes: int, kinds: Sequence[str]
@@ -1104,6 +1180,8 @@ class RdvLink:
                         del self._req_lease[r]
         if lease is None:
             return  # already released (crossed a release): drop
+        if not lease.pregrant:
+            _flight.emit(_flight.RDV_COMPLETE, self._ftag, lease_id, nbytes)
         try:
             wrapper = lease.deliver(nbytes)
         except Exception:
@@ -1117,6 +1195,7 @@ class RdvLink:
             lease.release(discard=True)
             return
         self._count("received")
+        _RDV_RECV.inc()
         cls, kind = lease.cls, lease.kind
         self._deliver(stream_id, flags, wrapper)
         self._maybe_pregrant(cls, kind)
@@ -1166,6 +1245,7 @@ class RdvLink:
                 self._pregrants_out[lease.cls] = max(
                     0, self._pregrants_out.get(lease.cls, 1) - 1)
         if lease is not None:
+            _flight.emit(_flight.RDV_RELEASE, self._ftag, lease_id, req)
             lease.release()
 
     # -- lifecycle -----------------------------------------------------------
@@ -1188,6 +1268,10 @@ class RdvLink:
             self._window_order = []
             self._cond.notify_all()
         for lease in leases:
+            # teardown is an edge: every claimed region's release is
+            # recorded, standing grants included
+            _flight.emit(_flight.RDV_RELEASE, self._ftag,
+                         lease.lease_id, 0)
             lease.release(discard=True)
         for (kind, handle), win in windows:
             window_share().release(kind, handle, win)
@@ -1308,6 +1392,7 @@ class GrantWriter:
                 raise OSError(
                     "block-grant nonce mismatch: the granted handle "
                     "resolves to different memory on this host")
+        t0 = time.monotonic_ns()
         total = 0
         placed = []
         for off, chunk in zip(grant.offsets, chunks):
@@ -1327,6 +1412,10 @@ class GrantWriter:
 
         _transport.dispatch("write", self, _place)
         _ledger.rdma_write(total)
+        dt = time.monotonic_ns() - t0
+        _LENS_RDV_NS.inc(dt)
+        _LENS_RDV_BYTES.inc(total)
+        _LENS_RDV_COPY.inc(total)
         return total
 
     def close(self) -> None:

@@ -20,14 +20,52 @@ fast path is not part of the port yet).
   consuming a quarter of the ring.
 
 Head and tail are monotonic 64-bit counters masked on access.
+
+Observability, under the reference's names: the ``ring_msgs_read``,
+``ring_bytes_read``, ``ring_msgs_written`` and ``ring_bytes_written``
+counters (one add per batched drain or write), the
+``ring_credit_unpublished_bytes`` and ``ring_in_flight_bytes`` fleet
+gauges (read at scrape time only), the ``send_ring`` and ``peer_ring`` lens
+hops, the ``ring-write`` and ``ring-read`` profiler stages, and the
+writer's ``CREDIT_STARVE_BEGIN``/``_END`` flight edges under its owner's
+tag. Left out with the C fast path (ROADMAP A7 (a)): ``read``,
+``read_into``, ``read_many`` and ``scan_complete``, so their stage markers
+too.
 """
 
 from __future__ import annotations
 
 import struct
+import time
 from typing import Callable, List, Optional, Sequence, Tuple
 
+from tpurpc_torch.obs import flight as _flight
+from tpurpc_torch.obs import lens as _lens
+from tpurpc_torch.obs import metrics as _metrics
+from tpurpc_torch.obs import profiler as _profiler
 from tpurpc_torch.tpu import ledger
+
+# hot counters are cached module objects: one add per drain or batch. The
+# fleet gauges read the attributes the ring keeps anyway, at scrape time.
+_MSGS_IN = _metrics.counter("ring_msgs_read")
+_BYTES_IN = _metrics.counter("ring_bytes_read")
+_MSGS_OUT = _metrics.counter("ring_msgs_written")
+_BYTES_OUT = _metrics.counter("ring_bytes_written")
+_READERS = _metrics.fleet("ring_credit_unpublished_bytes",
+                          lambda r: r.consumed_since_publish)
+_WRITERS = _metrics.fleet("ring_in_flight_bytes",
+                          lambda w: w.tail - w.remote_head)
+
+# lens hops: ring bytes move by host memcpy, so every byte is a copy byte
+_LENS_SR_BYTES, _LENS_SR_NS, _LENS_SR_COPY = _lens.hop_counters("send_ring")
+_LENS_PR_BYTES, _LENS_PR_NS, _LENS_PR_COPY = _lens.hop_counters("peer_ring")
+
+_LENS_STAGES = {
+    "writev": "ring-write",
+    "write_many": "ring-write",
+    "drain_into": "ring-read",
+}
+_profiler.register_stages(__file__, _LENS_STAGES)
 
 ALIGN = 8
 HEADER_BYTES = 8
@@ -106,6 +144,7 @@ class RingReader:
         self._msg_len = 0   # payload length of the in-progress message
         self._msg_read = 0  # payload bytes already handed to the app
         self.consumed_since_publish = 0
+        _READERS.track(self)
 
     # -- completion scanning ------------------------------------------------
 
@@ -173,6 +212,7 @@ class RingReader:
         seq = self.seq
         msg_len = self._msg_len
         msg_read = self._msg_read
+        t0 = time.monotonic_ns()
         while total < len(dst):
             if msg_len == 0:
                 ln = self._message_at(head, seq)
@@ -190,12 +230,18 @@ class RingReader:
                 msg_read = 0
                 seq += 1
                 nmsgs += 1
+        dt = time.monotonic_ns() - t0
         self.consumed_since_publish += head - self.head
         self.head = head
         self.seq = seq
         self._msg_len = msg_len
         self._msg_read = msg_read
         ledger.host_copy(total)
+        _MSGS_IN.inc(nmsgs)
+        _BYTES_IN.inc(total)
+        _LENS_PR_BYTES.inc(total)
+        _LENS_PR_NS.inc(dt)
+        _LENS_PR_COPY.inc(total)
         return total, nmsgs
 
     # -- credits ------------------------------------------------------------
@@ -233,6 +279,11 @@ class RingWriter:
         self.tail = 0         # absolute count of ring bytes ever written
         self.seq = 0          # sequence stamp of the next message
         self.remote_head = 0  # mirrored consumer head (credits)
+        #: the owner's flight tag, and the open credit-starvation edge: one
+        #: event per starve episode and one per recovery, never per message
+        self.flight_tag = 0
+        self._starved = False
+        _WRITERS.track(self)
 
     # -- flow control -------------------------------------------------------
 
@@ -270,8 +321,16 @@ class RingWriter:
         if payload_len == 0:
             return 0
         if payload_len > self.writable_payload():
+            if not self._starved:
+                self._starved = True
+                _flight.emit(_flight.CREDIT_STARVE_BEGIN, self.flight_tag,
+                             self.tail - self.remote_head)
             raise RingFull(payload_len, self.writable_payload())
+        if self._starved:
+            self._starved = False
+            _flight.emit(_flight.CREDIT_STARVE_END, self.flight_tag)
         # Order matters for lock-free completion: payload, footer, header.
+        t0 = time.monotonic_ns()
         ledger.host_copy(payload_len)
         off = self.tail + HEADER_BYTES
         for v in views:
@@ -280,8 +339,14 @@ class RingWriter:
         footer_off = self.tail + HEADER_BYTES + align_up(payload_len)
         self._put(footer_off, _U64.pack(footer_stamp(self.seq)))
         self._put(self.tail, _U64.pack(header_stamp(payload_len, self.seq)))
+        dt = time.monotonic_ns() - t0
         self.tail += message_span(payload_len)
         self.seq += 1
+        _MSGS_OUT.inc()
+        _BYTES_OUT.inc(payload_len)
+        _LENS_SR_BYTES.inc(payload_len)
+        _LENS_SR_NS.inc(dt)
+        _LENS_SR_COPY.inc(payload_len)
         return payload_len
 
     def write_many(self, payloads: Sequence) -> Tuple[int, int]:
@@ -293,6 +358,7 @@ class RingWriter:
         views_per_msg: List[List[memoryview]] = []
         lens: List[int] = []
         budget = self.writable_payload()
+        rejected = False
         for p in payloads:
             segs = ([memoryview(s).cast("B") for s in p]
                     if isinstance(p, (list, tuple))
@@ -301,14 +367,24 @@ class RingWriter:
             if ln == 0:
                 continue
             if ln > budget:
+                rejected = True
                 break
             views_per_msg.append(segs)
             lens.append(ln)
             budget -= message_span(ln)
         if not views_per_msg:
+            if rejected and not self._starved:
+                # offered messages, accepted none: credit-starved
+                self._starved = True
+                _flight.emit(_flight.CREDIT_STARVE_BEGIN, self.flight_tag,
+                             self.tail - self.remote_head)
             return 0, 0
+        if self._starved:
+            self._starved = False
+            _flight.emit(_flight.CREDIT_STARVE_END, self.flight_tag)
         if len(views_per_msg) == 1:
             return 1, self.writev(views_per_msg[0])
+        t0 = time.monotonic_ns()
         total_span = sum(message_span(ln) for ln in lens)
         scratch = memoryview(bytearray(total_span))
         rel = 0
@@ -329,10 +405,16 @@ class RingWriter:
             self._put(self.tail + rel, _U64.pack(header_stamp(ln, seq)))
             rel += message_span(ln)
             seq += 1
+        dt = time.monotonic_ns() - t0
         payload_total = sum(lens)
         ledger.host_copy(payload_total)
         self.tail += total_span
         self.seq = seq
+        _MSGS_OUT.inc(len(lens))
+        _BYTES_OUT.inc(payload_total)
+        _LENS_SR_BYTES.inc(payload_total)
+        _LENS_SR_NS.inc(dt)
+        _LENS_SR_COPY.inc(payload_total)
         return len(lens), payload_total
 
 

@@ -98,6 +98,9 @@ from tpurpc_torch.rpc.status import (ChannelConnectivity, Deserializer,
 from tpurpc_torch.utils import stats as _stats
 from tpurpc_torch.utils import timers as _timers
 from tpurpc_torch.utils.config import get_config
+from tpurpc_torch.utils.trace import TraceFlag
+
+trace_channel = TraceFlag("channel")
 
 # The call plane's observability (the reference's names): in-flight depth
 # is a scrape-time fleet gauge over live PipelinedUnary windows; the two
@@ -805,6 +808,7 @@ class _Connection:
             # late slot store lands in the orphaned mapping, never in a ring
             # advertised to another connection
             self.ctrl.close()
+        trace_channel.log("connection dead: %s", why)
         for st in streams:
             st.deliver_failure(StatusCode.UNAVAILABLE, f"transport failed: {why}")
         try:

@@ -1,7 +1,8 @@
 """tpurpc native wire format: multiplexed frames over one byte-pipe endpoint.
 
-A copy of ``tpurpc/rpc/frame.py`` without its profiler stages and batch
-histograms. Frame layout, little-endian::
+A copy of ``tpurpc/rpc/frame.py``, with its ``h2-framing`` profiler stages
+and its ``ctrl_call_batch`` and ``resp_coalesce`` batch histograms under
+the reference's names. Frame layout, little-endian::
 
     [u8 type][u8 flags][u32 stream_id][u32 length] [payload: length bytes]
 
@@ -33,8 +34,20 @@ import struct
 from typing import List, Optional, Sequence, Tuple
 
 from tpurpc_torch.core.endpoint import Endpoint
+from tpurpc_torch.obs import profiler as _profiler
 from tpurpc_torch.rpc.status import StatusCode
 from tpurpc_torch.tpu import ledger as _ledger
+from tpurpc_torch.utils import stats as _stats
+
+# frame encode and the coalescing writev flusher are h2-framing work
+_LENS_STAGES = {
+    "send": "h2-framing",
+    "send_many": "h2-framing",
+    "_send_fragmented": "h2-framing",
+    "_flush_pending": "h2-framing",
+    "encode_frame": "h2-framing",
+}
+_profiler.register_stages(__file__, _LENS_STAGES)
 
 MAGIC = b"TPURPC\x01\x00"  # connection preface, client → server
 MAX_FRAME_PAYLOAD = 1 << 20
@@ -547,6 +560,8 @@ class FrameWriter:
                 if tb[1]:
                     with self._lock:
                         self._ep.write(tb[1])
+                    _stats.batch_hist("ctrl_call_batch").record(
+                        max(1, tb[0]))
 
         return _cm()
 
@@ -563,20 +578,20 @@ class FrameWriter:
         time, until it is empty (then hand back the flusher role). A write
         failure drops the queue — the connection is dying and every server
         response path treats sends as best-effort."""
-
         while True:
             with self._pend_lock:
                 if not self._pending:
                     self._flushing = False
                     return
                 take: List[memoryview] = []
-                size = 0
+                nresp = size = 0
                 while self._pending and (
                         not take
                         or size + self._pending[0][0] <= self._max_coalesce):
                     nb, segs = self._pending.pop(0)
                     take.extend(segs)
                     size += nb
+                    nresp += 1
             try:
                 with self._lock:
                     self._ep.write(take)
@@ -585,6 +600,7 @@ class FrameWriter:
                     self._pending.clear()
                     self._flushing = False
                 raise
+            _stats.batch_hist("resp_coalesce").record(nresp)
 
     def send_preface(self) -> None:
         with self._lock:

@@ -46,8 +46,9 @@ whose rolling p99 is the admission gate's default latency signal and the
 load report's p99; ``srv_call_us``, ``srv_calls{method,code}`` and
 ``srv_admission_rejected``; the flight events ``ADMIT_REJECT``, the inline
 path's ``DEADLINE_EXPIRED``, ``DRAIN_BEGIN`` and ``DRAIN_END``; the
-profiler's ``dispatch`` stage over the handler frames; and the
-``srv_handler`` profile span while ``TPURPC_PROFILING`` is on.
+profiler's ``dispatch`` stage over the handler frames; the
+``srv_handler`` profile span while ``TPURPC_PROFILING`` is on; and the
+``server`` trace flag's log lines (``GRPC_TRACE=server``).
 """
 
 from __future__ import annotations
@@ -82,8 +83,10 @@ from tpurpc_torch.rpc.status import (AbortError, Deserializer, Metadata,
 from tpurpc_torch.utils import stats as _stats
 from tpurpc_torch.utils import timers as _timers
 from tpurpc_torch.utils.config import get_config
+from tpurpc_torch.utils.trace import TraceFlag
 
 _log = logging.getLogger("tpurpc_torch.server")
+trace_server = TraceFlag("server")
 
 #: the sampling profiler's frame markers: handler dispatch on either
 #: execution path is the ``dispatch`` stage
@@ -695,7 +698,8 @@ class _ServerConnection:
                 self._ka_handle = _timers.schedule(min(timeout, 1.0), tick)
                 return
             if time.monotonic() - ping_sent_at >= timeout:
-                _log.debug("keepalive: client silent %.1fs, closing", quiet)
+                trace_server.log("keepalive: client silent %.1fs, closing",
+                                 quiet)
                 _timers.run_blocking(self._shutdown)
                 return
             self._ka_handle = _timers.schedule(min(timeout, 1.0), tick)
@@ -734,7 +738,7 @@ class _ServerConnection:
                     self._dispatch(f)
                 self._frames_dispatched += 1
         except (EndpointError, fr.FrameError, OSError) as exc:
-            _log.debug("server connection error: %s", exc)
+            trace_server.log("server connection error: %s", exc)
         finally:
             self._shutdown()
 
@@ -1351,7 +1355,7 @@ class Server:
                 ep = create_endpoint(sock, is_server=True,
                                      pool_key=f"peer:{host}")
             except Exception as exc:
-                _log.debug("handoff bootstrap failed: %s", exc)
+                trace_server.log("handoff bootstrap failed: %s", exc)
                 try:
                     sock.close()
                 except OSError:
@@ -1396,14 +1400,14 @@ class Server:
 
                 conn = GrpcH2Connection(self, endpoint, preface_consumed=8)
             else:
-                _log.debug("unknown protocol preface %r; dropping",
-                           bytes(first))
+                trace_server.log("unknown protocol preface %r; dropping",
+                                 bytes(first))
                 endpoint.close()
                 return
         except (EndpointError, OSError) as exc:
             # the peer vanished mid-adoption (the h2 path writes SETTINGS
             # during construction): contained to this connection
-            _log.debug("peer gone during adoption: %s", exc)
+            trace_server.log("peer gone during adoption: %s", exc)
             endpoint.close()
             return
         # registration is atomic against stop(): a connection adopted after

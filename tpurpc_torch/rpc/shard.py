@@ -31,10 +31,11 @@ Ring sizing is per shard: unless the operator pins
 ring size down by the shard count (floor 256 KiB) — N shards share the
 cache the one big ring used to own.
 
-Not here yet (observability): the workers' scrape listeners (``ready``
-carries ``scrape_port: 0``), the supervisor's aggregation over the peer
-map (``peers`` is broadcast, and each worker keeps it), and the shard
-flight events.
+The ``shard`` trace flag logs a shard's death and a connection no live
+worker took. Not here yet (observability, ROADMAP A4 (c)): the workers'
+scrape listeners (``ready`` carries ``scrape_port: 0``), the supervisor's
+aggregation over the peer map (``peers`` is broadcast, and each worker
+keeps it), and the shard flight events.
 """
 
 from __future__ import annotations
@@ -52,6 +53,9 @@ import time
 from typing import Callable, Dict, List, Optional, Tuple
 
 from tpurpc_torch.analysis.locks import make_lock
+from tpurpc_torch.utils.trace import TraceFlag
+
+trace_shard = TraceFlag("shard")
 
 #: control-channel message cap (SOCK_SEQPACKET: one recv = one message)
 _CTRL_MSG_BYTES = 65536
@@ -373,6 +377,9 @@ class ShardedServer:
             # re-dial onto live shards — in reuseport mode the kernel
             # stopped routing to the closed socket the instant the process
             # died); survivors get a peer map without it
+            trace_shard.log("shard %d died (status %d)", w.shard_id,
+                            w.proc.exitcode if w.proc.exitcode is not None
+                            else -1)
             self._broadcast_peers()
 
     # -- peer map -------------------------------------------------------------
@@ -416,6 +423,7 @@ class ShardedServer:
                     return
                 time.sleep(0.05)
                 continue
+            handed = False
             for _attempt in range(self.n_workers):
                 w = self._pick_worker()
                 if w is None:
@@ -423,9 +431,12 @@ class ShardedServer:
                 try:
                     socket.send_fds(w.ctrl, [b'{"handoff": 1}'],
                                     [sock.fileno()])
+                    handed = True
                     break
                 except OSError:
                     continue  # racing a worker death: try another
+            if not handed:
+                trace_shard.log("handoff: no live worker for connection")
             sock.close()  # worker holds its own duplicate (or nobody: RST)
 
     # -- operator face --------------------------------------------------------

@@ -16,6 +16,13 @@ buffer; :func:`to_torch` moves one to a device. For a rendezvous transfer,
 :func:`encode_tensor_descriptor` splits a record into its descriptor and its
 payload, and :func:`decode_tensor_external` joins them again over the
 landing region, with no copy.
+
+The codec boundary carries three lens hops under the reference's names:
+``device`` (encode: tensor bytes gathered into wire form), ``decode`` (the
+parse back) and ``jax_array`` (the reference's name, kept so that the hop
+tables line up: here :func:`to_torch`, the materialization on the target
+device), one set of bumps per tensor or tree record. Encode and decode are
+the ``codec`` profiler stage, :func:`to_torch` is ``device-dispatch``.
 """
 
 from __future__ import annotations
@@ -23,12 +30,29 @@ from __future__ import annotations
 import collections
 import json
 import struct
+import time
 from typing import Any, List, Tuple
 
 import numpy as np
 import torch
 
+from tpurpc_torch.obs import lens as _lens
+from tpurpc_torch.obs import profiler as _profiler
 from tpurpc_torch.utils.buffers import host_tensor
+
+_LENS_DEV_BYTES, _LENS_DEV_NS, _LENS_DEV_COPY = _lens.hop_counters("device")
+_LENS_DEC_BYTES, _LENS_DEC_NS, _LENS_DEC_COPY = _lens.hop_counters("decode")
+_LENS_JAX_BYTES, _LENS_JAX_NS, _LENS_JAX_COPY = _lens.hop_counters(
+    "jax_array")
+
+_LENS_STAGES = {
+    "encode_tensor": "codec",
+    "encode_tree": "codec",
+    "decode_tensor": "codec",
+    "decode_tree_at": "codec",
+    "to_torch": "device-dispatch",
+}
+_profiler.register_stages(__file__, _LENS_STAGES)
 
 MAGIC = b"TPT1"
 _ALIGN = 64
@@ -92,13 +116,26 @@ def _u8_view(t: torch.Tensor) -> memoryview:
 def encode_tensor(x) -> List[Any]:
     """Encode one tensor as a gather list: ``[header+dims+pad, payload]``;
     the payload is a memoryview over the tensor's memory."""
+    t0 = time.monotonic_ns()
     t = _as_cpu_tensor(x)
     code = dtype_code(t.dtype)
     nbytes = t.numel() * t.element_size()
     dims = struct.pack(f"<{t.dim()}q", *t.shape) if t.dim() else b""
     head = _HDR.pack(MAGIC, code, t.dim(), 0, nbytes) + dims
     head += b"\x00" * ((-len(head)) % _ALIGN)
-    return [head, _u8_view(t)]
+    payload = _u8_view(t)
+    dt = time.monotonic_ns() - t0
+    _LENS_DEV_NS.inc(dt)
+    _LENS_DEV_BYTES.inc(nbytes)
+    # a host input made contiguous by a copy; a device tensor's download is
+    # the copy ledger's to count, as the reference's device input is
+    if isinstance(x, np.ndarray):
+        if t.numel() and t.data_ptr() != x.ctypes.data:
+            _LENS_DEV_COPY.inc(nbytes)
+    elif isinstance(x, torch.Tensor) and x.device.type == "cpu":
+        if t.numel() and t.data_ptr() != x.data_ptr():
+            _LENS_DEV_COPY.inc(nbytes)
+    return [head, payload]
 
 
 def encode_tensor_descriptor(x) -> Tuple[bytes, memoryview]:
@@ -197,13 +234,20 @@ def to_torch(t: torch.Tensor, device=None) -> torch.Tensor:
     from tpurpc_torch.tpu import ledger
     from tpurpc_torch.utils.config import resolve_device
 
+    t0 = time.monotonic_ns()
     dev = resolve_device(device)
     nbytes = t.numel() * t.element_size()
-    if t.device == dev:
-        ledger.zero_copy(nbytes)
-        return t
-    ledger.dma_h2d(nbytes)
-    return t.to(dev)
+    try:
+        if t.device == dev:
+            ledger.zero_copy(nbytes)
+            return t
+        ledger.dma_h2d(nbytes)
+        _LENS_JAX_COPY.inc(nbytes)
+        return t.to(dev)
+    finally:
+        dt = time.monotonic_ns() - t0
+        _LENS_JAX_NS.inc(dt)
+        _LENS_JAX_BYTES.inc(nbytes)
 
 
 # ---------------------------------------------------------------------------
@@ -326,15 +370,26 @@ def decode_tree_at(buf, offset: int = 0, copy: bool = False,
     """Decode one tree record at ``offset``; returns ``(tree, next_offset)``.
     Alignment is relative to the record start. ``as_torch`` moves each leaf
     to ``device`` through :func:`to_torch`."""
+    t0 = time.monotonic_ns()
     view = memoryview(buf)
     n, trailer_len, pos = read_tree_header(view, offset)
     leaves = []
+    payload = 0
     for _ in range(n):
         t, pos = decode_tensor(view, pos, copy=copy)
         pos += (-(pos - offset)) % _ALIGN
+        payload += t.numel() * t.element_size()
         leaves.append(to_torch(t, device) if as_torch else t)
     treedef = read_trailer(view, pos, trailer_len)
-    return tree_unflatten(treedef, leaves), pos + trailer_len
+    out = tree_unflatten(treedef, leaves), pos + trailer_len
+    # the `decode` hop: one set of bumps per tree record (to_torch's share
+    # shows on its own row too: hops nest)
+    dt = time.monotonic_ns() - t0
+    _LENS_DEC_NS.inc(dt)
+    _LENS_DEC_BYTES.inc(payload)
+    if copy:
+        _LENS_DEC_COPY.inc(payload)
+    return out
 
 
 def decode_tree(buf, copy: bool = False, as_torch: bool = False,

@@ -18,8 +18,18 @@ The port of ``tpurpc/jaxshim/service.py``:
   (:class:`tpurpc_torch.rpc.shard.ShardedServer`), each a full
   :func:`serve_torch` stack around its own replica.
 
-Not here: the reference's metrics, flush-reason counters, trace spans and
-flight events, and the native channel's pipeline.
+Observability, under the reference's names: the ``fanin_batch`` histogram,
+the ``batcher_batches``, ``batcher_rows`` and ``batcher_flush_<reason>``
+counters, the ``batcher_queue_depth`` fleet gauge (the watchdog's
+``batcher-wait`` evidence), a ``BATCH_FLUSH`` flight event per dispatched
+batch, each request's ``batch-wait`` (enqueue to dispatch) and ``infer``
+(dispatch to materialized replies: :attr:`FanInBatcher.stage_s`'s four
+stages) spans under the trace context its handler thread carried at
+enqueue, :class:`DeviceMerger`'s ``merge_subbatches``,
+``merge_dispatches`` and ``merge_isolated_failures``, the ``batcher`` and
+``device-dispatch`` profiler stages, and the ``jaxshim`` trace flag (the
+reference's name). Not here: the native channel's pipeline (ROADMAP A7
+(a)).
 """
 
 from __future__ import annotations
@@ -36,6 +46,10 @@ from typing import Any, Callable, Iterator, List, Optional, Sequence
 import torch
 
 from tpurpc_torch.core.handoff import HandoffRing
+from tpurpc_torch.obs import flight as _flight
+from tpurpc_torch.obs import metrics as _metrics
+from tpurpc_torch.obs import profiler as _profiler
+from tpurpc_torch.obs import tracing as _tracing
 from tpurpc_torch.rpc.health import add_health_servicer
 from tpurpc_torch.rpc.server import (Server, stream_stream_rpc_method_handler,
                                      unary_stream_rpc_method_handler,
@@ -44,6 +58,37 @@ from tpurpc_torch.rpc.shard import ShardedServer
 from tpurpc_torch.torchshim import codec
 from tpurpc_torch.tpu import ledger, serialize
 from tpurpc_torch.utils.config import resolve_device
+from tpurpc_torch.utils.trace import TraceFlag
+
+trace_jax = TraceFlag("jaxshim")
+
+# batching control flow is `batcher`; running a gathered batch on the model
+# (and the merged cross-shard dispatch) is `device-dispatch`
+_LENS_STAGES = {
+    "_loop": "batcher",
+    "_split_compatible": "batcher",
+    "_concat_pad": "batcher",
+    "_complete_loop": "batcher",
+    "_run": "device-dispatch",
+    "_merge_loop": "batcher",
+    "_dispatch_group": "device-dispatch",
+    "_run_one": "device-dispatch",
+}
+_profiler.register_stages(__file__, _LENS_STAGES)
+
+# one histogram record and one counter add per dispatched batch; the flush
+# reasons say why batches went out
+_FANIN_BATCH = _metrics.histogram("fanin_batch")
+_BATCHER_BATCHES = _metrics.counter("batcher_batches")
+_BATCHER_ROWS = _metrics.counter("batcher_rows")
+_FLUSH_REASONS = {
+    reason: _metrics.counter(f"batcher_flush_{reason}")
+    for reason in ("size", "timer", "drained", "close")
+}
+#: live batcher queue depth at scrape time: the watchdog's batcher-wait
+#: evidence
+_BATCHER_DEPTH = _metrics.fleet("batcher_queue_depth",
+                                lambda b: len(b._queue))
 
 TENSOR_SERVICE = "tpurpc.Tensor"
 
@@ -258,13 +303,18 @@ def _bind_thread(device: torch.device) -> None:
 
 
 class _Pending:
-    __slots__ = ("tree", "event", "result", "error")
+    __slots__ = ("tree", "event", "result", "error", "tctx", "t_enq")
 
     def __init__(self, tree):
         self.tree = tree
         self.event = threading.Event()
         self.result = None
         self.error: Optional[Exception] = None
+        #: the calling RPC's trace context (the handler thread's ambient one)
+        #: and the enqueue stamp: the batcher turns them into the request's
+        #: "batch-wait" and "infer" spans
+        self.tctx = _tracing.current() if _tracing.LIVE else None
+        self.t_enq = time.monotonic_ns() if self.tctx is not None else 0
 
 
 class FanInBatcher:
@@ -350,6 +400,7 @@ class FanInBatcher:
         #: thread, and through it the callers, when the device falls behind
         self._inflight: "queue.Queue" = queue.Queue(maxsize=max(2, d2h_workers))
         self._reaped = False  # set by close() after the workers are gone
+        _BATCHER_DEPTH.track(self)
         self._thread = threading.Thread(target=self._loop, daemon=True,
                                         name="tpurpc-batcher")
         self._completers = [
@@ -429,18 +480,29 @@ class FanInBatcher:
                 if self._closed and not self._queue:
                     return
                 deadline = time.monotonic() + self.max_delay_s
+                reason = None
                 while (len(self._queue) < self.max_batch and not self._closed):
                     if self._drained_inflight():
-                        break  # nobody else is coming
+                        reason = "drained"  # nobody else is coming
+                        break
                     left = deadline - time.monotonic()
                     if left <= 0:
+                        reason = "timer"
                         break
                     self._kick.wait(timeout=left)
+                if reason is None:
+                    reason = ("size" if len(self._queue) >= self.max_batch
+                              else "close")
                 batch, self._queue = (self._queue[:self.max_batch],
                                       self._queue[self.max_batch:])
                 if batch:
                     self._recent_batches.append(len(batch))
             if batch:
+                _FLUSH_REASONS[reason].inc()
+                _FANIN_BATCH.record(len(batch))
+                # one event per dispatched batch: the flush decision
+                _flight.emit(_flight.BATCH_FLUSH, 0,
+                             _flight.FLUSH_REASON_CODE[reason], len(batch))
                 self._run(batch)
 
     def _drained_inflight(self) -> bool:
@@ -519,6 +581,12 @@ class FanInBatcher:
         batch = self._split_compatible(batch)
         if not batch:
             return
+        t_disp = time.monotonic_ns()
+        for p in batch:
+            if p.tctx is not None:
+                # enqueue -> dispatch: the request's "batch-wait" span
+                _tracing.record("batch-wait", p.tctx, p.t_enq,
+                                t_disp - p.t_enq)
         #: pinned staging tensors of the non-blocking H2D: held with the
         #: in-flight batch until its event proves the copies done
         staged: list = []
@@ -561,8 +629,8 @@ class FanInBatcher:
                 fail_batch(batch)
                 return
             try:
-                self._inflight.put((batch, sizes, total, host, staged),
-                                   timeout=0.25)
+                self._inflight.put((batch, sizes, total, host, staged,
+                                    t_disp), timeout=0.25)
                 break
             except queue.Full:
                 continue
@@ -584,10 +652,20 @@ class FanInBatcher:
             item = self._inflight.get()
             if item is None:
                 return
-            batch, sizes, total, (leaves, treedef, event), _staged = item
+            (batch, sizes, total, (leaves, treedef, event), _staged,
+             t_disp) = item
             try:
                 if event is not None:
                     event.synchronize()
+                t_done = time.monotonic_ns()
+                for p in batch:
+                    if p.tctx is not None:
+                        # dispatch -> materialized: the "infer" span (stack,
+                        # model, D2H; shared by the batch)
+                        _tracing.record("infer", p.tctx, t_disp,
+                                        t_done - t_disp, rows=total)
+                _BATCHER_BATCHES.inc()
+                _BATCHER_ROWS.inc(total)
                 t0 = time.perf_counter()
                 with self._lock:
                     self.batches_run += 1
@@ -655,6 +733,11 @@ class _SubBatch:
         self.done = threading.Event()
         self.out = None
         self.err: Optional[Exception] = None
+
+
+_MERGE_SUBS = _metrics.histogram("merge_subbatches")
+_MERGE_DISPATCH = _metrics.counter("merge_dispatches")
+_MERGE_ISOLATED = _metrics.counter("merge_isolated_failures")
 
 
 class DeviceMerger:
@@ -775,6 +858,8 @@ class DeviceMerger:
 
     def _dispatch_group(self, group: List[_SubBatch]) -> None:
         self.dispatches += 1
+        _MERGE_DISPATCH.inc()
+        _MERGE_SUBS.record(len(group))
         if len(group) == 1:
             sub = group[0]
             try:
@@ -797,6 +882,7 @@ class DeviceMerger:
         except Exception:
             # merged dispatch failed: isolate — each sub-batch dispatches
             # alone so a poisoned shard cannot fail its siblings
+            _MERGE_ISOLATED.inc()
             for sub in group:
                 try:
                     self._resolve_sub(sub, self._run_one(sub.stacked))

@@ -12,20 +12,36 @@ for ``GRPC_PLATFORM_TYPE=TPU`` / ``RDMA_TPU``:
   codec's tensor headers on the host, land every payload in the device ring
   straight from the wire-assembly buffer, and hand back device views whose
   leases gate the ring's credit.
+
+The device-plane decode (wire record to placed device view) is the
+``decode`` lens hop, under the reference's name; its landing share shows on
+the ``hbm`` hop (hops nest). Its functions are the ``codec`` profiler stage.
 """
 
 from __future__ import annotations
 
 import socket
 import threading
+import time
 from typing import Any, List, Optional, Tuple
 
 import numpy as np
 
 from tpurpc_torch.core.endpoint import RingEndpoint
+from tpurpc_torch.obs import lens as _lens
+from tpurpc_torch.obs import profiler as _profiler
 from tpurpc_torch.torchshim import codec
 from tpurpc_torch.tpu.hbm_ring import HbmLease, HbmRing
 from tpurpc_torch.utils.config import Platform, get_config
+
+_LENS_DEC_BYTES, _LENS_DEC_NS, _LENS_DEC_COPY = _lens.hop_counters("decode")
+
+_LENS_STAGES = {
+    "decode_tensor_to_ring": "codec",
+    "decode_tree_to_ring": "codec",
+    "_parse_tensor_record": "codec",
+}
+_profiler.register_stages(__file__, _LENS_STAGES)
 
 #: default wait for device-ring space before failing a decode: long enough
 #: to ride out a burst of unreleased leases, short enough to surface a leak
@@ -76,9 +92,14 @@ def decode_tensor_to_ring(ring: HbmRing, buf, offset: int = 0,
                           ) -> Tuple[HbmLease, int]:
     """One wire tensor record → device-ring placement + lease-backed view.
     Returns ``(lease, next_offset)``; releasing the lease returns credit."""
+    t0 = time.monotonic_ns()
     dt, shape, payload, next_pos = _parse_tensor_record(memoryview(buf), offset)
     off, n = ring.place(payload, timeout=timeout)
-    return ring.view(off, n, dtype=dt, shape=shape), next_pos
+    lease = ring.view(off, n, dtype=dt, shape=shape)
+    elapsed = time.monotonic_ns() - t0
+    _LENS_DEC_NS.inc(elapsed)
+    _LENS_DEC_BYTES.inc(n)
+    return lease, next_pos
 
 
 def _tree_payload_bytes(view: memoryview, n_leaves: int) -> int:
@@ -109,6 +130,7 @@ def decode_tree_to_ring(ring: HbmRing, buf,
     with ONE ``place_many`` (one staging copy, one landing write). Returns
     ``(tree, leases)``; release every lease (or use :class:`DeviceMessage`)
     to return the ring credit."""
+    t0 = time.monotonic_ns()
     view = memoryview(buf)
     n_leaves, trailer_len, pos = codec.read_tree_header(view)
     # a tree that can never fit must fail fast: waiting is futile when the
@@ -146,6 +168,9 @@ def decode_tree_to_ring(ring: HbmRing, buf,
             except Exception:
                 pass  # span already torn down; nothing more to free
         raise
+    elapsed = time.monotonic_ns() - t0
+    _LENS_DEC_NS.inc(elapsed)
+    _LENS_DEC_BYTES.inc(total)
     return tree, leases
 
 

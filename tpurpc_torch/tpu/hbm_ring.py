@@ -30,6 +30,15 @@ span, and the landing write that next covers any byte of the span makes its
 stream wait on that event first. The ring is one allocation for its whole
 life (no donation), and ``place`` asserts that ``data_ptr()`` never
 changes.
+
+Observability, under the reference's names: the ``hbm_place_msgs`` and
+``hbm_place_bytes`` counters and the ``hbm`` lens hop (one set of bumps
+per ``place``/``place_many``/``fill``; its busy time is the host's dispatch
+time of the landing, as in the reference, since no hook waits on the
+device), the ``hbm_ring_occupancy_bytes`` fleet gauge (the host's ``tail -
+head``, read at scrape time), and the ``hbm-place`` (``place``,
+``place_many``, ``_land_locked``) and ``device-dispatch`` (``view``)
+profiler stages.
 """
 
 from __future__ import annotations
@@ -41,11 +50,35 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from tpurpc_torch.obs import lens as _lens
+from tpurpc_torch.obs import metrics as _metrics
+from tpurpc_torch.obs import profiler as _profiler
 from tpurpc_torch.ops.ring_scatter import ring_scatter
 from tpurpc_torch.ops.ring_window import ring_window
 from tpurpc_torch.tpu import ledger
 from tpurpc_torch.utils.buffers import as_u8, host_tensor
 from tpurpc_torch.utils.config import resolve_device
+
+
+# device-ring placement totals (one add per placement batch) and the
+# scrape-time occupancy of live rings
+_HBM_PLACE_MSGS = _metrics.counter("hbm_place_msgs")
+_HBM_PLACE_BYTES = _metrics.counter("hbm_place_bytes")
+_HBM_RINGS = _metrics.fleet("hbm_ring_occupancy_bytes",
+                            lambda r: r.tail - r.head)
+
+# the `hbm` lens hop: bytes landed in the device ring and the host time the
+# placement's dispatch took. The landing stages host -> device (dma_h2d),
+# so every placed byte is also a copy byte
+_LENS_HBM_BYTES, _LENS_HBM_NS, _LENS_HBM_COPY = _lens.hop_counters("hbm")
+
+_LENS_STAGES = {
+    "place": "hbm-place",
+    "place_many": "hbm-place",
+    "_land_locked": "hbm-place",
+    "view": "device-dispatch",
+}
+_profiler.register_stages(__file__, _LENS_STAGES)
 
 
 def _torch_dtype(dtype) -> torch.dtype:
@@ -79,6 +112,7 @@ class HbmRing:
         #: (start, end, event) of released spans, absolute bytes: the last
         #: reads of [start, end) are done once the CUDA event has completed
         self._reads: list = []
+        _HBM_RINGS.track(self)
 
     # -- producer ------------------------------------------------------------
 
@@ -139,12 +173,14 @@ class HbmRing:
             return self.tail, 0
         if n > self.capacity:
             raise BufferError(f"payload {n} exceeds ring capacity {self.capacity}")
+        t0 = time.monotonic_ns()
         with self._lock:
             self._wait_space_locked(n, timeout)
             off = self.tail
             self.tail += n
             self._live[(off, n)] = [0, False]
             self._land_locked(src, off)
+        _note_landing(1, n, time.monotonic_ns() - t0)
         return off, n
 
     def place_many(self, payloads,
@@ -162,6 +198,7 @@ class HbmRing:
         if total > self.capacity:
             raise BufferError(
                 f"batch of {total} bytes exceeds ring capacity {self.capacity}")
+        t0 = time.monotonic_ns()
         with self._lock:
             self._wait_space_locked(total, timeout)
             off = self.tail
@@ -174,6 +211,7 @@ class HbmRing:
                 off += n
             packed = np.concatenate(srcs) if len(srcs) > 1 else srcs[0]
             self._land_locked(packed, spans[0][0])
+        _note_landing(len(spans), total, time.monotonic_ns() - t0)
         return spans
 
     def _assert_stable(self) -> None:
@@ -306,10 +344,21 @@ class HbmRing:
         if src.nbytes != nbytes:
             raise ValueError(f"fill of {src.nbytes} bytes into a "
                              f"{nbytes}-byte lease")
+        t0 = time.monotonic_ns()
         with self._lock:
             if (off, nbytes) not in self._live:
                 raise KeyError(f"span ({off}, {nbytes}) not live")
             self._land_locked(src, off)
+        _note_landing(1, nbytes, time.monotonic_ns() - t0)
+
+
+def _note_landing(msgs: int, nbytes: int, dt: int) -> None:
+    """The landing's counters and `hbm` hop: plain adds, no device wait."""
+    _HBM_PLACE_MSGS.inc(msgs)
+    _HBM_PLACE_BYTES.inc(nbytes)
+    _LENS_HBM_BYTES.inc(nbytes)
+    _LENS_HBM_NS.inc(dt)
+    _LENS_HBM_COPY.inc(nbytes)
 
 
 class HbmLease:

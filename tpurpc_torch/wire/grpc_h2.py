@@ -13,8 +13,14 @@ directions, gzip/deflate request decoding, and the rendezvous link over the
 gRPC wire (a peer that advertises ``SETTINGS_TPURPC_RDV`` moves bulk
 messages one-sided; a stock peer never sees the extension frame).
 
-Left out against the reference: its flight-recorder, metrics, profiler,
-tracing, watchdog and stats hooks. Beyond it: :meth:`GrpcH2Connection.goaway`
+Observability, under the reference's names: the ``h2-framing`` profiler
+stage, the ``h2_server_connections`` and ``h2_server_send_window_bytes``
+fleet gauges, the ``srv_calls{method,code}`` counter shared with the native
+framing, ``H2_WINDOW_EXHAUSTED`` under ``h2srv:<peer>`` when a send is
+about to block on peer credit, the ``h2_data_coalesce`` histogram, the
+adoption of the ``tpurpc-trace`` header with the handler's ``dispatch``
+span and tail decision, and the watchdog's ``call_started`` and
+``call_finished``. Beyond the reference: :meth:`GrpcH2Connection.goaway`
 names the last stream the connection took, and a stream that arrives after
 it is refused (``RST_STREAM`` ``REFUSED_STREAM``, which a client may replay)
 unless it is a health probe; the reference's GOAWAY names stream 0 and its
@@ -36,7 +42,13 @@ from typing import Dict, List, Optional, Tuple
 
 from tpurpc_torch.core import rendezvous as _rdv
 from tpurpc_torch.core.endpoint import Endpoint, EndpointError
+from tpurpc_torch.obs import flight as _flight
+from tpurpc_torch.obs import metrics as _obs_metrics
+from tpurpc_torch.obs import profiler as _profiler
+from tpurpc_torch.obs import tracing as _tracing
+from tpurpc_torch.obs import watchdog as _watchdog
 from tpurpc_torch.rpc.status import AbortError, Metadata, StatusCode
+from tpurpc_torch.utils import stats as _stats
 from tpurpc_torch.utils import timers as _timers
 from tpurpc_torch.wire import h2
 from tpurpc_torch.wire.hpack import HpackDecoder, HpackEncoder, HpackError
@@ -50,7 +62,22 @@ REFUSED_STREAM = 0x7
 
 #: the reference's trace-context header: transport-internal, never surfaced
 #: to handlers (the port carries no tracing)
-_TRACE_HEADER = "tpurpc-trace"
+# message <-> frame translation on the server h2 plane is h2-framing work
+_LENS_STAGES = {
+    "send_message": "h2-framing",
+    "_send_unary_fused": "h2-framing",
+    "_on_data": "h2-framing",
+    "_read_loop": "h2-framing",
+}
+_profiler.register_stages(__file__, _LENS_STAGES)
+
+#: live h2 server connections and their send-side connection window, read
+#: at scrape time only
+_H2_SRV_CONNS = _obs_metrics.fleet("h2_server_connections")
+_H2_SRV_WINDOW = _obs_metrics.fleet("h2_server_send_window_bytes",
+                                    lambda c: c._conn_window._value)
+#: per-method, per-status RED counters, shared with the native framing
+_SRV_CALLS = _obs_metrics.labeled_counter("srv_calls", ("method", "code"))
 
 
 def _frame_grpc_message(payload) -> bytearray:
@@ -148,6 +175,9 @@ class _H2Stream:
         self.headers_sent = False
         #: a health probe: admitted after a GOAWAY, not counted by a drain
         self.is_probe = False
+        self.trace_ctx = None
+        #: the status the trailers carried (``srv_calls``' code label)
+        self.final_code: Optional[StatusCode] = None
 
 
 class H2ServerContext:
@@ -231,6 +261,10 @@ class GrpcH2Connection:
         self.draining = False
         self._last_sid = 0
         self._linger_timer: Optional[_timers.TimerHandle] = None
+        self._ftag = _flight.tag_for("h2srv:" + getattr(endpoint, "peer",
+                                                        "?"))
+        _H2_SRV_CONNS.track(self)
+        _H2_SRV_WINDOW.track(self)
         # arm the rendezvous link; the custom SETTINGS id in _send_settings
         # is the capability advert, and only a peer that advertised it back
         # ever sees an RDV frame
@@ -330,6 +364,11 @@ class GrpcH2Connection:
         pos = 0
         while pos < len(mv):
             want = min(len(mv) - pos, self._peer_max_frame)
+            if st.window._value <= 0 or self._conn_window._value <= 0:
+                # about to block on peer credit: the watchdog's
+                # h2-flow-control evidence (once per starved chunk)
+                _flight.emit(_flight.H2_WINDOW_EXHAUSTED, self._ftag,
+                             st.stream_id)
             got = st.window.take(want, timeout=120)
             try:
                 conn_got = self._conn_window.take(got, timeout=120)
@@ -362,6 +401,7 @@ class GrpcH2Connection:
                       metadata: Metadata = ()) -> None:
         # initial metadata (when still unsent) and trailers gather into ONE
         # endpoint write — trailers-only responses cost a single syscall
+        st.final_code = code
         segs = self._response_header_segs(st)
         segs += self._trailer_segs(st, code, details, metadata)
         self._write(segs)
@@ -380,6 +420,7 @@ class GrpcH2Connection:
         if not self._conn_window.try_take(len(data)):
             st.window.grant(len(data))
             return False
+        st.final_code = code
         segs = self._response_header_segs(st)
         segs += h2.pack_frame(h2.DATA, 0, st.stream_id, data)
         segs += self._trailer_segs(st, code, details, metadata)
@@ -440,6 +481,8 @@ class GrpcH2Connection:
                 consumed += len(pl2)
                 last_flags = fl2
                 j += 1
+            if j - i > 1:
+                _stats.batch_hist("h2_data_coalesce").record(j - i)
             self._on_data(sid, last_flags,
                           datas if len(datas) > 1 else datas[0],
                           consumed)
@@ -526,6 +569,7 @@ class GrpcH2Connection:
         metadata: List[Tuple[str, object]] = []
         timeout_s: Optional[float] = None
         encoding = "identity"
+        trace_raw: Optional[bytes] = None
         for name_b, value_b in headers:
             name = name_b.decode("ascii", "replace")
             if name.startswith(":"):
@@ -534,9 +578,12 @@ class GrpcH2Connection:
                 timeout_s = _parse_timeout(value_b.decode("ascii", "replace"))
             elif name == "grpc-encoding":
                 encoding = value_b.decode("ascii", "replace")
+            elif name == _tracing.HEADER:
+                # transport-internal like te and content-type: consumed
+                # here, never surfaced to handlers
+                trace_raw = value_b
             elif name in ("te", "content-type", "user-agent",
-                          "grpc-accept-encoding", "accept-encoding",
-                          _TRACE_HEADER):
+                          "grpc-accept-encoding", "accept-encoding"):
                 pass  # transport-level, not surfaced as metadata (grpcio parity)
             else:
                 metadata.append((name, _decode_metadata_value(name, value_b)))
@@ -544,6 +591,8 @@ class GrpcH2Connection:
         st = _H2Stream(sid)
         st.recv_encoding = encoding
         st.is_probe = path.startswith("/grpc.health.")
+        if trace_raw is not None and _tracing.LIVE:
+            st.trace_ctx = _tracing.adopt(trace_raw)
         st.window = h2.FlowWindow(self._peer_initial_window)
         with self._lock:
             # the server's flag closes the adoption race, as on the native
@@ -647,10 +696,24 @@ class GrpcH2Connection:
         counters = self.server.call_counters
         counters.on_start()
         ok = False
+        tctx = st.trace_ctx
+        wd_tok = _watchdog.call_started(
+            path, tctx.trace_id if tctx is not None else 0)
+        t0 = time.monotonic_ns()
         try:
-            ok = bool(self._run_handler_inner(handler, st, ctx, path))
+            with _tracing.use(tctx) if tctx is not None \
+                    else _tracing.NULL_CM:
+                with (_tracing.span("dispatch", tctx, method=path)
+                      if tctx is not None else _tracing.NULL_CM):
+                    ok = bool(self._run_handler_inner(handler, st, ctx, path))
         finally:
             counters.on_finish(ok)
+            code = st.final_code if st.final_code is not None \
+                else StatusCode.CANCELLED
+            _SRV_CALLS.labels(path, int(code)).inc()
+            _watchdog.call_finished(wd_tok, error=not ok)
+            _tracing.tail_decide(tctx, time.monotonic_ns() - t0,
+                                 error=not ok, method=path)
 
     def _run_handler_inner(self, handler, st: _H2Stream,
                            ctx: H2ServerContext, path: str) -> bool:

@@ -22,8 +22,10 @@ advertises ``SETTINGS_TPURPC_RDV``.
 ssl_channel_credentials`) dials over TLS with ALPN ``h2``; a failed
 handshake closes the socket and raises, and nothing is sent in plaintext.
 
-Left out against the reference: its flight-recorder, metrics, profiler and
-stats hooks. Beyond it: a GOAWAY with NO_ERROR fails
+Observability, under the reference's names: the ``h2-framing`` profiler
+stage, the ``h2_client_connections`` and ``h2_client_send_window_bytes``
+fleet gauges, ``H2_WINDOW_EXHAUSTED`` under ``h2cli:<target>`` and the
+``h2_data_coalesce`` histogram. Beyond the reference: a GOAWAY with NO_ERROR fails
 only the calls above the stream it names (the server did not take them); the
 calls it took run to their end, new calls fail UNAVAILABLE at once, and the
 connection closes when the last one ends. The reference fails every open
@@ -42,12 +44,30 @@ from typing import Dict, Iterable, List, Optional, Tuple
 from tpurpc_torch.core import rendezvous as _rdv
 from tpurpc_torch.core.endpoint import (Endpoint, EndpointError, TcpEndpoint,
                                         tls_client_handshake)
+from tpurpc_torch.obs import flight as _flight
+from tpurpc_torch.obs import metrics as _obs_metrics
+from tpurpc_torch.obs import profiler as _profiler
 from tpurpc_torch.rpc.status import Metadata, RpcError, StatusCode
+from tpurpc_torch.utils import stats as _stats
 from tpurpc_torch.wire import h2
 from tpurpc_torch.wire.grpc_h2 import (RECV_WINDOW, _decode_metadata_value,
                                        _encode_metadata_value,
                                        decode_grpc_message)
 from tpurpc_torch.wire.hpack import HpackDecoder, HpackEncoder, HpackError
+
+_LENS_STAGES = {
+    "_send_message": "h2-framing",
+    "_on_data": "h2-framing",
+    "_read_loop": "h2-framing",
+    "_pump": "h2-framing",
+}
+_profiler.register_stages(__file__, _LENS_STAGES)
+
+#: live h2 client channels and their send-side connection window, read at
+#: scrape time only
+_H2_CLI_CONNS = _obs_metrics.fleet("h2_client_connections")
+_H2_CLI_WINDOW = _obs_metrics.fleet("h2_client_send_window_bytes",
+                                    lambda c: c._conn_window._value)
 
 _GRPC_MSG_HDR = struct.Struct("!BI")
 
@@ -179,6 +199,9 @@ class H2Channel:
         self._peer_max_frame = h2.DEFAULT_MAX_FRAME
         self._peer_initial_window = h2.DEFAULT_WINDOW
         self._conn_window = h2.FlowWindow(h2.DEFAULT_WINDOW)  # our sends
+        self._ftag = _flight.tag_for("h2cli:" + str(target))
+        _H2_CLI_CONNS.track(self)
+        _H2_CLI_WINDOW.track(self)
 
         # arm the rendezvous link and advertise the capability in our
         # SETTINGS; it activates only when the server's SETTINGS carry the
@@ -297,6 +320,8 @@ class H2Channel:
                         flags = fl2
                         taken += 1
                     del pending[:taken]
+                    if taken > 1:
+                        _stats.batch_hist("h2_data_coalesce").record(taken)
                     self._on_data(sid, flags,
                                   b"".join(datas) if len(datas) > 1
                                   else datas[0], consumed)
@@ -563,6 +588,11 @@ class H2Channel:
         view = memoryview(buf)
         while view:
             want = min(len(view), self._peer_max_frame)
+            if call.window._value <= 0 or self._conn_window._value <= 0:
+                # about to block on peer credit: the watchdog's
+                # h2-flow-control evidence
+                _flight.emit(_flight.H2_WINDOW_EXHAUSTED, self._ftag,
+                             call.stream_id)
             try:
                 got = call.window.take(want, timeout=call._remaining())
                 conn_got = self._conn_window.take(got,
