@@ -355,7 +355,33 @@ error:
    histogram records per call. (e) 16 calls over one ``H2Channel``:
    ``srv_calls{method,0}`` reads 16, ``h2_server_connections`` 1 while
    the channel is open and 0 after. Skipped under ``--kernels``;
-20. print the kernels line, the card's name and power limit, and last the
+20. history, alerting and the scrape plane, all on ``TPU`` with phase 3's
+   model, requests and replies. (a) 64 device-ring calls between two
+   ``GET /metrics`` on the serving port: the text parses as Prometheus
+   exposition and the deltas of the copy ledger, ``hbm_place_msgs``/
+   ``hbm_place_bytes``, ``srv_calls`` and ``srv_call_us_count`` equal what
+   the calls did; ``/debug/history`` holds ``hbm_ring_occupancy_bytes`` and
+   ``ring_*`` series on a fine tier of ``TPURPC_TSDB_FINE_S`` = 0.05 s;
+   ``/healthz?json=1`` answers 200 with JSON; prints one sample tick's
+   host time (median of 50), one ``/metrics`` render's (median of 20) and
+   phase 3's p50 in 8 alternating turns of 8 calls with ``TPURPC_TSDB=0``
+   and at the default (a reading, not a gate). (b) a latency objective on
+   the method (250 ms, 50 %, windows 0.8 s / 1.6 s at 1.2x); slow calls
+   whose handler spends 1.2 s in synchronized ResNet-50 forwards on the
+   card trip the watchdog at ``device-infer`` (``/debug/diagnose`` ranks it
+   first, ``/healthz`` 503 ``watchdog-stall``) until the alert fires
+   (``ok → pending → firing``, ``/healthz`` 503 ``slo-firing``); one bundle
+   lands under a temporary ``TPURPC_BUNDLE_DIR``, ``tpurpc_torch.tools.
+   bundle`` renders it and ``diagnose_bundle`` ranks the live top cause;
+   fast calls resolve the alert (``slo-firing`` then ``slo-resolved``);
+   every reply bit-equal to phase 3's. (c) phase 9's two spawned
+   device-ring workers report non-zero scrape ports; after 4 requests on
+   each, the serving port's aggregated ``/metrics`` carries each shard's
+   ``hbm_place_bytes`` and call count and its ``/debug/flight`` both
+   ``shard-start`` events; a ``FleetCollector`` polls both workers; when
+   one worker is killed its series leave the aggregate and the collector
+   marks it stale. Skipped under ``--kernels``;
+21. print the kernels line, the card's name and power limit, and last the
    one-line result JSON.
 """
 
@@ -6740,6 +6766,619 @@ def obs_hooks_plane(dev, card, ring=RING, calls=HOOK_CALLS,
     return res
 
 
+# -- phase 20 ----------------------------------------------------------------
+
+#: (a): phase 3's device-ring calls around the scrapes; the fine tsdb grain
+#: (s) while they run; alternating turns of calls with the sampler off and
+#: at its defaults; timed sample ticks and renders
+SCRAPE_CALLS = 64
+SCRAPE_FINE_S = 0.05
+SCRAPE_TURNS, SCRAPE_TURN_CALLS = 8, 8
+SCRAPE_TICKS, SCRAPE_RENDERS = 50, 20
+#: (b): the latency objective on phase 3's method (its least bar, in ms,
+#: its target and its one window pair: fast s, slow s, burn threshold), the
+#: evaluator's cadence (s), the device stretch a slow call spends in the
+#: model's forwards (s), and the most slow calls and fast calls it makes
+SLO_NAME = "phase20-p99"
+SLO_BAR_MS, SLO_TARGET_PCT = 250.0, 50.0
+SLO_WINDOWS = [(0.8, 1.6, 1.2)]
+SLO_EVAL_S = 0.1
+STALL_S = 1.2
+STALL_CALLS, RECOVER_CALLS = 8, 600
+#: (c): requests of phase 3's on each fleet worker
+SCRAPE_FLEET_REQUESTS = 4
+SCRAPE_ENV = OBS_ENV + ("TPURPC_TSDB", "TPURPC_TSDB_FINE_S",
+                        "TPURPC_BUNDLE_DIR", "TPURPC_SCRAPE",
+                        "TPURPC_DIAGNOSE")
+
+
+def _http(port, path, verb="GET", timeout=30.0):
+    """One HTTP/1.0 request on loopback: ``(status, headers, body)``."""
+    import socket
+
+    with socket.create_connection(("127.0.0.1", port),
+                                  timeout=timeout) as s:
+        s.settimeout(timeout)
+        s.sendall(f"{verb} {path} HTTP/1.0\r\n\r\n".encode())
+        buf = bytearray()
+        while True:
+            chunk = s.recv(1 << 16)
+            if not chunk:
+                break
+            buf += chunk
+    head, _, body = bytes(buf).partition(b"\r\n\r\n")
+    lines = head.decode("latin-1").split("\r\n")
+    check(len(lines[0].split()) >= 2, f"scrape: no status line in {head!r}")
+    hdrs = dict(ln.split(": ", 1) for ln in lines[1:] if ": " in ln)
+    return int(lines[0].split()[1]), hdrs, body
+
+
+def _prom(text: str) -> dict:
+    """Prometheus text exposition → ``{(name, labels): value}``; fails on
+    any line that is neither a ``# TYPE`` line nor a sample."""
+    import re
+
+    sample = re.compile(r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{[^}]*\})? '
+                        r'(-?(?:[0-9.]+(?:[eE][-+]?[0-9]+)?|nan|inf))$')
+    out = {}
+    for ln in text.splitlines():
+        if not ln:
+            continue
+        if ln.startswith("# TYPE "):
+            check(len(ln.split()) == 4 and ln.split()[3] in (
+                "counter", "gauge", "summary"), f"scrape: bad TYPE {ln!r}")
+            continue
+        m = sample.match(ln)
+        check(m is not None, f"scrape: not a Prometheus sample: {ln!r}")
+        out[(m.group(1), (m.group(2) or "")[1:-1])] = float(m.group(3))
+    return out
+
+
+def _once_us(fn) -> float:
+    """The host clock's µs for one call of ``fn``."""
+    t = time.perf_counter()
+    fn()
+    return (time.perf_counter() - t) * 1e6
+
+
+def _fresh_tsdb() -> None:
+    """Stop the process-wide sampler and forget its store; the next
+    ``ensure_started`` builds one on the current variables."""
+    from tpurpc_torch.obs import tsdb
+
+    if tsdb._instance is not None:
+        tsdb._instance.stop()
+    tsdb.postfork_reset()
+
+
+def _scrape_calls(label, client, images, first, calls, after=None):
+    """``calls`` device-ring calls, each reply bit-equal to phase 3's; each
+    call's host ms. ``after(i)`` runs after reply i."""
+    lat = []
+    for i in range(calls):
+        t0 = time.perf_counter()
+        got = _lc_call(f"{label} call {i}", client, images[i % len(images)])
+        lat.append((time.perf_counter() - t0) * 1e3)
+        _bit_equal(f"{label} call {i}", got, first[i % len(images)])
+        if after is not None and after(i):
+            break
+    return lat
+
+
+def _scrape_history(dev, card, classify, images, first, calls, turns,
+                    per_turn) -> dict:
+    """(a): the scrape and history planes on phase 3's device-ring path."""
+    import numpy as np
+
+    from tpurpc_torch.obs import scrape, tsdb
+    from tpurpc_torch.ops import ring_scatter as rs_mod
+    from tpurpc_torch.ops import ring_window as rw_mod
+    from tpurpc_torch.rpc.channel import Channel
+    from tpurpc_torch.torchshim.service import TensorClient
+    from tpurpc_torch.tpu import ledger
+
+    _set_env({"TPURPC_TSDB": None, "TPURPC_TSDB_FINE_S": str(SCRAPE_FINE_S)})
+    _fresh_tsdb()
+    rig = CallPlaneServer(classify)    # its start() starts the sampler
+    try:
+        check(tsdb.get().fine_s == SCRAPE_FINE_S and tsdb.get().doc()[
+            "running"], f"scrape (a): sampler {tsdb.get().doc()}")
+        with Channel(f"127.0.0.1:{rig.port}") as ch:
+            client = TensorClient(ch)
+            _scrape_calls("scrape (a) warm-up", client, images, first, 1)
+            status, hdrs, body = _http(rig.port, "/metrics")
+            check(status == 200 and hdrs.get("Content-Type", "").startswith(
+                "text/plain"), f"scrape (a): /metrics {status} {hdrs}")
+            before = _prom(body.decode())
+            with _Landings() as land, ledger.track() as w:
+                rs_mod.launches = rw_mod.launches = 0
+                lat = _scrape_calls("scrape (a)", client, images, first,
+                                    calls)
+                launched = {"ring_scatter": rs_mod.launches,
+                            "ring_window": rw_mod.launches}
+            after = _prom(_http(rig.port, "/metrics")[2].decode())
+        check(launched == land.launches(), f"scrape (a): launched "
+              f"{launched}, the landings give {land.launches()}")
+
+        def delta(name, labels=""):
+            return after.get((name, labels), 0.0) - before.get(
+                (name, labels), 0.0)
+
+        for k, v in w.delta.items():
+            name, kind = (("tpurpc_ledger_ops", k[:-4]) if k.endswith("_ops")
+                          else ("tpurpc_ledger_bytes", k))
+            got = delta(name, f'kind="{kind}"')
+            check(got == v, f"scrape (a): {name}{{kind={kind}}} moved {got}, "
+                  f"the ledger {v}")
+        msgs = sum(len(leaves) for *_, leaves in land.recs)
+        nbytes = sum(sum(leaves) for *_, leaves in land.recs)
+        check((delta("tpurpc_hbm_place_msgs"), delta("tpurpc_hbm_place_bytes"))
+              == (msgs, nbytes) and nbytes == calls * SPAN,
+              f"scrape (a): hbm_place moved "
+              f"{(delta('tpurpc_hbm_place_msgs'), delta('tpurpc_hbm_place_bytes'))}"
+              f", the landings {(msgs, nbytes)} ({calls} x {SPAN} bytes)")
+        red = (delta("tpurpc_srv_calls",
+                     f'method="{OBS_METHOD}",code="0"'),
+               delta("tpurpc_srv_call_us_count"))
+        check(red == (calls, calls), f"scrape (a): srv_calls and "
+              f"srv_call_us_count moved {red}, want {calls} each")
+        # the history: the ring gauges' series on the shortened fine tier
+        time.sleep(10 * SCRAPE_FINE_S)
+        inv = json.loads(_http(rig.port, "/debug/history")[2])
+        ring_series = sorted(s for s in inv["series"] if s.startswith("ring_"))
+        check(inv["fine"]["grain_s"] == SCRAPE_FINE_S
+              and "hbm_ring_occupancy_bytes" in inv["series"] and ring_series,
+              f"scrape (a): /debug/history inventory {inv['fine']} "
+              f"{len(inv['series'])} series")
+        pts = {}
+        for s in ("hbm_ring_occupancy_bytes", "ring_bytes_read"):
+            doc = json.loads(_http(rig.port, f"/debug/history?series={s}"
+                                             f"&window_s=30")[2])
+            pts[s] = doc["points"]
+            check(len(doc["points"]) >= 10, f"scrape (a): {s} has "
+                  f"{len(doc['points'])} points")
+        occ = max(v for _t, v in pts["hbm_ring_occupancy_bytes"])
+        status, hdrs, body = _http(rig.port, "/healthz?json=1")
+        hz = json.loads(body)
+        check(status == 200 and hz["status"] == "ok"
+              and hdrs.get("Content-Type") == "application/json",
+              f"scrape (a): /healthz {status} {hz}")
+        # host costs: one sample tick and one /metrics render
+        db = tsdb.get()
+        ticks = [_once_us(db.sample_once) for _ in range(SCRAPE_TICKS)]
+        renders = [_once_us(lambda: scrape._route("/metrics"))
+                   for _ in range(SCRAPE_RENDERS)]
+        tick_us, render_us = float(np.median(ticks)), float(np.median(renders))
+        n_series = len(db.series())
+        # phase 3's path with the sampler off and at its defaults
+        sides = {"off": [], "on": []}
+        turn_p50 = {"off": [], "on": []}
+        for t in range(turns):
+            side = "off" if t % 2 == 0 else "on"
+            _set_env({"TPURPC_TSDB": "0" if side == "off" else None,
+                      "TPURPC_TSDB_FINE_S": None})
+            _fresh_tsdb()
+            check((tsdb.ensure_started() is None) == (side == "off"),
+                  f"scrape (a) turn {t}: the sampler's switch")
+            with Channel(f"127.0.0.1:{rig.port}") as ch:
+                lat_t = _scrape_calls(f"scrape (a) turn {t}",
+                                      TensorClient(ch), images, first,
+                                      per_turn)
+            sides[side] += lat_t
+            turn_p50[side].append(float(np.percentile(lat_t, 50)))
+            print(f"scrape (a) turn {t} (tsdb {side}): p50 "
+                  f"{turn_p50[side][-1]} ms", flush=True)
+    finally:
+        rig.server.stop()
+        _set_env({"TPURPC_TSDB": None, "TPURPC_TSDB_FINE_S": None})
+        _fresh_tsdb()
+    won = sum(1 for a, b in zip(turn_p50["on"], turn_p50["off"]) if a < b)
+    out = {"launches": launched, "p50": float(np.percentile(lat, 50)),
+           "tick_us": tick_us, "render_us": render_us, "series": n_series,
+           "p50_off": float(np.percentile(sides["off"], 50)),
+           "p50_on": float(np.percentile(sides["on"], 50)),
+           "turn_p50_off": turn_p50["off"], "turn_p50_on": turn_p50["on"],
+           "pairs_won_by_on": won, "ring_series": len(ring_series),
+           "occupancy_max": occ}
+    print(f"scrape (a): {calls} device-ring calls, p50 {out['p50']} ms; "
+          f"/metrics parses and its deltas equal the calls' (the copy "
+          f"ledger {dict(w.delta)}, hbm_place {msgs} msgs / {nbytes} bytes, "
+          f"srv_calls and srv_call_us_count {calls}); /debug/history at "
+          f"{SCRAPE_FINE_S} s: hbm_ring_occupancy_bytes (max {occ}) and "
+          f"{len(ring_series)} ring_* series; one sample tick of "
+          f"{n_series} series {tick_us} us (median of {SCRAPE_TICKS}), one "
+          f"/metrics render {render_us} us (median of {SCRAPE_RENDERS}); "
+          f"phase 3's path in {turns} alternating turns of {per_turn}: p50 "
+          f"{out['p50_off']} ms with TPURPC_TSDB=0, {out['p50_on']} ms at "
+          f"the default, the default faster in {won} of "
+          f"{min(len(turn_p50['on']), len(turn_p50['off']))} pairs; "
+          f"launches {launched} ({card})", flush=True)
+    return out
+
+
+def _slo_stall(dev, card, infer, classify, images, first) -> dict:
+    """(b): a latency objective on phase 3's method; a handler stretch in
+    the model's own forwards on the card trips the watchdog at
+    ``device-infer``, fires the alert, writes one bundle, and is diagnosed
+    live and from the bundle alike; fast calls resolve the alert."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    import torch
+
+    from tpurpc_torch.obs import bundle, flight, slo, watchdog
+    from tpurpc_torch.ops import ring_scatter as rs_mod
+    from tpurpc_torch.ops import ring_window as rw_mod
+    from tpurpc_torch.rpc.channel import Channel
+    from tpurpc_torch.tools import bundle as bundle_cli
+    from tpurpc_torch.torchshim.service import TensorClient
+
+    root = tempfile.mkdtemp(prefix="tpurpc-bundles-")
+    _set_env({"TPURPC_BUNDLE_DIR": root, "TPURPC_TSDB": None,
+              "TPURPC_TSDB_FINE_S": str(SCRAPE_FINE_S)})
+    _fresh_tsdb()
+    slo.reset()
+    flight.RECORDER.reset()
+    wd = watchdog.get()
+    wd.reset()
+    prev = (wd.min_stall_s, wd.sweep_s, wd.mult, wd.enabled)
+    wd.min_stall_s, wd.sweep_s, wd.mult, wd.enabled = 0.3, 0.1, 1.0, True
+    stall = {"on": False, "forwards": []}
+    x_dev = torch.from_numpy(images[0]).to(dev)
+
+    def slowable(tree):
+        if stall["on"]:
+            n, t0 = 0, time.perf_counter()
+            while time.perf_counter() - t0 < STALL_S:
+                infer(x_dev)
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+                n += 1
+            stall["forwards"].append(n)
+        return classify(tree)
+
+    rig = CallPlaneServer(slowable)   # start(): sampler, bundle writer armed
+    res = {}
+    try:
+        check(bundle.enabled() and bundle.get().root == root,
+              "slo (b): TPURPC_BUNDLE_DIR did not arm the bundle writer")
+        states = []
+        with Channel(f"127.0.0.1:{rig.port}") as ch, _Landings() as land:
+            client = TensorClient(ch)
+            rs_mod.launches = rw_mod.launches = 0
+            warm = _scrape_calls("slo (b) warm-up", client, images, first,
+                                 16)
+            # the bar: SLO_BAR_MS, or twice the warm-up's second slowest
+            # call on a slower host (the rolling p99 of 16 calls is their
+            # second largest), and well under the stall
+            bar_ms = max(SLO_BAR_MS, 2 * sorted(warm)[-2])
+            check(bar_ms <= STALL_S * 1e3 / 2, f"slo (b): calls of "
+                  f"{sorted(warm)[-2]} ms leave no room under the stall")
+            ev = slo.get()
+            ev.eval_s = SLO_EVAL_S
+            obj = slo.declare(SLO_NAME, method=OBS_METHOD, latency_ms=bar_ms,
+                              latency_target_pct=SLO_TARGET_PCT,
+                              windows=SLO_WINDOWS)
+            st = obj.tracks["latency"]
+            time.sleep(2 * SLO_WINDOWS[0][1])   # a window of healthy samples
+            check(st.state == "ok", f"slo (b): {st.state} before the stall")
+            # the first slow call: its stall live, while it lasts
+            stall["on"] = True
+            out = []
+            t = threading.Thread(target=lambda: out.append(_lc_call(
+                "slo (b) slow call 0", client, images[0], timeout=120)))
+            t.start()
+            diag = None
+            deadline = time.monotonic() + 10
+            while diag is None and time.monotonic() < deadline:
+                time.sleep(0.05)
+                diag = next((d for d in wd.active()
+                             if d["method"] == OBS_METHOD
+                             and d["kind"] == "server"), None)
+            check(diag is not None and diag["stage"] == "device-infer",
+                  f"slo (b): the slow handler's diagnosis {diag}")
+            live = json.loads(_http(rig.port, "/debug/diagnose")[2])
+            status, _h, body = _http(rig.port, "/healthz?json=1")
+            stalled = json.loads(body)
+            t.join(120)
+            check(len(out) == 1, "slo (b): the slow call did not complete")
+            _bit_equal("slo (b) slow call 0", out[0], first[0])
+            live_top = live["hypotheses"][0]["cause"]
+            check(live["symptom"]["stage"] == "device-infer"
+                  and live_top == "device-infer",
+                  f"slo (b): /debug/diagnose ranked {live['symptom']} / "
+                  f"{[(h['cause'], h['confidence']) for h in live['hypotheses']]}")
+            check(status == 503 and "watchdog-stall" in [
+                r["reason"] for r in stalled["degraded_reasons"]],
+                f"slo (b): /healthz during the stall {status} {stalled}")
+            # more slow calls until the alert fires
+            slow = 1
+            while st.state != "firing" and slow < STALL_CALLS:
+                states.append(st.state)
+                got = _lc_call(f"slo (b) slow call {slow}", client,
+                               images[slow % len(images)], timeout=120)
+                _bit_equal(f"slo (b) slow call {slow}", got,
+                           first[slow % len(images)])
+                slow += 1
+            stall["on"] = False
+            firing_hz = None
+
+            def recover(i):
+                nonlocal firing_hz
+                states.append(st.state)
+                if st.state == "firing" and firing_hz is None:
+                    status, _h, body = _http(rig.port, "/healthz")
+                    doc = json.loads(_http(rig.port, "/healthz?json=1")[2])
+                    firing_hz = (status, body.decode(),
+                                 [r["reason"] for r in
+                                  doc["degraded_reasons"]])
+                return "firing" in states and st.state == "ok"
+
+            fast = _scrape_calls("slo (b) recovery", client, images, first,
+                                 RECOVER_CALLS, after=recover)
+            launched = {"ring_scatter": rs_mod.launches,
+                        "ring_window": rw_mod.launches}
+        check(launched == land.launches(), f"slo (b): launched {launched}, "
+              f"the landings give {land.launches()}")
+        seen = [(h["from"], h["to"]) for h in ev.doc()["history"]
+                if h["objective"] == SLO_NAME]
+        fired = seen.index(("pending", "firing")) if (
+            "pending", "firing") in seen else -1
+        check(fired > 0 and ("ok", "pending") in seen[:fired]
+              and ("firing", "ok") in seen[fired:] and st.state == "ok",
+              f"slo (b): the alert went {seen}, now {st.state}")
+        check(firing_hz is not None and firing_hz[0] == 503
+              and "slo-firing" in firing_hz[2] and "SLO" in firing_hz[1],
+              f"slo (b): /healthz while firing {firing_hz}")
+        edges = [e["event"] for e in flight.snapshot()
+                 if e["entity"] == f"slo:{SLO_NAME}"]
+        check(edges == ["slo-firing", "slo-resolved"],
+              f"slo (b): the objective's flight edges {edges}")
+        names = bundle.list_bundles(root)
+        check(len(names) == 1 and "-watchdog-" in names[0],
+              f"slo (b): bundles {names}")
+        path = os.path.join(root, names[0])
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = bundle_cli.main([root])
+        text = buf.getvalue()
+        check(rc == 0 and "trigger  watchdog" in text
+              and "device-infer" in text and "flight" in text,
+              f"slo (b): tools.bundle rendered rc {rc}: {text[:400]}")
+        from tpurpc_torch.obs import diagnose
+
+        replay = diagnose.diagnose_bundle(path)
+        check(replay["hypotheses"][0]["cause"] == live_top,
+              f"slo (b): the bundle's diagnosis ranks "
+              f"{replay['hypotheses'][0]['cause']}, live {live_top}")
+        res = {"launches": launched, "slow_calls": slow, "bar_ms": bar_ms,
+               "forwards": stall["forwards"], "fast_calls": len(fast),
+               "states": seen, "bundle": names[0], "top": live_top,
+               "confidence": live["hypotheses"][0]["confidence"]}
+    finally:
+        wd.min_stall_s, wd.sweep_s, wd.mult, wd.enabled = prev
+        slo.reset()
+        bundle.disable()
+        rig.server.stop()
+        _set_env({"TPURPC_BUNDLE_DIR": None, "TPURPC_TSDB_FINE_S": None})
+        _fresh_tsdb()
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"slo (b): objective {SLO_NAME}: p99 under {res['bar_ms']} ms "
+          f"for {SLO_TARGET_PCT} % of the samples, windows {SLO_WINDOWS}; "
+          f"a {STALL_S} s device stretch per slow call "
+          f"({res['forwards']} synchronized ResNet-50 forwards) tripped the "
+          f"watchdog at device-infer; the alert went {res['states']} over "
+          f"{res['slow_calls']} slow and {res['fast_calls']} fast calls "
+          f"(slo-firing, slo-resolved); one bundle {res['bundle']}, "
+          f"rendered; /debug/diagnose and the bundle's replay rank "
+          f"{res['top']} first (confidence {res['confidence']}); every "
+          f"reply bit-equal; launches {res['launches']} ({card})",
+          flush=True)
+    return res
+
+
+def _scrape_fleet(dev, card, requests) -> dict:
+    """(c): phase 9's two spawned device-ring workers: their scrape ports,
+    the aggregated /metrics and /debug/flight on the serving port, a fleet
+    collector over both, and one worker's death."""
+    import torch
+
+    from tpurpc_torch.obs.collector import FleetCollector
+    from tpurpc_torch.rpc.channel import Channel
+    from tpurpc_torch.rpc.shard import ShardedServer
+    from tpurpc_torch.torchshim.service import TensorClient
+
+    first = _PHASE3.get("replies")
+    images = _PHASE3.get("images")
+    t0 = time.perf_counter()
+    sup = ShardedServer(fleet_ring_build, workers=FLEET_WORKERS,
+                        listener="handoff", handoff_policy="round_robin")
+    sup.start(ready_timeout=600)
+    chans, col = [], None
+    try:
+        ports = sup.scrape_ports()
+        check(sorted(ports) == list(range(FLEET_WORKERS))
+              and all(ports.values()) and len(set(ports.values())) ==
+              FLEET_WORKERS, f"fleet (c): scrape ports {ports}")
+        print(f"scrape (c): {FLEET_WORKERS} workers up in "
+              f"{time.perf_counter() - t0} s, scrape ports {ports}",
+              flush=True)
+        stats = []
+        for k in range(FLEET_WORKERS):   # dialed in turn: round robin
+            ch = Channel(f"127.0.0.1:{sup.port}")
+            chans.append(ch)
+            client = TensorClient(ch)
+            for i in range(requests):
+                x = images[i % len(images)]
+                got = client.call("Call", {"images": torch.from_numpy(x)},
+                                  timeout=300)
+                if first is not None:
+                    _bit_equal(f"scrape (c) worker {k} call {i}", got,
+                               first[i % len(images)])
+            stats.append(json.loads(bytes(ch.unary_unary(
+                "/tpurpc.Tensor/Stats")(b"", timeout=300))))
+        check([s["shard"] for s in stats] == list(range(FLEET_WORKERS)),
+              f"scrape (c): round robin put channels on {stats}")
+        status, _h, body = _http(sup.port, "/metrics")
+        check(status == 200, f"scrape (c): aggregated /metrics {status}")
+        agg = _prom(body.decode())
+        for k in range(FLEET_WORKERS):
+            lab = f'shard="{k}"'
+            landed = agg.get(("tpurpc_hbm_place_bytes", lab))
+            calls = agg.get(("tpurpc_srv_calls", f'{lab},method='
+                             f'"/tpurpc.Tensor/Call",code="0"'))
+            check(agg.get(("tpurpc_shard_up", lab)) == 1
+                  and landed == requests * SPAN and calls == requests,
+                  f"scrape (c): shard {k}: up "
+                  f"{agg.get(('tpurpc_shard_up', lab))}, hbm_place_bytes "
+                  f"{landed} (want {requests * SPAN}), Call {calls}")
+        fl = json.loads(_http(sup.port, "/debug/flight")[2])
+        starts = sorted((e["a1"], e["shard"]) for e in fl["events"]
+                        if e["event"] == "shard-start")
+        check(starts == [(k, k) for k in range(FLEET_WORKERS)],
+              f"scrape (c): shard-start events {starts}")
+        # the collector's members are the workers' scrape ports; a worker
+        # answers /metrics with the fleet's aggregate, shard-labeled
+        col = FleetCollector([f"127.0.0.1:{p}" for p in ports.values()],
+                             stale_after=2, fetch_timeout_s=5.0)
+        col.poll_once()
+        census = {c["member"]: c["state"] for c in col.census()}
+        merged = col.merged_metrics()
+        check(set(census.values()) == {"up"} and all(
+            f'tpurpc_hbm_place_bytes{{member="127.0.0.1:{p}",shard="{k}"}} '
+            f'{requests * SPAN}' in merged for p in ports.values()
+            for k in range(FLEET_WORKERS)),
+            f"scrape (c): the collector's census {census}; "
+            f"{[ln for ln in merged.splitlines() if 'hbm_place_bytes' in ln]}")
+        # one worker stops: its series leave the aggregate and the census
+        gone = FLEET_WORKERS - 1
+        check(sup.kill_worker(gone), f"scrape (c): worker {gone} not running")
+        deadline = time.monotonic() + 30
+        while time.monotonic() < deadline:
+            if sup.alive_workers() == list(range(gone)):
+                break
+            time.sleep(0.05)
+        check(sup.alive_workers() == list(range(gone)),
+              f"scrape (c): alive after the kill {sup.alive_workers()}")
+        text = ""
+        while time.monotonic() < deadline:
+            status, _h, body = _http(sup.port, "/metrics")
+            text = body.decode()
+            if status == 200 and f'shard="{gone}"' not in text:
+                break
+            time.sleep(0.1)
+        check(f'shard="{gone}"' not in text
+              and 'tpurpc_shard_up{shard="0"} 1' in text,
+              "scrape (c): the stopped worker's series stayed in the "
+              "aggregate")
+        for _ in range(col.stale_after):
+            col.poll_once()
+        dead = f"127.0.0.1:{ports[gone]}"
+        census = {c["member"]: c["state"] for c in col.census()}
+        merged = col.merged_metrics()
+        check(census[dead] == "stale" and f'member="{dead}"}} 0' in merged
+              and f'{{member="{dead}",' not in merged
+              and f'shard="{gone}"' not in merged,
+              f"scrape (c): the collector after the stop {census}")
+    finally:
+        if col is not None:
+            col.stop()
+        for ch in chans:
+            ch.close()
+        sup.stop()
+    launches = {name: [s["launches"][name] for s in stats]
+                for name in ("ring_scatter", "ring_window")}
+    if dev.type == "cuda":
+        for name, counts in launches.items():
+            check(all(c >= 1 for c in counts), f"scrape (c): {name} "
+                  f"launched {counts} times in the workers")
+    print(f"scrape (c): {requests} requests on each of {FLEET_WORKERS} "
+          f"workers; the aggregated /metrics carried each shard's "
+          f"hbm_place_bytes and Call count and both shard-start events; "
+          f"the collector saw both, then worker {gone}'s series left the "
+          f"aggregate and the census (stale); launches per worker "
+          f"{launches} ({card})", flush=True)
+    return {"launches": launches}
+
+
+def scrape_plane(dev, card, calls=SCRAPE_CALLS, turns=SCRAPE_TURNS,
+                 per_turn=SCRAPE_TURN_CALLS,
+                 fleet_requests=SCRAPE_FLEET_REQUESTS, ring=RING) -> dict:
+    """Phase 20: history, alerting and the scrape plane on the card
+    (docstring of this file). Returns each part's launches."""
+    import numpy as np
+    import torch
+
+    from tpurpc_torch.models.resnet import make_infer_fn, resnet50
+    from tpurpc_torch.obs import watchdog
+    from tpurpc_torch.ops import ring_scatter as rs_mod
+    from tpurpc_torch.ops import ring_window as rw_mod
+
+    t_phase = time.perf_counter()
+    saved = {k: os.environ.get(k) for k in SCRAPE_ENV}
+    _set_env({"GRPC_PLATFORM_TYPE": "TPU", "TPURPC_TORCH_DEVICE": str(dev),
+              "TPURPC_HBM_RING_SIZE_KB": str(ring >> 10),
+              "TPURPC_INLINE_PUMP": None, "TPURPC_TRACE_SAMPLE": None})
+    res = {}
+    try:
+        if not _PHASE3:   # a rehearsal without phase 3: the same seeds
+            torch.manual_seed(SEED)
+            infer = make_infer_fn(resnet50().to(dev))
+            rng = np.random.default_rng(SEED)
+            _PHASE3.update(infer=infer, images=[rng.standard_normal(
+                (BATCH, SIZE, SIZE, 3)).astype(np.float32)
+                for _ in range(REQUESTS)])
+        infer, images = _PHASE3["infer"], _PHASE3["images"]
+
+        def classify(tree):
+            logits = infer(tree["images"].to(dev))
+            return {"logits": logits, "top1": logits.argmax(dim=1)}
+
+        if "replies" not in _PHASE3:
+            from tpurpc_torch.rpc.channel import Channel
+            from tpurpc_torch.torchshim.service import TensorClient
+
+            rig = CallPlaneServer(classify)
+            try:
+                with Channel(f"127.0.0.1:{rig.port}") as ch:
+                    client = TensorClient(ch)
+                    _PHASE3["replies"] = [
+                        _lc_call(f"scrape reference reply {i}", client, x)
+                        for i, x in enumerate(images)]
+            finally:
+                rig.server.stop()
+        first = _PHASE3["replies"]
+
+        def part(key, fn):
+            t = time.perf_counter()
+            rs_mod.launches = rw_mod.launches = 0
+            res[key] = fn()
+            res[key]["part_launches"] = {"ring_scatter": rs_mod.launches,
+                                         "ring_window": rw_mod.launches}
+            print(f"scrape ({key}) took {time.perf_counter() - t} s; "
+                  f"launches {res[key]['part_launches']}", flush=True)
+
+        part("a", lambda: _scrape_history(dev, card, classify, images, first,
+                                          calls, turns, per_turn))
+        part("b", lambda: _slo_stall(dev, card, infer, classify, images,
+                                     first))
+        check(res["b"]["part_launches"] == res["b"]["launches"],
+              f"slo (b): launched {res['b']['part_launches']}, the "
+              f"landings give {res['b']['launches']}")
+        part("c", lambda: _scrape_fleet(dev, card, fleet_requests))
+        check(res["c"]["part_launches"] == {"ring_scatter": 0,
+                                            "ring_window": 0},
+              "scrape (c): the smoke process itself launched a kernel")
+    finally:
+        _set_env(saved)
+        watchdog.get().stop()
+    print(f"scrape: phase 20 took {time.perf_counter() - t_phase} s "
+          f"({card})", flush=True)
+    return res
+
+
 def card_line() -> str:
     """The card's name and power limit, as nvidia-smi reports them."""
     smi = subprocess.run(
@@ -6799,6 +7438,7 @@ def main() -> None:
         fleet_launches = h2_launches = cp_launches = tls_launches = None
         aio_launches = lb_launches = tp_launches = lc_launches = None
         pump_launches = obs_launches = hook_launches = None
+        scrape_launches = None
     else:
         from tpurpc_torch.ops import ring_scatter as rs_mod
         from tpurpc_torch.ops import ring_window as rw_mod
@@ -6879,6 +7519,9 @@ def main() -> None:
         # slow call's landing, (d) per side as the landings' offsets give,
         # (e) none (no device-ring landing)
         hook_launches = obs_hooks_plane(dev, card)
+        # phase 20: (a) and (b) as their landings' offsets give, (c) in the
+        # fleet's worker processes (this process launches neither there)
+        scrape_launches = scrape_plane(dev, card)
 
     sources = {"ring_scatter": "tpurpc/ops/ring_scatter.py:133",
                "ring_window": "tpurpc/ops/ring_window.py:138"}
@@ -6992,7 +7635,14 @@ def main() -> None:
                          for side in ("on", "off")},
                       "counted": hook_launches["d"]["counted"]["launches"][
                           name]},
-                "e": hook_launches["e"]["part_launches"][name]})})
+                "e": hook_launches["e"]["part_launches"][name]}),
+            # phase 20, history, alerting and the scrape plane: (a) the
+            # scraped calls and the tsdb turns, (b) the stall and the
+            # recovery, (c) in each fleet worker: [worker 0, worker 1]
+            "scrape_launches": (None if scrape_launches is None else {
+                "a": scrape_launches["a"]["part_launches"][name],
+                "b": scrape_launches["b"]["part_launches"][name],
+                "c": scrape_launches["c"]["launches"][name]})})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     if kernels_only:

@@ -23,9 +23,14 @@ request, a stream with its control ops on the descriptor ring, and a
 (a parked card-ring connection woken, a call redialed by max connection
 age, ``ping`` on the card ring), the inline pump (a pump-mode call
 bit-equal to a reader-mode one, a pipelined window, a rendezvous landing
-whose sender pumped its own CLAIM), and the pipelined drain migration
-between two card-ring servers run on the card.
+whose sender pumped its own CLAIM), the pipelined drain migration
+between two card-ring servers run on the card, and the scrape plane of a
+card-ring server (``/metrics`` deltas of its landings, ``/debug/history``)
+with a device-infer trip that writes and diagnoses a bundle.
 """
+
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -1547,3 +1552,131 @@ def test_hbm_hooks_wait_on_no_device(dev, wrap, monkeypatch):
     np.testing.assert_array_equal(lease.array.cpu().numpy(),
                                   np.arange(3000, dtype=np.uint8))
     lease.release()
+
+
+def _scrape(port, path):
+    """One HTTP/1.0 GET on loopback: ``(status, body)``."""
+    import socket
+
+    with socket.create_connection(("127.0.0.1", port), timeout=30) as s:
+        s.settimeout(30)
+        s.sendall(f"GET {path} HTTP/1.0\r\n\r\n".encode())
+        buf = bytearray()
+        while True:
+            chunk = s.recv(65536)
+            if not chunk:
+                break
+            buf += chunk
+    head, _, body = bytes(buf).partition(b"\r\n\r\n")
+    return int(head.split(None, 2)[1]), body
+
+
+def _metric(text, name):
+    for ln in text.splitlines():
+        if ln.startswith(name + " "):
+            return float(ln.rpartition(" ")[2])
+    return 0.0
+
+
+@pytest.mark.cuda
+def test_scrape_routes_on_a_card_ring_server(dev, stream_env, exact_f32,
+                                             monkeypatch):
+    """Phase 20 (a) at a small model: the serving port of a card-ring server
+    answers /metrics, whose hbm_place counters moved by exactly the calls'
+    landings, and /debug/history samples the ring's occupancy on a short
+    fine tier; the wrapped landings launched the kernels."""
+    import json
+
+    from tpurpc_torch.obs import tsdb
+
+    stream_env("TPU", TPURPC_HBM_RING_SIZE_KB="64",
+               TPURPC_TSDB_FINE_S="0.05")
+    if tsdb._instance is not None:
+        tsdb._instance.stop()
+    tsdb.postfork_reset()
+    infer = _small_model(dev)
+    rig = CallPlaneServer(lambda t: {"y": infer(t["x"])}, max_workers=4)
+    x = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        (4, 32, 32, 3)).astype(np.float32))   # 48 KiB: the 2nd wraps
+    try:
+        before = _scrape(rig.port, "/metrics")[1].decode()
+        launched = (rs_mod.launches, rw_mod.launches)
+        with Channel(f"127.0.0.1:{rig.port}") as ch:
+            outs = [TensorClient(ch).call("Classify", {"x": x}, timeout=60)
+                    for _ in range(4)]
+        launched = (rs_mod.launches - launched[0],
+                    rw_mod.launches - launched[1])
+        status, body = _scrape(rig.port, "/metrics")
+        after = body.decode()
+        time.sleep(0.5)
+        hist = json.loads(_scrape(
+            rig.port, "/debug/history?series=hbm_ring_occupancy_bytes"
+                      "&window_s=10")[1])
+    finally:
+        rig.server.stop()
+        tsdb.get().stop()
+        tsdb.postfork_reset()
+    assert status == 200
+    for name, want in (("tpurpc_hbm_place_bytes", 4 * x.numel() * 4),
+                       ("tpurpc_hbm_place_msgs", 4)):
+        assert _metric(after, name) - _metric(before, name) == want, name
+    assert hist["kind"] == "gauge" and len(hist["points"]) >= 5
+    assert min(launched) >= 1
+    for out in outs:
+        assert torch.equal(out["y"], outs[0]["y"])
+
+
+@pytest.mark.cuda
+def test_device_infer_trip_writes_and_diagnoses_a_bundle(
+        dev, stream_env, exact_f32, tmp_path, monkeypatch):
+    """Phase 20 (b) at a small model: a handler held in synchronized
+    forwards on the card past the watchdog's bar trips it at device-infer;
+    the armed bundle writer freezes the evidence, and the bundle's replay
+    ranks the cause the live route ranked."""
+    import json
+
+    from tpurpc_torch.obs import bundle, diagnose, watchdog
+
+    stream_env("TPU", TPURPC_HBM_RING_SIZE_KB="64",
+               TPURPC_BUNDLE_DIR=str(tmp_path))
+    infer = _small_model(dev)
+    x = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        (4, 32, 32, 3)).astype(np.float32))
+    xd = x.to(dev)
+
+    def slow(t):
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < 1.0:
+            infer(xd)
+            torch.cuda.synchronize(dev)
+        return {"y": infer(t["x"])}
+
+    wd = watchdog.get()
+    prev = (wd.min_stall_s, wd.sweep_s, wd.mult, wd.enabled)
+    wd.reset()
+    wd.min_stall_s, wd.sweep_s, wd.mult, wd.enabled = 0.3, 0.1, 1.0, True
+    rig = CallPlaneServer(slow, max_workers=4)
+    out, live = [], None
+    try:
+        assert bundle.enabled() and bundle.get().root == str(tmp_path)
+        with Channel(f"127.0.0.1:{rig.port}") as ch:
+            th = threading.Thread(target=lambda: out.append(TensorClient(
+                ch).call("Classify", {"x": x}, timeout=60)))
+            th.start()
+            deadline = time.monotonic() + 10
+            while live is None and time.monotonic() < deadline:
+                time.sleep(0.05)
+                if any(d["kind"] == "server" for d in wd.active()):
+                    live = json.loads(_scrape(rig.port, "/debug/diagnose")[1])
+            th.join(60)
+    finally:
+        rig.server.stop()
+        wd.min_stall_s, wd.sweep_s, wd.mult, wd.enabled = prev
+        bundle.disable()
+    assert len(out) == 1
+    assert live is not None and live["hypotheses"][0]["cause"] == \
+        "device-infer"
+    names = bundle.list_bundles(str(tmp_path))
+    assert len(names) == 1 and "-watchdog-" in names[0]
+    replay = diagnose.diagnose_bundle(str(tmp_path / names[0]))
+    assert replay["hypotheses"][0]["cause"] == "device-infer"

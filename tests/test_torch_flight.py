@@ -5,8 +5,8 @@ the pipelined deadline's counter and flight event, and a slow call's
 span tree at a sample rate of 0.
 
 The cases are ``tests/test_flight.py``'s but for the pair's stall edges
-(the transport's hooks, ROADMAP A4 (b)), the scrape routes (A4 (c)) and
-the lint rule (A12). Each scenario runs on both packages with the same
+(the transport's hooks, ROADMAP A4 (b)), the scrape routes (their twins
+are in ``tests/test_torch_scrape.py``) and the lint rule (A12). Each scenario runs on both packages with the same
 inputs and the observations must be equal; scenarios read only their own
 flight tags or a recorder of their own.
 """

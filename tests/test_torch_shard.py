@@ -8,10 +8,10 @@ killed shard's in-flight calls fail UNAVAILABLE (never hang) and its
 connections re-accept onto the survivor. Every worker build lives in
 ``tests/torch_shard_builds.py`` so that spawn can import it by name; a
 closure is refused (``test_closure_build_is_refused``, the divergence).
-``ready`` carries ``scrape_port: 0`` (no scrape server yet,
-``test_workers_report_identity_ring_size_and_zero_scrape_port``). The
-reference's three aggregated-telemetry cases wait for the port's
-observability.
+Each worker reports its loopback scrape listener's port in ``ready``
+(``test_workers_report_identity_ring_size_and_live_scrape_ports``); the
+reference's three aggregated-telemetry cases have their twins in
+``tests/test_torch_scrape.py``.
 
 Every fleet holds the cross-process launch lock of ``tests/torch_ranks.py``
 while it runs (so fleets and multi-rank launches take turns across xdist
@@ -22,6 +22,7 @@ every fleet is stopped in ``finally`` (``stop`` kills what does not exit).
 import contextlib
 import functools
 import json
+import socket
 import threading
 import time
 
@@ -95,6 +96,22 @@ def _who(port, timeout=CALL):
     return _call(port, "/t.S/Who", timeout=timeout).decode()
 
 
+def _http_get(port, path, timeout=10.0):
+    """One HTTP/1.0 GET on loopback: ``(status, body)``."""
+    with socket.create_connection(("127.0.0.1", port),
+                                  timeout=timeout) as s:
+        s.settimeout(timeout)
+        s.sendall(f"GET {path} HTTP/1.0\r\n\r\n".encode())
+        buf = bytearray()
+        while True:
+            chunk = s.recv(65536)
+            if not chunk:
+                break
+            buf += chunk
+    head, _, body = bytes(buf).partition(b"\r\n\r\n")
+    return int(head.split(None, 2)[1]), body
+
+
 def _stats(ch):
     return json.loads(bytes(ch.unary_unary(builds.STATS)(b"",
                                                          timeout=CALL)))
@@ -138,14 +155,20 @@ def test_handoff_round_robin_distribution(handoff_fleet):
 
 
 @pytest.mark.parametrize("listener", ["reuseport", "handoff"])
-def test_workers_report_identity_ring_size_and_zero_scrape_port(
+def test_workers_report_identity_ring_size_and_live_scrape_ports(
         listener, reuseport_fleet, handoff_fleet):
     """Each worker knows its shard id and count before its build runs,
     scaled its ring to the shard count (4096 KiB / 2), imported no JAX, and
-    holds the supervisor's peer map. Divergence: ``ready`` carries
-    ``scrape_port: 0`` until the scrape server is ported."""
+    holds the supervisor's peer map: each worker's own loopback scrape
+    port, non-zero, which answers ``/metrics`` with that worker's view."""
     sup = reuseport_fleet if listener == "reuseport" else handoff_fleet
-    assert sup.scrape_ports() == {0: 0, 1: 0}
+    ports = sup.scrape_ports()
+    assert sorted(ports) == [0, 1] and all(ports.values()), ports
+    assert ports[0] != ports[1]
+    for sid, sport in ports.items():
+        status, body = _http_get(sport, "/metrics?local=1")
+        assert status == 200 and b"# TYPE tpurpc_" in body
+        assert b"tpurpc_shard_up" not in body   # a worker's own view
     seen = {}
     for _ in range(32):
         with Channel(f"127.0.0.1:{sup.port}") as ch:
@@ -157,7 +180,7 @@ def test_workers_report_identity_ring_size_and_zero_scrape_port(
     for sid, st in seen.items():
         assert st["n_shards"] == 2 and st["jax"] is False
         assert st["ring_buffer_size_kb"] == "2048"
-        assert st["peers"] == {"0": 0, "1": 0}
+        assert st["peers"] == {str(k): v for k, v in ports.items()}
         assert st["pid"] == sup.worker_pid(sid)
     assert seen[0]["pid"] != seen[1]["pid"]
 

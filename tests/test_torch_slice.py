@@ -15,6 +15,7 @@ reference's own linter passes them.
 
 import glob
 import os
+import re
 import subprocess
 import sys
 
@@ -196,6 +197,14 @@ def test_host_mode_on_tcp(monkeypatch):
         torch_config.set_config(None)
 
 
+#: ``"tpurpc.<subpackage>`` or ``'tpurpc.<module>`` of the reference
+_REF_MODULE_IN_STRING = re.compile(
+    r"""["']tpurpc\.(?:%s)\b""" % "|".join(sorted(
+        os.path.splitext(name)[0]
+        for name in os.listdir(os.path.join(REPO, "tpurpc"))
+        if not name.startswith(("_", ".")))))
+
+
 def _port_files():
     return sorted(glob.glob(os.path.join(REPO, "tpurpc_torch", "**", "*.py"),
                             recursive=True))
@@ -203,7 +212,10 @@ def _port_files():
 
 def test_port_imports_nothing_of_jax_or_the_reference():
     """Neither the port's modules nor ``chip_smoke.py`` (its imports are
-    inside its functions, so its source is read too)."""
+    inside its functions, so its source is read too). No source names a
+    module of the reference in a string either (a ``sys.modules`` gate or a
+    lazy import by name would read the reference's planes whenever both
+    packages are loaded)."""
     code = ("import importlib, pkgutil, sys, tpurpc_torch, chip_smoke\n"
             "for m in pkgutil.walk_packages(tpurpc_torch.__path__, "
             "'tpurpc_torch.'):\n"
@@ -212,7 +224,8 @@ def test_port_imports_nothing_of_jax_or_the_reference():
             "             if k.split('.')[0] in ('jax', 'flax', 'tpurpc'))\n"
             "print(bad)\n"
             "print(sorted(k for k in sys.modules if k.startswith(\n"
-            "    ('tpurpc_torch.serving', 'tpurpc_torch.analysis'))))\n")
+            "    ('tpurpc_torch.serving', 'tpurpc_torch.analysis',\n"
+            "     'tpurpc_torch.tools'))))\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, cwd=REPO, timeout=120)
@@ -220,11 +233,14 @@ def test_port_imports_nothing_of_jax_or_the_reference():
     bad, walked = out.stdout.strip().splitlines()
     assert bad == "[]"
     # the walk reached the generation plane (its modules import the rest)
+    # and the command-line tools
     assert walked == str([
         "tpurpc_torch.analysis", "tpurpc_torch.analysis.locks",
         "tpurpc_torch.serving", "tpurpc_torch.serving.api",
         "tpurpc_torch.serving.disagg", "tpurpc_torch.serving.kv",
-        "tpurpc_torch.serving.scheduler"])
+        "tpurpc_torch.serving.scheduler", "tpurpc_torch.tools",
+        "tpurpc_torch.tools.bundle", "tpurpc_torch.tools.collector",
+        "tpurpc_torch.tools.diagnose"])
     for path in _port_files() + [os.path.join(REPO, "chip_smoke.py")]:
         with open(path, encoding="utf-8") as f:
             src = f.read()
@@ -232,6 +248,10 @@ def test_port_imports_nothing_of_jax_or_the_reference():
                     "import tpurpc.", "from tpurpc.", "from tpurpc import",
                     "import tpurpc\n"):
             assert bad not in src, (path, bad)
+        # a reference module's dotted name in a string (gRPC service names
+        # such as "tpurpc.Tensor" are wire names, not modules)
+        named = _REF_MODULE_IN_STRING.search(src)
+        assert named is None, (path, named and named.group(0))
 
 
 def test_reference_linter_passes_the_port():

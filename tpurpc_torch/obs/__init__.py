@@ -11,13 +11,18 @@
   calls; its rolling p99 feeds the admission gate and the load report.
 * :mod:`~tpurpc_torch.obs.profiler` and :mod:`~tpurpc_torch.obs.lens` —
   the stage-tagged sampling profiler and the per-hop byte waterfall.
+* :mod:`~tpurpc_torch.obs.tsdb`, :mod:`~tpurpc_torch.obs.slo`,
+  :mod:`~tpurpc_torch.obs.bundle` and :mod:`~tpurpc_torch.obs.diagnose` —
+  bounded metric history, SLO burn-rate alerting, automatic evidence
+  capture and the causal diagnosis engine.
+* :mod:`~tpurpc_torch.obs.scrape`, :mod:`~tpurpc_torch.obs.shard` and
+  :mod:`~tpurpc_torch.obs.collector` — the plain-HTTP routes every serving
+  port answers, their merge across shard workers, and the fleet
+  collector.
 
 Names, event codes, environment variables and defaults are the
-reference's, so both packages' readings compare. The call plane
-(``rpc/channel.py``, ``rpc/server.py``) carries the hooks; the other
-planes' hooks are ROADMAP A4 (b). Left out: ``scrape``, ``tsdb``,
-``slo``, ``collector``, ``bundle``, ``diagnose`` and ``shard`` (ROADMAP
-A4 (c)), ``odyssey`` (A4 (d)) and ``native_obs`` (A7 (b)).
+reference's, so both packages' readings compare. Left out: ``odyssey``
+(ROADMAP A4 (d)) and ``native_obs`` (A7 (b)).
 """
 
 from tpurpc_torch.obs import flight, lens, metrics, profiler, tracing  # noqa: F401

@@ -22,9 +22,10 @@ the ``hedge`` tag); intern once via :func:`tag_for`. Dump on ``SIGUSR2``
 (stderr), at exit (``TPURPC_FLIGHT_DUMP=<dir>``) or when the stall
 watchdog trips.
 
-Left out: the shard id on each record (the reference's ``obs/shard.py``,
-ROADMAP A4 (c)), the merge of the C core's shm ring (``obs/native_obs.py``,
-ROADMAP A7 (b)) and the live protocol verifier behind
+A shard worker's decoded records carry its shard id
+(:mod:`tpurpc_torch.obs.shard`). Left out: the merge of the C core's shm
+ring (``obs/native_obs.py``, ROADMAP A7 (b)) and the live protocol
+verifier behind
 ``TPURPC_VERIFY_PROTOCOL`` (``analysis/protocol.py``, ROADMAP A12).
 """
 
@@ -372,6 +373,11 @@ class FlightRecorder:
         the monotonic stamps; zeroed slots and torn/unknown records (a
         reader racing a wrap) are skipped — defensive by design."""
         out: List[dict] = []
+        # a worker's events carry its shard id, so merged replays
+        # (obs.shard.aggregate_flight) attribute every edge
+        from tpurpc_torch.obs import shard as _shard
+
+        sid = _shard.shard_id()
         buf = bytes(self._buf)  # one copy: decode from a stable image
         for off in range(0, len(buf), RECORD_BYTES):
             t_ns, code, tag, tid, a1, a2 = _REC.unpack_from(buf, off)
@@ -381,6 +387,8 @@ class FlightRecorder:
                    "event": EVENT_NAMES[code], "tag": tag,
                    "entity": tag_name(tag), "tid": tid,
                    "a1": a1, "a2": a2}
+            if sid >= 0:
+                rec["shard"] = sid
             out.append(rec)
         out.sort(key=lambda d: d["t_ns"])
         if limit is not None and len(out) > limit:

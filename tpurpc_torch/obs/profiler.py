@@ -15,8 +15,8 @@ Exports: per-stage sample shares (:func:`snapshot`), collapsed stacks
 (:func:`collapsed_text`), and a bounded ring of recent raw samples
 ``(t_ns, tid, stage)``. ``TPURPC_LENS=0`` keeps the sampler off.
 
-Left out: the shard id in :meth:`StageProfiler.snapshot` (the reference's
-``obs/shard.py``, which ROADMAP A4 (c) brings).
+A shard worker's :meth:`StageProfiler.snapshot` names its shard
+(:mod:`tpurpc_torch.obs.shard`).
 """
 
 from __future__ import annotations
@@ -261,6 +261,10 @@ class StageProfiler:
             "top_stacks": sorted(self._stacks.items(),
                                  key=lambda kv: -kv[1])[:top],
         }
+        from tpurpc_torch.obs import shard as _shard
+
+        if _shard.shard_id() >= 0:
+            out["shard"] = _shard.shard_id()
         if include_samples:
             self._refresh_names()
             out["recent"] = [{"t_ns": t, "tid": tid, "stage": s,

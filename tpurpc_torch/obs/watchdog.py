@@ -22,8 +22,8 @@ ends it. ``TPURPC_WATCHDOG=0`` disables everything.
 
 Left out: the stages diagnosed from the C core's evidence (the
 reference's ``obs/native_obs.py`` and its ``native`` flight lane, ROADMAP
-A7 (b); their names stay in :data:`STAGES`, append-only) and the shard id
-(``obs/shard.py``, ROADMAP A4 (c)).
+A7 (b); their names stay in :data:`STAGES`, append-only). A shard worker's
+snapshot names its shard (:mod:`tpurpc_torch.obs.shard`).
 """
 
 from __future__ import annotations
@@ -658,6 +658,12 @@ class StallWatchdog:
             "min_stall_s": self.min_stall_s,
             "enabled": self.enabled,
         }
+        # a shard worker's registry names its shard, so the aggregated
+        # /debug/stalls view attributes each diagnosis
+        from tpurpc_torch.obs import shard as _shard
+
+        if _shard.shard_id() >= 0:
+            out["shard"] = _shard.shard_id()
         return out
 
     def reset(self) -> None:

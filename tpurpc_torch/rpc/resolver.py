@@ -1,7 +1,8 @@
 """Name resolution and load-balancing policies for the client channel.
 
-A copy of ``tpurpc/rpc/resolver.py`` without the ``lb:least_loaded``
-flight events (observability is not ported yet). The ``xds`` scheme is
+A copy of ``tpurpc/rpc/resolver.py``, with ``least_loaded``'s flight events
+(``SUBCH_EJECT``/``SUBCH_REINSTATE`` under ``lb:least_loaded``). The
+``xds`` scheme is
 registered by ``tpurpc_torch/rpc/xds.py``, imported on the first ``xds:``
 target. The
 reference inherits these from gRPC's client_channel filter. Same target UX:
@@ -210,6 +211,11 @@ class LeastLoaded:
         self._reported = [False] * n
         self._fail_streak = [0] * n
         self._ejected_until = [0.0] * n
+        # interned once; emits below are pure-int (flight lint discipline)
+        from tpurpc_torch.obs import flight as _flight
+
+        self._flight = _flight
+        self._ftag = _flight.tag_for("lb:least_loaded")
 
     @staticmethod
     def parse_report(raw) -> "Optional[Tuple[float, float]]":
@@ -255,6 +261,7 @@ class LeastLoaded:
         median = peers[len(peers) // 2]
         if self._p99[idx] > max(1.0, median * self.slow_mult):
             self._ejected_until[idx] = now + self.ejection_s
+            self._flight.emit(self._flight.SUBCH_EJECT, self._ftag, idx, 1)
 
     def order(self) -> Sequence[int]:
         now = time.monotonic()
@@ -266,6 +273,8 @@ class LeastLoaded:
             for i in expired:
                 self._ejected_until[i] = 0.0
                 self._fail_streak[i] = 0
+                self._flight.emit(self._flight.SUBCH_REINSTATE,
+                                  self._ftag, i)
             ranked = sorted(
                 range(self._n),
                 key=lambda i: (1 if now < self._ejected_until[i] else 0,
@@ -286,6 +295,8 @@ class LeastLoaded:
                     and time.monotonic() >= self._ejected_until[idx]):
                 self._ejected_until[idx] = (time.monotonic()
                                             + self.ejection_s)
+                self._flight.emit(self._flight.SUBCH_EJECT,
+                                  self._ftag, idx, 0)
 
     def snapshot(self) -> dict:
         """Introspection/test seam: current EWMAs + ejection state."""

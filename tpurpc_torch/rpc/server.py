@@ -1,13 +1,15 @@
 """Server: listener → per-connection demux → handler dispatch on a pool.
 
 A trimmed copy of ``tpurpc/rpc/server.py`` (no native plane, which comes
-with the C core; no plain-HTTP scrape answer on the serving port, and no
-history or alerting planes started at ``start()``, which come with ROADMAP
-A4 (c)). One port serves both wire protocols: the
-first 8 bytes of a connection route the native framing's magic to
-:class:`_ServerConnection` and the HTTP/2 preface to
+with the C core). One port serves both wire protocols and the scrape
+plane: the first 8 bytes of a connection route the native framing's magic
+to :class:`_ServerConnection`, the HTTP/2 preface to
 ``tpurpc_torch/wire/grpc_h2.py``, so stock gRPC clients call the same
-handlers. It keeps the overload
+handlers, and a plain-HTTP ``GET``/``HEAD`` line to
+:func:`tpurpc_torch.obs.scrape.handle_http` (``/metrics``, ``/healthz``,
+``/debug/*``; ``TPURPC_SCRAPE=0`` turns it off). :meth:`Server.start`
+starts the tsdb sampler and any declared SLO objectives' evaluator and
+arms evidence capture under ``TPURPC_BUNDLE_DIR``. It keeps the overload
 :class:`AdmissionGate`, the server-wide :meth:`Server.drain` with its drain
 hooks and its health-service flip, and what a fleet needs: the per-response
 load report (:meth:`Server.set_load_provider`, :data:`LOAD_KEY`), listeners
@@ -1367,6 +1369,19 @@ class Server:
                          name="tpurpc-handoff").start()
 
     def start(self) -> "Server":
+        # the ring tsdb samples this process's registry from the moment it
+        # serves (idempotent; TPURPC_TSDB=0 off), declared SLO objectives
+        # start evaluating, and TPURPC_BUNDLE_DIR arms evidence capture
+        try:
+            from tpurpc_torch.obs import bundle as _obs_bundle
+            from tpurpc_torch.obs import slo as _obs_slo
+            from tpurpc_torch.obs import tsdb as _obs_tsdb
+
+            _obs_tsdb.ensure_started()
+            _obs_slo.ensure_started()
+            _obs_bundle.maybe_enable_from_env()
+        except Exception:
+            pass
         self._serving.set()
         return self
 
@@ -1379,7 +1394,9 @@ class Server:
     def _sniff_and_serve(self, endpoint: Endpoint) -> None:
         """The first 8 bytes decide: the native magic routes to
         :class:`_ServerConnection`, ``PRI * HT`` (the h2 connection
-        preface) to :class:`GrpcH2Connection`."""
+        preface) to :class:`GrpcH2Connection`, and ``GET ``/``HEAD `` to
+        the scrape plane, which serves one request on this thread and
+        closes."""
         first = bytearray(8)
         got = 0
         try:
@@ -1399,6 +1416,15 @@ class Server:
                 from tpurpc_torch.wire.grpc_h2 import GrpcH2Connection
 
                 conn = GrpcH2Connection(self, endpoint, preface_consumed=8)
+            elif (bytes(first[:4]) == b"GET "
+                  or bytes(first[:5]) == b"HEAD "):
+                from tpurpc_torch.obs import scrape as _scrape
+
+                if _scrape.scrape_enabled():
+                    _scrape.handle_http(endpoint, bytes(first))
+                else:
+                    endpoint.close()
+                return
             else:
                 trace_server.log("unknown protocol preface %r; dropping",
                                  bytes(first))

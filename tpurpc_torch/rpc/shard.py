@@ -21,21 +21,30 @@ survive a fork, and a process that has touched the card must start its
 workers fresh. So ``build`` crosses into the worker by pickle — it must be
 importable by its module and name (a module-level function, or a
 ``functools.partial`` of one); a closure is refused with a ``TypeError``.
-A spawned worker inherits no singleton, lock or thread, so of the
-reference's post-fork reset only two steps remain, both run before the
-worker first reads its config: the per-shard ring size and the shard's
-identity (:func:`shard_identity`).
+A spawned worker inherits no singleton, lock or thread (no registry,
+flight ring, watchdog, tsdb or SLO evaluator of the supervisor's), so of
+the reference's post-fork reset only two steps remain, both run before the
+worker first reads its config or builds: the per-shard ring size and the
+shard's identity (:func:`shard_identity`, and
+:func:`tpurpc_torch.obs.shard.set_identity`, which tags the worker's
+flight events, watchdog and profiler snapshots); no ``postfork_reset`` is
+needed.
 
 Ring sizing is per shard: unless the operator pins
 ``TPURPC_SHARD_RING_BUFFER_SIZE_KB``, each worker scales the configured
 ring size down by the shard count (floor 256 KiB) — N shards share the
 cache the one big ring used to own.
 
-The ``shard`` trace flag logs a shard's death and a connection no live
-worker took. Not here yet (observability, ROADMAP A4 (c)): the workers'
-scrape listeners (``ready`` carries ``scrape_port: 0``), the supervisor's
-aggregation over the peer map (``peers`` is broadcast, and each worker
-keeps it), and the shard flight events.
+Observability: after its build each worker starts a loopback scrape
+listener (:func:`tpurpc_torch.obs.scrape.start_http_server`, 127.0.0.1 on
+an ephemeral port) and reports its port in ``ready``; the supervisor
+broadcasts the ``{shard_id: scrape_port}`` map, which each worker installs
+with :func:`tpurpc_torch.obs.shard.set_peers`, so any worker answers
+``GET /metrics`` (flight, stalls, healthz, ...) on the serving port with
+the aggregated, shard-tagged view. Flight events: ``SHARD_START`` and
+``SHARD_EXIT`` in the worker, ``SHARD_DEATH`` and ``CONN_HANDOFF`` under
+the supervisor's ``shard-supervisor`` tag. The ``shard`` trace flag logs a
+shard's death and a connection no live worker took.
 """
 
 from __future__ import annotations
@@ -53,17 +62,19 @@ import time
 from typing import Callable, Dict, List, Optional, Tuple
 
 from tpurpc_torch.analysis.locks import make_lock
+from tpurpc_torch.obs import flight as _flight
+from tpurpc_torch.obs import shard as _obs_shard
 from tpurpc_torch.utils.trace import TraceFlag
 
 trace_shard = TraceFlag("shard")
+
+_SUP_TAG = _flight.tag_for("shard-supervisor")
 
 #: control-channel message cap (SOCK_SEQPACKET: one recv = one message)
 _CTRL_MSG_BYTES = 65536
 
 #: this process's (shard id, shard count); a worker sets it before build
 _identity: Tuple[int, int] = (0, 1)
-#: the supervisor's last peer map, as a worker received it
-_peers: Dict[int, int] = {}
 
 
 def shard_identity() -> Tuple[int, int]:
@@ -74,8 +85,8 @@ def shard_identity() -> Tuple[int, int]:
 
 def shard_peers() -> Dict[int, int]:
     """The live shards' scrape ports, as the supervisor last broadcast them
-    to this worker (every port is 0 until the scrape server is ported)."""
-    return dict(_peers)
+    to this worker."""
+    return _obs_shard.peers()
 
 
 # ---------------------------------------------------------------------------
@@ -97,6 +108,7 @@ def _worker_init(shard_id: int, n_shards: int) -> None:
             max(256, base // n_shards))
     _cfg.set_config(None)
     _identity = (shard_id, n_shards)
+    _obs_shard.set_identity(shard_id, n_shards)
 
 
 def _ctrl_send(ctrl: socket.socket, obj: dict) -> None:
@@ -116,11 +128,20 @@ def _worker_main(ctrl: socket.socket, shard_id: int, n_shards: int,
         bound = None
         if mode == "reuseport":
             bound = srv.add_insecure_port(f"{host}:{port}", reuseport=True)
+        from tpurpc_torch.obs import scrape as _scrape
+
+        http, scrape_port = _scrape.start_http_server()
     except Exception as exc:
         _ctrl_send(ctrl, {"fatal": repr(exc)})
         os._exit(1)
-    _ctrl_send(ctrl, {"ready": shard_id, "scrape_port": 0,
+    _flight.emit(_flight.SHARD_START, 0, shard_id, n_shards)
+    _ctrl_send(ctrl, {"ready": shard_id, "scrape_port": scrape_port,
                       "port": bound, "pid": os.getpid()})
+
+    def _exit() -> None:
+        _flight.emit(_flight.SHARD_EXIT, 0, shard_id)
+        http.server_close()   # the loopback scrape listener goes first
+        os._exit(0)
 
     def _load() -> int:
         n = srv.inflight_requests()
@@ -151,7 +172,7 @@ def _worker_main(ctrl: socket.socket, shard_id: int, n_shards: int,
         if not data:
             # supervisor died: a headless worker must not linger holding
             # the port — exit and let clients re-dial whatever replaces us
-            os._exit(0)
+            _exit()
         try:
             msg = json.loads(data)
         except ValueError:
@@ -167,8 +188,8 @@ def _worker_main(ctrl: socket.socket, shard_id: int, n_shards: int,
                     except OSError:
                         pass
         elif "peers" in msg:
-            _peers.clear()
-            _peers.update({int(k): int(v) for k, v in msg["peers"].items()})
+            _obs_shard.set_peers(
+                {int(k): int(v) for k, v in msg["peers"].items()})
         elif "drain" in msg:
             linger = float(msg["drain"])
 
@@ -185,7 +206,7 @@ def _worker_main(ctrl: socket.socket, shard_id: int, n_shards: int,
             except Exception:
                 pass
             _ctrl_send(ctrl, {"bye": shard_id})
-            os._exit(0)
+            _exit()
 
 
 # ---------------------------------------------------------------------------
@@ -376,16 +397,17 @@ class ShardedServer:
             # the shard's connections are gone (clients got UNAVAILABLE and
             # re-dial onto live shards — in reuseport mode the kernel
             # stopped routing to the closed socket the instant the process
-            # died); survivors get a peer map without it
-            trace_shard.log("shard %d died (status %d)", w.shard_id,
-                            w.proc.exitcode if w.proc.exitcode is not None
-                            else -1)
+            # died); its telemetry drops out: survivors get a peer map
+            # without it
+            status = w.proc.exitcode if w.proc.exitcode is not None else -1
+            _flight.emit(_flight.SHARD_DEATH, _SUP_TAG, w.shard_id, status)
+            trace_shard.log("shard %d died (status %d)", w.shard_id, status)
             self._broadcast_peers()
 
     # -- peer map -------------------------------------------------------------
 
     def scrape_ports(self) -> Dict[int, int]:
-        """Live shards' scrape ports (0 each: no scrape server yet)."""
+        """Live shards' loopback scrape ports."""
         with self._lock:
             return {w.shard_id: w.scrape_port for w in self._workers
                     if w.alive and w.scrape_port is not None}
@@ -431,6 +453,7 @@ class ShardedServer:
                 try:
                     socket.send_fds(w.ctrl, [b'{"handoff": 1}'],
                                     [sock.fileno()])
+                    _flight.emit(_flight.CONN_HANDOFF, _SUP_TAG, w.shard_id)
                     handed = True
                     break
                 except OSError:
