@@ -381,7 +381,36 @@ error:
    ``shard-start`` events; a ``FleetCollector`` polls both workers; when
    one worker is killed its series leave the aggregate and the collector
    marks it stale. Skipped under ``--kernels``;
-21. print the kernels line, the card's name and power limit, and last the
+21. the generation plane's observability, with ``ToyDecodeModel``'s state
+   on the card. (a) phase 8 (a)'s traffic, its clients alternating two
+   accounts sent as ``tpurpc-account``: ``/debug/seq`` on the serving port
+   gives each account the tokens its streams received and one sequence
+   per completed stream (sheds apart), and attributes at least 95 % of
+   the step time; ``gen_ttft_us`` counts one per stream and ``gen_itl_us``
+   tokens minus streams; every stream's flight edges run ``seq-submit ->
+   gen-join -> seq-first-token -> gen-retire``; ``/healthz?json=1``
+   carries the scheduler's ``gen`` line; the stage profiler, stopped
+   before, runs from ``Server.start`` and ``/debug/profile`` holds
+   ``decode_step`` samples. Then tokens/s in 8 alternating turns with
+   ``TPURPC_ODYSSEY=0`` and at the default (a reading, not a gate). (b) a
+   spawned ``tpurpc_torch.tools.odyssey_smoke --prefill`` child (its model
+   on the card) ships KV over block grants to two decode servers here;
+   one traced stream of 48 tokens from a 192-token prompt migrates after
+   its 6th token: every token equals ``reference_decode``; the journey
+   over decode A and the child has 2 clock-anchored lanes and
+   ``seq-ship``, ``seq-decode`` and ``seq-migrate`` spans of the one
+   trace id; the source ledger settles ``migrated`` with 1 migration and
+   16 bytes shipped per entry (handoff and hop), the target's ledger
+   ``retire`` with the hop's bytes; decode A's ``/healthz?json=1`` carries
+   its ``gen`` and ``kv`` lines. (c) one decode step of a full batch held
+   1.2 s in synchronized steps on the card: the watchdog names
+   ``decode-step`` and ``/debug/diagnose`` ranks it first; an ITL
+   objective (p99 under 100 ms for 50 % of the samples, phase 20 (b)'s
+   windows) goes ``ok -> pending -> firing`` and resolves after fast
+   rounds, read from the evaluator's transition history. Each part's
+   launches (expected 0) must equal what its device-ring landings give.
+   Skipped under ``--kernels``;
+22. print the kernels line, the card's name and power limit, and last the
    one-line result JSON.
 """
 
@@ -1991,11 +2020,18 @@ def _warm(model) -> None:
     model.step_paged([kv], model.prefill_paged([[1, 2]], [kv]))
 
 
-def _colocated(dev, card) -> dict:
+def _colocated(dev, card, accounts=None, inspect=None,
+               profile=True) -> dict:
     """Phase 8 (a): bench.py's _gen_bench posture with the step model on
     the card: GEN_CLIENTS closed-loop streaming clients, alternating
     interactive and batch, GEN_STREAMS streams each of GEN_TOKENS tokens
-    from seeded prompts; a shed client honors its pushback and retries."""
+    from seeded prompts; a shed client honors its pushback and retries.
+
+    Phase 21 (a) reuses it: client ``i`` sends ``accounts[i % n]`` as
+    ``tpurpc-account``, the returned ``by_account`` counts what each
+    account's streams received (its warm-up stream included), and
+    ``inspect(port, sched)`` runs after the traffic, before the server
+    stops."""
     import threading
 
     import numpy as np
@@ -2015,14 +2051,21 @@ def _colocated(dev, card) -> dict:
     lock = threading.Lock()
     stats = {"tokens": 0, "sheds": {"interactive": 0, "batch": 0},
              "ttft_ms": {"interactive": [], "batch": []}, "errors": []}
+    by_account = {a: {"tokens": 0, "streams": 0, "sheds": 0}
+                  for a in accounts or ()}
     start = threading.Barrier(GEN_CLIENTS + 1)
 
     def client(i, slo):
+        acct = accounts[i % len(accounts)] if accounts else None
+        mine = by_account.get(acct, {"tokens": 0, "streams": 0, "sheds": 0})
         try:
             with Channel(f"127.0.0.1:{port}") as ch:
-                gen = GenerationClient(ch)
+                gen = GenerationClient(ch, account=acct)
                 # dial outside the timed window, as bench.py's clients do
-                list(gen.generate([1], max_tokens=1, timeout=60))
+                warm = list(gen.generate([1], max_tokens=1, timeout=60))
+                with lock:
+                    mine["tokens"] += len(warm)
+                    mine["streams"] += 1
                 start.wait(60)
                 for prompt in work[i]:
                     while True:
@@ -2039,6 +2082,7 @@ def _colocated(dev, card) -> dict:
                                 raise
                             with lock:
                                 stats["sheds"][slo] += 1
+                                mine["sheds"] += 1
                             md = dict(exc.trailing_metadata() or ())
                             pb = int(md.get("tpurpc-pushback-ms", 25))
                             time.sleep(min(pb, 200) / 1e3)
@@ -2048,6 +2092,8 @@ def _colocated(dev, card) -> dict:
                         with lock:
                             stats["tokens"] += len(pairs)
                             stats["ttft_ms"][slo].append(ttft)
+                            mine["tokens"] += len(pairs)
+                            mine["streams"] += 1
                         break
         except BaseException as exc:  # noqa: BLE001 - reported below
             with lock:
@@ -2068,6 +2114,8 @@ def _colocated(dev, card) -> dict:
         wall = time.perf_counter() - t0
         steps = sched.steps - steps0
         rows = sched.rows_stepped - rows0
+        if inspect is not None and not any(t.is_alive() for t in threads):
+            inspect(port, sched)
     finally:
         srv.stop(grace=0)
         sched.close()
@@ -2083,7 +2131,7 @@ def _colocated(dev, card) -> dict:
     out = {"tokens_per_s": stats["tokens"] / wall,
            "ttft_p50": _pct(ttft, 0.5), "ttft_p99": _pct(ttft, 0.99),
            "sheds": dict(stats["sheds"]), "steps": steps,
-           "rows_per_step": rows / max(1, steps)}
+           "rows_per_step": rows / max(1, steps), "by_account": by_account}
     print(f"generation (a) colocated: {GEN_CLIENTS} clients x "
           f"{GEN_STREAMS} streams x {GEN_TOKENS} tokens, every stream "
           f"exact: {out['tokens_per_s']} tokens/s, TTFT p50 "
@@ -2093,8 +2141,10 @@ def _colocated(dev, card) -> dict:
           f"{steps} decode steps, {out['rows_per_step']} rows a step, "
           f"{model.prefills - prefills0} prefills, wall {wall} s ({card})",
           flush=True)
-    _profiled_step("opaque", ToyDecodeModel(device=dev), dev, card, False)
-    _profiled_step("paged", ToyDecodeModel(device=dev), dev, card, True)
+    if profile:
+        _profiled_step("opaque", ToyDecodeModel(device=dev), dev, card,
+                       False)
+        _profiled_step("paged", ToyDecodeModel(device=dev), dev, card, True)
     return out
 
 
@@ -7379,6 +7429,496 @@ def scrape_plane(dev, card, calls=SCRAPE_CALLS, turns=SCRAPE_TURNS,
     return res
 
 
+# -- phase 21 -----------------------------------------------------------------
+
+#: (a): the two accounts phase 8 (a)'s clients alternate, sent as
+#: ``tpurpc-account``; the throughput reading's alternating turns
+ODY_ACCOUNTS = ("tenant-a", "tenant-b")
+ODY_TURNS = 8
+ODY_PATTERN = ("0", "1", "1", "0")
+#: (b): the odyssey smoke's journey: a 192-token prompt, 48 tokens, the
+#: migration after the 6th; the decode servers' arenas
+ODY_PROMPT, ODY_TOKENS, ODY_MIG_AT = 192, 48, 6
+ODY_ACCOUNT = "tenant-journey"
+#: (c): each held decode step spends STALL_S in synchronized card work; the
+#: ITL objective (the bar far above a fast step, far below a held one) and
+#: its windows, phase 20 (b)'s; rounds of ODY_ROUND streams x ODY_ROUND_TOKENS
+ODY_ITL_MS, ODY_ITL_TARGET = 100.0, 50.0
+ODY_SLO = "phase21-itl"
+ODY_ROUND, ODY_ROUND_TOKENS = 8, 8
+ODY_WAIT_S = 30.0
+
+
+def _flight_tail(entity: str):
+    """A thread that copies every flight event of ``entity`` out of the
+    ring every 20 ms (the ring holds 4096 events; phase 8 (a)'s traffic
+    emits more); ``stop()`` returns them, oldest first."""
+    from tpurpc_torch.obs import flight
+
+    seen, got, done = set(), [], threading.Event()
+    since = [time.monotonic_ns()]
+
+    def poll():
+        for e in flight.snapshot(since_ns=since[0]):
+            key = (e["t_ns"], e["code"], e["tid"], e["a1"], e["a2"])
+            if e["entity"] == entity and key not in seen:
+                seen.add(key)
+                got.append(e)
+            # an event stamped just before one already read may land in
+            # the ring just after it: re-read the last 5 ms
+            since[0] = max(since[0], e["t_ns"] - 5_000_000)
+
+    def loop():
+        while not done.wait(0.02):
+            poll()
+
+    t = threading.Thread(target=loop, daemon=True, name="phase21-flight")
+    t.start()
+
+    def stop():
+        done.set()
+        t.join(10)
+        poll()
+        got.sort(key=lambda e: e["t_ns"])
+        return got
+    return stop
+
+
+def _journey_orders(events) -> dict:
+    """sid -> the order of its submit/join/first-token/retire/leave edges."""
+    keep = ("seq-submit", "gen-join", "seq-first-token", "gen-retire",
+            "gen-leave")
+    out = {}
+    for e in events:
+        if e["event"] in keep:
+            out.setdefault(e["a1"], []).append(e["event"])
+    return out
+
+
+def _hist_count(name: str) -> int:
+    from tpurpc_torch.obs import metrics
+
+    return metrics.histogram(name, kind="latency").snapshot()["count"]
+
+
+def _ody_colocated(dev, card) -> dict:
+    """(a): phase 8 (a)'s traffic over two accounts, read back through the
+    serving port; then tokens/s with the plane off and on."""
+    from tpurpc_torch.obs import odyssey, profiler
+
+    # the sampler starts with a server, not with a scrape: stop it here
+    profiler.stop()
+    profiler.get().reset()
+    odyssey.reset()
+    res = {}
+    stop_tail = _flight_tail("decode:Generate")
+    ttft0, itl0 = _hist_count("gen_ttft_us"), _hist_count("gen_itl_us")
+
+    def inspect(port, sched):
+        res["profiler_running"] = profiler.get().running()
+        res["seq"] = json.loads(_http(port, "/debug/seq")[2])
+        status, _h, body = _http(port, "/healthz?json=1")
+        res["healthz"] = (status, json.loads(body))
+        res["profile"] = json.loads(_http(port, "/debug/profile")[2])
+        res["ttft"] = _hist_count("gen_ttft_us") - ttft0
+        res["itl"] = _hist_count("gen_itl_us") - itl0
+
+    try:
+        run = _colocated(dev, card, accounts=ODY_ACCOUNTS, inspect=inspect,
+                         profile=False)
+    finally:
+        events = stop_tail()
+    check(res.get("profiler_running"), "odyssey (a): the stage profiler "
+          "was not running before its first scrape (Server.start)")
+    by = run["by_account"]
+    seq = res["seq"]
+    check(seq["enabled"], f"odyssey (a): /debug/seq {seq}")
+    streams = tokens = 0
+    for acct in ODY_ACCOUNTS:
+        got, want = seq["accounts"].get(acct), by[acct]
+        check(got is not None and got["tokens"] == want["tokens"]
+              and got["seqs"] - got["sheds"] == want["streams"]
+              and got["sheds"] <= want["sheds"] and got["failed"] == 0,
+              f"odyssey (a): account {acct}: /debug/seq {got}, the clients "
+              f"saw {want}")
+        streams += want["streams"]
+        tokens += want["tokens"]
+    check(seq["attributed_pct"] is not None and seq["attributed_pct"] >= 95,
+          f"odyssey (a): {seq['attributed_pct']} % of the step time "
+          "attributed")
+    check(res["ttft"] == streams and res["itl"] == tokens - streams,
+          f"odyssey (a): gen_ttft_us counted {res['ttft']} and gen_itl_us "
+          f"{res['itl']}; the streams were {streams} of {tokens} tokens")
+    orders = _journey_orders(events)
+    want_order = ["seq-submit", "gen-join", "seq-first-token", "gen-retire"]
+    bad = {sid: o for sid, o in orders.items() if o != want_order}
+    check(len(orders) == streams and not bad,
+          f"odyssey (a): {len(orders)} sequences in the flight ring for "
+          f"{streams} streams; out of order: {dict(list(bad.items())[:4])}")
+    status, hz = res["healthz"]
+    gen_lines = [ln for ln in hz["lines"] if ln.startswith("gen Generate:")]
+    check(status == 200 and len(gen_lines) == 1,
+          f"odyssey (a): /healthz?json=1 {status} {hz['lines']}")
+    stages = res["profile"]["stages"]
+    check(stages.get("decode_step", 0) > 0,
+          f"odyssey (a): /debug/profile stages {stages}")
+    out = {"streams": streams, "tokens": tokens,
+           "attributed_pct": seq["attributed_pct"],
+           "accounts": {a: seq["accounts"][a] for a in ODY_ACCOUNTS},
+           "decode_step_samples": stages["decode_step"],
+           "decode_step_pct": res["profile"]["stage_pct"]["decode_step"],
+           "itl": seq["itl"], "ttft_p99_rolling_us":
+               seq["ttft_p99_rolling_us"], "healthz": gen_lines[0]}
+    print(f"odyssey (a): {streams} streams of {tokens} tokens over accounts "
+          f"{list(ODY_ACCOUNTS)}; /debug/seq on the serving port rolls up "
+          f"{ {a: (out['accounts'][a]['seqs'], out['accounts'][a]['tokens'], out['accounts'][a]['step_us']) for a in ODY_ACCOUNTS} } "
+          f"(seqs, tokens, step us) and attributes {seq['attributed_pct']} "
+          f"% of {seq['step_us_total']} step us; gen_ttft_us +{res['ttft']}, "
+          f"gen_itl_us +{res['itl']}; ITL {seq['itl']}; every stream's "
+          f"flight edges submit -> join -> first token -> retire; healthz "
+          f"'{gen_lines[0]}'; the profiler (started by Server.start) holds "
+          f"{stages['decode_step']} decode_step samples "
+          f"({out['decode_step_pct']} % attributed) ({card})", flush=True)
+
+    # the plane's cost to the same traffic: TPURPC_ODYSSEY=0 against the
+    # default, alternating
+    saved = os.environ.get("TPURPC_ODYSSEY")
+    rates = {"0": [], "1": []}
+    try:
+        for i in range(ODY_TURNS):
+            side = ODY_PATTERN[i % len(ODY_PATTERN)]
+            _set_env({"TPURPC_ODYSSEY": "0" if side == "0" else None})
+            odyssey.configure()
+            check(odyssey.ACTIVE == (side == "1"),
+                  "odyssey (a): TPURPC_ODYSSEY did not switch the plane")
+            rates[side].append(_colocated(dev, card, accounts=ODY_ACCOUNTS,
+                                          profile=False)["tokens_per_s"])
+    finally:
+        _set_env({"TPURPC_ODYSSEY": saved})
+        odyssey.configure()
+    med = {k: _pct(v, 0.5) for k, v in rates.items()}
+    won = sum(on > off for on, off in zip(rates["1"], rates["0"]))
+    out.update(rates=rates, median_off=med["0"], median_on=med["1"])
+    print(f"odyssey (a): tokens/s in {ODY_TURNS} alternating turns: "
+          f"TPURPC_ODYSSEY=0 {rates['0']} (median {med['0']}), default "
+          f"{rates['1']} (median {med['1']}); the default faster in {won} "
+          f"of {len(rates['1'])} pairs ({card})", flush=True)
+    return out
+
+
+def _ody_journey(dev, card) -> dict:
+    """(b): one trace id from a spawned prefill child through decode A, a
+    live migration and decode B, all on the card."""
+    import numpy as np
+
+    from tpurpc_torch.obs import flight, odyssey, tracing
+    from tpurpc_torch.rpc.channel import Channel
+    from tpurpc_torch.serving import DisaggClient, migrate, serve_decode
+    from tpurpc_torch.tools.odyssey_smoke import spawn_prefill, stop_prefill
+    from tpurpc_torch.torchshim.generate import (ToyDecodeModel,
+                                                 reference_decode)
+
+    odyssey.reset()
+    tracing.force(True)
+    t0 = time.monotonic_ns()
+    decodes = [serve_decode(ToyDecodeModel(device=dev, step_delay_s=0.01),
+                            kv_blocks=96, block_bytes=512, kv_kind="shm",
+                            name=name) for name in ("odyA", "odyB")]
+    (a_srv, a_port, a_sched, a_state), (_b, b_port, b_sched, b_state) = \
+        decodes
+    a_addr, b_addr = f"127.0.0.1:{a_port}", f"127.0.0.1:{b_port}"
+    b_ch = Channel(b_addr)
+    child = p_ch = cli = None
+    try:
+        child, p_port, p_dev = spawn_prefill(a_addr)
+        check(p_dev.startswith(dev.type), f"odyssey (b): the prefill child "
+              f"runs on {p_dev}, not {dev}")
+        p_ch = Channel(f"127.0.0.1:{p_port}")
+        cli = DisaggClient(p_ch, a_addr, account=ODY_ACCOUNT)
+        prompt = np.arange(ODY_PROMPT, dtype=np.int32) % 97
+        ctx = tracing.TraceContext(int.from_bytes(os.urandom(8), "big"), 1)
+        pairs = []
+        with tracing.use(ctx):
+            it = cli.generate_with_meta(prompt, max_tokens=ODY_TOKENS,
+                                        timeout=60)
+            for _ in range(ODY_MIG_AT):
+                pairs.append(next(it))
+            moved = migrate(a_state, b_ch, b_addr)
+            pairs.extend(it)
+        check(moved == (1, 0), f"odyssey (b): migrate gave {moved}")
+        _check_stream("odyssey (b)", pairs, [int(t) for t in prompt],
+                      ODY_TOKENS)
+        status, _h, body = _http(a_port, "/healthz?json=1")
+        hz = json.loads(body)
+        lines = [ln for ln in hz["lines"]
+                 if ln.startswith(("gen odyA:", "kv odyA:"))]
+        check(status == 200 and len(lines) == 2,
+              f"odyssey (b): /healthz?json=1 on decode A {status} "
+              f"{hz['lines']}")
+        doc = odyssey.journey([a_addr, f"127.0.0.1:{p_port}"], ctx.trace_id)
+        doc = json.loads(json.dumps(doc))
+        meta = doc["otherData"]
+        spans = [e for e in doc["traceEvents"] if e.get("ph") == "X"]
+        tid = f"{ctx.trace_id:016x}"
+        names = {e["name"] for e in spans}
+        lanes = {e["pid"] for e in spans}
+        check(meta["lanes"] >= 2 and not meta["unanchored"]
+              and len(lanes) >= 2
+              and {"seq-ship", "seq-decode", "seq-migrate"} <= names
+              and all(e["args"]["trace_id"] == tid for e in spans),
+              f"odyssey (b): journey {meta}, spans {sorted(names)} in "
+              f"{len(lanes)} lanes")
+        deadline = time.monotonic() + ODY_WAIT_S
+        while time.monotonic() < deadline:
+            seq = odyssey.seq_doc({"account": ODY_ACCOUNT})
+            if len(seq["recent"]) >= 2 and not seq["live"]:
+                break
+            time.sleep(0.01)
+        rows = {r["outcome"]: r for r in seq["recent"]}
+        mig = [e for e in flight.snapshot(since_ns=t0)
+               if e["entity"] == "disagg:odyA"
+               and e["event"] == "migration-begin"]
+        check(len(mig) == 1, f"odyssey (b): {len(mig)} migration-begin "
+              "edges on decode A")
+        entries = mig[0]["a2"]
+        src, dst = rows.get("migrated"), rows.get("retire")
+        check(src is not None and dst is not None
+              and src["migrations"] == 1 and dst["migrations"] == 0
+              and src["shipped_bytes"] == 16 * (ODY_PROMPT + 1 + entries)
+              and dst["shipped_bytes"] == 16 * entries
+              and src["tokens"] + dst["tokens"] == ODY_TOKENS - 1
+              and src.get("trace_id") == dst.get("trace_id") == tid,
+              f"odyssey (b): ledgers {rows}, the hop moved {entries} "
+              "entries")
+    finally:
+        for c in (cli, p_ch):
+            if c is not None:
+                c.close()
+        if child is not None:
+            stop_prefill(child)
+        tracing.force(None)
+        for srv, _p, sched, state in decodes:
+            srv.stop(grace=0)
+            sched.close()
+            state.close()
+            state.mgr.close()
+        b_ch.close()
+    out = {"lanes": meta["lanes"], "spans": sorted(names),
+           "entries": entries, "source": src, "target": dst}
+    print(f"odyssey (b): {ODY_TOKENS} tokens exact across the prefill child "
+          f"({p_dev}) -> decode A -> migration after {ODY_MIG_AT} -> decode "
+          f"B; one trace id in {meta['lanes']} anchored lanes with spans "
+          f"{sorted(names)}; the source ledger settled migrated: "
+          f"{src['shipped_bytes']} bytes shipped = 16 x ({ODY_PROMPT + 1} "
+          f"handoff + {entries} hop) entries, the target's "
+          f"{dst['shipped_bytes']} = 16 x {entries}; healthz {lines} "
+          f"({card})", flush=True)
+    return out
+
+
+def _ody_round(port, prompts, label):
+    """One round: a stream per prompt at once, each exact."""
+    from tpurpc_torch.rpc.channel import Channel
+    from tpurpc_torch.serving import GenerationClient
+
+    out, errs = {}, []
+
+    def go(i, prompt):
+        try:
+            with Channel(f"127.0.0.1:{port}") as ch:
+                out[i] = list(GenerationClient(ch).generate_with_meta(
+                    prompt, max_tokens=ODY_ROUND_TOKENS, timeout=60))
+        except BaseException as exc:  # noqa: BLE001 - reported below
+            errs.append(repr(exc))
+
+    threads = [threading.Thread(target=go, args=(i, p), daemon=True)
+               for i, p in enumerate(prompts)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+    check(not errs and len(out) == len(prompts), f"{label}: {errs}")
+    for i, p in enumerate(prompts):
+        _check_stream(label, out[i], p, ODY_ROUND_TOKENS)
+
+
+def _ody_stall(dev, card) -> dict:
+    """(c): one decode step held STALL_S in synchronized card work trips
+    the watchdog at ``decode-step`` and fires an ITL objective, which fast
+    rounds resolve."""
+    import numpy as np
+    import torch
+
+    from tpurpc_torch.obs import odyssey, slo, watchdog
+    from tpurpc_torch.serving import serve_generation
+    from tpurpc_torch.torchshim.generate import ToyDecodeModel
+
+    class Held(ToyDecodeModel):
+        """Holds its next ``holds`` steps of ODY_ROUND rows, each STALL_S
+        of its own step over the batch's rows on the card, synchronized
+        (every stream of the held round then has one long gap). While
+        ``gather`` is set, the next prefill waits on it: the rest of a
+        round queues meanwhile and joins at one boundary."""
+
+        holds = 0
+        gather = None
+
+        def prefill(self, prompts):
+            gate, self.gather = self.gather, None
+            if gate is not None:
+                gate.wait(60)
+            return super().prefill(prompts)
+
+        def step(self, states, tokens):
+            if self.holds > 0 and len(tokens) >= ODY_ROUND:
+                self.holds -= 1
+                n, t0 = 0, time.perf_counter()
+                while time.perf_counter() - t0 < STALL_S:
+                    super().step(states, tokens)
+                    if dev.type == "cuda":
+                        torch.cuda.synchronize(dev)
+                    n += 1
+                self.reps.append(n)
+            return super().step(states, tokens)
+
+    _set_env({"TPURPC_TSDB": None, "TPURPC_TSDB_FINE_S": str(SCRAPE_FINE_S)})
+    _fresh_tsdb()
+    slo.reset()
+    odyssey.reset()
+    wd = watchdog.get()
+    wd.reset()
+    prev = (wd.min_stall_s, wd.sweep_s, wd.mult, wd.enabled)
+    wd.min_stall_s, wd.sweep_s, wd.mult, wd.enabled = 0.3, 0.1, 1.0, True
+    model = Held(device=dev)
+    model.reps = []
+    _warm(model)
+    srv, port, sched = serve_generation(model, max_batch=MAX_BATCH)
+    rng = np.random.default_rng(SEED + 210)
+    res = {}
+    try:
+        _ody_round(port, _gen_prompts(rng, ODY_ROUND, 2, 8),
+                   "odyssey (c) warm-up")
+        ev = slo.get()
+        ev.eval_s = SLO_EVAL_S
+        obj = slo.declare(ODY_SLO, itl_ms=ODY_ITL_MS,
+                          token_target_pct=ODY_ITL_TARGET,
+                          windows=SLO_WINDOWS)
+        st = obj.tracks["itl"]
+        time.sleep(2 * SLO_WINDOWS[0][1])  # a window of healthy samples
+        check(st.state == "ok", f"odyssey (c): {st.state} before the stall")
+        # one held step under a round of streams, all in its batch
+        gather = threading.Event()
+        model.holds, model.gather = 1, gather
+        held_err = []
+
+        def held_round():
+            try:
+                _ody_round(port, _gen_prompts(rng, ODY_ROUND, 2, 8),
+                           "odyssey (c) held round")
+            except BaseException as exc:  # noqa: BLE001 - checked below
+                held_err.append(repr(exc))
+
+        t = threading.Thread(target=held_round, daemon=True)
+        t.start()
+        deadline = time.monotonic() + 60
+        while sched.queue_depth() < ODY_ROUND - 1 \
+                and time.monotonic() < deadline:
+            time.sleep(0.005)
+        gather.set()
+        diag = None
+        deadline = time.monotonic() + 10
+        while diag is None and time.monotonic() < deadline:
+            time.sleep(0.05)
+            diag = next((d for d in wd.active() if d["kind"] == "server"
+                         and d["method"] == "/tpurpc.Generate/Generate"),
+                        None)
+        check(diag is not None and diag["stage"] == "decode-step",
+              f"odyssey (c): the held step's diagnosis {diag}")
+        live = json.loads(_http(port, "/debug/diagnose")[2])
+        t.join(120)
+        check(not t.is_alive() and not held_err,
+              f"odyssey (c): the held round {held_err or 'hung'}")
+        top = live["hypotheses"][0]["cause"] if live["hypotheses"] else None
+        check(top == "decode-step", f"odyssey (c): /debug/diagnose ranked "
+              f"{[(h['cause'], h['confidence']) for h in live['hypotheses']]}")
+        p99_held = odyssey.itl_p99_us()
+        deadline = time.monotonic() + ODY_WAIT_S
+        while st.state != "firing" and time.monotonic() < deadline:
+            time.sleep(0.05)
+        check(st.state == "firing", f"odyssey (c): the ITL objective is "
+              f"{st.state} {ODY_WAIT_S} s after the held step (rolling ITL "
+              f"p99 {p99_held} us)")
+        rounds = 0
+        deadline = time.monotonic() + 2 * ODY_WAIT_S
+        while st.state != "ok" and time.monotonic() < deadline:
+            _ody_round(port, _gen_prompts(rng, ODY_ROUND, 2, 8),
+                       f"odyssey (c) recovery round {rounds}")
+            rounds += 1
+        check(st.state == "ok", f"odyssey (c): the ITL objective is "
+              f"{st.state} after {rounds} fast rounds")
+        seen = [(h["from"], h["to"]) for h in ev.doc()["history"]
+                if h["objective"] == ODY_SLO]
+        fired = seen.index(("pending", "firing")) if (
+            "pending", "firing") in seen else -1
+        check(fired > 0 and ("ok", "pending") in seen[:fired]
+              and ("firing", "ok") in seen[fired:],
+              f"odyssey (c): the objective went {seen}")
+        res = {"stage": diag["stage"], "top": top,
+               "confidence": live["hypotheses"][0]["confidence"],
+               "reps": list(model.reps), "p99_held_us": p99_held,
+               "states": seen, "rounds": rounds,
+               "p99_after_us": odyssey.itl_p99_us()}
+    finally:
+        wd.min_stall_s, wd.sweep_s, wd.mult, wd.enabled = prev
+        slo.reset()
+        srv.stop(grace=0)
+        sched.close()
+        _set_env({"TPURPC_TSDB_FINE_S": None})
+        _fresh_tsdb()
+    print(f"odyssey (c): one decode step held {STALL_S} s "
+          f"({res['reps']} synchronized steps of the batch on the card) "
+          f"tripped the watchdog at {res['stage']}; /debug/diagnose ranks "
+          f"{res['top']} first (confidence {res['confidence']}); the rolling "
+          f"ITL p99 read {res['p99_held_us']} us and the objective "
+          f"{ODY_SLO} (ITL p99 under {ODY_ITL_MS} ms for {ODY_ITL_TARGET} % "
+          f"of the samples, windows {SLO_WINDOWS}) went {res['states']}, "
+          f"resolved after {res['rounds']} rounds of {ODY_ROUND} x "
+          f"{ODY_ROUND_TOKENS} tokens (p99 {res['p99_after_us']} us) "
+          f"({card})", flush=True)
+    return res
+
+
+def odyssey_plane(dev, card) -> dict:
+    """Phase 21: the generation plane's observability on the card
+    (docstring of this file). Returns each part's readings and launches."""
+    from tpurpc_torch.obs import watchdog
+    from tpurpc_torch.ops import ring_scatter as rs_mod
+    from tpurpc_torch.ops import ring_window as rw_mod
+
+    t_phase = time.perf_counter()
+    res = {}
+    try:
+        for key, fn in (("a", _ody_colocated), ("b", _ody_journey),
+                        ("c", _ody_stall)):
+            t = time.perf_counter()
+            rs_mod.launches = rw_mod.launches = 0
+            with _Landings() as land:
+                res[key] = fn(dev, card)
+            res[key]["launches"] = {"ring_scatter": rs_mod.launches,
+                                    "ring_window": rw_mod.launches}
+            check(res[key]["launches"] == land.launches(),
+                  f"odyssey ({key}): launched {res[key]['launches']}, the "
+                  f"landings give {land.launches()}")
+            print(f"odyssey ({key}) took {time.perf_counter() - t} s; "
+                  f"launches {res[key]['launches']} ({len(land.recs)} "
+                  f"device-ring landings)", flush=True)
+    finally:
+        watchdog.get().stop()
+    print(f"odyssey: phase 21 took {time.perf_counter() - t_phase} s "
+          f"({card})", flush=True)
+    return res
+
+
 def card_line() -> str:
     """The card's name and power limit, as nvidia-smi reports them."""
     smi = subprocess.run(
@@ -7438,7 +7978,7 @@ def main() -> None:
         fleet_launches = h2_launches = cp_launches = tls_launches = None
         aio_launches = lb_launches = tp_launches = lc_launches = None
         pump_launches = obs_launches = hook_launches = None
-        scrape_launches = None
+        scrape_launches = ody_launches = None
     else:
         from tpurpc_torch.ops import ring_scatter as rs_mod
         from tpurpc_torch.ops import ring_window as rw_mod
@@ -7522,6 +8062,10 @@ def main() -> None:
         # phase 20: (a) and (b) as their landings' offsets give, (c) in the
         # fleet's worker processes (this process launches neither there)
         scrape_launches = scrape_plane(dev, card)
+        # phase 21 lands no payload in a device ring (token trees are
+        # framed, KV ships over block grants): its launches are counted
+        # per part all the same, against its landings
+        ody_launches = odyssey_plane(dev, card)
 
     sources = {"ring_scatter": "tpurpc/ops/ring_scatter.py:133",
                "ring_window": "tpurpc/ops/ring_window.py:138"}
@@ -7642,7 +8186,13 @@ def main() -> None:
             "scrape_launches": (None if scrape_launches is None else {
                 "a": scrape_launches["a"]["part_launches"][name],
                 "b": scrape_launches["b"]["part_launches"][name],
-                "c": scrape_launches["c"]["launches"][name]})})
+                "c": scrape_launches["c"]["launches"][name]}),
+            # phase 21, the generation plane's observability: (a) the
+            # colocated traffic and its turns, (b) the journey across the
+            # prefill child, (c) the held step and the ITL objective
+            "odyssey_launches": (None if ody_launches is None else {
+                part: ody_launches[part]["launches"][name]
+                for part in "abc"})})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     if kernels_only:

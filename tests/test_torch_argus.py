@@ -14,12 +14,6 @@ Flight streams and bundles of both packages are checked with the
 reference's protocol checker (``tpurpc.analysis.protocol``; the port's
 copy is ROADMAP A12): the event names and codes are the same.
 
-Left out on the port: the KV half of
-``test_healthz_json_shedding_and_kv_reasons`` (the KV arenas' health
-lines, ROADMAP A4 (d)). The port's decode scheduler has no
-``health_lines`` yet either (A4 (d)), so its half of that case gives the
-scheduler module a stand-in and checks the scrape plane's gate and reason.
-
 Every plane here is process-wide: each case resets both packages' flight
 rings and watchdogs (``clean_obs``), and afterwards stops and forgets both
 SLO evaluators and disarms both bundle writers. Environment variables
@@ -31,7 +25,6 @@ import os
 import threading
 import time
 import types
-import weakref
 
 import pytest
 
@@ -443,58 +436,31 @@ class _FakeKv:
                 "quarantined": 1, "prefix_hits": 0}
 
 
-def test_healthz_json_shedding_and_kv_reasons(o, monkeypatch):
-    """The reference: its live decode scheduler and KV arena add the
-    ``shedding`` and ``kv-pressure`` reasons and their body lines, and
-    both clear. The port: its scheduler module gets the reference's
-    ``health_lines`` text as a stand-in (the port's own comes with ROADMAP
-    A4 (d), as do its KV arenas' lines, left out here), so the case checks
-    the scrape plane's gate on ``tpurpc_torch.serving.scheduler`` and the
-    ``shedding`` reason it derives."""
+def test_healthz_json_shedding_and_kv_reasons(o):
+    """Each package's live decode scheduler and KV arena (the modules' own
+    ``health_lines``, behind the scrape plane's ``sys.modules`` gates) add
+    the ``shedding`` and ``kv-pressure`` reasons and their body lines, and
+    both clear."""
     import sys
 
     fake_s = _FakeSched()
-    if o.pkg is REF:
-        sched_mod = mod(REF, "serving.scheduler")
-        kv_mod = mod(REF, "serving.kv")
-        fake_k = _FakeKv()
-        sched_mod._LIVE.add(fake_s)
-        kv_mod._LIVE.add(fake_k)
-        try:
-            status, reasons, doc = _health_reasons(o)
-            assert "shedding" in reasons and "kv-pressure" in reasons
-            assert status == 200
-            assert any(ln.startswith("gen gen0:") for ln in doc["lines"])
-            assert any(ln.startswith("kv arena0:") for ln in doc["lines"])
-        finally:
-            sched_mod._LIVE.discard(fake_s)
-            kv_mod._LIVE.discard(fake_k)
-        _status, reasons, _doc = _health_reasons(o)
-        assert "shedding" not in reasons and "kv-pressure" not in reasons
-        assert sys.modules.get("tpurpc.serving.kv") is kv_mod
-        return
     sched_mod = mod(o.pkg, "serving.scheduler")
-    live = weakref.WeakSet()
-
-    def health_lines():
-        return sorted(
-            f"gen {s.name}: state={s.state_str()} "
-            f"running={s.running_depth()} waiting={s.queue_depth()} "
-            f"swapped={s.swapped_depth()} steps={s.steps} "
-            f"shed={s.shed_total} preempted={s.preempted_total}"
-            for s in list(live) if not s._closed)
-
-    monkeypatch.setattr(sched_mod, "health_lines", health_lines,
-                        raising=False)
-    live.add(fake_s)
+    kv_mod = mod(o.pkg, "serving.kv")
+    fake_k = _FakeKv()
+    sched_mod._LIVE.add(fake_s)
+    kv_mod._LIVE.add(fake_k)
     try:
         status, reasons, doc = _health_reasons(o)
-        assert "shedding" in reasons and status == 200
+        assert "shedding" in reasons and "kv-pressure" in reasons
+        assert status == 200
         assert any(ln.startswith("gen gen0:") for ln in doc["lines"])
+        assert any(ln.startswith("kv arena0:") for ln in doc["lines"])
     finally:
-        live.discard(fake_s)
+        sched_mod._LIVE.discard(fake_s)
+        kv_mod._LIVE.discard(fake_k)
     _status, reasons, _doc = _health_reasons(o)
-    assert "shedding" not in reasons
+    assert "shedding" not in reasons and "kv-pressure" not in reasons
+    assert sys.modules.get(kv_mod.__name__) is kv_mod
 
 
 # ---------------------------------------------------------------------------

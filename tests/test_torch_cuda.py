@@ -26,7 +26,9 @@ bit-equal to a reader-mode one, a pipelined window, a rendezvous landing
 whose sender pumped its own CLAIM), the pipelined drain migration
 between two card-ring servers run on the card, and the scrape plane of a
 card-ring server (``/metrics`` deltas of its landings, ``/debug/history``)
-with a device-infer trip that writes and diagnoses a bundle.
+with a device-infer trip that writes and diagnoses a bundle, and the
+generation plane's observability (``/debug/seq`` of a card scheduler, a
+decode step held on the card tripping the watchdog at decode-step).
 """
 
 import threading
@@ -1680,3 +1682,95 @@ def test_device_infer_trip_writes_and_diagnoses_a_bundle(
     assert len(names) == 1 and "-watchdog-" in names[0]
     replay = diagnose.diagnose_bundle(str(tmp_path / names[0]))
     assert replay["hypotheses"][0]["cause"] == "device-infer"
+
+
+@pytest.mark.cuda
+def test_debug_seq_of_a_card_scheduler(dev):
+    """Phase 21 (a) at a small size: a scheduler whose step model lives on
+    the card serves streams over two accounts; ``/debug/seq`` on its port
+    rolls each account up with the tokens its streams received, and
+    ``/healthz?json=1`` carries the scheduler's ``gen`` line."""
+    import json
+
+    from tpurpc_torch.obs import odyssey
+    from tpurpc_torch.serving import GenerationClient, serve_generation
+    from tpurpc_torch.torchshim.generate import (ToyDecodeModel,
+                                                 reference_decode)
+
+    odyssey.reset()
+    prompts = [[int(t) for t in np.random.default_rng(i).integers(0, 251, 9)]
+               for i in range(4)]
+    srv, port, sched = serve_generation(ToyDecodeModel(device=dev),
+                                        max_batch=4, name="cardSeq")
+    try:
+        with Channel(f"127.0.0.1:{port}") as ch:
+            toks = [list(GenerationClient(ch, name="cardSeq").generate(
+                p, max_tokens=12, account=("card-a", "card-b")[i % 2],
+                timeout=60)) for i, p in enumerate(prompts)]
+        seq = json.loads(_scrape(port, "/debug/seq")[1])
+        hz = json.loads(_scrape(port, "/healthz?json=1")[1])
+    finally:
+        srv.stop(grace=0)
+        sched.close()
+        odyssey.reset()
+    assert toks == [reference_decode(p, 12) for p in prompts]
+    for acct in ("card-a", "card-b"):
+        row = seq["accounts"][acct]
+        assert (row["seqs"], row["tokens"], row["sheds"]) == (2, 24, 0)
+    assert seq["attributed_pct"] >= 95
+    assert any(ln.startswith("gen cardSeq:") for ln in hz["lines"])
+
+
+@pytest.mark.cuda
+def test_decode_step_trip_on_a_card_scheduler(dev):
+    """Phase 21 (c) at a small size: a decode step held 1 s in synchronized
+    steps on the card trips the watchdog at decode-step, and
+    ``/debug/diagnose`` on the serving port ranks it first."""
+    import json
+
+    from tpurpc_torch.obs import watchdog
+    from tpurpc_torch.serving import GenerationClient, serve_generation
+    from tpurpc_torch.torchshim.generate import (ToyDecodeModel,
+                                                 reference_decode)
+
+    class Held(ToyDecodeModel):
+        holds = 1
+
+        def step(self, states, tokens):
+            if self.holds:
+                self.holds = 0
+                t0 = time.perf_counter()
+                while time.perf_counter() - t0 < 1.0:
+                    super().step(states, tokens)
+                    torch.cuda.synchronize(dev)
+            return super().step(states, tokens)
+
+    wd = watchdog.get()
+    prev = (wd.min_stall_s, wd.sweep_s, wd.mult, wd.enabled)
+    wd.reset()
+    wd.min_stall_s, wd.sweep_s, wd.mult, wd.enabled = 0.3, 0.1, 1.0, True
+    srv, port, sched = serve_generation(Held(device=dev), max_batch=4,
+                                        name="cardHeld")
+    out, diag, live = [], None, None
+    try:
+        with Channel(f"127.0.0.1:{port}") as ch:
+            th = threading.Thread(target=lambda: out.append(list(
+                GenerationClient(ch, name="cardHeld").generate(
+                    [3, 1, 4], max_tokens=6, timeout=60))))
+            th.start()
+            deadline = time.monotonic() + 10
+            while live is None and time.monotonic() < deadline:
+                time.sleep(0.05)
+                diag = next((d for d in wd.active()
+                             if d["kind"] == "server"), None)
+                if diag is not None:
+                    live = json.loads(_scrape(port, "/debug/diagnose")[1])
+            th.join(60)
+    finally:
+        srv.stop(grace=0)
+        sched.close()
+        wd.min_stall_s, wd.sweep_s, wd.mult, wd.enabled = prev
+        wd.reset()
+    assert out == [reference_decode([3, 1, 4], 6)]
+    assert diag is not None and diag["stage"] == "decode-step"
+    assert live["hypotheses"][0]["cause"] == "decode-step"

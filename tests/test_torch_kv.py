@@ -5,9 +5,9 @@ is involved, both ``ToyDecodeModel``s and schedulers) with the same seeded
 inputs, and the observations must be equal: lengths, entries, block
 counts, prefix hits, ``KvArenaFull``, truncate, swap, quarantine, the
 entries' bytes, and the ledger's deltas for block grants. The port's model
-runs on the CPU here. Left out with the reference's obs plane: the kv
-gauges, the ``/healthz`` kv lines and the watchdog's kv-swap/migration
-stages."""
+runs on the CPU here. The KV plane's observability (the kv gauges, the
+``/healthz`` kv lines and the watchdog's kv-swap/migration stages) has its
+twins in ``tests/test_torch_gen_obs.py``."""
 
 import threading
 from types import SimpleNamespace

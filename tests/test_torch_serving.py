@@ -7,9 +7,9 @@ equal, and the tokens equal ``reference_decode``. The port's model runs on
 the CPU. Batch composition is made deterministic without sleeps: a probe
 wraps the model, logs every call, and can park the next decode step until
 the test has queued what it needs (the batcher tests' ``_run_ordered``
-discipline). Every wait is bounded. Left out with the reference's obs plane:
-the watchdog's decode-step stage, ``/healthz`` gen lines and the load
-provider."""
+discipline). Every wait is bounded. The generation plane's observability
+(the watchdog's decode-step stage, ``/healthz`` gen lines, the load
+provider) has its twins in ``tests/test_torch_gen_obs.py``."""
 
 import importlib
 import threading

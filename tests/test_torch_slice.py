@@ -225,22 +225,23 @@ def test_port_imports_nothing_of_jax_or_the_reference():
             "print(bad)\n"
             "print(sorted(k for k in sys.modules if k.startswith(\n"
             "    ('tpurpc_torch.serving', 'tpurpc_torch.analysis',\n"
-            "     'tpurpc_torch.tools'))))\n")
+            "     'tpurpc_torch.tools', 'tpurpc_torch.obs.odyssey'))))\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, cwd=REPO, timeout=120)
     assert out.returncode == 0, out.stderr
     bad, walked = out.stdout.strip().splitlines()
     assert bad == "[]"
-    # the walk reached the generation plane (its modules import the rest)
-    # and the command-line tools
+    # the walk reached the generation plane (its modules import the rest),
+    # its observability and the command-line tools
     assert walked == str([
         "tpurpc_torch.analysis", "tpurpc_torch.analysis.locks",
+        "tpurpc_torch.obs.odyssey",
         "tpurpc_torch.serving", "tpurpc_torch.serving.api",
         "tpurpc_torch.serving.disagg", "tpurpc_torch.serving.kv",
         "tpurpc_torch.serving.scheduler", "tpurpc_torch.tools",
         "tpurpc_torch.tools.bundle", "tpurpc_torch.tools.collector",
-        "tpurpc_torch.tools.diagnose"])
+        "tpurpc_torch.tools.diagnose", "tpurpc_torch.tools.odyssey_smoke"])
     for path in _port_files() + [os.path.join(REPO, "chip_smoke.py")]:
         with open(path, encoding="utf-8") as f:
             src = f.read()

@@ -19,10 +19,13 @@
   :mod:`~tpurpc_torch.obs.collector` — the plain-HTTP routes every serving
   port answers, their merge across shard workers, and the fleet
   collector.
+* :mod:`~tpurpc_torch.obs.odyssey` — the generation plane's sequence
+  journeys, token latency and per-sequence cost ledgers (``/debug/seq``,
+  ``TPURPC_ODYSSEY``).
 
 Names, event codes, environment variables and defaults are the
-reference's, so both packages' readings compare. Left out: ``odyssey``
-(ROADMAP A4 (d)) and ``native_obs`` (A7 (b)).
+reference's, so both packages' readings compare. Left out, with its item:
+``native_obs``, the fold of the C core's counters (ROADMAP A7 (b)).
 """
 
 from tpurpc_torch.obs import flight, lens, metrics, profiler, tracing  # noqa: F401

@@ -3,7 +3,7 @@
 A copy of ``tpurpc/obs/collector.py``. The collector (``python -m
 tpurpc_torch.tools.collector``) polls every member's introspection routes
 (``/metrics``, ``/debug/slo``, ``/debug/flight``, ``/traces``,
-``/debug/diagnose``: the plain-HTTP plane ``curl`` and the shard fan-out
+``/debug/seq``, ``/debug/diagnose``: the plain-HTTP plane ``curl`` and the shard fan-out
 speak) and serves the merged views:
 
 * ``GET /fleet/metrics``: every member's Prometheus series with a
@@ -13,6 +13,8 @@ speak) and serves the merged views:
   ``tpurpc_member_stale{member}``;
 * ``GET /fleet/slo``: every member's ``/debug/slo`` plus a flat ``alerts``
   list, each alert tagged with its member;
+* ``GET /fleet/seq``: every member's ``/debug/seq`` merged, sequence rows
+  tagged with their member, account rollups summed across the fleet;
 * ``GET /fleet/diagnose``: every member's diagnosis merged, hypotheses
   re-combined by cause across members, a ``corroboration`` map and the
   ``degraded`` member list;
@@ -24,9 +26,8 @@ answers again resumes, and the reset clamp continues its counters.
 Targets are ``host:port`` or any resolver spec
 :func:`tpurpc_torch.rpc.resolver.resolve_target` understands.
 
-Left out, each with its item: ``/fleet/seq`` (the generation plane's
-ledgers, ROADMAP A4 (d)) and ``/fleet/timeline`` (``tools/timeline.py``,
-A12).
+Left out, with its item: ``/fleet/timeline`` (``tools/timeline.py``,
+ROADMAP A12).
 """
 
 from __future__ import annotations
@@ -71,7 +72,7 @@ def resolve_targets(specs: List[str]) -> List[str]:
 
 class _Member:
     __slots__ = ("target", "metrics_text", "slo", "flight", "anchor",
-                 "diagnose", "last_ok_mono", "polls", "misses",
+                 "seq", "diagnose", "last_ok_mono", "polls", "misses",
                  "resets_seen")
 
     def __init__(self, target: str):
@@ -80,6 +81,7 @@ class _Member:
         self.slo: Optional[dict] = None
         self.flight: Optional[dict] = None
         self.anchor: Optional[dict] = None
+        self.seq: Optional[dict] = None
         self.diagnose: Optional[dict] = None
         self.last_ok_mono = 0.0
         self.polls = 0
@@ -128,6 +130,7 @@ class FleetCollector:
             slo_raw = self._fetch(target, "/debug/slo")
             flight_raw = self._fetch(target, "/debug/flight")
             traces_raw = self._fetch(target, "/traces")
+            seq_raw = self._fetch(target, "/debug/seq")
             diag_raw = self._fetch(target, "/debug/diagnose")
             with self._lock:
                 m.misses = 0
@@ -135,6 +138,7 @@ class FleetCollector:
                 m.metrics_text = raw.decode("utf-8", "replace")
                 m.slo = _loads(slo_raw)
                 m.flight = _loads(flight_raw)
+                m.seq = _loads(seq_raw)
                 m.diagnose = _loads(diag_raw)
                 traces = _loads(traces_raw) or {}
                 m.anchor = (traces.get("clock_anchor")
@@ -281,6 +285,24 @@ class FleetCollector:
                 "firing": sum(1 for a in alerts
                               if a.get("state", "firing") == "firing")}
 
+    # -- /fleet/seq -----------------------------------------------------------
+
+    def merged_seq(self) -> dict:
+        """The fleet-wide sequence/account view: every UP member's
+        /debug/seq merged through the same pure merge the shard fan-out
+        uses: rows tagged ``member``, account rollups summed across the
+        fleet (a stale member's sequences vanish, never freeze)."""
+        from tpurpc_torch.obs.odyssey import merge_seq_docs
+
+        with self._lock:
+            snap = [(m.target, self.member_state(m), m.seq)
+                    for m in self._members.values()]
+        docs = {t: doc for t, state, doc in snap
+                if state == "up" and doc}
+        out = merge_seq_docs(docs, label="member")
+        out["members"] = {t: state for t, state, _d in snap}
+        return out
+
     # -- /fleet/diagnose -------------------------------------------------------
 
     def merged_diagnose(self) -> dict:
@@ -313,6 +335,9 @@ class FleetCollector:
         if route in ("/fleet/slo", "/fleet/slo/"):
             return (200, "application/json",
                     json.dumps(self.merged_slo(), indent=1).encode())
+        if route in ("/fleet/seq", "/fleet/seq/"):
+            return (200, "application/json",
+                    json.dumps(self.merged_seq(), indent=1).encode())
         if route in ("/fleet/diagnose", "/fleet/diagnose/"):
             return (200, "application/json",
                     json.dumps(self.merged_diagnose(), indent=1).encode())
@@ -321,7 +346,7 @@ class FleetCollector:
                    "poll_s": self.poll_s}
             return 200, "application/json", json.dumps(doc).encode()
         return (404, "text/plain",
-                b"tpurpc-collector: /fleet/metrics /fleet/slo "
+                b"tpurpc-collector: /fleet/metrics /fleet/slo /fleet/seq "
                 b"/fleet/diagnose /healthz\n")
 
     def serve(self, host: str = "127.0.0.1", port: int = 0) -> int:

@@ -26,9 +26,10 @@ Three layers, all pure reads:
   every bundle also carries the ``diagnosis.json`` written at trip time.
 
 ``TPURPC_DIAGNOSE=0`` turns the plane off. All six stock rules are
-registered; two read nothing yet: ``seq-ledger``'s planes gate on
-``tpurpc_torch.obs.odyssey`` (ROADMAP A4 (d)) and ``native-counters``' on
-``tpurpc_torch.obs.native_obs`` (A7 (b)).
+registered; ``seq-ledger`` reads the generation plane's ledgers
+(:mod:`tpurpc_torch.obs.odyssey`, through a ``sys.modules`` gate), and one
+reads nothing yet: ``native-counters``' planes gate on
+``tpurpc_torch.obs.native_obs`` (ROADMAP A7 (b)).
 """
 
 from __future__ import annotations

@@ -28,17 +28,22 @@ Routes::
     /debug/waterfall  the byte-flow waterfall (?text=1)
     /debug/history the tsdb (?series=NAME&window_s=S, bare = inventory)
     /debug/slo     the SLO objectives, burn rates and alert states
+    /debug/seq     per-sequence cost ledgers and the account rollup
+                   (?account=, ?n=)
     /debug/diagnose  ranked causal hypotheses (?symptom=, ?text=1)
 
 In a shard worker the aggregate-aware routes merge every live worker's
 view (:mod:`tpurpc_torch.obs.shard`); ``?local=1`` serves the worker alone.
 Every dispatch records its cost in the ``scrape_us`` histogram.
 
-Left out, each with its item: ``/debug/seq`` and the generation and KV
-health lines (ROADMAP A4 (d): the ``sys.modules`` gates name
-``tpurpc_torch.serving.scheduler`` and ``tpurpc_torch.serving.kv``, whose
-``health_lines`` it brings); the fold of the C core's counters into the
-registry before a render (``obs/native_obs.py``, A7 (b)).
+``/healthz`` carries one ``gen`` line per live decode scheduler and one
+``kv`` line per live KV arena (``health_lines`` of
+:mod:`tpurpc_torch.serving.scheduler` and :mod:`tpurpc_torch.serving.kv`,
+read through ``sys.modules`` gates, so a process without a generation
+plane keeps its old bodies).
+
+Left out, with its item: the fold of the C core's counters into the
+registry before a render (``obs/native_obs.py``, ROADMAP A7 (b)).
 """
 
 from __future__ import annotations
@@ -402,6 +407,15 @@ def route_local(path: str) -> Tuple[int, str, bytes]:
 
         return (200, "application/json",
                 json.dumps(_slo.slo_doc(), indent=1).encode())
+    if route in ("/debug/seq", "/debug/seq/"):
+        # per-sequence cost ledgers: live + recent-completed, account
+        # rollup, step-time attribution check (?account= filters, ?n=
+        # bounds the lists)
+        from tpurpc_torch.obs import odyssey as _odyssey
+
+        params = _query_params(query)
+        return (200, "application/json",
+                json.dumps(_odyssey.seq_doc(params), indent=1).encode())
     if route in ("/debug/diagnose", "/debug/diagnose/"):
         # ranked causal hypotheses for the
         # current symptom (?symptom= pins one; ?text=1 the prose face)
@@ -433,7 +447,7 @@ def route_local(path: str) -> Tuple[int, str, bytes]:
     return (404, "text/plain",
             b"tpurpc-scope: /metrics /traces /channelz /healthz "
             b"/debug/flight /debug/stalls /debug/profile /debug/waterfall "
-            b"/debug/history /debug/slo /debug/diagnose\n")
+            b"/debug/history /debug/slo /debug/seq /debug/diagnose\n")
 
 
 def _response(status: int, ctype: str, body: bytes,

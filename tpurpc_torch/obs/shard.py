@@ -5,7 +5,8 @@ A copy of ``tpurpc/obs/shard.py``. A sharded server
 each with its own metrics registry, flight ring and watchdog. This module
 makes one ``GET /metrics`` (or ``/traces``, ``/debug/flight``,
 ``/debug/stalls``, ``/debug/profile``, ``/debug/waterfall``,
-``/debug/slo``, ``/debug/history``, ``/debug/diagnose``, ``/healthz``) on
+``/debug/slo``, ``/debug/seq``, ``/debug/history``, ``/debug/diagnose``,
+``/healthz``) on
 the serving port tell the whole truth, whichever worker the accept spread
 handed the scrape to:
 
@@ -24,8 +25,7 @@ handed the scrape to:
 The hot path pays nothing: shard identity is two module ints, and the
 fan-out runs at scrape time on the thread serving the HTTP request. The
 port's workers start by spawn: :func:`set_identity` runs in the fresh
-worker before its build, and nothing is inherited to reset. Left out: the
-merged ``/debug/seq`` (the generation plane's ledgers, ROADMAP A4 (d)).
+worker before its build, and nothing is inherited to reset.
 """
 
 from __future__ import annotations
@@ -40,7 +40,7 @@ __all__ = [
     "sharded", "route_aggregate", "aggregate_metrics", "aggregate_flight",
     "aggregate_stalls", "aggregate_healthz", "aggregate_traces",
     "aggregate_profile", "aggregate_waterfall", "aggregate_slo",
-    "aggregate_history", "aggregate_diagnose",
+    "aggregate_history", "aggregate_seq", "aggregate_diagnose",
 ]
 
 # Counter-reset hardening. A shard worker that
@@ -399,6 +399,25 @@ def aggregate_slo() -> dict:
     return {"shards": shards, "firing": firing}
 
 
+def aggregate_seq() -> dict:
+    """Every reachable shard's /debug/seq merged: sequence rows tagged
+    ``shard``, account rollups and the step-time attribution totals
+    summed (the pure merge is
+    :func:`tpurpc_torch.obs.odyssey.merge_seq_docs`, shared with the fleet
+    collector's /fleet/seq)."""
+    from tpurpc_torch.obs import odyssey as _odyssey
+
+    docs: Dict[str, dict] = {}
+    for k, status, body in _each_shard("/debug/seq?local=1"):
+        if status != 200:
+            continue
+        try:
+            docs[str(k)] = json.loads(body)
+        except ValueError:
+            continue
+    return _odyssey.merge_seq_docs(docs, label="shard")
+
+
 def aggregate_diagnose(params: Optional[dict] = None) -> dict:
     """Every reachable shard's /debug/diagnose
     merged — hypotheses re-combined by cause across workers, evidence
@@ -528,6 +547,9 @@ def route_aggregate(route: str, params: dict
         if route in ("/debug/slo", "/debug/slo/"):
             return (200, "application/json",
                     json.dumps(aggregate_slo(), indent=1).encode())
+        if route in ("/debug/seq", "/debug/seq/"):
+            return (200, "application/json",
+                    json.dumps(aggregate_seq(), indent=1).encode())
         if route in ("/debug/history", "/debug/history/") \
                 and not params.get("series"):
             # a series drill-down (?series=) stays per-worker — points

@@ -12,7 +12,8 @@ flight codes and variables), evaluated in-process over
   job) and ``latency`` (the share of tsdb samples of a rolling quantile
   series, by default the watchdog's rolling p99, above ``latency_ms``).
   ``ttft``/``itl`` threshold the generation plane's rolling token
-  latencies, whose series ROADMAP A4 (d) brings.
+  latencies (``gen_ttft_p99_us{class}``/``gen_itl_p99_us{class}``, which
+  :mod:`tpurpc_torch.obs.odyssey` feeds the tsdb).
 * **Multi-window multi-burn-rate**: each objective evaluates
   ``(fast, slow, threshold)`` pairs, by default ``(TPURPC_SLO_FAST_S,
   TPURPC_SLO_SLOW_S, 14.4)`` and ``(5×fast, 5×slow, 6.0)``; an alert fires

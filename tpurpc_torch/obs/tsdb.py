@@ -31,10 +31,11 @@ gauge been pinned):
 the shard scrape merge and the fleet collector (a counter that went
 backwards means its process restarted: continue from last-known + delta).
 
-The reference's gate on its generation plane's rolling token-latency
-series names ``tpurpc_torch.obs.odyssey``, which ROADMAP A4 (d) brings
-(until then it finds nothing); the fold of the C core's counters before
-each tick (``obs/native_obs.py``) waits for A7 (b). Shard workers start by
+Each tick also samples the generation plane's rolling token-latency p99s
+(``gen_itl_p99_us{class}``, ``gen_ttft_p99_us{class}``) from
+:mod:`tpurpc_torch.obs.odyssey`, through a ``sys.modules`` gate; the fold
+of the C core's counters before each tick (``obs/native_obs.py``) waits
+for ROADMAP A7 (b). Shard workers start by
 spawn and inherit no store, so :func:`postfork_reset` is only the
 tests' fresh-instance reset.
 """

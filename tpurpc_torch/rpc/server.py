@@ -48,7 +48,8 @@ whose rolling p99 is the admission gate's default latency signal and the
 load report's p99; ``srv_call_us``, ``srv_calls{method,code}`` and
 ``srv_admission_rejected``; the flight events ``ADMIT_REJECT``, the inline
 path's ``DEADLINE_EXPIRED``, ``DRAIN_BEGIN`` and ``DRAIN_END``; the
-profiler's ``dispatch`` stage over the handler frames; the
+profiler's ``dispatch`` stage over the handler frames (``start()``
+starts the sampler, as it starts the tsdb and the SLO evaluator); the
 ``srv_handler`` profile span while ``TPURPC_PROFILING`` is on; and the
 ``server`` trace flag's log lines (``GRPC_TRACE=server``).
 """
@@ -1369,6 +1370,12 @@ class Server:
                          name="tpurpc-handoff").start()
 
     def start(self) -> "Server":
+        # continuous stage profiling starts with the server (idempotent;
+        # no-op under TPURPC_LENS=0)
+        try:
+            _obs_profiler.ensure_started()
+        except Exception:
+            pass
         # the ring tsdb samples this process's registry from the moment it
         # serves (idempotent; TPURPC_TSDB=0 off), declared SLO objectives
         # start evaluating, and TPURPC_BUNDLE_DIR arms evidence capture

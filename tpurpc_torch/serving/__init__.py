@@ -14,6 +14,12 @@
 
 The step model is :class:`tpurpc_torch.torchshim.generate.ToyDecodeModel`,
 whose state lives on the card.
+
+The three modules carry the reference's observability hooks: flight
+edges, metrics and fleet gauges, the profiler's ``decode_step`` and
+``kv_swap`` stages, ``/healthz`` lines, and the sequence journeys and cost
+ledgers of :mod:`tpurpc_torch.obs.odyssey` (``trace=``/``account=`` at
+submit, the ``tpurpc-account`` metadata key on the clients).
 """
 
 from tpurpc_torch.serving.api import (GEN_SERVICE, GenerationClient,

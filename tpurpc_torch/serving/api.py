@@ -1,14 +1,16 @@
 """Streaming generation over tpurpc_torch: the scheduler's transport face.
 
-A trimmed copy of ``tpurpc/serving/api.py`` (no trace contexts or
-accounting metadata); the server's load report carries the scheduler's
-``load_depth``. ``add_generation_method`` registers a
+A copy of ``tpurpc/serving/api.py``; the server's load report carries the
+scheduler's ``load_depth``. ``add_generation_method`` registers a
 server-streaming tensor method whose handler submits to the
 :class:`~tpurpc_torch.serving.scheduler.DecodeScheduler`, then forwards
 tokens from the sequence's queue to the RPC stream with bounded waits that
 interleave client-liveness checks: a client that cancels or dies makes the
 handler cancel the sequence, which the scheduler retires at the next step
-boundary.
+boundary. The sequence inherits the RPC's trace context and the caller's
+``tpurpc-account`` metadata at admission, where its journey and ledger
+start (:mod:`tpurpc_torch.obs.odyssey`); :class:`GenerationClient` sends
+that key when given an ``account``.
 
 Wire shapes (all int32), byte-equal to the reference's:
 
@@ -23,6 +25,8 @@ from typing import Iterator, Optional, Tuple
 
 import numpy as np
 
+from tpurpc_torch.obs import odyssey as _odyssey
+from tpurpc_torch.obs import tracing as _tracing
 from tpurpc_torch.rpc.server import (PUSHBACK_KEY, AdmissionGate, Server,
                                      unary_stream_rpc_method_handler)
 from tpurpc_torch.rpc.status import StatusCode
@@ -54,6 +58,17 @@ def _scalar(x) -> int:
     return int(arr if arr.ndim == 0 else arr.ravel()[0])
 
 
+def _account_from(ctx) -> Optional[str]:
+    """The caller's ``tpurpc-account`` metadata value, if it sent one."""
+    try:
+        for key, value in ctx.invocation_metadata():
+            if key == _odyssey.ACCOUNT_KEY:
+                return _odyssey.sanitize_account(value)
+    except Exception:
+        pass
+    return None
+
+
 def add_generation_method(server: Server, scheduler: DecodeScheduler,
                           name: str = "Generate") -> None:
     """Register ``/tpurpc.Generate/<name>`` streaming tokens from
@@ -67,8 +82,12 @@ def add_generation_method(server: Server, scheduler: DecodeScheduler,
         slo = _SLO_BY_CODE.get(_scalar(req.get("slo", 0)),
                                SLO_INTERACTIVE)
         try:
+            # the sequence inherits this RPC's trace context (the server
+            # installed it as ambient) and the caller's accounting
+            # identity: the journey and the ledger start here
             stream = scheduler.submit(prompt, max_tokens=max_tokens,
-                                      slo=slo)
+                                      slo=slo, trace=_tracing.current(),
+                                      account=_account_from(ctx))
         except ShedError as exc:
             ctx.set_trailing_metadata([(PUSHBACK_KEY,
                                         str(exc.pushback_ms))])
@@ -150,14 +169,19 @@ def serve_generation(model, address: str = "127.0.0.1:0", *,
 
 class GenerationClient:
     """Per-token streaming client of generation methods over a
-    :class:`~tpurpc_torch.rpc.channel.Channel`."""
+    :class:`~tpurpc_torch.rpc.channel.Channel`. ``account=`` (constructor
+    or per call) sends the ``tpurpc-account`` identity the server's
+    ledgers roll up under."""
 
-    def __init__(self, channel, name: str = "Generate"):
+    def __init__(self, channel, name: str = "Generate",
+                 account: Optional[str] = None):
         self._channel = channel
         self._name = name
+        self._account = account
 
     def call(self, prompt, *, max_tokens: int = 32,
-             slo: str = SLO_INTERACTIVE, timeout: Optional[float] = None):
+             slo: str = SLO_INTERACTIVE, timeout: Optional[float] = None,
+             account: Optional[str] = None):
         """The raw streaming call: an iterator of response trees (a Call
         underneath: ``.cancel()`` it to leave mid-stream)."""
         mc = self._channel.unary_stream(
@@ -166,21 +190,25 @@ class GenerationClient:
         req = {"prompt": np.asarray(prompt, dtype=np.int32).reshape(-1),
                "max_tokens": np.int32(max_tokens),
                "slo": np.int32(_CODE_BY_SLO[slo])}
-        return mc(req, timeout=timeout)
+        acct = account if account is not None else self._account
+        md = [(_odyssey.ACCOUNT_KEY, acct)] if acct else None
+        return mc(req, timeout=timeout, metadata=md)
 
     def generate(self, prompt, *, max_tokens: int = 32,
                  slo: str = SLO_INTERACTIVE,
-                 timeout: Optional[float] = None) -> Iterator[int]:
+                 timeout: Optional[float] = None,
+                 account: Optional[str] = None) -> Iterator[int]:
         """Iterate generated token ids, in order, as they stream."""
         for item in self.call(prompt, max_tokens=max_tokens, slo=slo,
-                              timeout=timeout):
+                              timeout=timeout, account=account):
             yield _scalar(item["token"])
 
     def generate_with_meta(self, prompt, *, max_tokens: int = 32,
                            slo: str = SLO_INTERACTIVE,
-                           timeout: Optional[float] = None
+                           timeout: Optional[float] = None,
+                           account: Optional[str] = None
                            ) -> Iterator[Tuple[int, int]]:
         """Like :meth:`generate` but yields ``(index, token)``."""
         for item in self.call(prompt, max_tokens=max_tokens, slo=slo,
-                              timeout=timeout):
+                              timeout=timeout, account=account):
             yield (_scalar(item["index"]), _scalar(item["token"]))

@@ -1,7 +1,6 @@
 """Disaggregated prefill/decode serving over the KV plane.
 
-A trimmed copy of ``tpurpc/serving/disagg.py`` (no flight events, metrics,
-trace contexts or accounting). PREFILL servers fold prompts into KV
+A copy of ``tpurpc/serving/disagg.py``. PREFILL servers fold prompts into KV
 entries and ship the blocks to DECODE servers, where the
 :class:`~tpurpc_torch.serving.scheduler.DecodeScheduler` steps them. The
 blocks move over the rendezvous plane's block grants
@@ -29,6 +28,18 @@ with UNAVAILABLE. A PENDING handoff whose sender vanished is reaped after
 ``pending_ttl_s`` and its blocks QUARANTINED (a straggling one-sided write
 must land in dead memory); a PARKED sequence nobody resumed is reaped and
 freed.
+
+Observability, under the reference's names: the sequence's trace context
+and accounting identity ride each ``OfferKv`` as fields (``trace``,
+``account``), so the decode side parks and adopts it under the same
+journey and ledger; the receiver records the ``seq-ship`` span (offer ->
+complete) and the ``KV_SHIP_OFFER``/``KV_SHIP_COMPLETE`` edges (tag
+``disagg:<name>``); :func:`migrate` brackets each sequence in
+``MIG_BEGIN``/``MIG_END`` (the watchdog's ``migration`` stage) and settles
+its source ledger (``seq_migrated`` or ``seq_done``); counters
+``kv_handoffs``, ``kv_handoff_bytes``, ``kv_migrations``,
+``kv_migrations_failed`` and ``kv_handoffs_reaped``. :class:`DisaggClient`
+sends its account as the ``tpurpc-account`` metadata key.
 """
 
 from __future__ import annotations
@@ -42,11 +53,15 @@ import numpy as np
 
 from tpurpc_torch.analysis.locks import make_lock
 from tpurpc_torch.core.rendezvous import BlockGrant, GrantWriter
+from tpurpc_torch.obs import flight as _flight
+from tpurpc_torch.obs import metrics as _metrics
+from tpurpc_torch.obs import odyssey as _odyssey
+from tpurpc_torch.obs import tracing as _tracing
 from tpurpc_torch.rpc.server import (PUSHBACK_KEY, Server,
                                      unary_stream_rpc_method_handler,
                                      unary_unary_rpc_method_handler)
 from tpurpc_torch.rpc.status import StatusCode
-from tpurpc_torch.serving.kv import HostKv, KvBlockManager
+from tpurpc_torch.serving.kv import ENTRY_BYTES, HostKv, KvBlockManager
 from tpurpc_torch.serving.scheduler import (SLO_INTERACTIVE,
                                             DecodeScheduler, DrainingError,
                                             ShedError, _SLO_CODE)
@@ -69,6 +84,12 @@ _POLL_S = 0.05
 #: chaos seam: ``wedge_before_complete`` (an Event) parks every shipper
 #: between its one-sided block writes and the COMPLETE until it fires
 TEST_HOOKS: Dict[str, object] = {}
+
+_HANDOFFS = _metrics.counter("kv_handoffs")
+_HANDOFF_BYTES = _metrics.counter("kv_handoff_bytes")
+_MIGRATIONS = _metrics.counter("kv_migrations")
+_MIG_FAILED = _metrics.counter("kv_migrations_failed")
+_REAPED = _metrics.counter("kv_handoffs_reaped")
 
 
 class SeqMigrated(Exception):
@@ -115,31 +136,42 @@ def _uu(behavior):
 
 
 class _Pending:
-    """A handoff between CLAIM and COMPLETE: expiry quarantines."""
+    """A handoff between CLAIM and COMPLETE: expiry quarantines.
+    ``trace``/``account`` are the sender's journey context and accounting
+    identity, carried in the OfferKv request."""
 
-    __slots__ = ("kv", "seq_key", "prompt", "deadline")
+    __slots__ = ("kv", "seq_key", "prompt", "deadline", "trace",
+                 "account", "t0_ns")
 
     def __init__(self, kv, seq_key: int, prompt: np.ndarray,
-                 deadline: float):
+                 deadline: float, trace=None, account: str = "anon"):
         self.kv = kv
         self.seq_key = seq_key
         self.prompt = prompt
         self.deadline = deadline
+        self.trace = trace
+        self.account = account
+        self.t0_ns = time.monotonic_ns()
 
 
 class _Parked:
     """A completed handoff awaiting its client's ResumeSeq: expiry
     frees."""
 
-    __slots__ = ("kv", "prompt", "last_token", "emitted", "deadline")
+    __slots__ = ("kv", "prompt", "last_token", "emitted", "deadline",
+                 "trace", "account", "nbytes")
 
     def __init__(self, kv, prompt: np.ndarray, last_token: int,
-                 emitted: int, deadline: float):
+                 emitted: int, deadline: float, trace=None,
+                 account: str = "anon", nbytes: int = 0):
         self.kv = kv
         self.prompt = prompt
         self.last_token = last_token
         self.emitted = emitted
         self.deadline = deadline
+        self.trace = trace
+        self.account = account
+        self.nbytes = nbytes
 
 
 class _ClosedError(Exception):
@@ -167,6 +199,7 @@ class DisaggDecode:
         self._parked: Dict[int, _Parked] = {}
         self._closed = False
         self._handoff_ids = itertools.count(1)
+        self._tag = _flight.tag_for(f"disagg:{sched.name}")
         self.handoffs_in = 0
         self.prefix_hits = 0
         self.quarantined_handoffs = 0
@@ -186,8 +219,10 @@ class DisaggDecode:
         for p in pend:
             nq += self.mgr.quarantine(p.kv)
             self.quarantined_handoffs += 1
+            _REAPED.inc()
         for p in parked:
             self.mgr.free_blocks(p.kv, cache_prefix=True)
+            _REAPED.inc()
         return nq, len(parked)
 
     def close(self) -> None:
@@ -230,12 +265,21 @@ class DisaggDecode:
             if hit:
                 resume_hash, _tok, resume_flags = kv.entry(hit - 1)
                 self.prefix_hits += 1
+            # the sender's journey context and account ride the offer;
+            # adopt() opens this process's tail buffer for the trace, so
+            # the decode side's spans join the same commit
+            tr = req.get("trace")
+            trace = _tracing.adopt(bytes(np.asarray(tr, np.uint8))) \
+                if tr is not None else _tracing.current()
+            account = _odyssey.sanitize_account(
+                _s(req["account"]) if "account" in req else None)
             with self._lock:
                 if self._closed:
                     raise _ClosedError()
                 self._pending[handoff] = _Pending(
                     kv, seq_key, prompt,
-                    time.monotonic() + self.pending_ttl_s)
+                    time.monotonic() + self.pending_ttl_s,
+                    trace=trace, account=account)
         except _ClosedError:
             self.mgr.free_blocks(kv)
             ctx.abort(StatusCode.UNAVAILABLE,
@@ -243,6 +287,8 @@ class DisaggDecode:
         except BaseException:
             self.mgr.free_blocks(kv)
             raise
+        nbytes = (n_tokens - hit) * ENTRY_BYTES
+        _flight.emit(_flight.KV_SHIP_OFFER, self._tag, handoff, nbytes)
         return {
             "ok": np.int32(1),
             "handoff": np.int64(handoff),
@@ -268,12 +314,14 @@ class DisaggDecode:
         except Exception as exc:
             self.mgr.quarantine(pend.kv)
             ctx.abort(StatusCode.INVALID_ARGUMENT, str(exc))
+        nbytes = n_tokens * ENTRY_BYTES
         with self._lock:
             parked_ok = not self._closed
             if parked_ok:
                 self._parked[pend.seq_key] = _Parked(
                     pend.kv, pend.prompt, last_token, emitted,
-                    time.monotonic() + self.parked_ttl_s)
+                    time.monotonic() + self.parked_ttl_s,
+                    trace=pend.trace, account=pend.account, nbytes=nbytes)
         if not parked_ok:
             # close() swept the registries after our pop: the bytes landed,
             # so free (not quarantine) and tell the sender
@@ -281,6 +329,16 @@ class DisaggDecode:
             ctx.abort(StatusCode.UNAVAILABLE,
                       "decode server closed: handoff not parked")
         self.handoffs_in += 1
+        _HANDOFFS.inc()
+        _HANDOFF_BYTES.inc(nbytes)
+        _flight.emit(_flight.KV_SHIP_COMPLETE, self._tag, handoff, nbytes)
+        # the journey's receive side of the ship, offer -> complete, under
+        # the sequence's own trace (the sender records its write side)
+        if pend.trace is not None:
+            now = time.monotonic_ns()
+            _tracing.record("seq-ship", pend.trace, pend.t0_ns,
+                            now - pend.t0_ns, handoff=handoff,
+                            nbytes=nbytes, account=pend.account)
         return {"ok": np.int32(1)}
 
     def on_release(self, req, ctx):
@@ -308,7 +366,9 @@ class DisaggDecode:
         try:
             stream = self.sched.submit_adopted(
                 parked.kv, parked.prompt, last_token=parked.last_token,
-                emitted=parked.emitted, max_tokens=max_tokens, slo=slo)
+                emitted=parked.emitted, max_tokens=max_tokens, slo=slo,
+                trace=parked.trace, account=parked.account,
+                shipped_bytes=parked.nbytes)
         except ShedError as exc:
             self.mgr.free_blocks(parked.kv, cache_prefix=True)
             ctx.set_trailing_metadata([(PUSHBACK_KEY,
@@ -375,6 +435,20 @@ def add_kv_methods(server: Server, state: DisaggDecode) -> None:
 # The shipper: one handoff over the grant plane (prefill AND migration).
 # ---------------------------------------------------------------------------
 
+def _offer_req(seq_key: int, prompt: np.ndarray, n_tokens: int, trace,
+               account: Optional[str]) -> dict:
+    """One OfferKv request. The sequence's journey context and accounting
+    identity cross the split IN the offer: call metadata would bind to the
+    RPC, and a burst carries a different sequence per request."""
+    req = {"seq_key": np.int64(seq_key), "prompt": prompt,
+           "n_tokens": np.int32(n_tokens)}
+    if trace is not None:
+        req["trace"] = _b(trace.encode())
+    if account:
+        req["account"] = _b(account)
+    return req
+
+
 class _KvShipper:
     """Sender-side handoff driver shared by the prefill server and the
     migration path: OfferKv -> one-sided block writes -> CompleteKv; a
@@ -419,10 +493,9 @@ class _KvShipper:
         return out
 
     def offer(self, seq_key: int, prompt: np.ndarray, n_tokens: int,
-              timeout: float):
-        resp = self._offer({"seq_key": np.int64(seq_key), "prompt": prompt,
-                            "n_tokens": np.int32(n_tokens)},
-                           timeout=timeout)
+              timeout: float, trace=None, account: Optional[str] = None):
+        resp = self._offer(_offer_req(seq_key, prompt, n_tokens, trace,
+                                      account), timeout=timeout)
         if not _scalar(resp["ok"]):
             raise MigrationFailed(
                 f"handoff refused: {_s(resp.get('reason', b''))}")
@@ -488,9 +561,22 @@ class DisaggPrefill:
             ctx.abort(StatusCode.INVALID_ARGUMENT, "empty prompt")
         seq_key = next(self._keys)
         n_tokens = int(prompt.size) + 1  # prompt entries + first sample
+        # this RPC's ambient trace and the caller's account ride the
+        # offer, so the decode side parks the sequence under the journey
+        # and identity the client started
+        trace = _tracing.current()
+        account = None
+        try:
+            for key, value in ctx.invocation_metadata():
+                if key == _odyssey.ACCOUNT_KEY:
+                    account = _odyssey.sanitize_account(value)
+                    break
+        except Exception:
+            pass
         try:
             grant, handoff, pos, rhash, rflags = self._shipper.offer(
-                seq_key, prompt, n_tokens, self.timeout_s)
+                seq_key, prompt, n_tokens, self.timeout_s,
+                trace=trace, account=account)
             host = HostKv(base_pos=pos, base_hash=rhash, base_flags=rflags)
             first = int(self.model.prefill_paged([prompt], [host])[0])
             payload = host.payload()
@@ -547,10 +633,14 @@ def migrate(state: DisaggDecode, peer_channel, peer_address: str,
 
     def fail_one(s, exc) -> None:
         nonlocal failed
+        sid = s.sid
+        _flight.emit(_flight.MIG_END, state._tag, sid, 0)
+        _MIG_FAILED.inc()
         # our blocks saw no foreign writer: free locally; the peer's TTL
         # reap quarantines ITS claimed blocks
         state.mgr.free_blocks(s.kv)
         s.kv = None
+        _odyssey.seq_done(s.led, "failed")
         s.q.put(MigrationFailed(str(exc)))
         failed += 1
 
@@ -561,19 +651,24 @@ def migrate(state: DisaggDecode, peer_channel, peer_address: str,
             if s is None:
                 continue
             if s.kv is None or s.cancelled:
+                _odyssey.seq_done(s.led, "failed")
                 s.q.put(MigrationFailed("sequence had no shippable KV"))
                 failed += 1
                 continue
+            n_entries = s.kv.length
+            _flight.emit(_flight.MIG_BEGIN, state._tag, sid, n_entries)
             seq_key = (int(time.monotonic_ns()) << 8 | (sid & 0xFF)) \
                 & 0x7FFFFFFFFFFFFFFF
-            live.append((s, s.kv.length, seq_key))
+            live.append((s, n_entries, seq_key, time.monotonic_ns()))
+        # each migrating sequence carries its own journey context and
+        # account across the hop
         resps = shipper._burst(
             shipper._offer,
-            [{"seq_key": np.int64(k), "prompt": s.prompt,
-              "n_tokens": np.int32(n)} for s, n, k in live],
+            [_offer_req(k, s.prompt, n, s.trace, s.account)
+             for s, n, k, _t0 in live],
             timeout_s) if live else []
-        pending = []  # (s, seq_key, CompleteKv request)
-        for (s, n_entries, seq_key), resp in zip(live, resps):
+        pending = []  # (s, seq_key, t0, shipped, CompleteKv request)
+        for (s, n_entries, seq_key, t0), resp in zip(live, resps):
             try:
                 if isinstance(resp, Exception):
                     raise resp
@@ -589,7 +684,8 @@ def migrate(state: DisaggDecode, peer_channel, peer_address: str,
             except Exception as exc:
                 fail_one(s, exc)
                 continue
-            pending.append((s, seq_key,
+            pending.append((s, seq_key, t0,
+                            (n_entries - pos) * ENTRY_BYTES,
                             {"handoff": np.int64(handoff),
                              "n_tokens": np.int32(n_entries),
                              "last_token": np.int32(s.last_token),
@@ -600,12 +696,19 @@ def migrate(state: DisaggDecode, peer_channel, peer_address: str,
         cresps = shipper._burst(shipper._complete,
                                 [req for *_x, req in pending],
                                 timeout_s) if pending else []
-        for (s, seq_key, _req), resp in zip(pending, cresps):
+        for (s, seq_key, t0, shipped, _req), resp in zip(pending, cresps):
             if isinstance(resp, Exception):
                 fail_one(s, resp)
                 continue
             state.mgr.free_blocks(s.kv, cache_prefix=True)
             s.kv = None
+            sid = s.sid
+            _flight.emit(_flight.MIG_END, state._tag, sid, 1)
+            _MIGRATIONS.inc()
+            # settle the source ledger: the migration count, the hop's
+            # bytes and the seq-migrate span (a migrated journey always
+            # commits its trace)
+            _odyssey.seq_migrated(s.led, shipped, t0)
             s.q.put(SeqMigrated(peer_address, seq_key, s.emitted))
             moved += 1
     finally:
@@ -690,17 +793,24 @@ class DisaggClient:
 
     def __init__(self, prefill_channel, decode_address: str,
                  channel_factory: Optional[Callable[[str], object]]
-                 = None):
+                 = None, account: Optional[str] = None):
         self._prefill = prefill_channel.unary_unary(
             _method("Prefill"), codec.tree_serializer,
             codec.tree_deserializer)
         self._decode_address = decode_address
+        #: the accounting identity, sent on every control RPC as the
+        #: ``tpurpc-account`` metadata key
+        self._account = account
         if channel_factory is None:
             from tpurpc_torch.rpc.channel import Channel
 
             channel_factory = Channel
         self._factory = channel_factory
         self._channels: Dict[str, object] = {}
+
+    def _md(self):
+        return [(_odyssey.ACCOUNT_KEY, self._account)] \
+            if self._account else None
 
     def _channel(self, address: str):
         ch = self._channels.get(address)
@@ -714,7 +824,8 @@ class DisaggClient:
         """Yield ``(index, token)`` pairs, indices 0..n-1 across prefill,
         decode and any number of migrations."""
         prompt = np.asarray(prompt, dtype=np.int32).reshape(-1)
-        resp = self._prefill({"prompt": prompt}, timeout=timeout)
+        resp = self._prefill({"prompt": prompt}, timeout=timeout,
+                             metadata=self._md())
         seq_key = _scalar(resp["seq_key"])
         address = _s(resp["decode_address"]) or self._decode_address
         yield 0, _scalar(resp["first_token"])
@@ -725,7 +836,8 @@ class DisaggClient:
                 codec.tree_deserializer)
             call = mc({"seq_key": np.int64(seq_key),
                        "max_tokens": np.int32(max_tokens),
-                       "slo": np.int32(_SLO_CODE[slo])}, timeout=timeout)
+                       "slo": np.int32(_SLO_CODE[slo])}, timeout=timeout,
+                      metadata=self._md())
             migrated = None
             for item in call:
                 if "migrated" in item:

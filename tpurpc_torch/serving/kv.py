@@ -1,7 +1,7 @@
 """The paged KV-cache plane: block arena, block tables, prefix reuse, swap.
 
-A trimmed copy of ``tpurpc/serving/kv.py`` (no flight events, metrics,
-profiler stages or ``/healthz`` lines):
+A copy of ``tpurpc/serving/kv.py`` (the same flight edges, metric names
+and ``/healthz`` lines):
 
 * :class:`KvBlockManager` — a block arena carved from ONE region allocated
   through the :class:`~tpurpc_torch.core.pair.MemoryDomain` seam (``local``
@@ -21,6 +21,17 @@ profiler stages or ``/healthz`` lines):
   :meth:`~KvBlockManager.swap_in`), byte-exact.
 * quarantine: blocks a dead peer's straggling one-sided write might still
   reach never return to the free list.
+
+Every alloc, free, prefix hit, swap and quarantine is a flight edge (tag
+``kv:<name>``: ``KV_ALLOC``, ``KV_FREE``, ``KV_PREFIX_HIT``,
+``KV_SWAP_BEGIN``/``END`` with the direction in ``a2``, ``KV_QUARANTINE``)
+at sequence-lifetime boundaries, never per token; the fleet gauges
+``kv_blocks_used``/``free``/``swapped``/``quarantined`` and the counters
+``kv_prefix_hits``, ``kv_prefix_hit_tokens``, ``kv_swaps`` and
+``kv_cow_copies`` read each arena. The stall watchdog reads an open
+``KV_SWAP_BEGIN`` as its ``kv-swap`` stage; swap traffic is the profiler's
+``kv_swap`` stage; :func:`health_lines` gives ``/healthz`` one ``kv`` line
+per live arena.
 """
 
 from __future__ import annotations
@@ -28,6 +39,7 @@ from __future__ import annotations
 import hashlib
 import os
 import struct
+import weakref
 from collections import OrderedDict
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
@@ -35,11 +47,24 @@ import numpy as np
 
 from tpurpc_torch.analysis.locks import make_lock
 from tpurpc_torch.core import pair as _pair
+from tpurpc_torch.obs import flight as _flight
+from tpurpc_torch.obs import metrics as _metrics
+from tpurpc_torch.obs import profiler as _profiler
 
 __all__ = [
     "KvBlockManager", "SeqKv", "HostKv", "KvArenaFull",
-    "ENTRY", "ENTRY_BYTES", "FLAG_POISONED",
+    "ENTRY", "ENTRY_BYTES", "FLAG_POISONED", "health_lines",
 ]
+
+#: swap traffic is the KV plane's CPU story: a preemption storm shows up as
+#: `kv_swap` time, not as unattributed serving work
+_LENS_STAGES = {
+    "swap_out": "kv_swap",
+    "swap_in": "kv_swap",
+    "alloc_for_prompt": "decode_step",
+    "free_blocks": "decode_step",
+}
+_profiler.register_stages(__file__, _LENS_STAGES)
 
 #: one KV entry: the model-visible record per token position
 ENTRY = struct.Struct("<QII")  # hash u64, token u32, flags u32
@@ -49,6 +74,20 @@ FLAG_POISONED = 1
 
 _ALIGN = 64
 _NONCE_BYTES = 16
+
+# -- gauges / counters (process-wide registry, weakly held fleet gauges) -----
+_USED_G = _metrics.fleet("kv_blocks_used", lambda m: m.used_count())
+_FREE_G = _metrics.fleet("kv_blocks_free", lambda m: m.free_count())
+_SWAPPED_G = _metrics.fleet("kv_blocks_swapped", lambda m: m.swapped_count())
+_QUAR_G = _metrics.fleet("kv_blocks_quarantined",
+                         lambda m: m.quarantined_count())
+_PREFIX_HITS = _metrics.counter("kv_prefix_hits")
+_PREFIX_HIT_TOKENS = _metrics.counter("kv_prefix_hit_tokens")
+_SWAPS = _metrics.counter("kv_swaps")
+_COW_COPIES = _metrics.counter("kv_cow_copies")
+
+#: live managers for the /healthz `kv` lines
+_LIVE: "weakref.WeakSet[KvBlockManager]" = weakref.WeakSet()
 
 
 class KvArenaFull(RuntimeError):
@@ -155,6 +194,7 @@ class SeqKv:
         self.mgr._decref(block)
         bt = self.mgr.block_tokens
         self.shared_len = min(self.shared_len, idx * bt)
+        _COW_COPIES.inc()
         return fresh[0]
 
     def chunks(self, start_entry: int, end_entry: int
@@ -270,7 +310,13 @@ class KvBlockManager:
         self.prefix_hits = 0
         self.swaps_out = 0
         self.swaps_in = 0
+        self._tag = _flight.tag_for(f"kv:{name}")
         self._closed = False
+        _USED_G.track(self)
+        _FREE_G.track(self)
+        _SWAPPED_G.track(self)
+        _QUAR_G.track(self)
+        _LIVE.add(self)
 
     # -- raw arena geometry (the grant path reads these) ----------------------
 
@@ -316,6 +362,8 @@ class KvBlockManager:
             out = [self._free.pop() for _ in range(n)]
             for b in out:
                 self._refs[b] = 1
+        nb = len(out)
+        _flight.emit(_flight.KV_ALLOC, self._tag, owner_key, nb)
         return out
 
     def alloc_for_prompt(self, seq_key: int, prompt,
@@ -344,6 +392,9 @@ class KvBlockManager:
             if hit:
                 kv.length = hit
                 kv.shared_len = hit
+                _PREFIX_HITS.inc()
+                _PREFIX_HIT_TOKENS.inc(hit)
+                _flight.emit(_flight.KV_PREFIX_HIT, self._tag, seq_key, hit)
         if reserve_entries:
             try:
                 kv.reserve(reserve_entries)
@@ -381,6 +432,7 @@ class KvBlockManager:
                           _PrefixEntry(span_blocks, kv.prefix_span, h,
                                        flags))
         blocks, kv.blocks = kv.blocks, []
+        n = len(blocks)
         kv.length = 0
         kv.shared_len = 0
         with self._lock:
@@ -390,12 +442,16 @@ class KvBlockManager:
                     self._refs[b] += 1
             for b in blocks:
                 self._decref_locked(b)
+        _flight.emit(_flight.KV_FREE, self._tag, kv.key, n)
 
     def free_blocks_raw(self, blocks: Sequence[int]) -> None:
         """Release raw block ids that no table owns yet."""
+        n = len(blocks)
         with self._lock:
             for b in blocks:
                 self._decref_locked(b)
+        if n:
+            _flight.emit(_flight.KV_FREE, self._tag, 0, n)
 
     def _decref(self, block: int) -> None:
         with self._lock:
@@ -435,7 +491,9 @@ class KvBlockManager:
         to the arena; :meth:`swap_in` restores it byte-exactly."""
         if kv.host is not None:
             return
+        key = kv.key
         n = len(kv.blocks)
+        _flight.emit(_flight.KV_SWAP_BEGIN, self._tag, key, 0)
         host = bytearray(kv.length * ENTRY_BYTES)
         for bi, view in kv.chunks(0, kv.length):
             lo = bi * self.block_bytes
@@ -446,17 +504,21 @@ class KvBlockManager:
         with self._lock:
             for b in blocks:
                 self._decref_locked(b)
-            self._swapped_blocks[kv.key] = n
+            self._swapped_blocks[key] = n
         self.swaps_out += 1
+        _SWAPS.inc()
+        _flight.emit(_flight.KV_SWAP_END, self._tag, key, 0)
 
     def swap_in(self, kv: SeqKv) -> None:
         """Restore a swapped table into fresh private blocks;
         :class:`KvArenaFull` when the arena cannot take it back."""
         if kv.host is None:
             return
+        key = kv.key
         bt = self.block_tokens
         need = (kv.length + bt - 1) // bt
-        blocks = self.alloc_blocks(kv.key, need)
+        _flight.emit(_flight.KV_SWAP_BEGIN, self._tag, key, 1)
+        blocks = self.alloc_blocks(key, need)
         try:
             host = kv.host
             for i, b in enumerate(blocks):
@@ -470,8 +532,9 @@ class KvBlockManager:
         kv.blocks = blocks
         kv.host = None
         with self._lock:
-            self._swapped_blocks.pop(kv.key, None)
+            self._swapped_blocks.pop(key, None)
         self.swaps_in += 1
+        _flight.emit(_flight.KV_SWAP_END, self._tag, key, 1)
 
     # -- quarantine (the death path) ------------------------------------------
 
@@ -496,6 +559,8 @@ class KvBlockManager:
                 self._refs.pop(b, None)
                 self._quarantined.append(b)
                 n += 1
+        if n:
+            _flight.emit(_flight.KV_QUARANTINE, self._tag, 0, n)
         return n
 
     # -- introspection --------------------------------------------------------
@@ -533,7 +598,25 @@ class KvBlockManager:
 
     def close(self) -> None:
         self._closed = True
+        _LIVE.discard(self)
         try:
             self._region.close()
         except Exception:
             pass
+
+
+def health_lines() -> List[str]:
+    """One ``kv`` line per live arena for /healthz: block occupancy and
+    swap pressure at a glance, without the metrics plane."""
+    out = []
+    for m in list(_LIVE):
+        try:
+            s = m.stats()
+            out.append(
+                f"kv {m.name}: used={s['used']}/{s['blocks']} "
+                f"free={s['free']} swapped={s['swapped_blocks']} "
+                f"quarantined={s['quarantined']} "
+                f"prefix_hits={s['prefix_hits']}")
+        except Exception:
+            continue
+    return sorted(out)

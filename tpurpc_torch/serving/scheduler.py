@@ -1,7 +1,7 @@
 """The continuous-batching decode scheduler.
 
-A trimmed copy of ``tpurpc/serving/scheduler.py`` (no flight events,
-metrics, odyssey ledgers, profiler stages, watchdog or ``/healthz`` lines).
+A copy of ``tpurpc/serving/scheduler.py`` (the same flight edges, metric
+names, ledgers and ``/healthz`` lines).
 
 :class:`DecodeScheduler` re-batches between decode steps. One loop thread
 owns the running batch and walks a two-phase cycle:
@@ -34,6 +34,24 @@ With ``kv=KvBlockManager`` and a model implementing the explicit-KV
 contract the scheduler runs paged: per-sequence block tables, prefix-cache
 prefill skips, preemption that swaps the victim's blocks to host, and
 :meth:`detach` / :meth:`submit_adopted` for the migration plane.
+
+Observability, under the reference's names: every sequence carries its
+originating RPC's trace context and an accounting identity (``trace=`` /
+``account=`` on ``submit`` and ``submit_adopted``), and the loop feeds the
+:mod:`tpurpc_torch.obs.odyssey` hooks at lifecycle edges (a ledger at
+submit, journey spans at join/preempt/swap/retire, the per-token ITL at the
+stream edge, per-step cost shares at step end), all behind the one
+``odyssey.ACTIVE`` gate. The flight edges ``SEQ_SUBMIT``, ``GEN_JOIN``,
+``SEQ_FIRST_TOKEN``, ``GEN_STEP_BEGIN``/``END``, ``GEN_PREEMPT``,
+``SEQ_DETACH``, ``GEN_LEAVE``, ``GEN_RETIRE`` and ``GEN_SHED`` (tag
+``decode:<name>``) stay on whatever the gate says; the stall watchdog reads
+an open ``GEN_STEP_BEGIN`` as its ``decode-step`` stage and the
+``decode_running``/``decode_waiting`` fleet gauges as its evidence. Per
+device step: ``decode_steps``, ``gen_tokens``, ``decode_step_us``,
+``decode_batch``; per sequence: ``gen_ttft_us``, ``gen_shed{slo}``,
+``gen_preempted``, ``gen_seq_failed``. The loop's functions are the
+profiler's ``decode_step`` stage, and :func:`health_lines` gives
+``/healthz`` one ``gen`` line per live scheduler.
 """
 
 from __future__ import annotations
@@ -42,6 +60,7 @@ import itertools
 import queue as _qmod
 import threading
 import time
+import weakref
 from collections import deque
 from typing import Callable, Dict, List, Optional
 
@@ -49,13 +68,46 @@ import numpy as np
 import torch
 
 from tpurpc_torch.analysis.locks import make_condition, make_event, make_lock
+from tpurpc_torch.obs import flight as _flight
+from tpurpc_torch.obs import metrics as _metrics
+from tpurpc_torch.obs import odyssey as _odyssey
+from tpurpc_torch.obs import profiler as _profiler
 
 __all__ = ["DecodeScheduler", "TokenStream", "ShedError", "DrainingError",
-           "SLO_INTERACTIVE", "SLO_BATCH"]
+           "SLO_INTERACTIVE", "SLO_BATCH", "health_lines"]
+
+#: everything the loop thread does (stacking, the batched model call,
+#: membership bookkeeping) is the profiler's `decode_step` stage
+_LENS_STAGES = {
+    "_step_loop": "decode_step",
+    "_boundary": "decode_step",
+    "_admit": "decode_step",
+    "_run_step": "decode_step",
+    "_prefill_batch": "decode_step",
+}
+_profiler.register_stages(__file__, _LENS_STAGES)
 
 SLO_INTERACTIVE = "interactive"
 SLO_BATCH = "batch"
 _SLO_CODE = {SLO_INTERACTIVE: 0, SLO_BATCH: 1}
+
+#: one counter bump / histogram record per DEVICE STEP (amortized over the
+#: batch); per-sequence records only at the join and retire edges
+_STEPS = _metrics.counter("decode_steps")
+_TOKENS = _metrics.counter("gen_tokens")
+_STEP_US = _metrics.histogram("decode_step_us", kind="latency")
+_STEP_BATCH = _metrics.histogram("decode_batch")
+_TTFT_US = _metrics.histogram("gen_ttft_us", kind="latency")
+_SHED = _metrics.labeled_counter("gen_shed", ("slo",))
+_PREEMPTS = _metrics.counter("gen_preempted")
+_SEQ_FAILED = _metrics.counter("gen_seq_failed")
+#: scrape-time truth for the watchdog and /healthz: live batch occupancy
+#: and queue depth, weakly held like every fleet gauge
+_RUNNING_G = _metrics.fleet("decode_running", lambda s: s.running_depth())
+_WAITING_G = _metrics.fleet("decode_waiting", lambda s: s.queue_depth())
+
+#: live schedulers for /healthz's `gen` lines
+_LIVE: "weakref.WeakSet[DecodeScheduler]" = weakref.WeakSet()
 
 
 class ShedError(RuntimeError):
@@ -80,10 +132,13 @@ class _Seq:
     """One generation request inside the scheduler. ``q`` is its only
     egress (tokens, _DONE or an exception); ``cancelled`` is the leave
     flag, honored at the next step boundary; ``kv`` is the paged block
-    table."""
+    table; ``trace``/``account``/``led`` are its journey context,
+    accounting identity and cost ledger."""
 
     __slots__ = ("sid", "prompt", "prompt_len", "max_tokens", "slo",
-                 "state", "last_token", "emitted", "q", "cancelled", "kv")
+                 "slo_code", "state", "last_token", "emitted", "q",
+                 "cancelled", "t_submit_ns", "t_first_ns", "kv", "trace",
+                 "account", "led")
 
     def __init__(self, sid: int, prompt: np.ndarray, max_tokens: int,
                  slo: str):
@@ -92,12 +147,18 @@ class _Seq:
         self.prompt_len = int(prompt.shape[0])
         self.max_tokens = max_tokens
         self.slo = slo
+        self.slo_code = _SLO_CODE[slo]
         self.state = None
         self.last_token = 0
         self.emitted = 0
         self.q: "_qmod.Queue" = _qmod.Queue()
         self.cancelled = False
+        self.t_submit_ns = time.monotonic_ns()
+        self.t_first_ns = 0
         self.kv = None
+        self.trace = None
+        self.account = _odyssey.DEFAULT_ACCOUNT
+        self.led = None
 
     def resumable(self) -> bool:
         """Prefilled already: admission is free."""
@@ -207,6 +268,11 @@ class DecodeScheduler:
         #: sid -> (event, box): migration threads asking for a sequence
         self._detach_req: Dict[int, tuple] = {}
         self._sids = itertools.count(1)
+        #: arena bytes per block (0 in opaque mode): the ledger's KV
+        #: byte-second integrand
+        self._kv_block_bytes = int(getattr(kv, "block_bytes", 0) or 0) \
+            if kv is not None else 0
+        self._tag = _flight.tag_for(f"decode:{name}")
         self._step_roll: "deque[float]" = deque(maxlen=64)  # step ms
         self._step_ewma_ms = 0.0
         self.steps = 0
@@ -215,6 +281,9 @@ class DecodeScheduler:
         self.shed_total = 0
         self.preempted_total = 0
         self.last_shed_ns = 0
+        _RUNNING_G.track(self)
+        _WAITING_G.track(self)
+        _LIVE.add(self)
         self._thread = threading.Thread(target=self._step_loop, daemon=True,
                                         name=f"tpurpc-decode-{name}")
         self._thread.start()
@@ -222,25 +291,33 @@ class DecodeScheduler:
     # -- submit side ----------------------------------------------------------
 
     def submit(self, prompt, *, max_tokens: int = 32,
-               slo: str = SLO_INTERACTIVE) -> TokenStream:
+               slo: str = SLO_INTERACTIVE, trace=None,
+               account: Optional[str] = None) -> TokenStream:
         """Queue one generation request; returns its :class:`TokenStream`.
         Raises :class:`ShedError`, :class:`DrainingError`, or
-        ``RuntimeError`` (closed)."""
+        ``RuntimeError`` (closed). ``trace``/``account`` are the
+        originating RPC's :class:`~tpurpc_torch.obs.tracing.TraceContext`
+        and accounting identity (the transport face passes the ambient
+        context and the ``tpurpc-account`` metadata key)."""
         if slo not in _SLO_CODE:
             raise ValueError(f"unknown slo class {slo!r} "
                              f"(want {sorted(_SLO_CODE)})")
         prompt = np.asarray(prompt, dtype=np.int32).reshape(-1)
         seq = _Seq(next(self._sids), prompt, max(1, int(max_tokens)), slo)
-        self._enqueue(seq, "new prefills are refused")
+        self._enqueue(seq, trace, account, "new prefills are refused")
         return TokenStream(seq, self)
 
     def submit_adopted(self, kv_handle, prompt, *, last_token: int,
                        emitted: int, max_tokens: int,
-                       slo: str = SLO_INTERACTIVE) -> TokenStream:
+                       slo: str = SLO_INTERACTIVE, trace=None,
+                       account: Optional[str] = None,
+                       shipped_bytes: int = 0) -> TokenStream:
         """Graft a sequence whose KV was computed elsewhere (a prefill
         handoff or an inbound migration): it joins as a free resume and its
         next token continues the stream where the sender left it. The
-        scheduler owns the table afterwards."""
+        scheduler owns the table afterwards. ``trace``/``account``/
+        ``shipped_bytes`` continue the sender's journey and ledger across
+        the process split."""
         if not self._paged:
             raise RuntimeError("submit_adopted needs a paged scheduler "
                                "(kv=)")
@@ -249,23 +326,47 @@ class DecodeScheduler:
         seq.kv = kv_handle
         seq.last_token = int(last_token)
         seq.emitted = int(emitted)
-        self._enqueue(seq, "adoption refused")
+        self._enqueue(seq, trace, account, "adoption refused",
+                      shipped_bytes=int(shipped_bytes), adopted=True)
         return TokenStream(seq, self)
 
-    def _enqueue(self, seq: _Seq, refused: str) -> None:
-        with self._lock:
-            if self._closed:
-                raise RuntimeError("scheduler closed")
-            if self._draining or (self._draining_fn is not None
-                                  and self._draining_fn()):
-                raise DrainingError(f"scheduler draining: {refused}")
-            reason, pushback = self._shed_decision_locked(seq.slo)
-            if reason is not None:
-                self.shed_total += 1
-                self.last_shed_ns = time.monotonic_ns()
-                raise ShedError(reason, pushback, seq.slo)
-            self._waiting.append(seq)
-            self._kick.notify_all()
+    def _enqueue(self, seq: _Seq, trace, account: Optional[str],
+                 refused: str, shipped_bytes: int = 0,
+                 adopted: bool = False) -> None:
+        seq.trace = trace
+        seq.account = _odyssey.sanitize_account(account)
+        if _odyssey.ACTIVE:
+            seq.led = _odyssey.seq_submit(
+                self.name, seq.sid, seq.account, seq.slo, trace,
+                seq.prompt_len, self._kv_block_bytes,
+                shipped_bytes=shipped_bytes, adopted=adopted)
+        try:
+            with self._lock:
+                if self._closed:
+                    raise RuntimeError("scheduler closed")
+                if self._draining or (self._draining_fn is not None
+                                      and self._draining_fn()):
+                    raise DrainingError(f"scheduler draining: {refused}")
+                reason, pushback = self._shed_decision_locked(seq.slo)
+                if reason is not None:
+                    self.shed_total += 1
+                    self.last_shed_ns = time.monotonic_ns()
+                    slo_code = seq.slo_code
+                    _flight.emit(_flight.GEN_SHED, self._tag, slo_code,
+                                 pushback)
+                    _SHED.labels(seq.slo).inc()
+                    raise ShedError(reason, pushback, seq.slo)
+                sid = seq.sid
+                plen = seq.prompt_len
+                _flight.emit(_flight.SEQ_SUBMIT, self._tag, sid, plen)
+                self._waiting.append(seq)
+                self._kick.notify_all()
+        except ShedError:
+            _odyssey.seq_done(seq.led, "shed")
+            raise
+        except BaseException:
+            _odyssey.seq_done(seq.led, "refused")
+            raise
 
     def detach(self, sid: int, timeout: float = 5.0):
         """Remove a live sequence (running, swapped or waiting-resumable)
@@ -342,6 +443,9 @@ class DecodeScheduler:
             self._closed = True
             self._kick.notify_all()
         self._thread.join(timeout=timeout)
+        # leave /healthz now: the loop thread's target is a cycle back to
+        # self, so waiting for the cyclic GC would keep a dead line there
+        _LIVE.discard(self)
 
     # -- shared-state reads ---------------------------------------------------
 
@@ -350,6 +454,9 @@ class DecodeScheduler:
 
     def running_depth(self) -> int:
         return len(self._running)
+
+    def step_time_ms(self) -> float:
+        return self._step_ewma_ms
 
     def step_p99_ms(self) -> Optional[float]:
         """Rolling p99 of recent step times (the admission gate's latency
@@ -384,7 +491,11 @@ class DecodeScheduler:
         kept: List[_Seq] = []
         for s in self._running:
             if s.cancelled:
+                sid = s.sid
+                emitted = s.emitted
+                _flight.emit(_flight.GEN_LEAVE, self._tag, sid, emitted)
                 self._release_kv(s, cache=True)
+                _odyssey.seq_done(s.led, "left")
                 s.q.put(_DONE)
             else:
                 kept.append(s)
@@ -406,6 +517,7 @@ class DecodeScheduler:
                 err = RuntimeError("scheduler closed")
                 for s in stranded:
                     self._release_kv(s, cache=False)
+                    _odyssey.seq_done(s.led, "failed")
                     s.q.put(err)
                 return False
             if self._detach_req:
@@ -421,14 +533,28 @@ class DecodeScheduler:
                 return True
         # paged preemption outside the lock: swap_out copies block bytes
         for s in preempt:
+            t0 = time.monotonic_ns()
             self.kv.swap_out(s.kv)
+            if s.led is not None:
+                host = s.kv.host
+                _odyssey.seq_swap(s.led, 0,
+                                  len(host) if host is not None else 0,
+                                  time.monotonic_ns() - t0)
             self._swapped.append(s)
         for s, outcome in drop:
+            sid = s.sid
+            emitted = s.emitted
             if isinstance(outcome, BaseException):
+                _flight.emit(_flight.GEN_RETIRE, self._tag, sid, emitted)
                 self._release_kv(s, cache=False)
+                _odyssey.seq_done(
+                    s.led, "refused" if isinstance(outcome, DrainingError)
+                    else "failed")
                 s.q.put(outcome)
             else:
+                _flight.emit(_flight.GEN_LEAVE, self._tag, sid, emitted)
                 self._release_kv(s, cache=True)
+                _odyssey.seq_done(s.led, "left")
                 s.q.put(_DONE)
         if admit:
             self._prefill_batch(admit)
@@ -437,7 +563,11 @@ class DecodeScheduler:
     def _drop_if_cancelled(self, s: _Seq) -> bool:
         if not s.cancelled:
             return False
+        sid = s.sid
+        emitted = s.emitted
+        _flight.emit(_flight.GEN_LEAVE, self._tag, sid, emitted)
         self._release_kv(s, cache=False)
+        _odyssey.seq_done(s.led, "left")
         s.q.put(_DONE)
         return True
 
@@ -462,6 +592,10 @@ class DecodeScheduler:
                         self._waiting.remove(s)
                         break
             if found is not None:
+                kv = found.kv
+                entries = kv.length if kv is not None else 0
+                _flight.emit(_flight.SEQ_DETACH, self._tag, sid, entries)
+                _odyssey.seq_detached(found.led, entries)
                 box.append(found)
                 ev.set()
                 del self._detach_req[sid]
@@ -501,6 +635,12 @@ class DecodeScheduler:
                     break
                 if s.slo == SLO_BATCH:
                     self._running.remove(s)
+                    sid = s.sid
+                    slo_code = s.slo_code
+                    _flight.emit(_flight.GEN_PREEMPT, self._tag, sid,
+                                 slo_code)
+                    _odyssey.seq_preempt(s.led)
+                    _PREEMPTS.inc()
                     self.preempted_total += 1
                     if self._paged:
                         preempt.append(s)
@@ -550,17 +690,27 @@ class DecodeScheduler:
             if not s.resumable():
                 continue
             if s.kv is not None and s.kv.swapped:
+                t0 = time.monotonic_ns()
                 try:
                     self.kv.swap_in(s.kv)
                 except Exception:
                     self._swapped.append(s)  # arena full: stay parked
                     continue
+                if s.led is not None:
+                    _odyssey.seq_swap(
+                        s.led, 1,
+                        len(s.kv.blocks) * self._kv_block_bytes,
+                        time.monotonic_ns() - t0)
+            sid = s.sid
+            _flight.emit(_flight.GEN_JOIN, self._tag, sid, 0)
+            _odyssey.seq_join(s.led, resumed=True)
             self._running.append(s)
         if not fresh:
             return
         if self._paged:
             self._prefill_paged(fresh)
             return
+        t0_pf = time.monotonic_ns()
         try:
             states, tokens = self.model.prefill([s.prompt for s in fresh])
             results = [(states[i], int(tokens[i]))
@@ -573,19 +723,30 @@ class DecodeScheduler:
                     results.append((st[0], int(tok[0])))
                 except Exception as exc:
                     results.append(exc)
+        dt_pf = time.monotonic_ns() - t0_pf
         emitted = 0
         for s, res in zip(fresh, results):
+            sid = s.sid
+            plen = s.prompt_len
             if isinstance(res, Exception):
+                _SEQ_FAILED.inc()
+                _flight.emit(_flight.GEN_RETIRE, self._tag, sid, 0)
+                _odyssey.seq_done(s.led, "failed")
                 s.q.put(res)
                 continue
             s.state, first = res
+            _flight.emit(_flight.GEN_JOIN, self._tag, sid, plen)
+            _odyssey.seq_join(s.led)
+            _odyssey.seq_prefill(s.led, dt_pf, len(fresh))
             self._emit_token(s, first)
             emitted += 1
             if s.emitted < s.max_tokens and not self._hit_eos(first):
                 self._running.append(s)
             else:
                 self._retire(s)
+        # prefill's sampled token counts like any other emitted token
         self.tokens_out += emitted
+        _TOKENS.inc(emitted)
 
     def _prefill_paged(self, fresh: List[_Seq]) -> None:
         """The explicit-KV prefill: allocate each row's table (prefix cache
@@ -600,10 +761,15 @@ class DecodeScheduler:
                     s.sid, s.prompt)
                 ready.append(s)
             except Exception as exc:
+                _SEQ_FAILED.inc()
+                sid = s.sid
+                _flight.emit(_flight.GEN_RETIRE, self._tag, sid, 0)
+                _odyssey.seq_done(s.led, "failed")
                 s.q.put(exc)
         if not ready:
             return
         lengths = [s.kv.length for s in ready]
+        t0_pf = time.monotonic_ns()
         try:
             toks = self.model.prefill_paged([s.prompt for s in ready],
                                             [s.kv for s in ready])
@@ -618,12 +784,23 @@ class DecodeScheduler:
                 except Exception as exc:
                     s.kv.truncate(n0)
                     results.append(exc)
+        dt_pf = time.monotonic_ns() - t0_pf
         emitted = 0
         for s, res in zip(ready, results):
+            sid = s.sid
+            plen = s.prompt_len
             if isinstance(res, Exception):
+                _SEQ_FAILED.inc()
+                _flight.emit(_flight.GEN_RETIRE, self._tag, sid, 0)
                 self._release_kv(s, cache=False)
+                _odyssey.seq_done(s.led, "failed")
                 s.q.put(res)
                 continue
+            _flight.emit(_flight.GEN_JOIN, self._tag, sid, plen)
+            _odyssey.seq_join(s.led)
+            _odyssey.seq_prefill(
+                s.led, dt_pf, len(ready),
+                kv_bytes=len(s.kv.blocks) * self._kv_block_bytes)
             self._emit_token(s, res)
             emitted += 1
             if s.emitted < s.max_tokens and not self._hit_eos(res):
@@ -631,12 +808,15 @@ class DecodeScheduler:
             else:
                 self._retire(s)
         self.tokens_out += emitted
+        _TOKENS.inc(emitted)
 
     def _run_step(self) -> None:
         """One batched decode step over the running batch; delivery and
         retirement inline (loop-private state)."""
         running = self._running
         nb = len(running)
+        waiting_n = len(self._waiting)
+        _flight.emit(_flight.GEN_STEP_BEGIN, self._tag, nb, waiting_n)
         t0 = time.monotonic_ns()
         tokens = np.asarray([s.last_token for s in running], dtype=np.int32)
         if self._paged:
@@ -675,18 +855,28 @@ class DecodeScheduler:
                     except Exception as exc:
                         results.append(exc)
         t_end = time.monotonic_ns()
-        self._note_step_time(t_end - t0)
+        dt_ns = t_end - t0
+        self._note_step_time(dt_ns)
+        if _odyssey.ACTIVE:
+            # cost attribution: each row owns 1/nb of this device step, and
+            # its arena residency integrates against the same clock
+            _odyssey.seq_step(running, dt_ns, t_end)
         emitted = 0
         kept: List[_Seq] = []
         for s, res in zip(running, results):
             if isinstance(res, Exception):
+                _SEQ_FAILED.inc()
+                sid = s.sid
+                n = s.emitted
+                _flight.emit(_flight.GEN_RETIRE, self._tag, sid, n)
                 self._release_kv(s, cache=False)
+                _odyssey.seq_done(s.led, "failed")
                 s.q.put(res)
                 continue
             st, tok = res
             if not self._paged:
                 s.state = st
-            self._emit_token(s, tok)
+            self._emit_token(s, tok, t_end)
             emitted += 1
             if s.emitted >= s.max_tokens or self._hit_eos(tok):
                 self._retire(s)
@@ -696,6 +886,11 @@ class DecodeScheduler:
         self.steps += 1
         self.rows_stepped += nb
         self.tokens_out += emitted
+        _STEPS.inc()
+        _TOKENS.inc(emitted)
+        _STEP_BATCH.record(nb)
+        _STEP_US.record(dt_ns // 1000)
+        _flight.emit(_flight.GEN_STEP_END, self._tag, nb, emitted)
 
     # -- loop helpers ---------------------------------------------------------
 
@@ -706,9 +901,20 @@ class DecodeScheduler:
         self._step_ewma_ms = ms if self._step_ewma_ms == 0.0 else (
             (1 - a) * self._step_ewma_ms + a * ms)
 
-    def _emit_token(self, s: _Seq, tok: int) -> None:
+    def _emit_token(self, s: _Seq, tok: int, now_ns: int = 0) -> None:
         s.last_token = tok
         s.emitted += 1
+        if s.t_first_ns == 0:
+            s.t_first_ns = now_ns or time.monotonic_ns()
+            ttft_us = (s.t_first_ns - s.t_submit_ns) // 1000
+            _TTFT_US.record(ttft_us)
+            sid = s.sid
+            _flight.emit(_flight.SEQ_FIRST_TOKEN, self._tag, sid, ttft_us)
+            _odyssey.seq_first_token(s.led, ttft_us, s.t_first_ns)
+        else:
+            # the stream edge: the one per-token odyssey site (the step's
+            # shared end stamp stands in for a clock read)
+            _odyssey.seq_token(s.led, now_ns)
         s.q.put(tok)
 
     def _hit_eos(self, tok: int) -> bool:
@@ -716,7 +922,30 @@ class DecodeScheduler:
         return eos is not None and tok == eos
 
     def _retire(self, s: _Seq) -> None:
+        sid = s.sid
+        n = s.emitted
+        _flight.emit(_flight.GEN_RETIRE, self._tag, sid, n)
         # natural finish: the prompt's block-aligned prefix is donated to
         # the prefix cache before the table frees
         self._release_kv(s, cache=True)
+        _odyssey.seq_done(s.led, "retire")
         s.q.put(_DONE)
+
+
+def health_lines() -> List[str]:
+    """One ``gen`` line per live scheduler for /healthz: the shed and queue
+    state an operator (or a balancer) reads during overload without the
+    metrics plane."""
+    out = []
+    for s in list(_LIVE):
+        try:
+            if s._closed:
+                continue
+            out.append(
+                f"gen {s.name}: state={s.state_str()} "
+                f"running={s.running_depth()} waiting={s.queue_depth()} "
+                f"swapped={s.swapped_depth()} steps={s.steps} "
+                f"shed={s.shed_total} preempted={s.preempted_total}")
+        except Exception:
+            continue
+    return sorted(out)

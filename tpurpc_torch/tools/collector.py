@@ -5,9 +5,9 @@
 
 A copy of ``tpurpc/tools/collector.py``. Polls every member's
 introspection routes and serves the merged fleet views
-(``/fleet/metrics``, ``/fleet/slo``, ``/fleet/diagnose``) on its own HTTP
-port; see :mod:`tpurpc_torch.obs.collector`. ``--once`` polls once,
-prints the merged SLO document and exits. Targets may also be resolver
+(``/fleet/metrics``, ``/fleet/slo``, ``/fleet/seq``, ``/fleet/diagnose``)
+on its own HTTP port; see :mod:`tpurpc_torch.obs.collector`. ``--once``
+polls once, prints the merged SLO document and exits. Targets may also be resolver
 specs (``dns:///name:port``).
 """
 
@@ -51,7 +51,7 @@ def main(argv=None) -> int:
         return 0
     port = col.serve(host=args.host, port=args.port)
     print(f"collector: {len(targets)} member(s), serving "
-          f"http://{args.host}:{port}/fleet/{{metrics,slo,diagnose}}",
+          f"http://{args.host}:{port}/fleet/{{metrics,slo,seq,diagnose}}",
           flush=True)
     try:
         while True:
