@@ -8,7 +8,8 @@ the kernels line and the card's name and power limit;
 phase 15 (a) alone in TURNS turns and ends with its summary, a JSON line;
 ``python3 chip_smoke.py --pump-profile TURNS`` builds the kernels, runs
 phase 3, then phase 17 (a) alone in TURNS turns and ends with its
-summary, a JSON line).
+summary, a JSON line; ``python3 chip_smoke.py --native-echo TURNS`` runs
+phase 22 (b) alone in TURNS turns and ends with its summary, a JSON line).
 Phases, each of which fails the run (non-zero exit, no result line) on any
 error:
 
@@ -50,7 +51,9 @@ error:
    [1] leaf) to a ``stream_stream`` tensor method on ``Server(max_workers=
    8)``, which keeps up to 3 messages in flight, reduces each on the card
    (its float64 sum and its values at 64 seeded positions) and replies once
-   at the end of the stream. Each of three legs gets a fresh server and
+   at the end of the stream. The legs measure the Python plane on purpose
+   (``native_dataplane=False``, ``duplex(native=False)``; phase 22 takes
+   the native one). Each of three legs gets a fresh server and
    channel, 2 warm-up messages, then 5 timed rounds of 64: (a) rendezvous
    on ``RDMA_BPEV``, each message landed on the host and moved to the card
    by ``to_torch``; (b) the same with ``TPURPC_RENDEZVOUS=0`` (framed);
@@ -410,7 +413,33 @@ error:
    rounds, read from the evaluator's transition history. Each part's
    launches (expected 0) must equal what its device-ring landings give.
    Skipped under ``--kernels``;
-22. print the kernels line, the card's name and power limit, and last the
+22. the native plane (the C core built from ``tpurpc_torch/native/`` at
+   first use into ``tpurpc_torch/build/native/``): every ring connection
+   of a ``RDMA_BPEV`` server is adopted by ``NativeDataplane``, and the
+   calls run inside the library. (a) phase 6's float32 transformer (int32
+   [8,128] buckets, on the card) behind such a server, called through a
+   ``TensorClient`` over a port ``Channel`` (the native fast unary path,
+   one call at a time) and through ``NativeChannel`` with
+   ``pipeline(depth=8)``, against the Python plane
+   (``native_dataplane=False``, ``TPURPC_NATIVE_FAST_UNARY=0``) in
+   alternating turns: every reply bit-equal to the first Python-plane
+   reply of its request; prints requests/s per plane and turn and the
+   card's busy share in one profiled native window. (b) 64-byte unary
+   echoes (``inline=True`` handlers) in 10 alternating turns of 200 calls
+   over the Python ring plane, the native fast path and TCP: p50 and p99
+   per leg, in this process and then alone in a fresh one
+   (``--native-echo 10``). (c) a stream of
+   4 MiB float32 tensors, ``duplex(native=True)`` against
+   ``native=False`` in alternating turns, each tensor moved to the card
+   and summed there: the sums equal on both planes; GB/s per turn; then
+   the same tensors as unary calls on the native path. The phase fails if
+   the library does not build or load, if a server adopts nothing, or if
+   a call meant for the native plane reached the Python plane: the
+   adopted count, the Python plane's connection and call counts and the
+   library's ledger (``rdv_counters()`` deltas: the unary bulk requests
+   rendezvous, the stream's writes ride the send lease and count as the
+   C loop's host copies) say so. Skipped under ``--kernels``;
+23. print the kernels line, the card's name and power limit, and last the
    one-line result JSON.
 """
 
@@ -1348,7 +1377,9 @@ def sink_leg(label, dev, card, want, env, device_ring=False,
             yield {"i": torch.tensor([i]), "x": tensors[i]}
 
     stages = {"pull": 0.0, "h2d": 0.0, "reduce": 0.0}
-    srv = Server(max_workers=SINK_WORKERS)
+    # the Python plane, on purpose: its ledger and links are what the leg
+    # reads (the native plane's are phase 22's)
+    srv = Server(max_workers=SINK_WORKERS, native_dataplane=False)
     add_tensor_method(srv, "Sink",
                       _sink_consume(dev, idx, device_ring, stages),
                       kind="stream_stream", device=device_ring)
@@ -1358,7 +1389,8 @@ def sink_leg(label, dev, card, want, env, device_ring=False,
     try:
         with (H2Channel if h2 else Channel)(f"127.0.0.1:{port}") as ch:
             cli = TensorClient(ch)
-            warm = list(cli.duplex("Sink", gen(SINK_WARM), timeout=300))
+            warm = list(cli.duplex("Sink", gen(SINK_WARM), timeout=300,
+                                   native=False))
             _check_sink(f"{label} warm-up", warm[-1], SINK_WARM, want)
             link = ch.rdv if h2 else ch._conn.rdv
             if on_link is not None:
@@ -1379,7 +1411,8 @@ def sink_leg(label, dev, card, want, env, device_ring=False,
                     stages[key] = 0.0
                 with ledger.track() as w:
                     t0 = time.perf_counter()
-                    replies = list(cli.duplex("Sink", gen(n), timeout=300))
+                    replies = list(cli.duplex("Sink", gen(n), timeout=300,
+                                              native=False))
                     dt = time.perf_counter() - t0
                 launches = {"ring_scatter": rs_mod.launches,
                             "ring_window": rw_mod.launches}
@@ -7919,6 +7952,457 @@ def odyssey_plane(dev, card) -> dict:
     return res
 
 
+# -- phase 22 -----------------------------------------------------------------
+
+#: phase 22 (a): alternating turns, distinct requests a turn (each a full
+#: [8,128] bucket), the pipeline's depth
+NP_TURNS, NP_REQUESTS, NP_DEPTH = 4, 16, 8
+#: phase 22 (b): 64-byte echoes, turns of calls (warm-up calls not kept)
+NP_ECHO_TURNS, NP_ECHO_CALLS, NP_ECHO_WARM = 10, 200, 20
+#: phase 22 (c): alternating turns of a stream of 4 MiB float32 tensors
+NP_STREAM_TURNS, NP_STREAM_MSGS = 4, 16
+NP_STREAM_SHAPE = (1024, 1024)
+
+
+def _np_platform(name: str, **env) -> None:
+    from tpurpc_torch.utils import config
+
+    _set_env({"GRPC_PLATFORM_TYPE": name, "TPURPC_NATIVE_FAST_UNARY": None,
+              **env})
+    config.set_config(None)
+
+
+def _np_python_calls(srv, before) -> int:
+    """Calls the server's Python plane started since ``before``."""
+    return srv.call_counters.started - before
+
+
+def _np_check_native(label, srv, calls0, ch=None, adopted0=0) -> None:
+    """The native plane carried ``label``: the server adopted, its Python
+    plane started no call and holds no connection, and the channel (if
+    any) dialed its fast path and no Python-transport connection."""
+    dp = srv._native_dp
+    check(dp is not None, f"{label}: the server did not start its native "
+          f"data plane")
+    check(dp.adopted > adopted0, f"{label}: no connection adopted")
+    check(_np_python_calls(srv, calls0) == 0,
+          f"{label}: {_np_python_calls(srv, calls0)} calls reached the "
+          f"server's Python plane")
+    check(not srv._connections, f"{label}: the server's Python plane holds "
+          f"{len(srv._connections)} connections")
+    if ch is not None:
+        check(ch._native_ch is not None, f"{label}: no native fast path")
+        check(all(sc._conn is None for sc in ch._subchannels),
+              f"{label}: a Python-transport connection was dialed")
+
+
+def _np_serving(dev, card, turns=NP_TURNS, requests=NP_REQUESTS,
+                cfg=None) -> dict:
+    """Phase 22 (a): the transformer behind an adopting server."""
+    import numpy as np
+    import torch
+
+    from tpurpc_torch.models.transformer import (Transformer,
+                                                 TransformerConfig,
+                                                 make_serve_fn)
+    from tpurpc_torch.parallel import build_mesh
+    from tpurpc_torch.rpc.channel import Channel
+    from tpurpc_torch.rpc.native_client import NativeChannel
+    from tpurpc_torch.rpc.server import Server
+    from tpurpc_torch.torchshim.service import TensorClient, add_tensor_method
+
+    cfg = cfg or TransformerConfig()
+    mesh = build_mesh(1, device=dev)
+    model = Transformer(cfg, mesh,
+                        generator=torch.Generator().manual_seed(SEED))
+    serve = make_serve_fn(model)
+
+    def generate(tree):
+        # a pageable .to(dev) finishes reading the request before the
+        # handler returns and the C loop frees the message
+        with torch.inference_mode():
+            return {"logits": serve({"tokens": tree["tokens"].to(dev)})[
+                "logits"].cpu()}
+
+    rng = np.random.default_rng(SEED + 22)
+    rows = [torch.from_numpy(rng.integers(0, cfg.vocab, (MAX_BATCH, TF_SEQ),
+                                          dtype=np.int32))
+            for _ in range(requests)]
+    _np_platform("RDMA_BPEV")
+    servers = {}
+    for plane, opt in (("python", False), ("native", None)):
+        srv = Server(max_workers=WORKERS, native_dataplane=opt)
+        add_tensor_method(srv, "Generate", generate)
+        srv.start()
+        servers[plane] = (srv, srv.add_insecure_port("127.0.0.1:0"))
+    check(servers["python"][0]._native_dp is None,
+          "native (a): the Python-plane server adopted")
+    want = {}
+    rates = {"python": [], "native": [], "python_pipe": [],
+             "native_pipe": []}
+
+    def same(label, got):
+        for i, t in enumerate(got):
+            if i not in want:
+                want[i] = t["logits"]
+            check(torch.equal(t["logits"], want[i]),
+                  f"native (a) {label}: request {i}'s reply differs from "
+                  f"its first Python-plane reply")
+
+    def run(plane, profile=False):
+        srv, port = servers[plane]
+        calls0 = srv.call_counters.started
+        adopted0 = srv._native_dp.adopted if srv._native_dp else 0
+        _set_env({"TPURPC_NATIVE_FAST_UNARY":
+                  "0" if plane == "python" else None})
+        with Channel(f"127.0.0.1:{port}") as ch:
+            cli = TensorClient(ch)
+            cli.call("Generate", {"tokens": rows[0]}, timeout=120)  # warm
+            t0 = time.perf_counter()
+            seq = [cli.call("Generate", {"tokens": r}, timeout=120)
+                   for r in rows]
+            rate = len(rows) / (time.perf_counter() - t0)
+            if plane == "native":
+                _np_check_native("native (a) channel", srv, calls0, ch,
+                                 adopted0)
+            else:
+                check(ch._native_ch is None,
+                      "native (a): the Python-plane channel dialed natively")
+            pl_ch = (NativeChannel("127.0.0.1", port) if plane == "native"
+                     else ch)
+            try:
+                pl = TensorClient(pl_ch).pipeline("Generate", depth=NP_DEPTH)
+                prof = None
+                if profile:
+                    prof = torch.profiler.profile(activities=[
+                        torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA])
+                    prof.__enter__()
+                t0 = time.perf_counter()
+                futs = [pl.call_async({"tokens": r}, timeout=120)
+                        for r in rows]
+                piped = [f.result(120) for f in futs]
+                window = time.perf_counter() - t0
+                if prof is not None:
+                    prof.__exit__(None, None, None)
+            finally:
+                if pl_ch is not ch:
+                    pl_ch.close()
+        _set_env({"TPURPC_NATIVE_FAST_UNARY": None})
+        if plane == "native":
+            check(_np_python_calls(srv, calls0) == 0,
+                  "native (a): a pipelined call reached the Python plane")
+        else:
+            check(_np_python_calls(srv, calls0) == 2 * len(rows) + 1,
+                  "native (a): the Python plane missed calls")
+        same(f"{plane} one at a time", seq)
+        same(f"{plane} pipelined", piped)
+        busy = None
+        if prof is not None:
+            busy = device_busy_ms(prof) / (window * 1e3)
+        return rate, len(rows) / window, busy
+
+    out = {}
+    try:
+        for turn in range(turns):
+            order = ("python", "native") if turn % 2 == 0 else (
+                "native", "python")
+            for plane in order:
+                rate, pipe, _ = run(plane)
+                rates[plane].append(rate)
+                rates[plane + "_pipe"].append(pipe)
+                print(f"native (a) turn {turn} {plane} plane: "
+                      f"{rate} requests/s one at a time, {pipe} requests/s "
+                      f"pipelined (depth {NP_DEPTH}) ({card})", flush=True)
+        if dev.type == "cuda":
+            _, pipe, busy = run("native", profile=True)
+            out["busy"] = busy
+            print(f"native (a) profiled native window: card busy share "
+                  f"{busy} at {pipe} requests/s ({card})", flush=True)
+    finally:
+        for srv, _ in servers.values():
+            srv.stop()
+    for key, vals in rates.items():
+        out[key] = sorted(vals)[len(vals) // 2]
+    print(f"native (a): median requests/s over {turns} turns: Python plane "
+          f"{out['python']} one at a time, {out['python_pipe']} pipelined; "
+          f"native plane {out['native']} and {out['native_pipe']}; every "
+          f"reply bit-equal ({card})", flush=True)
+    return out
+
+
+def _np_echo(card, turns=NP_ECHO_TURNS, calls=NP_ECHO_CALLS,
+             warm=NP_ECHO_WARM) -> dict:
+    """Phase 22 (b): 64-byte unary echoes, three legs in alternating turns,
+    each turn on a fresh server and channel."""
+    from tpurpc_torch.rpc.channel import Channel
+    from tpurpc_torch.rpc.server import Server
+    from tpurpc_torch.rpc.server import unary_unary_rpc_method_handler as uu
+
+    body = bytes(range(64))
+    legs = {"python_ring": ("RDMA_BPEV", False, False),
+            "native": ("RDMA_BPEV", None, True),
+            "tcp": ("TCP", None, True)}
+    lat = {leg: [] for leg in legs}
+    for turn in range(turns):
+        order = list(legs) if turn % 2 == 0 else list(reversed(legs))
+        for leg in order:
+            plat, opt, allow = legs[leg]
+            _np_platform(plat)
+            srv = Server(max_workers=4, native_dataplane=opt)
+            # inline: the C loop runs it on its poller thread and the
+            # Python plane on the connection's reader (no pool hop)
+            srv.add_method("/np.S/Echo", uu(lambda r, c: bytes(r),
+                                            inline=True))
+            port = srv.add_insecure_port("127.0.0.1:0")
+            srv.start()
+            calls0 = srv.call_counters.started
+            try:
+                with Channel(f"127.0.0.1:{port}") as ch:
+                    mc = ch.unary_unary("/np.S/Echo", tpurpc_native=allow)
+                    for _ in range(warm):
+                        check(bytes(mc(body, timeout=30)) == body,
+                              f"native (b) {leg}: a bad echo")
+                    for _ in range(calls):
+                        t0 = time.perf_counter()
+                        got = mc(body, timeout=30)
+                        lat[leg].append(time.perf_counter() - t0)
+                        check(bytes(got) == body,
+                              f"native (b) {leg}: a bad echo")
+                    if leg == "native":
+                        _np_check_native("native (b)", srv, calls0, ch)
+                    else:
+                        check(ch._native_ch is None and
+                              _np_python_calls(srv, calls0)
+                              == calls + warm,
+                              f"native (b) {leg}: not on the Python plane")
+            finally:
+                srv.stop()
+    out = {}
+    for leg, xs in lat.items():
+        xs = sorted(xs)
+        out[leg] = {"p50_us": xs[len(xs) // 2] * 1e6,
+                    "p99_us": xs[int(len(xs) * 0.99)] * 1e6, "n": len(xs)}
+        print(f"native (b) {leg}: 64-byte echo p50 {out[leg]['p50_us']} us, "
+              f"p99 {out[leg]['p99_us']} us over {len(xs)} calls in {turns} "
+              f"turns ({card})", flush=True)
+    return out
+
+
+def _np_echo_both(dev, card, **kw) -> dict:
+    """Phase 22 (b) in this process, whose earlier phases left their
+    threads (samplers, pollers, servers) contending for the interpreter,
+    then, on a card, alone in a fresh one (``--native-echo``)."""
+    out = _np_echo(card, **kw)
+    if dev.type != "cuda":
+        print("native (b) in a fresh process: not measured (no card)",
+              flush=True)
+        return out
+    here = os.path.abspath(__file__)
+    t0 = time.perf_counter()
+    child = subprocess.run(
+        [sys.executable, here, "--native-echo",
+         str(kw.get("turns", NP_ECHO_TURNS))],
+        capture_output=True, text=True, timeout=300,
+        cwd=os.path.dirname(here))
+    check(child.returncode == 0, f"native (b) fresh process failed: "
+          f"{child.stderr[-2000:]}")
+    fresh = json.loads(child.stdout.strip().splitlines()[-1])
+    for leg in ("python_ring", "native", "tcp"):
+        check(fresh[leg]["n"] > 0, f"native (b) fresh: no {leg} calls")
+    out["fresh"] = {leg: fresh[leg] for leg in ("python_ring", "native",
+                                                "tcp")}
+    print(f"native (b) in a fresh process ({time.perf_counter() - t0} s with "
+          f"its start): " + ", ".join(
+              f"{leg} p50 {v['p50_us']} us p99 {v['p99_us']} us"
+              for leg, v in out["fresh"].items()) + f" ({card})", flush=True)
+    return out
+
+
+def _np_stream(dev, card, turns=NP_STREAM_TURNS, msgs=NP_STREAM_MSGS,
+               shape=NP_STREAM_SHAPE) -> dict:
+    """Phase 22 (c): a 4 MiB float32 tensor stream, native against Python
+    plane in alternating turns, each tensor summed on the card; then the
+    same tensors as unary calls on the native path."""
+    import numpy as np
+    import torch
+
+    from tpurpc_torch.rpc import native_client as nc
+    from tpurpc_torch.rpc.channel import Channel
+    from tpurpc_torch.rpc.server import Server
+    from tpurpc_torch.torchshim.service import TensorClient, add_tensor_method
+
+    rng = np.random.default_rng(SEED + 23)
+    base = rng.standard_normal(shape).astype(np.float32)
+    xs = [torch.from_numpy(base + np.float32(i)) for i in range(msgs)]
+    nbytes = xs[0].numel() * xs[0].element_size()
+
+    def to_card_sum(t):
+        # the pageable copy completes before the handler returns
+        return t.to(dev).double().sum().cpu()
+
+    def sink(trees):
+        for tree in trees:
+            yield {"i": tree["i"].clone(), "s": to_card_sum(tree["x"])}
+
+    def gen():
+        for i, x in enumerate(xs):
+            yield {"i": torch.tensor([i]), "x": x}
+
+    _np_platform("RDMA_BPEV")
+    servers = {}
+    for plane, opt in (("python", False), ("native", None)):
+        srv = Server(max_workers=8, native_dataplane=opt)
+        add_tensor_method(srv, "Sink", sink, kind="stream_stream")
+        add_tensor_method(srv, "Sum", lambda t: {"s": to_card_sum(t["x"])})
+        srv.start()
+        servers[plane] = (srv, srv.add_insecure_port("127.0.0.1:0"))
+    gbps = {"python": [], "native": []}
+    want = None
+    deltas = []
+    out = {}
+    chans = {}
+    try:
+        # one channel a plane for every turn, warmed by a stream of two
+        # (the Python plane's rendezvous arms in its first exchanges)
+        for plane, (srv, port) in servers.items():
+            chans[plane] = Channel(f"127.0.0.1:{port}")
+            list(TensorClient(chans[plane]).duplex(
+                "Sink", ({"i": torch.tensor([i]), "x": xs[i]}
+                         for i in range(2)), timeout=300,
+                native=plane == "native"))
+        for turn in range(turns):
+            order = ("python", "native") if turn % 2 == 0 else (
+                "native", "python")
+            for plane in order:
+                srv, port = servers[plane]
+                ch = chans[plane]
+                calls0 = srv.call_counters.started
+                c0 = nc.rdv_counters()
+                cli = TensorClient(ch)
+                t0 = time.perf_counter()
+                replies = list(cli.duplex("Sink", gen(), timeout=300,
+                                          native=plane == "native"))
+                dt = time.perf_counter() - t0
+                if plane == "native":
+                    _np_check_native("native (c) stream", srv, calls0, ch)
+                c1 = nc.rdv_counters()
+                delta = {k: c1[k] - c0[k] for k in c1}
+                sums = [r["s"].item() for r in replies]
+                idx = [r["i"].item() for r in replies]
+                check(idx == list(range(msgs)),
+                      f"native (c) {plane}: replies out of order {idx}")
+                if want is None:
+                    want = sums
+                check(sums == want, f"native (c) {plane} turn {turn}: sums "
+                      f"{sums} differ from {want}")
+                if plane == "native":
+                    deltas.append(delta)
+                    # the stream's tensor writes ride the send lease, framed
+                    # in the ring: the C loop copies them, nothing one-sided
+                    check(delta["rdv_sent"] == 0
+                          and delta["host_copy_bytes"] >= msgs * nbytes,
+                          f"native (c): the stream's ledger {delta}")
+                else:
+                    check(_np_python_calls(srv, calls0) == 1,
+                          "native (c): the Python-plane stream missed")
+                rate = msgs * nbytes / dt / 1e9
+                gbps[plane].append(rate)
+                print(f"native (c) turn {turn} {plane} plane: {rate} GB/s, "
+                      f"{msgs} x {nbytes} bytes; library ledger delta "
+                      f"{delta} ({card})", flush=True)
+        # the same tensors as unary calls on the native path: each request
+        # passes the C loop one buffer and rendezvous above the threshold
+        srv, port = servers["native"]
+        calls0 = srv.call_counters.started
+        with Channel(f"127.0.0.1:{port}") as ch:
+            cli = TensorClient(ch)
+            # one warm-up call: the connection's rendezvous plane arms in
+            # its first exchanges, and a message before that goes framed
+            cli.call("Sum", {"x": xs[0][:4]}, timeout=120)
+            c0 = nc.rdv_counters()
+            t0 = time.perf_counter()
+            unary = [cli.call("Sum", {"x": x}, timeout=120)["s"].item()
+                     for x in xs]
+            dt = time.perf_counter() - t0
+            c1 = nc.rdv_counters()
+            _np_check_native("native (c) unary", srv, calls0, ch)
+        udelta = {k: c1[k] - c0[k] for k in c1}
+        check(unary == want, f"native (c) unary: sums {unary} differ")
+        min_kb = int(os.environ.get("TPURPC_RENDEZVOUS_MIN_KB", "256"))
+        bulk = sum(1 for _ in xs if nbytes >= min_kb << 10)
+        check(udelta["rdv_sent"] == bulk and udelta["rdv_recv"] == bulk,
+              f"native (c) unary: rdv_sent/rdv_recv {udelta} against "
+              f"{bulk} messages above {min_kb} KiB")
+        out["unary_gbps"] = msgs * nbytes / dt / 1e9
+        out["unary_rdv"] = udelta
+        print(f"native (c) unary on the native path: "
+              f"{out['unary_gbps']} GB/s; library ledger delta {udelta} "
+              f"({card})", flush=True)
+    finally:
+        for ch in chans.values():
+            ch.close()
+        for srv, _ in servers.values():
+            srv.stop()
+    for plane, vals in gbps.items():
+        out[plane] = sorted(vals)[len(vals) // 2]
+    out["stream_rdv"] = deltas
+    print(f"native (c): median GB/s over {turns} turns: Python plane "
+          f"{out['python']}, native plane {out['native']} ({card})",
+          flush=True)
+    return out
+
+
+def native_plane(dev, card, **kw) -> dict:
+    """Phase 22: the native plane on ``RDMA_BPEV`` (docstring of this
+    file). Returns each part's readings and launches (none expected: no
+    payload lands in a device ring off ``TPU``)."""
+    from tpurpc_torch.core import _native
+    from tpurpc_torch.ops import ring_scatter as rs_mod
+    from tpurpc_torch.ops import ring_window as rw_mod
+    from tpurpc_torch.rpc import native_client as nc
+
+    t_phase = time.perf_counter()
+    t = time.perf_counter()
+    lib = _native.load()
+    check(lib is not None, f"native: the port's library did not build or "
+          f"load from tpurpc_torch/native ({_native._lib_path()})")
+    nc._load()
+    print(f"native: library {_native._lib_path()} loaded in "
+          f"{time.perf_counter() - t} s", flush=True)
+    saved = {k: os.environ.get(k) for k in
+             ("GRPC_PLATFORM_TYPE", "TPURPC_NATIVE_FAST_UNARY",
+              "TPURPC_TORCH_DEVICE")}
+    _set_env({"TPURPC_TORCH_DEVICE": str(dev)})
+    res = {}
+    try:
+        for key, fn in (("a", lambda: _np_serving(dev, card, **kw.get(
+                            "a", {}))),
+                        ("b", lambda: _np_echo_both(dev, card, **kw.get(
+                            "b", {}))),
+                        ("c", lambda: _np_stream(dev, card, **kw.get(
+                            "c", {})))):
+            t = time.perf_counter()
+            rs_mod.launches = rw_mod.launches = 0
+            res[key] = fn()
+            res[key]["launches"] = {"ring_scatter": rs_mod.launches,
+                                    "ring_window": rw_mod.launches}
+            check(res[key]["launches"] == {"ring_scatter": 0,
+                                           "ring_window": 0},
+                  f"native ({key}): launched {res[key]['launches']} with no "
+                  f"device-ring landing")
+            print(f"native ({key}) took {time.perf_counter() - t} s",
+                  flush=True)
+    finally:
+        _set_env(saved)
+        from tpurpc_torch.utils import config
+
+        config.set_config(None)
+    print(f"native: phase 22 took {time.perf_counter() - t_phase} s "
+          f"({card})", flush=True)
+    return res
+
+
 def card_line() -> str:
     """The card's name and power limit, as nvidia-smi reports them."""
     smi = subprocess.run(
@@ -7938,6 +8422,9 @@ def main() -> None:
     ap.add_argument("--pump-profile", type=int, metavar="TURNS",
                     help="build the kernels, run phase 3, then phase 17 (a) "
                          "alone in TURNS turns and end with its summary")
+    ap.add_argument("--native-echo", type=int, metavar="TURNS",
+                    help="run phase 22 (b) alone in TURNS turns in this "
+                         "fresh process and end with its summary")
     args = ap.parse_args()
     kernels_only = args.kernels
     here = os.path.dirname(os.path.abspath(__file__))
@@ -7955,6 +8442,11 @@ def main() -> None:
     dev = torch.device("cuda", 0)
 
     card = card_line()
+    if args.native_echo:
+        res = _np_echo(card, turns=args.native_echo)
+        print(json.dumps(dict(res, card=card, turns=args.native_echo)),
+              flush=True)
+        return
     build_kernels()
     if args.ctrl_profile:
         res = _ctrl_turns(dev, card, sink_payloads(), CTRL_ROUNDS, RING,
@@ -7978,7 +8470,7 @@ def main() -> None:
         fleet_launches = h2_launches = cp_launches = tls_launches = None
         aio_launches = lb_launches = tp_launches = lc_launches = None
         pump_launches = obs_launches = hook_launches = None
-        scrape_launches = ody_launches = None
+        scrape_launches = ody_launches = np_launches = None
     else:
         from tpurpc_torch.ops import ring_scatter as rs_mod
         from tpurpc_torch.ops import ring_window as rw_mod
@@ -8066,6 +8558,9 @@ def main() -> None:
         # framed, KV ships over block grants): its launches are counted
         # per part all the same, against its landings
         ody_launches = odyssey_plane(dev, card)
+        # phase 22, the native plane off TPU: no device-ring landing, no
+        # launch; counted per part all the same
+        np_launches = native_plane(dev, card)
 
     sources = {"ring_scatter": "tpurpc/ops/ring_scatter.py:133",
                "ring_window": "tpurpc/ops/ring_window.py:138"}
@@ -8192,6 +8687,11 @@ def main() -> None:
             # prefill child, (c) the held step and the ITL objective
             "odyssey_launches": (None if ody_launches is None else {
                 part: ody_launches[part]["launches"][name]
+                for part in "abc"}),
+            # phase 22, the native plane: (a) the transformer's turns, (b)
+            # the echoes, (c) the streams and the unary bulk calls
+            "native_launches": (None if np_launches is None else {
+                part: np_launches[part]["launches"][name]
                 for part in "abc"})})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

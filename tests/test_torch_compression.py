@@ -50,15 +50,11 @@ def _echo_server(pkg, **kw):
 
 
 def _unary(pkg, ch, path):
-    if pkg is REF:
-        return ch.unary_unary(path, tpurpc_native=False)
-    return ch.unary_unary(path)
+    return ch.unary_unary(path, tpurpc_native=False)
 
 
 def _stream(pkg, ch, path):
-    if pkg is REF:
-        return ch.stream_stream(path, tpurpc_native=False)
-    return ch.stream_stream(path)
+    return ch.stream_stream(path, tpurpc_native=False)
 
 
 class _Ep:
@@ -294,8 +290,7 @@ def test_peer_without_decompressor_degrades_and_replays(name, platform):
                       fr.COMPRESSED_UNSUPPORTED_SENTINEL + " here")
         return bytes(req)
 
-    kw = {"native_dataplane": False} if pkg is REF else {}
-    srv = pkg.server.Server(max_workers=2, **kw)
+    srv = pkg.server.Server(max_workers=2, native_dataplane=False)
     srv.add_method("/c.S/Picky", pkg.server.unary_unary_rpc_method_handler(
         picky))
     port = srv.add_insecure_port("127.0.0.1:0")

@@ -30,7 +30,7 @@ ECHO = "/ctrl.S/Echo"
 
 
 def _echo_server(workers):
-    srv = PORT.server.Server(max_workers=workers)
+    srv = PORT.server.Server(max_workers=workers, native_dataplane=False)
     srv.add_method(ECHO, PORT.server.unary_unary_rpc_method_handler(
         lambda req, ctx: bytes(req)))
     port = srv.add_insecure_port("127.0.0.1:0")
@@ -52,7 +52,7 @@ def _concurrent(threads=8, calls=6):
     bad, errors = [], []
     try:
         with PORT.channel.Channel(f"127.0.0.1:{port}") as ch:
-            mc = ch.unary_unary(ECHO)
+            mc = ch.unary_unary(ECHO, tpurpc_native=False)
             assert bytes(mc(b"tiny", timeout=10)) == b"tiny"
 
             def worker(t):

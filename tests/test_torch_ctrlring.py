@@ -352,7 +352,7 @@ def _sink_server(pkg):
         srv = REF.server.Server(max_workers=4, native_dataplane=False)
         ref_add_tensor_method(srv, "Sink", _consume, kind="stream_stream")
     else:
-        srv = PORT.server.Server(max_workers=4)
+        srv = PORT.server.Server(max_workers=4, native_dataplane=False)
         add_tensor_method(srv, "Sink", _consume, kind="stream_stream")
     port = srv.add_insecure_port("127.0.0.1:0")
     srv.start()
@@ -365,7 +365,8 @@ def _duplex(pkg, ch, k):
     if pkg is REF:
         return list(RefClient(ch).duplex("Sink", trees, native=False,
                                           timeout=120))
-    return list(TensorClient(ch).duplex("Sink", trees, timeout=120))
+    return list(TensorClient(ch).duplex("Sink", trees, native=False,
+                                        timeout=120))
 
 
 def _ref_counts():
@@ -494,7 +495,8 @@ def _peer_death(pkg, monkeypatch):
         return real(self, claim, segs, total)
 
     monkeypatch.setattr(pkg.RdvLink, "_rdv_write", wedged)
-    srv, port = PORT.server.Server(max_workers=4), None
+    srv, port = PORT.server.Server(max_workers=4,
+                                   native_dataplane=False), None
     srv.add_method("/pulse.S/Big", PORT.server.unary_unary_rpc_method_handler(
         lambda req, ctx: BIG))
     srv.add_method("/pulse.S/Warm", PORT.server.unary_unary_rpc_method_handler(
@@ -504,7 +506,8 @@ def _peer_death(pkg, monkeypatch):
     outcome = []
     try:
         with PORT.channel.Channel(f"127.0.0.1:{port}") as ch:
-            assert ch.unary_unary("/pulse.S/Warm")(b"w", timeout=30) == b"ok"
+            assert ch.unary_unary("/pulse.S/Warm", tpurpc_native=False)(
+                b"w", timeout=30) == b"ok"
             conn = ch._conn
             deadline = time.monotonic() + 10
             while not conn.ctrl.armed and time.monotonic() < deadline:
@@ -513,7 +516,8 @@ def _peer_death(pkg, monkeypatch):
 
             def call():
                 try:
-                    ch.unary_unary("/pulse.S/Big")(b"x", timeout=60)
+                    ch.unary_unary("/pulse.S/Big", tpurpc_native=False)(
+                        b"x", timeout=60)
                     outcome.append("OK")
                 except PORT.status.RpcError as exc:
                     outcome.append(exc.code().name)

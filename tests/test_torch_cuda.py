@@ -28,7 +28,9 @@ between two card-ring servers run on the card, and the scrape plane of a
 card-ring server (``/metrics`` deltas of its landings, ``/debug/history``)
 with a device-infer trip that writes and diagnoses a bundle, and the
 generation plane's observability (``/debug/seq`` of a card scheduler, a
-decode step held on the card tripping the watchdog at decode-step).
+decode step held on the card tripping the watchdog at decode-step), and the
+native plane (tensor unary calls and a duplex of an adopted ring server,
+each request moved to the card in its handler).
 """
 
 import threading
@@ -318,7 +320,8 @@ def _stream_sums(dev, device_ring, h2=False):
             sums.append(x.double().sum())
         yield {"i": torch.cat(seen).cpu(), "sums": torch.stack(sums).cpu()}
 
-    srv = Server(max_workers=8)
+    # the Python plane: the client link's counters are what it reads
+    srv = Server(max_workers=8, native_dataplane=False)
     add_tensor_method(srv, "Sink", consume, kind="stream_stream",
                       device=device_ring)
     srv.start()
@@ -331,10 +334,12 @@ def _stream_sums(dev, device_ring, h2=False):
     try:
         with (H2Channel if h2 else Channel)(f"127.0.0.1:{port}") as ch:
             cli = TensorClient(ch)
-            list(cli.duplex("Sink", gen(2), timeout=120))   # warm-up
+            list(cli.duplex("Sink", gen(2), timeout=120,
+                            native=False))   # warm-up
             link = ch.rdv if h2 else ch._conn.rdv
             s0 = link.stats() if link is not None else None
-            reply = list(cli.duplex("Sink", gen(STREAM_MSGS), timeout=120))
+            reply = list(cli.duplex("Sink", gen(STREAM_MSGS), timeout=120,
+                                    native=False))
             s1 = link.stats() if link is not None else None
     finally:
         srv.stop()
@@ -1774,3 +1779,82 @@ def test_decode_step_trip_on_a_card_scheduler(dev):
     assert out == [reference_decode([3, 1, 4], 6)]
     assert diag is not None and diag["stage"] == "decode-step"
     assert live["hypotheses"][0]["cause"] == "decode-step"
+
+
+# -- the native plane (the C core's client and server loops) ------------------
+
+def _native_tensor_server(dev):
+    """An adopting ``RDMA_BPEV`` server whose handlers take each request
+    tensor to the card (a pageable copy, complete before the handler
+    returns and the C loop frees the message) and compute there."""
+    def affine(tree):
+        x = tree["x"].to(dev)
+        assert x.device.type == "cuda"
+        return {"y": (x * 2 + 1).cpu()}
+
+    def sums(trees):
+        for tree in trees:
+            x = tree["x"].to(dev)
+            assert x.device.type == "cuda"
+            yield {"i": tree["i"].clone(), "s": x.double().sum().cpu()}
+
+    srv = Server(max_workers=8)
+    add_tensor_method(srv, "Affine", affine)
+    add_tensor_method(srv, "Sums", sums, kind="stream_stream")
+    srv.start()
+    return srv, srv.add_insecure_port("127.0.0.1:0")
+
+
+@pytest.mark.cuda
+def test_native_plane_tensor_unary_lands_on_card(dev, stream_env):
+    """Unary tensor calls on the native plane (the channel's fast path and
+    a ``NativeChannel`` pipeline) land on the card: replies bit-equal to
+    the same arithmetic on the CPU; the server adopted and its Python plane
+    saw no call."""
+    from tpurpc_torch.rpc.native_client import NativeChannel
+
+    stream_env("RDMA_BPEV")
+    rng = np.random.default_rng(22)
+    xs = [torch.from_numpy(rng.standard_normal((8, 128)).astype(np.float32))
+          for _ in range(8)]
+    srv, port = _native_tensor_server(dev)
+    try:
+        with Channel(f"127.0.0.1:{port}") as ch:
+            got = [TensorClient(ch).call("Affine", {"x": x}, timeout=60)["y"]
+                   for x in xs]
+            assert ch._native_ch is not None
+        with NativeChannel("127.0.0.1", port) as nch:
+            pl = TensorClient(nch).pipeline("Affine", depth=4)
+            piped = [f.result(60)["y"] for f in
+                     [pl.call_async({"x": x}, timeout=60) for x in xs]]
+        assert srv._native_dp is not None and srv._native_dp.adopted == 2
+        assert srv.call_counters.started == 0 and not srv._connections
+    finally:
+        srv.stop(grace=0)
+    for x, a, b in zip(xs, got, piped):
+        assert torch.equal(a, x * 2 + 1) and torch.equal(b, x * 2 + 1)
+
+
+@pytest.mark.cuda
+def test_native_plane_duplex_lands_on_card(dev, stream_env):
+    """``duplex(native=True)`` of 4 MiB tensors on the native plane, each
+    summed on the card: the float64 sums equal numpy's within SUM_TOL."""
+    stream_env("RDMA_BPEV")
+    rng = np.random.default_rng(23)
+    base = rng.standard_normal(STREAM_SHAPE).astype(np.float32)
+    xs = [base + np.float32(i) for i in range(4)]
+    srv, port = _native_tensor_server(dev)
+    try:
+        with Channel(f"127.0.0.1:{port}") as ch:
+            replies = list(TensorClient(ch).duplex(
+                "Sums", ({"i": torch.tensor([i]), "x": torch.from_numpy(x)}
+                         for i, x in enumerate(xs)), timeout=120,
+                native=True))
+            assert ch._native_ch is not None
+        assert srv._native_dp.adopted == 1 and srv.call_counters.started == 0
+    finally:
+        srv.stop(grace=0)
+    assert [r["i"].item() for r in replies] == [0, 1, 2, 3]
+    for r, x in zip(replies, xs):
+        x64 = x.astype(np.float64)
+        assert abs(r["s"].item() - x64.sum()) <= SUM_TOL * np.abs(x64).sum()

@@ -21,6 +21,7 @@ cases keep the reference test's stall bars and sweep by hand.
 """
 
 import json
+import threading
 import time
 import types
 
@@ -506,10 +507,23 @@ def test_watchdog_diag_carries_structured_cause(o):
 
 def test_watchdog_retrips_once_per_distinct_stage(o):
     """A stall that sharpens (device-infer -> credit-starvation as the
-    evidence lands) re-trips; the same stage never trips twice."""
+    evidence lands) re-trips; the same stage never trips twice. Only this
+    call's trips count, and the process-wide sweeper thread is held for
+    the case: a call another test left in flight in this worker trips on
+    its own (0.01 s is the stall bar), and the live sweeper would race the
+    case's own sweeps."""
     wd = _fast_wd(o)
+    sweep = wd.sweep_once
+    me = threading.get_ident()
+    # the sweeper thread calls self.sweep_once: an instance attribute wins
+    wd.sweep_once = lambda *a, **kw: (sweep(*a, **kw)
+                                      if threading.get_ident() == me else [])
     trips = []
-    hook = lambda diag: trips.append(diag["stage"])  # noqa: E731
+
+    def hook(diag):
+        if diag["method"] == "/diag/Retrip":
+            trips.append(diag["stage"])
+
     o.watchdog.add_trip_hook(hook)
     tag = o.flight.tag_for("pair:retrip")
     tok = wd.call_started("/diag/Retrip")
@@ -524,6 +538,7 @@ def test_watchdog_retrips_once_per_distinct_stage(o):
         wd.sweep_once()
         assert trips == ["device-infer", "credit-starvation"]
     finally:
+        del wd.sweep_once
         o.watchdog.remove_trip_hook(hook)
         wd.call_finished(tok)
         o.flight.emit(o.flight.LEASE_COMMIT, tag, 9)

@@ -28,6 +28,7 @@ from tpurpc.rpc.status import RpcError as RefRpcError
 from tpurpc.serving import scheduler as ref_sched
 from tpurpc.tpu import ledger as ref_ledger
 from tpurpc.utils import config as ref_config
+from tpurpc_torch.core import _native as port_native
 from tpurpc_torch.core.poller import PairPool, Poller
 from tpurpc_torch.rpc.channel import Channel
 from tpurpc_torch.rpc.status import RpcError
@@ -425,6 +426,7 @@ def platform(monkeypatch):
     # an exclusive lock that every other process waits on for the whole
     # compile. Take that wait here, not inside a call that has a deadline.
     ref_native.load()
+    port_native.load()  # and the port's, outside deadlines too
 
     def use(name):
         monkeypatch.setenv("GRPC_PLATFORM_TYPE", name)

@@ -23,6 +23,7 @@ from tpurpc.core import _native as ref_native
 from tpurpc.core import endpoint as ref_ep
 from tpurpc.core import poller as ref_poller
 from tpurpc.utils import config as ref_config
+from tpurpc_torch.core import _native as port_native
 from tpurpc_torch.core import endpoint as port_ep
 from tpurpc_torch.core import pair as port_pair
 from tpurpc_torch.core import poller as port_poller
@@ -214,6 +215,7 @@ def _listener(pkg, monkeypatch, platform):
 
 def test_ring_pool_recycles_pairs(monkeypatch):
     ref_native.load()
+    port_native.load()  # and the port's, outside deadlines too
 
     def scenario(pkg):
         listener, client, server = _listener(pkg, monkeypatch, "RDMA_BPEV")

@@ -215,9 +215,8 @@ def test_load_report_stripped_from_app_metadata(server_pkg, channel_pkg):
     try:
         chan = jrpc.Channel if channel_pkg == "ref" else Channel
         with chan(f"127.0.0.1:{port}") as ch:
-            kw = {"tpurpc_native": False} if channel_pkg == "ref" else {}
-            _resp, call = ch.unary_unary(WHO, **kw).with_call(b"x",
-                                                              timeout=10)
+            _resp, call = ch.unary_unary(
+                WHO, tpurpc_native=False).with_call(b"x", timeout=10)
             md = list(call.trailing_metadata() or ())
         keys = [k for k, _v in md]
         assert "tpurpc-load" not in keys

@@ -486,8 +486,7 @@ def _channel(pkg, port):
 
 
 def _unary(pkg, ch, path):
-    kw = {"tpurpc_native": False} if pkg is REF else {}
-    return ch.unary_unary(path, **kw)
+    return ch.unary_unary(path, tpurpc_native=False)
 
 
 def test_red_counters_per_method_per_code():

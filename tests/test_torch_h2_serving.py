@@ -49,6 +49,7 @@ from tpurpc.rpc import health as jhealth
 from tpurpc.tpu import ledger as ref_ledger
 from tpurpc.utils import config as ref_config
 from tpurpc.wire.h2_client import H2Channel as JaxH2Channel
+from tpurpc_torch.core import _native as port_native
 from tpurpc_torch.models import transformer as ttfm
 from tpurpc_torch.rpc import health as thealth
 from tpurpc_torch.rpc.status import RpcError, StatusCode
@@ -126,6 +127,7 @@ def test_tensor_client_over_h2_bit_equal_to_direct_in_both(torch_on_cpu):
 @pytest.fixture
 def tcp_platform(monkeypatch):
     ref_native.load()   # see test_torch_rendezvous.platform
+    port_native.load()  # and the port's, outside deadlines too
     monkeypatch.setenv("GRPC_PLATFORM_TYPE", "TCP")
     monkeypatch.setenv("TPURPC_TORCH_DEVICE", "cpu")
     ref_config.set_config(None)
@@ -177,7 +179,8 @@ def test_h2_plane_big_payloads_bypass_data_frames(tcp_platform):
     want = _run_rdv_echo(functools.partial(_rdv_echo, jrpc,
                                            native_dataplane=False),
                          JaxH2Channel, ref_totals, ref_ledger.track)
-    got = _run_rdv_echo(functools.partial(_rdv_echo, trpc), H2Channel,
+    got = _run_rdv_echo(functools.partial(_rdv_echo, trpc,
+                                          native_dataplane=False), H2Channel,
                         port_totals, ledger.track)
     assert got == want
     assert got[0] == {"transfers_sent": 2, "transfers_received": 2,
@@ -554,13 +557,18 @@ def test_rpc_surface_exports_only_what_the_port_has():
                  "insecure_for_testing_channel_credentials", "aio",
                  "LoadBalancerServicer", "enable_lookaside",
                  "ChannelConnectivity", "channel_ready_future",
-                 "inproc_channel"):
+                 "inproc_channel", "NativeChannel"):
         assert hasattr(trpc, name), name
     assert trpc.H2Channel is H2Channel
+    from tpurpc_torch.rpc.native_client import NativeChannel
+
+    assert trpc.NativeChannel is NativeChannel
     # the package's `server` is the module, callable as grpcio's factory
     from tpurpc_torch.rpc import server as server_module
 
     assert server_module.LOAD_KEY == "tpurpc-load"
     assert isinstance(trpc.server(1), trpc.Server)
-    for name in ("NativeChannel",):
-        assert not hasattr(trpc, name), name
+    # the reference's exports, all present now
+    import tpurpc.rpc as jrpc_pkg
+
+    assert set(jrpc_pkg.__all__) <= set(trpc.__all__)

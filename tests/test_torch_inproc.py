@@ -52,7 +52,7 @@ def _reset_config():
 
 @pytest.fixture(autouse=True)
 def _fresh_config(monkeypatch):
-    # the reference's unary fast path would bypass its Python transport
+    # either package's unary fast path would bypass its Python transport
     monkeypatch.setenv("TPURPC_NATIVE_FAST_UNARY", "0")
     _reset_config()
     yield

@@ -269,10 +269,12 @@ def tpu_platform(monkeypatch):
     (``tests/test_torch_slice.py``'s fixture)."""
     from tpurpc.core import _native as ref_native
     from tpurpc.utils import config as jax_config
+    from tpurpc_torch.core import _native as port_native
     from tpurpc_torch.core.poller import PairPool, Poller
     from tpurpc_torch.utils import config as torch_config
 
     ref_native.load()
+    port_native.load()  # and the port's, outside deadlines too
     monkeypatch.setenv("GRPC_PLATFORM_TYPE", "TPU")
     monkeypatch.setenv("TPURPC_HBM_RING_SIZE_KB", str(RING_KB))
     jax_config.set_config(None)

@@ -357,7 +357,7 @@ def _traced_pipeline(srv_root, cli_root):
     port = srv.add_insecure_port("127.0.0.1:0")
     srv.start()
     try:
-        kw = {"tpurpc_native": False} if cli_root == "tpurpc" else {}
+        kw = {"tpurpc_native": False}
         with channel.Channel(f"127.0.0.1:{port}") as ch:
             pl = ch.unary_unary("/obs.S/Double", **kw).pipeline(depth=4)
             futs = [pl.call_async(b"%d" % i, timeout=60) for i in range(8)]
@@ -496,7 +496,7 @@ def test_pipeline_metrics_count_every_call(clean_obs):
         port = srv.add_insecure_port("127.0.0.1:0")
         srv.start()
         try:
-            kw = {} if pkg is PORT else {"tpurpc_native": False}
+            kw = {"tpurpc_native": False}
             with channel.Channel(f"127.0.0.1:{port}") as ch:
                 pl = ch.unary_unary("/obs.S/Echo", **kw).pipeline(depth=4)
                 out = [bytes(f.result(30)) for f in
@@ -542,7 +542,7 @@ def test_trace_header_rides_headers_and_is_stripped(clean_obs):
 
         channel.fr.headers_payload = spy
         try:
-            kw = {} if pkg is PORT else {"tpurpc_native": False}
+            kw = {"tpurpc_native": False}
             with channel.Channel(f"127.0.0.1:{port}") as ch:
                 body = np.arange(4, dtype=np.uint8).tobytes()
                 got = bytes(ch.unary_unary("/obs.S/Md", **kw)(
@@ -596,7 +596,7 @@ def test_attempts_of_one_call_share_its_trace(clean_obs, plan):
             with pkg.channel.Channel(target, **kw) as ch:
                 for sc in ch._subchannels:
                     sc.get()
-                mkw = {} if pkg is PORT else {"tpurpc_native": False}
+                mkw = {"tpurpc_native": False}
                 out = bytes(ch.unary_unary("/obs.S/Who", **mkw)(
                     b"x", timeout=30))
         finally:

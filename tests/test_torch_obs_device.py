@@ -543,9 +543,8 @@ def test_server_death_reconnect_flight_sequence(clean_obs, platform, plat):
                 deadline = time.monotonic() + 20
                 while srv2 is None and time.monotonic() < deadline:
                     try:
-                        srv2 = pkg.server.Server(max_workers=4, **(
-                            {"native_dataplane": False} if pkg is REF
-                            else {}))
+                        srv2 = pkg.server.Server(max_workers=4,
+                                                 native_dataplane=False)
                         srv2.add_method(ECHO, pkg.server.
                                         unary_unary_rpc_method_handler(
                                             lambda req, ctx: bytes(req)))

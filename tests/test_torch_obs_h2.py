@@ -241,7 +241,7 @@ def test_channel_flag_logs_a_dead_connection(trace_env, capfd):
 
     def scenario(pkg):
         srv, port = server(pkg, _methods(pkg))
-        kw = {"tpurpc_native": False} if pkg is REF else {}
+        kw = {"tpurpc_native": False}
         try:
             with pkg.channel.Channel(f"127.0.0.1:{port}") as ch:
                 mc = ch.unary_unary(ECHO, **kw)
@@ -318,7 +318,7 @@ def _traffic(pkg):
     an h2 call, through ``pkg``'s own server and channels."""
     svc = mod(pkg, "shim.service")
     codec = mod(pkg, "shim.codec")
-    kw = {"tpurpc_native": False} if pkg is REF else {}
+    kw = {"tpurpc_native": False}
     tensor = (lambda a: a) if pkg is REF else torch.from_numpy
 
     def dev(tree):

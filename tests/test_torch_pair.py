@@ -28,6 +28,7 @@ from tpurpc.core import _native as ref_native
 from tpurpc.core import pair as ref_pair
 from tpurpc.core import poller as ref_poller
 from tpurpc.utils import config as ref_config
+from tpurpc_torch.core import _native as port_native
 from tpurpc_torch.core import pair as port_pair
 from tpurpc_torch.core import poller as port_poller
 from tpurpc_torch.utils import config as port_config
@@ -43,6 +44,7 @@ PORT = types.SimpleNamespace(name="port", P=port_pair, poller=port_poller,
 @pytest.fixture(autouse=True)
 def _fresh_singletons():
     ref_native.load()  # the reference's first-use build, outside any wait
+    port_native.load()  # and the port's, outside deadlines too
     yield
     for pkg in (REF, PORT):
         pkg.poller.Poller.reset()
@@ -376,16 +378,16 @@ def test_asymmetric_ring_sizes():
 
 
 def test_bootstrap_negotiates_park_and_rdv_caps():
-    """Both packages advertise ``rdv`` (rendezvous on) and ``park``; the
-    reference adds ``waitflag`` when its native library is loaded, which
-    the port (no native words) never does."""
+    """Both packages advertise ``rdv`` (rendezvous on) and ``park``, and
+    ``waitflag`` when their own native library is loaded."""
     expect = {"park"}
     if os.environ.get("TPURPC_RENDEZVOUS", "1").lower() not in (
             "0", "off", "false"):
         expect.add("rdv")
     a, b = port_pair.create_loopback_pair()
     try:
-        assert a.peer_caps == b.peer_caps == frozenset(expect)
+        extra = {"waitflag"} if port_native.load() is not None else set()
+        assert a.peer_caps == b.peer_caps == frozenset(expect | extra)
     finally:
         _destroy(a, b)
     ra, rb = ref_pair.create_loopback_pair()
@@ -867,14 +869,14 @@ def test_park_keeps_the_descriptor_ring_and_rendezvous_state(platform):
 
     platform("RDMA_BPEV", TPURPC_PAIR_PARK_S="0.2")
     payload = np.arange(1 << 18, dtype=np.float32).tobytes()  # 1 MiB
-    srv = PORT_RPC.Server(max_workers=4)
+    srv = PORT_RPC.Server(max_workers=4, native_dataplane=False)
     srv.add_method("/p.S/Len", PORT_RPC.unary_unary_rpc_method_handler(
         lambda r, c: str(len(bytes(r))).encode()))
     port = srv.add_insecure_port("127.0.0.1:0")
     srv.start()
     try:
         with PORT_RPC.Channel(f"127.0.0.1:{port}") as ch:
-            mc = ch.unary_unary("/p.S/Len")
+            mc = ch.unary_unary("/p.S/Len", tpurpc_native=False)
             for _ in range(3):  # hello, claims, standing grants
                 assert mc(payload, timeout=30) == b"1048576"
             conn = ch._conn

@@ -53,6 +53,7 @@ from tpurpc.rpc import channel as ref_channel
 from tpurpc.tpu import ledger as ref_ledger
 from tpurpc.utils import config as ref_config
 from tpurpc.utils import timers as ref_timers
+from tpurpc_torch.core import _native as port_native
 from tpurpc_torch.core import pair as port_pair
 from tpurpc_torch.core import poller as port_poller
 from tpurpc_torch.rpc import aio as port_aio
@@ -91,8 +92,8 @@ PORT = SimpleNamespace(
     name="port", rpc=trpc, channel=port_channel, aio=port_aio,
     ledger=port_ledger, timers=port_timers, config=port_config,
     rdv=port_rdv, totals=_port_totals,
-    server=lambda **kw: trpc.Server(**kw),
-    mc=lambda ch, kind, path: getattr(ch, kind)(path))
+    server=lambda **kw: trpc.Server(native_dataplane=False, **kw),
+    mc=lambda ch, kind, path: getattr(ch, kind)(path, tpurpc_native=False))
 PKGS = (REF, PORT)
 
 ECHO = "/pump.S/Echo"
@@ -132,8 +133,8 @@ def _reset():
 def _opened(monkeypatch):
     """Every port connection the case opens, weakly; none may be alive
     (nor keep a backup tick) when the case ends. Both packages' cached
-    configs are reset around the case; the reference's unary fast path
-    (which bypasses its Python transport) is off."""
+    configs are reset around the case; both packages' unary fast paths
+    (which bypass the Python transport) are off."""
     monkeypatch.setenv("TPURPC_NATIVE_FAST_UNARY", "0")
     monkeypatch.setenv("TPURPC_TORCH_DEVICE", "cpu")
     _reset()
@@ -165,6 +166,7 @@ def platform(monkeypatch):
     # library on a ring's first use, under a lock other processes wait on:
     # take that wait here, outside any call's deadline
     ref_native.load()
+    port_native.load()  # and the port's, outside deadlines too
 
     def use(name, **env):
         monkeypatch.setenv("GRPC_PLATFORM_TYPE", name)

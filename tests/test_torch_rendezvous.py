@@ -37,6 +37,7 @@ from tpurpc.rpc.server import unary_unary_rpc_method_handler as ref_uu
 from tpurpc.rpc.status import RpcError as RefRpcError
 from tpurpc.tpu import ledger as ref_ledger
 from tpurpc.utils import config as ref_config
+from tpurpc_torch.core import _native as port_native
 from tpurpc_torch.core import rendezvous as rdv
 from tpurpc_torch.core.poller import PairPool, Poller
 from tpurpc_torch.ops import ring_scatter as rs_mod
@@ -65,6 +66,7 @@ def platform(monkeypatch):
     # an exclusive lock that every other process waits on for the whole
     # compile. Take that wait here, not inside a call that has a deadline.
     ref_native.load()
+    port_native.load()  # and the port's, outside deadlines too
 
     def use(name, **env):
         monkeypatch.setenv("GRPC_PLATFORM_TYPE", name)
@@ -128,14 +130,15 @@ REF = SimpleNamespace(
 
 PORT = SimpleNamespace(
     name="port", rdv=rdv, codec=codec, ledger=ledger,
-    server=lambda **kw: Server(**kw), channel=Channel,
+    server=lambda **kw: Server(native_dataplane=False, **kw),
+    channel=Channel,
     uu=unary_unary_rpc_method_handler, ss=stream_stream_rpc_method_handler,
     error=RpcError,
-    unary=lambda ch, path: ch.unary_unary(path),
-    stream=lambda ch, path: ch.stream_stream(path),
+    unary=lambda ch, path: ch.unary_unary(path, tpurpc_native=False),
+    stream=lambda ch, path: ch.stream_stream(path, tpurpc_native=False),
     add=add_tensor_method,
-    duplex=lambda ch, name, trees: TensorClient(ch).duplex(name, trees,
-                                                           timeout=60),
+    duplex=lambda ch, name, trees: TensorClient(ch).duplex(
+        name, trees, timeout=60, native=False),
     tensor=torch.from_numpy, totals=_port_totals)
 
 BOTH = (REF, PORT)
@@ -1063,13 +1066,15 @@ def test_device_decode_drops_each_raw_body_before_waiting():
     assert got == (True, False, [])
 
 
-def test_steady_tensor_calls_reuse_standing_regions(platform):
+def test_steady_tensor_calls_reuse_standing_regions(platform, monkeypatch):
     """Sequential 300 KiB tensor calls after a warm-up, with the cyclic
     garbage collector off: each request must land in a standing region
     freed by the previous call (its doorbell rang when the decoded tree
-    died, not at a later collection), so no call solicits a claim."""
+    died, not at a later collection), so no call solicits a claim. The
+    Python plane's links are read, so the native plane is off."""
     platform("RDMA_BPEV")
-    srv = Server(max_workers=4)
+    monkeypatch.setenv("TPURPC_NATIVE_FAST_UNARY", "0")
+    srv = Server(max_workers=4, native_dataplane=False)
     add_tensor_method(srv, "Sum", lambda t: {"s": t["x"].double().sum()})
     srv.start()
     port = srv.add_insecure_port("127.0.0.1:0")

@@ -30,8 +30,7 @@ def _servers(srv_pkg, n, delay=0.0):
     handler ran; ``[(server, port, counter)]``."""
     rigs = []
     for _ in range(n):
-        kw = {"native_dataplane": False} if srv_pkg is REF else {}
-        srv = srv_pkg.server.Server(max_workers=8, **kw)
+        srv = srv_pkg.server.Server(max_workers=8, native_dataplane=False)
         seen = Counter()
 
         def handler(req, ctx, _seen=seen):
@@ -54,8 +53,7 @@ def _stop(rigs):
 
 
 def _mc(pkg, ch):
-    kw = {"tpurpc_native": False} if pkg is REF else {}
-    return ch.unary_unary(ECHO, **kw)
+    return ch.unary_unary(ECHO, tpurpc_native=False)
 
 
 def _refusing(srv):

@@ -795,9 +795,11 @@ def test_future_keeps_the_ring_hash_key(server):
 @pytest.fixture
 def ring_platform(monkeypatch):
     """The port on the device-ring platform, on the CPU (a 1 MiB ring)."""
+    from tpurpc_torch.core import _native as port_native
     from tpurpc_torch.core.poller import PairPool, Poller
     from tpurpc_torch.utils import config as torch_config
 
+    port_native.load()  # the first-use build, outside deadlines
     monkeypatch.setenv("GRPC_PLATFORM_TYPE", "TPU")
     monkeypatch.setenv("TPURPC_HBM_RING_SIZE_KB", "1024")
     torch_config.set_config(None)

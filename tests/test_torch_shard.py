@@ -39,6 +39,7 @@ from tpurpc.core import _native as ref_native
 from tpurpc.jaxshim import serve_jax
 from tpurpc.rpc.channel import Channel as JaxChannel
 from tpurpc.utils import config as jax_config
+from tpurpc_torch.core import _native as port_native
 from tpurpc_torch.core.poller import PairPool, Poller
 from tpurpc_torch.rpc import health
 from tpurpc_torch.rpc import shard as shard_mod
@@ -460,6 +461,7 @@ def tpu_platform(monkeypatch):
     """Both packages on the device-ring platform, the port on the CPU (the
     workers inherit this environment at spawn)."""
     ref_native.load()   # the reference's first-use build, outside deadlines
+    port_native.load()  # and the port's, outside deadlines too
     monkeypatch.setenv("GRPC_PLATFORM_TYPE", "TPU")
     monkeypatch.setenv("TPURPC_TORCH_DEVICE", "cpu")
     monkeypatch.setenv("TPURPC_HBM_RING_SIZE_KB", str(RING_KB))

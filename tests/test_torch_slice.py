@@ -32,6 +32,7 @@ from tpurpc.models import resnet as jres
 from tpurpc.rpc.channel import Channel as JaxChannel
 from tpurpc.rpc.server import Server as JaxServer
 from tpurpc.utils import config as jax_config
+from tpurpc_torch.core import _native as port_native
 from tpurpc_torch.core.poller import PairPool, Poller
 from tpurpc_torch.models import resnet as tres
 from tpurpc_torch.ops import ring_scatter as rs_mod
@@ -57,6 +58,7 @@ def tpu_platform(monkeypatch):
     # an exclusive lock that every other process waits on for the whole
     # compile. Take that wait here, not inside a call that has a deadline.
     ref_native.load()
+    port_native.load()  # and the port's, outside deadlines too
     monkeypatch.setenv("GRPC_PLATFORM_TYPE", "TPU")
     monkeypatch.setenv("TPURPC_TORCH_DEVICE", "cpu")
     monkeypatch.setenv("TPURPC_HBM_RING_SIZE_KB", str(RING_KB))

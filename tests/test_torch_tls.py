@@ -35,6 +35,7 @@ from tpurpc.core import _native as ref_native
 from tpurpc.core import pair as ref_pair
 from tpurpc.rpc import frame as ref_frame
 from tpurpc.utils import config as ref_config
+from tpurpc_torch.core import _native as port_native
 from tpurpc_torch.core import pair as port_pair
 from tpurpc_torch.core.poller import PairPool, Poller
 from tpurpc_torch.ops import ring_scatter as rs_mod
@@ -70,6 +71,7 @@ def platform(monkeypatch):
     # native library on a ring's first use under a lock other processes
     # wait on: take that wait here, not inside a call with a deadline.
     ref_native.load()
+    port_native.load()  # and the port's, outside deadlines too
 
     def use(name):
         monkeypatch.setenv("GRPC_PLATFORM_TYPE", name)
@@ -95,10 +97,9 @@ class _Rig:
         self.seen = []
         self.served = 0
         self.sniffed = 0
-        # the reference's native plane (a plaintext ring port's default)
-        # has no auth_context; its Python plane does
-        srv = (pkg.Server(max_workers=4, native_dataplane=False)
-               if pkg is jrpc else pkg.Server(max_workers=4))
+        # a native plane (a plaintext ring port's default) has no
+        # auth_context; the Python plane does
+        srv = pkg.Server(max_workers=4, native_dataplane=False)
 
         def echo(req, ctx):
             self.served += 1

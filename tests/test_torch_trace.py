@@ -22,9 +22,9 @@ import pytest
 from tpurpc.utils import trace as ref_trace
 from tpurpc_torch.utils import trace as port_trace
 import tpurpc.rpc  # noqa: F401
-import tpurpc.rpc.native_server  # noqa: F401  (registers "native_server",
-#                                  the reference's own until the C core)
+import tpurpc.rpc.native_server  # noqa: F401  (registers "native_server")
 import tpurpc_torch.rpc  # noqa: F401  (registers the port's "lookaside")
+import tpurpc_torch.rpc.native_server  # noqa: F401  (and the port's)
 
 TRACE_VARS = ("TPURPC_TRACE", "GRPC_TRACE")
 VERBOSITY_VARS = ("TPURPC_VERBOSITY", "GRPC_VERBOSITY")
@@ -127,7 +127,18 @@ def test_tpurpc_trace_overrides_grpc_trace(clean_trace_env):
         assert flags["ring"] and not flags["endpoint"]
 
 
-def test_list_tracers_token_prints_registry_once(clean_trace_env, capfd):
+@pytest.fixture
+def ref_only_flag():
+    """A flag in the reference's registry alone (the port now has every
+    flag the reference defines), removed afterwards."""
+    flag = ref_trace.TraceFlag("torch_trace_ref_probe")
+    yield flag.name
+    with ref_trace._registry_lock:
+        ref_trace._registry.pop(flag.name, None)
+
+
+def test_list_tracers_token_prints_registry_once(clean_trace_env, capfd,
+                                                 ref_only_flag):
     """The port's flag use prints the port's registry once; the
     reference's pending dump is its own and prints at the reference's
     first flag use."""
@@ -137,21 +148,22 @@ def test_list_tracers_token_prints_registry_once(clean_trace_env, capfd):
     err = capfd.readouterr().err
     assert err.count("available tracers:") == 1
     assert "ring: on" in err and "endpoint: off" in err
+    assert "native_server: off" in err  # the port's own flag
     # the port's registry only: a reference-only flag is not listed
-    assert "native_server:" not in err
+    assert f"{ref_only_flag}:" not in err
     bool(port_trace.trace_ring)  # one-shot: no second print
     assert "available tracers:" not in capfd.readouterr().err
     assert bool(ref_trace.trace_ring)
     err = capfd.readouterr().err
     assert (err.count("available tracers:") == 1
-            and "native_server: off" in err)
+            and f"{ref_only_flag}: off" in err)
 
 
-def test_port_registry_is_separate(clean_trace_env):
+def test_port_registry_is_separate(clean_trace_env, ref_only_flag):
     """A flag made in the port's registry is listed there only; the
     reference's own flags are not in the port's."""
-    assert "native_server" in ref_trace.list_tracers()
-    assert "native_server" not in port_trace.list_tracers()
+    assert ref_only_flag in ref_trace.list_tracers()
+    assert ref_only_flag not in port_trace.list_tracers()
     assert port_trace.TraceFlag is not ref_trace.TraceFlag
     clean_trace_env.setenv("TPURPC_TRACE", "torch_trace_probe")
     try:

@@ -26,6 +26,7 @@ import tpurpc.rpc as jrpc
 import tpurpc_torch.rpc as trpc
 from tpurpc.core import _native as ref_native
 from tpurpc.utils import config as ref_config
+from tpurpc_torch.core import _native as port_native
 from tpurpc_torch.core.poller import PairPool, Poller
 from tpurpc_torch.ops import ring_scatter as rs_mod
 from tpurpc_torch.ops import ring_window as rw_mod
@@ -173,6 +174,7 @@ def platform(monkeypatch):
     # native library on a ring's first use, under a lock other processes
     # wait on: take that wait here, outside any call's deadline
     ref_native.load()
+    port_native.load()  # and the port's, outside deadlines too
 
     def use(name, **env):
         monkeypatch.setenv("GRPC_PLATFORM_TYPE", name)

@@ -51,12 +51,11 @@ def fleet_reading(pkg, name: str, obj):
 
 
 def server(pkg, methods, **kw):
-    """A started server of ``pkg`` (the reference's without its native data
-    plane, which the port does not have) with ``{path: (kind, fn)}``;
-    returns ``(server, port)``."""
+    """A started server of ``pkg`` on its Python plane (the hooks these
+    tests read live there) with ``{path: (kind, fn)}``; returns
+    ``(server, port)``."""
     srv_mod = pkg.server
-    if pkg is REF:
-        kw["native_dataplane"] = False
+    kw["native_dataplane"] = False
     srv = srv_mod.Server(max_workers=kw.pop("max_workers", 4), **kw)
     for path, (kind, fn) in methods.items():
         srv.add_method(path, getattr(srv_mod, f"{kind}_rpc_method_handler")(fn))
@@ -66,10 +65,8 @@ def server(pkg, methods, **kw):
 
 
 def method(pkg, ch, kind: str, path: str):
-    """``ch``'s multicallable of ``kind`` (the reference's off its native
-    call path)."""
-    kw = {"tpurpc_native": False} if pkg is REF else {}
-    return getattr(ch, kind)(path, **kw)
+    """``ch``'s multicallable of ``kind``, off the native call path."""
+    return getattr(ch, kind)(path, tpurpc_native=False)
 
 
 def _reset(pkg):

@@ -1,7 +1,9 @@
 """Endpoint: the swappable byte-pipe seam, and the factory that swaps it.
 
-A trimmed copy of ``tpurpc/core/endpoint.py`` (no native raw hook, which
-comes with the C core, ROADMAP A7 (a)). Its observability hooks carry the
+A trimmed copy of ``tpurpc/core/endpoint.py``. A listener's ``raw_hook``
+sees each accepted plaintext socket first and may take it (the server's
+adoption of ring connections onto the native plane,
+``rpc/native_server.py``). Its observability hooks carry the
 reference's names: the ``wire`` lens hop of a socket write, the ``wire``
 and ``poller-wait`` profiler stages, the ``accept_shed`` counter and the
 ``ACCEPT_SHED`` flight event under ``accept:<port>``. One
@@ -47,6 +49,7 @@ from tpurpc_torch.obs import lens as _lens
 from tpurpc_torch.obs import metrics as _metrics
 from tpurpc_torch.obs import profiler as _profiler
 from tpurpc_torch.utils.config import Platform, get_config
+from tpurpc_torch.utils.trace import trace_endpoint
 
 # on the framed (h2-over-TCP) plane the `wire` hop is the socket write; the
 # pair plane's is Pair.send (core/pair.py)
@@ -679,7 +682,13 @@ class EndpointListener:
                  ready: "Optional[threading.Event]" = None,
                  reuseport: bool = False,
                  ssl_context=None,
-                 admission: "Optional[Callable[[], Optional[int]]]" = None):
+                 admission: "Optional[Callable[[], Optional[int]]]" = None,
+                 raw_hook: "Optional[Callable[[socket.socket], bool]]" = None):
+        #: pre-endpoint interception seam: called with the RAW accepted
+        #: socket (plaintext listeners only); True means the hook took
+        #: ownership (the native-server adoption path) and no Endpoint is
+        #: built
+        self._raw_hook = raw_hook
         self._ssl_context = ssl_context
         self._sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
         self._sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
@@ -790,6 +799,12 @@ class EndpointListener:
                 self._handshakes = max(0, self._handshakes - 1)
 
     def _bootstrap_inner(self, sock: socket.socket, addr) -> None:
+        if self._raw_hook is not None and self._ssl_context is None:
+            try:
+                if self._raw_hook(sock):
+                    return  # the hook owns the socket now
+            except Exception as exc:
+                trace_endpoint.log("raw hook failed (%s); python path", exc)
         try:
             if self._ssl_context is not None:
                 # the handshake comes before the platform sniff, which then

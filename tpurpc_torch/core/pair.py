@@ -1,9 +1,15 @@
 """Pair: one connection's data plane — a receive ring the peer writes into,
 a status page for credits and the close flag, and a notify socket.
 
-A trimmed copy of ``tpurpc/core/pair.py`` (pure Python; no native spin or
-waiter-advertisement words, so every send notifies, and no fused native
-send: those come with the C core, ROADMAP A7 (a)). It carries the
+A trimmed copy of ``tpurpc/core/pair.py``. With the port's native library
+(``core/_native.py``) a pair advertises the ``waitflag`` capability at
+bootstrap and publishes waiter-advertisement words in its status page, so
+a peer that negotiated it skips the notify byte while no waiter sleeps; it
+spins on its watched words in C with the GIL released
+(:meth:`Pair.spin`), and a send is one fused C call (credit fold, chunked
+gather-encode and the notify decision, ``tpr_send_fast``). Without the
+library (``TPURPC_NATIVE=0``), or against a peer that did not advertise
+``waitflag``, every send notifies. It carries the
 reference's observability hooks under the reference's names: the
 ``pairs_connected``, ``pairs_write_stalled``, ``pairs_msg_waiting``,
 ``pairs_parked`` and ``pair_resident_bytes_est`` fleet gauges, the pool's
@@ -43,6 +49,7 @@ hop and the ``pair-send``, ``ring-read`` and ``poller-wait`` stages:
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import enum
 import json
 import os
@@ -57,13 +64,18 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from tpurpc_torch.core import _native
 from tpurpc_torch.core import transport as _transport
-from tpurpc_torch.core.ring import RingCorruption, RingReader, RingWriter
+from tpurpc_torch.core.ring import (_BYTES_OUT, _LENS_SR_BYTES, _LENS_SR_COPY,
+                                    _LENS_SR_NS, _MSGS_OUT, RingCorruption,
+                                    RingReader, RingWriter,
+                                    truncate_after_read)
 from tpurpc_torch.obs import flight as _flight
 from tpurpc_torch.obs import lens as _lens
 from tpurpc_torch.obs import metrics as _metrics
 from tpurpc_torch.obs import profiler as _profiler
 from tpurpc_torch.obs import tracing as _tracing
+from tpurpc_torch.tpu import ledger as ring_ledger
 from tpurpc_torch.utils import stats as _stats
 from tpurpc_torch.utils.config import get_config
 from tpurpc_torch.utils.trace import trace_ring
@@ -107,6 +119,15 @@ _U64 = struct.Struct("<Q")
 STATUS_BYTES = 128
 _STATUS_HEAD_OFF = 0
 _STATUS_EXIT_OFF = 8
+#: "a read-waiter is blocked on the notify fd": senders skip the notify
+#: syscall when 0 (the receiver is spinning or mid-drain). A futex-style
+#: protocol; its fences are in tpurpc_torch/native/src/ring.cc
+#: (tpr_store_u64_seqcst).
+#: The words sit on the second cache line, which only this side writes.
+_STATUS_RXWAIT_OFF = 64
+#: the same, for a credit-stalled writer blocked on the notify fd
+_STATUS_WXWAIT_OFF = 72
+_WAIT_OFF = {"read": _STATUS_RXWAIT_OFF, "write": _STATUS_WXWAIT_OFF}
 
 
 class PairState(enum.Enum):
@@ -654,6 +675,10 @@ class Pair:
         self._peer_status: Optional[Window] = None
         #: the peer's capability strings from its bootstrap Address
         self.peer_caps: frozenset = frozenset()
+        #: cached (np array, address) pins of the status pages for the
+        #: waiter-advertisement words; nulled before any close or pool return
+        self._status_np = None
+        self._peer_status_np = None
 
         #: peer-driven event channel (notify tokens + liveness)
         self.notify_sock: Optional[socket.socket] = None
@@ -754,8 +779,10 @@ class Pair:
         assert self.state in (PairState.INITIALIZED, PairState.CONNECTED)
         # rendezvous arms at connect time on a ring plane: no hello round
         # trip for the first bulk payload to race. The switch is read here
-        # because rendezvous imports this module.
-        caps = []
+        # because rendezvous imports this module. "waitflag": this side
+        # publishes the waiter-advertisement words (the native fences are
+        # present), so its peer may skip notifies while nobody waits.
+        caps = ["waitflag"] if _native.load() is not None else []
         if os.environ.get("TPURPC_RENDEZVOUS", "1").lower() not in (
                 "0", "off", "false"):
             caps.append("rdv")
@@ -801,12 +828,83 @@ class Pair:
         self._peer_status = self.domain.open_window(peer.status_handle, STATUS_BYTES)
         self._peer_ring_handle = peer.ring_handle
         self.peer_caps = peer.caps
-        self.writer = RingWriter(peer.ring_size, self._peer_ring.write)
+        self.writer = RingWriter(peer.ring_size, self._peer_ring.write,
+                                 mapped=self._peer_ring.view)
         self.writer.flight_tag = self._ftag
         self.state = PairState.CONNECTED
         _flight.emit(_flight.PAIR_CONNECT, self._ftag, peer.ring_size)
         trace_ring.log("pair %s connected (peer tag %s, ring %d)",
                        self.tag, peer.tag, peer.ring_size)
+
+    # -- waiter advertisement (futex-style sleep handshake) -------------------
+
+    def _status_pin(self):
+        """Cached (array, addr) pin of our status page, or None. The array
+        holds a buffer export, so the region cannot unmap under a native
+        call that took the pin into a local (teardown nulls the cache
+        first, then Region.close retries its release)."""
+        pin = self._status_np
+        if pin is None:
+            region = self.status_region
+            if region is None:
+                return None
+            try:
+                pin = _native.pin(region.buf, writable=True)
+            except (ValueError, TypeError):
+                return None  # racing teardown
+            self._status_np = pin
+            if self.status_region is not region:
+                # teardown nulled the attribute between our read and the
+                # cache store; a cached export would wedge Region.close's
+                # retry. Our local still pins safely for this one call.
+                self._status_np = None
+                return None
+        return pin
+
+    def _peer_status_pin(self):
+        pin = self._peer_status_np
+        if pin is None:
+            win = self._peer_status
+            if win is None or win.view is None:
+                return None
+            try:
+                pin = _native.pin(win.view, writable=False)
+            except (ValueError, TypeError):
+                return None
+            self._peer_status_np = pin
+            if self._peer_status is not win:  # see _status_pin
+                self._peer_status_np = None
+                return None
+        return pin
+
+    def set_waiting(self, role: str, flag: bool) -> None:
+        """Publish "this role is blocked on the notify fd" in our status
+        page, where the peer's producer reads it. A seq_cst store: the full
+        fence the sleep protocol's Dekker argument needs (ring.cc). A no-op
+        without the native library: then this side never advertised
+        ``waitflag`` and its peer notifies unconditionally."""
+        lib = _native.load()
+        if lib is None:
+            return
+        pin = self._status_pin()
+        if pin is None:
+            return  # racing teardown; waiters re-check state and exit
+        lib.tpr_store_u64_seqcst(pin[1] + _WAIT_OFF[role], 1 if flag else 0)
+
+    def _peer_waiting(self, role: str) -> bool:
+        """Is the peer's ``role`` waiter blocked on its notify fd? True also
+        when we cannot tell (no native fences, window gone): the caller then
+        sends the notify byte. The fenced load after our stores is the
+        producer half of the sleep protocol. Negotiated: only a peer that
+        advertised ``waitflag`` publishes the words; any other leaves them
+        at 0 forever, which would read as "nobody waits" and hang it."""
+        lib = _native.load()
+        if lib is None or "waitflag" not in self.peer_caps:
+            return True
+        pin = self._peer_status_pin()
+        if pin is None:
+            return True
+        return bool(lib.tpr_load_u64_fenced(pin[1] + _WAIT_OFF[role]))
 
     # -- notify channel -------------------------------------------------------
 
@@ -973,6 +1071,7 @@ class Pair:
             win = getattr(self, attr)
             if win is not None:
                 setattr(self, attr, None)
+                self._peer_status_np = None
                 retry_buffer_op(win.close)
 
     def _handle_park_request(self) -> None:
@@ -1028,6 +1127,7 @@ class Pair:
                         if self.reader is not None:
                             retry_buffer_op(self.reader.release)
                             self.reader = None
+                        self._status_np = None
                         for attr in ("recv_region", "status_region"):
                             region = getattr(self, attr)
                             if region is not None:
@@ -1157,7 +1257,8 @@ class Pair:
                 self._mark_error(f"re-arm window open failed: {exc!r}")
                 return
             self._peer_ring_handle = peer.ring_handle
-            self.writer = RingWriter(peer.ring_size, self._peer_ring.write)
+            self.writer = RingWriter(peer.ring_size, self._peer_ring.write,
+                                     mapped=self._peer_ring.view)
             self.writer.flight_tag = self._ftag
             if retained:
                 # park abort or repair: the peer kept its rings and its
@@ -1350,7 +1451,10 @@ class Pair:
                     win.write(_STATUS_HEAD_OFF, _U64.pack(head))
                 except ValueError:
                     return  # window closed under us
-                self._notify(NOTIFY_CREDIT)
+                # wake the peer's credit-stalled writer only if one sleeps;
+                # a spinning writer watches the head word natively
+                if force or self._peer_waiting("write"):
+                    self._notify(NOTIFY_CREDIT)
 
     # -- data plane -----------------------------------------------------------
 
@@ -1472,6 +1576,9 @@ class Pair:
                     continue
                 views.append(v[skip:] if skip else v)
                 skip = 0
+            fast = self._send_fast(views, cfg)
+            if fast is not None:
+                return fast
             self.process_credits()
             total = 0
             while views:
@@ -1518,10 +1625,102 @@ class Pair:
             if not views:
                 self.want_write = False
             self.total_sent += total
+            # one completion event per send call, and only while the
+            # receiver sleeps on its notify fd: a spinning receiver sees the
+            # header land, so the BP/BPEV send makes no syscall (the waiting
+            # flag and the fences make the skip lossless, ring.cc)
             if total:
                 self.last_activity = time.monotonic()
-                self._notify(NOTIFY_DATA)  # one event per send call
+                if self._peer_waiting("read"):
+                    self._notify(NOTIFY_DATA)
             return total
+
+    def _send_fast(self, views: "List[memoryview]", cfg) -> "Optional[int]":
+        """Fused native send (``tpr_send_fast``): the credit fold, the
+        chunked gather-encode and the sleep-protocol notify decision in one
+        GIL-held C call. Returns the bytes accepted, or None when the fast
+        path does not apply (no native library, an unmapped ring, teardown
+        racing)."""
+        lib = _native.load()
+        writer = self.writer
+        if (lib is None or writer is None or writer._nat is None
+                or not views):
+            return None
+        status_pin = self._status_pin()
+        if status_pin is None:
+            return None
+        peer_rxwait = 0
+        if "waitflag" in self.peer_caps:
+            peer_pin = self._peer_status_pin()
+            if peer_pin is not None:
+                peer_rxwait = peer_pin[1] + _STATUS_RXWAIT_OFF
+        # small gather lists coalesce into ONE buffer first: an address
+        # costs a numpy construction per segment, more than the memcpy of a
+        # few hundred bytes. Large payloads keep true scatter-gather.
+        small_total = sum(len(v) for v in views)
+        if len(views) > 1 and small_total <= 4096:
+            staged = bytearray(small_total)
+            pos = 0
+            for v in views:
+                staged[pos:pos + len(v)] = v
+                pos += len(v)
+            views = [memoryview(staged)]
+        n = len(views)
+        # locals pin every view for the call's duration
+        seg_ptrs = (ctypes.c_void_p * n)(
+            *[_native.addr_of(v, writable=False) for v in views])
+        seg_lens = (ctypes.c_uint64 * n)(*[len(v) for v in views])
+        tail = ctypes.c_uint64(writer.tail)
+        seq = ctypes.c_uint64(writer.seq)
+        rh = ctypes.c_uint64(writer.remote_head)
+        notify = ctypes.c_int(0)
+        # The credit lock spans the CALL and the writeback: the peer can
+        # consume freshly written bytes and publish a head beyond our stale
+        # writer.tail the instant the C call's stores land, and a concurrent
+        # process_credits() folding that head against the not-yet-written-
+        # back tail would raise a spurious RingCorruption. The call is
+        # GIL-held and bounded, so the hold is short.
+        seq_before = writer.seq
+        t0 = time.monotonic_ns()
+        with self._credit_lock:
+            got = lib.tpr_send_fast(
+                writer._nat_addr, writer.layout.capacity,
+                ctypes.byref(tail), ctypes.byref(seq),
+                status_pin[1] + _STATUS_HEAD_OFF, ctypes.byref(rh),
+                peer_rxwait or None, seg_ptrs, seg_lens, n,
+                cfg.send_chunk_size, ctypes.byref(notify))
+            writer.tail = tail.value
+            writer.seq = seq.value
+            if rh.value > writer.remote_head:
+                writer.remote_head = rh.value
+        dt = time.monotonic_ns() - t0
+        if writer.seq > seq_before:  # ring messages this one C call encoded
+            _stats.batch_hist("ring_write").record(writer.seq - seq_before)
+            # the fused C path bypasses RingWriter.writev, so the registry
+            # totals and the send_ring hop counters are bumped here
+            _MSGS_OUT.inc(writer.seq - seq_before)
+            _BYTES_OUT.inc(got)
+            _LENS_SR_BYTES.inc(got)
+            _LENS_SR_NS.inc(dt)
+            _LENS_SR_COPY.inc(got)
+        ring_ledger.host_copy(got)
+        self.total_sent += got
+        if got:
+            self.last_activity = time.monotonic()
+        total_len = sum(len(v) for v in views)
+        self.want_write = got < total_len
+        # the fast path folds only the credit word; peer_exit must still
+        # flip the state
+        if self.state is PairState.CONNECTED and self.status_region is not None:
+            try:
+                if _U64.unpack_from(self.status_region.buf,
+                                    _STATUS_EXIT_OFF)[0]:
+                    self.state = PairState.HALF_CLOSED
+            except ValueError:
+                pass  # racing teardown; caller's state checks surface it
+        if notify.value:
+            self._notify(NOTIFY_DATA)
+        return got
 
     def recv_into(self, dst) -> int:
         """Drain the receive ring into ``dst``; publishes credits as a side
@@ -1560,7 +1759,7 @@ class Pair:
         cap = self.reader.layout.capacity if self.reader is not None else 0
         buf = bytearray(min(max_bytes, cap))
         n = self.recv_into(buf)
-        del buf[n:]
+        truncate_after_read(buf, n)  # in place: bytes(buf[:n]) copies twice
         return bytes(buf)
 
     def has_message(self) -> bool:
@@ -1585,10 +1784,53 @@ class Pair:
         return self.writer.writable_payload() > 0
 
     def spin(self, role: str, timeout_us: int) -> bool:
-        """One busy-poll slice. Pure Python has no GIL-free spin, so this
-        yields the core once; the caller re-checks its predicate."""
-        time.sleep(0)
-        return True
+        """Bounded native spin on the role's watched words, GIL released.
+
+        ``read`` watches the local receive ring for a complete message
+        (its header and footer words); ``write`` watches the status page's
+        head word the peer one-sided-writes credits into. Returns True when
+        the watched condition fired OR the spin is impossible (no native
+        library, memory released): the caller re-checks its full predicate
+        in Python either way. False means the slice timed out quietly.
+
+        The buffer is pinned by an exported view for the call's duration;
+        Region.close retries its unmap until spinners unpin (at most one
+        slice)."""
+        spin = _native.load_spin()
+        if spin is None:
+            # pure-Python fallback: no bounded native spin exists, so yield
+            # the core each lap and let the caller's ready() check
+            time.sleep(0)
+            return True
+        if role == "read":
+            reader = self.reader
+            if reader is None or reader._msg_len:
+                return True
+            pin = reader._nat_pin  # local ref pins the ring across the call
+            if pin is None:
+                try:
+                    pin, addr = _native.pin(reader.buf, writable=True)
+                except (ValueError, TypeError):
+                    return True  # ring released; predicate will surface it
+            else:
+                addr = reader._nat_addr
+            r = spin.tpr_ring_wait_message(
+                addr, reader.layout.capacity, reader.head,
+                reader.seq, timeout_us)
+            return r != 0
+        writer = self.writer
+        if writer is None:
+            return True
+        pin = self._status_pin()  # local ref pins across the GIL-free call
+        if pin is None:
+            return True
+        # Watch for divergence from the last FOLDED credit value, not from the
+        # word's current value: a credit that landed between the caller's
+        # predicate check and this call returns immediately instead of
+        # spinning a whole slice past it.
+        r = spin.tpr_spin_u64_change(
+            pin[1] + _STATUS_HEAD_OFF, writer.remote_head, timeout_us)
+        return r != 0
 
     # -- close / liveness ------------------------------------------------------
 
@@ -1654,10 +1896,13 @@ class Pair:
             retry_buffer_op(self.reader.release)
             self.reader = None
         self.writer = None
+        # the attribute first (new pins become impossible), then the cache,
+        # then the close; a pin held in a local is covered by the retry
         for attr in ("_peer_ring", "_peer_status"):
             w = getattr(self, attr)
             if w is not None:
                 setattr(self, attr, None)
+                self._peer_status_np = None
                 retry_buffer_op(w.close)
         sock = self.notify_sock
         if sock is not None:
@@ -1687,6 +1932,7 @@ class Pair:
             r = getattr(self, attr)
             if r is not None:
                 setattr(self, attr, None)
+                self._status_np = None
                 RingPool.get().forget(r)
                 r.close()
 

@@ -1,7 +1,10 @@
 """Background poller + pair pool — the hybrid (BPEV) wakeup machinery.
 
-A trimmed copy of ``tpurpc/core/poller.py`` (no native spin: a slice
-yields once, ROADMAP A7 (a)). Its observability hooks carry the
+A trimmed copy of ``tpurpc/core/poller.py``. A busy-poll slice is the
+pair's GIL-free native spin (:meth:`Pair.spin`; it yields once without the
+native library), and a waiter that blocks advertises it in the pair's
+status page for the whole sleep (:meth:`Pair.set_waiting`), so producers
+notify only sleepers. Its observability hooks carry the
 reference's names: the ``poller_registered_pairs`` fleet gauge, the
 ``poller_unpark_slotless``, ``poller_scan_hot``/``_idle``,
 ``wait_spin_*`` and ``wait_sleep`` counters, the ``poller_batch_wakeups``
@@ -379,6 +382,11 @@ def wait_writable(pair: Pair, timeout: Optional[float] = None,
                  role="write")
 
 
+#: the longest native spin slice a waiter takes before re-checking its
+#: predicate in Python
+_SLICE_US = 500
+
+
 def _effective_cpus() -> int:
     try:
         return len(os.sched_getaffinity(0))
@@ -436,8 +444,16 @@ def _wait(pair: Pair, timeout: Optional[float], discipline: Optional[str],
             else:
                 spin_deadline = (time.monotonic()
                                  + cfg.busy_polling_timeout_us / 1e6)
-            while time.monotonic() < spin_deadline:
-                pair.spin(role, 500)
+            while True:
+                now = time.monotonic()
+                if now >= spin_deadline:
+                    break
+                slice_us = _SLICE_US
+                if spin_deadline != float("inf"):
+                    slice_us = max(1, min(_SLICE_US,
+                                          int((spin_deadline - now) * 1e6)))
+                # a GIL-free native spin on the watched words
+                pair.spin(role, slice_us)
                 if ready():
                     _ewma_hit(pair)
                     _stats.counter_inc("wait_spin_hit")
@@ -453,25 +469,34 @@ def _wait(pair: Pair, timeout: Optional[float], discipline: Optional[str],
     sel = pair.waiter_selector(role)
     if not sel.get_map():
         return ready()  # channels released: never block on an empty selector
+    # Advertise "blocked on the notify fd" for the whole sleeping phase, so
+    # producers pay the notify syscall only while someone sleeps (a
+    # futex-style handshake). The flag goes up (a full fence) BEFORE the
+    # predicate re-check before each select: a producer that missed the
+    # flag is visible to the re-check, one that saw it sends the byte.
+    pair.set_waiting(role, True)
     _stats.counter_inc("wait_sleep")
     sleep_t0 = time.monotonic()
     hot_window_s = _HOT_WAKE_MULTIPLE * cfg.busy_polling_timeout_us / 1e6
-    while True:
-        if ready():
-            if time.monotonic() - sleep_t0 <= hot_window_s:
-                _ewma_hit(pair)
-            else:
-                _ewma_miss(pair)
-            return True
-        remain = None if deadline is None else deadline - time.monotonic()
-        if remain is not None and remain <= 0:
-            return ready()
-        try:
-            events = sel.select(timeout=remain)
-        except (OSError, ValueError):
-            return ready()  # a racing close invalidated a registered fd
-        if events:
-            pair.consume_wakeup(role)
+    try:
+        while True:
+            if ready():
+                if time.monotonic() - sleep_t0 <= hot_window_s:
+                    _ewma_hit(pair)
+                else:
+                    _ewma_miss(pair)
+                return True
+            remain = None if deadline is None else deadline - time.monotonic()
+            if remain is not None and remain <= 0:
+                return ready()
+            try:
+                events = sel.select(timeout=remain)
+            except (OSError, ValueError):
+                return ready()  # a racing close invalidated a registered fd
+            if events:
+                pair.consume_wakeup(role)
+    finally:
+        pair.set_waiting(role, False)
 
 
 class PairPool:

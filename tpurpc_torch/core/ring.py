@@ -1,7 +1,10 @@
 """The credit-managed, header/footer-framed host receive ring.
 
-A trimmed copy of ``tpurpc/core/ring.py`` (pure Python; the reference's C
-fast path is not part of the port yet).
+A copy of ``tpurpc/core/ring.py``. When the port's native library loads
+(``core/_native.py``) and the ring memory is addressable, the per-byte work
+(framing scan, copy-out, gather-encode, with acquire/release fences) runs
+in C (``tpurpc_torch/native/src/ring.cc``); ``TPURPC_NATIVE=0`` keeps the
+pure-Python path, which produces the same bytes.
 
 * Wire format per message::
 
@@ -26,19 +29,19 @@ Observability, under the reference's names: the ``ring_msgs_read``,
 counters (one add per batched drain or write), the
 ``ring_credit_unpublished_bytes`` and ``ring_in_flight_bytes`` fleet
 gauges (read at scrape time only), the ``send_ring`` and ``peer_ring`` lens
-hops, the ``ring-write`` and ``ring-read`` profiler stages, and the
-writer's ``CREDIT_STARVE_BEGIN``/``_END`` flight edges under its owner's
-tag. Left out with the C fast path (ROADMAP A7 (a)): ``read``,
-``read_into``, ``read_many`` and ``scan_complete``, so their stage markers
-too.
+hops, the ``ring-write`` and ``ring-read`` profiler stages (the native
+calls included), and the writer's ``CREDIT_STARVE_BEGIN``/``_END`` flight
+edges under its owner's tag.
 """
 
 from __future__ import annotations
 
+import ctypes
 import struct
 import time
 from typing import Callable, List, Optional, Sequence, Tuple
 
+from tpurpc_torch.core import _native
 from tpurpc_torch.obs import flight as _flight
 from tpurpc_torch.obs import lens as _lens
 from tpurpc_torch.obs import metrics as _metrics
@@ -61,22 +64,44 @@ _LENS_SR_BYTES, _LENS_SR_NS, _LENS_SR_COPY = _lens.hop_counters("send_ring")
 _LENS_PR_BYTES, _LENS_PR_NS, _LENS_PR_COPY = _lens.hop_counters("peer_ring")
 
 _LENS_STAGES = {
+    "write": "ring-write",
     "writev": "ring-write",
     "write_many": "ring-write",
+    "_writev_native": "ring-write",
+    "read": "ring-read",
+    "read_into": "ring-read",
+    "_read_into_native": "ring-read",
     "drain_into": "ring-read",
+    "read_many": "ring-read",
+    "scan_complete": "ring-read",
 }
 _profiler.register_stages(__file__, _LENS_STAGES)
 
 ALIGN = 8
 HEADER_BYTES = 8
 FOOTER_BYTES = 8
-#: Salt in the footer stamp (the reference's native ring uses the same).
+#: Salt in the footer stamp (must match tpurpc_torch/native/src/ring.cc kFooterSalt).
 FOOTER_SALT = 0xA5C3F00D5EEDFACE
 #: Reserved slack the writer never fills: header + footer + one 8B gap.
 RESERVED_BYTES = HEADER_BYTES + FOOTER_BYTES + ALIGN
 
 _U64 = struct.Struct("<Q")
 _U64_MASK = (1 << 64) - 1
+
+
+def truncate_after_read(buf: bytearray, n: int) -> None:
+    """``del buf[n:]`` with a bounded BufferError retry: a frame that just
+    filled ``buf`` can be kept alive for a sub-millisecond window by
+    anything walking ``sys._current_frames`` (the sampling profiler), and
+    an in-place resize racing that window raises BufferError. The final
+    attempt re-raises."""
+    for _ in range(200):
+        try:
+            del buf[n:]
+            return
+        except BufferError:
+            time.sleep(0.0001)
+    del buf[n:]
 
 
 def footer_stamp(seq: int) -> int:
@@ -144,6 +169,19 @@ class RingReader:
         self._msg_len = 0   # payload length of the in-progress message
         self._msg_read = 0  # payload bytes already handed to the app
         self.consumed_since_publish = 0
+        # the native fast path: scan and copy in C when the library loads
+        # and the ring memory is addressable. The pin (a live numpy view)
+        # keeps the cached address valid: the ring cannot unmap while it
+        # exists, and release() drops it first.
+        self._nat = _native.load()
+        self._nat_addr = None
+        self._nat_pin = None
+        if self._nat is not None:
+            try:
+                self._nat_pin, self._nat_addr = _native.pin(
+                    self.buf, writable=True)
+            except (ValueError, TypeError):
+                self._nat = None
         _READERS.track(self)
 
     # -- completion scanning ------------------------------------------------
@@ -165,13 +203,39 @@ class RingReader:
             return 0  # body still in flight
         return ln
 
+    def _alive(self) -> bool:
+        """Is ``buf`` still mapped? (The GIL is held from here through the
+        native call, so a racing release() cannot interleave.)"""
+        try:
+            _ = self.buf.nbytes
+            return True
+        except ValueError:
+            return False
+
     def has_message(self) -> bool:
         if self._msg_len:
             return True
+        if self._nat is not None:
+            if not self._alive():
+                raise RingCorruption("ring memory released")
+            r = self._nat.tpr_ring_has_message(
+                self._nat_addr, self.layout.capacity, self.head,
+                self._msg_len, self.seq)
+            if r < 0:
+                raise RingCorruption(
+                    f"invalid header length at offset "
+                    f"{self.layout.phys(self.head)}")
+            return bool(r)
         return self._message_at(self.head, self.seq) != 0
 
     def readable(self) -> int:
         """Total payload bytes currently drainable (all complete messages)."""
+        if self._nat is not None:
+            if not self._alive():
+                raise RingCorruption("ring memory released")
+            return self._nat.tpr_ring_readable(
+                self._nat_addr, self.layout.capacity, self.head,
+                self._msg_len, self._msg_read, self.seq)
         total = 0
         off = self.head
         seq = self.seq
@@ -198,14 +262,135 @@ class RingReader:
             dst[dst_off:dst_off + seg_len] = self.buf[seg_off:seg_off + seg_len]
             dst_off += seg_len
 
+    def read_into(self, dst) -> int:
+        """Drain up to ``len(dst)`` payload bytes; returns the count read.
+        Message at a time, with partial-message resumption; consumed spans
+        are not zeroed (freshness comes from the sequence stamps)."""
+        dst = memoryview(dst)
+        if dst.readonly:
+            raise ValueError("read_into needs a writable buffer")
+        dst = dst.cast("B")
+        if self._nat is not None and len(dst) > 0:
+            return self._read_into_native(dst)
+        total = 0
+        seq0 = self.seq
+        t0 = time.monotonic_ns()
+        while total < len(dst):
+            if self._msg_len == 0:
+                ln = self._message_at(self.head, self.seq)
+                if ln == 0:
+                    break
+                self._msg_len = ln
+                self._msg_read = 0
+            n = min(len(dst) - total, self._msg_len - self._msg_read)
+            payload_off = self.head + HEADER_BYTES + self._msg_read
+            self._copy_out(payload_off, n, dst, total)
+            self._msg_read += n
+            total += n
+            if self._msg_read == self._msg_len:
+                span = message_span(self._msg_len)
+                self.head += span
+                self.consumed_since_publish += span
+                self._msg_len = 0
+                self._msg_read = 0
+                self.seq += 1
+        dt = time.monotonic_ns() - t0
+        ledger.host_copy(total)
+        _MSGS_IN.inc(self.seq - seq0)
+        _BYTES_IN.inc(total)
+        _LENS_PR_BYTES.inc(total)
+        _LENS_PR_NS.inc(dt)
+        _LENS_PR_COPY.inc(total)
+        return total
+
+    def _read_into_native(self, dst: memoryview) -> int:
+        if not self._alive():
+            raise RingCorruption("ring memory released")
+        head = ctypes.c_uint64(self.head)
+        msg_len = ctypes.c_uint64(self._msg_len)
+        msg_read = ctypes.c_uint64(self._msg_read)
+        consumed = ctypes.c_uint64(self.consumed_since_publish)
+        seq0 = self.seq
+        seq = ctypes.c_uint64(self.seq)
+        t0 = time.monotonic_ns()
+        n = self._nat.tpr_ring_read_into(
+            self._nat_addr, self.layout.capacity,
+            ctypes.byref(head), ctypes.byref(msg_len), ctypes.byref(msg_read),
+            _native.addr_of(dst, writable=True), len(dst),
+            ctypes.byref(consumed), ctypes.byref(seq))
+        dt = time.monotonic_ns() - t0
+        if n == 0xFFFFFFFFFFFFFFFF:
+            raise RingCorruption(
+                f"invalid header length at offset "
+                f"{self.layout.phys(head.value)}")
+        self.head = head.value
+        self._msg_len = msg_len.value
+        self._msg_read = msg_read.value
+        self.consumed_since_publish = consumed.value
+        self.seq = seq.value
+        ledger.host_copy(n)
+        _MSGS_IN.inc(self.seq - seq0)
+        _BYTES_IN.inc(n)
+        _LENS_PR_BYTES.inc(n)
+        _LENS_PR_NS.inc(dt)
+        _LENS_PR_COPY.inc(n)
+        return n
+
+    def read(self, nbytes: int) -> bytes:
+        # sized by capacity, not by a readable() pre-scan: read_into walks
+        # the framing anyway
+        out = bytearray(min(nbytes, self.layout.capacity))
+        n = self.read_into(out)
+        truncate_after_read(out, n)  # in place: bytes(out[:n]) copies twice
+        return bytes(out)
+
+    # -- batched draining -----------------------------------------------------
+
+    def scan_complete(self, max_msgs: Optional[int] = None,
+                      max_bytes: Optional[int] = None
+                      ) -> Tuple[List[Tuple[int, int]], int]:
+        """One scan pass: descriptors of the complete messages queued at
+        head, ``([(abs_msg_off, payload_len), ...], span)`` in arrival
+        order, ``span`` the ring bytes they occupy. Stops at the first
+        incomplete message, at ``max_msgs`` descriptors, or where another
+        message would push the payload past ``max_bytes``. Needs no
+        partial read in progress."""
+        assert self._msg_len == 0, "scan_complete during a partial read"
+        descs: List[Tuple[int, int]] = []
+        span = 0
+        payload = 0
+        off = self.head
+        seq = self.seq
+        while span < self.layout.capacity:
+            if max_msgs is not None and len(descs) >= max_msgs:
+                break
+            ln = self._message_at(off, seq)
+            if ln == 0:
+                break
+            if max_bytes is not None and descs and payload + ln > max_bytes:
+                break
+            descs.append((off, ln))
+            s = message_span(ln)
+            off += s
+            span += s
+            payload += ln
+            seq += 1
+        return descs, span
+
     def drain_into(self, dst) -> Tuple[int, int]:
         """Drain up to ``len(dst)`` payload bytes, message by message with
         partial-message resumption; head/seq/credit state and the ledger
-        update once per call. Returns ``(payload_bytes, completed_messages)``."""
+        update once per call. Returns ``(payload_bytes, completed_messages)``.
+        The native path is one C call per batch; its message count is the
+        sequence stamps' delta."""
         dst = memoryview(dst)
         if dst.readonly:
             raise ValueError("drain_into needs a writable buffer")
         dst = dst.cast("B")
+        if self._nat is not None and len(dst) > 0:
+            seq0 = self.seq
+            n = self._read_into_native(dst)
+            return n, self.seq - seq0
         total = 0
         nmsgs = 0
         head = self.head
@@ -244,6 +429,43 @@ class RingReader:
         _LENS_PR_COPY.inc(total)
         return total, nmsgs
 
+    def read_many(self, max_msgs: Optional[int] = None,
+                  max_bytes: Optional[int] = None) -> List[memoryview]:
+        """Drain every complete message in ONE segmented copy-out: the
+        batch's whole ring span goes into one fresh buffer with at most two
+        copies (the wrap split), and each payload comes back as a zero-copy
+        view over it; head and seq publish once. ``[]`` when nothing is
+        complete or a partial read is in progress. The views never alias
+        ring memory."""
+        if self._msg_len:
+            return []
+        if max_bytes is None:
+            max_bytes = self.layout.capacity
+        t0 = time.monotonic_ns()
+        descs, span = self.scan_complete(max_msgs, max_bytes)
+        if not descs:
+            return []
+        scratch = memoryview(bytearray(span))
+        base = self.head
+        dst_off = 0
+        for seg_off, seg_len in self.layout.segments(base, span):
+            scratch[dst_off:dst_off + seg_len] = self.buf[seg_off:seg_off + seg_len]
+            dst_off += seg_len
+        out = [scratch[off - base + HEADER_BYTES:
+                       off - base + HEADER_BYTES + ln] for off, ln in descs]
+        dt = time.monotonic_ns() - t0
+        self.head = base + span
+        self.seq += len(descs)
+        self.consumed_since_publish += span
+        payload = sum(ln for _off, ln in descs)
+        ledger.host_copy(span)
+        _MSGS_IN.inc(len(descs))
+        _BYTES_IN.inc(payload)
+        _LENS_PR_BYTES.inc(payload)
+        _LENS_PR_NS.inc(dt)
+        _LENS_PR_COPY.inc(payload)
+        return out
+
     # -- credits ------------------------------------------------------------
 
     def should_publish_head(self) -> bool:
@@ -256,8 +478,19 @@ class RingReader:
         return self.head
 
     def release(self) -> None:
-        """Drop the memoryview so the underlying region can close."""
-        self.buf.release()
+        """Drop the memoryview so the underlying region can close. Retries:
+        a GIL-free native spin (``Pair.spin``) may hold an export for at
+        most one bounded slice."""
+        self._nat_pin = None  # drop our own export before releasing
+        deadline = time.monotonic() + 2.0
+        while True:
+            try:
+                self.buf.release()
+                return
+            except BufferError:
+                if time.monotonic() >= deadline:
+                    raise
+                time.sleep(0.001)
 
 
 class RingCorruption(RuntimeError):
@@ -271,9 +504,12 @@ class RingWriter:
     """Producer view: encodes messages into the *peer's* ring via one-sided
     writes. ``write_fn(phys_offset, data)`` performs the placement; the
     writer learns the consumer's progress only through
-    :meth:`update_remote_head` (the credit write)."""
+    :meth:`update_remote_head` (the credit write). With ``mapped`` (the
+    peer ring's mapped memory, a shm window) and the native library, the
+    gather-encode runs in C straight into it."""
 
-    def __init__(self, capacity: int, write_fn: WriteFn):
+    def __init__(self, capacity: int, write_fn: WriteFn,
+                 mapped: Optional[memoryview] = None):
         self.layout = RingLayout(capacity)
         self.write_fn = write_fn
         self.tail = 0         # absolute count of ring bytes ever written
@@ -283,6 +519,15 @@ class RingWriter:
         #: event per starve episode and one per recovery, never per message
         self.flight_tag = 0
         self._starved = False
+        # transports whose placement is a callback stay on write_fn
+        self._nat = _native.load() if mapped is not None else None
+        self._nat_addr = None
+        if self._nat is not None:
+            try:
+                self._nat_addr = _native.addr_of(mapped, writable=True)
+                self._mapped = mapped  # keep the exporter alive
+            except (ValueError, TypeError):
+                self._nat = None
         _WRITERS.track(self)
 
     # -- flow control -------------------------------------------------------
@@ -313,6 +558,11 @@ class RingWriter:
             self.write_fn(seg_off, view[pos:pos + seg_len])
             pos += seg_len
 
+    def write(self, payload) -> int:
+        """Encode one message; returns payload bytes written (all or
+        nothing). The caller chunks to :meth:`writable_payload`."""
+        return self.writev([payload])
+
     def writev(self, slices: Sequence) -> int:
         """Gather-encode several slices as ONE message; returns payload bytes
         written. The caller chunks to :meth:`writable_payload`."""
@@ -329,6 +579,8 @@ class RingWriter:
         if self._starved:
             self._starved = False
             _flight.emit(_flight.CREDIT_STARVE_END, self.flight_tag)
+        if self._nat is not None:
+            return self._writev_native(views, payload_len)
         # Order matters for lock-free completion: payload, footer, header.
         t0 = time.monotonic_ns()
         ledger.host_copy(payload_len)
@@ -416,6 +668,35 @@ class RingWriter:
         _LENS_SR_NS.inc(dt)
         _LENS_SR_COPY.inc(payload_total)
         return len(lens), payload_total
+
+    def _writev_native(self, views: Sequence[memoryview],
+                       payload_len: int) -> int:
+        try:
+            _ = self._mapped.nbytes  # peer window still mapped?
+        except ValueError:
+            raise RingCorruption("peer ring window released") from None
+        n = len(views)
+        seg_ptrs = (ctypes.c_void_p * n)(
+            *[_native.addr_of(v, writable=False) for v in views])
+        seg_lens = (ctypes.c_uint64 * n)(*[len(v) for v in views])
+        tail = ctypes.c_uint64(self.tail)
+        seq = ctypes.c_uint64(self.seq)
+        t0 = time.monotonic_ns()
+        got = self._nat.tpr_ring_writev(
+            self._nat_addr, self.layout.capacity, ctypes.byref(tail),
+            self.remote_head, seg_ptrs, seg_lens, n, ctypes.byref(seq))
+        dt = time.monotonic_ns() - t0
+        if got == 0xFFFFFFFFFFFFFFFF:
+            raise RingFull(payload_len, self.writable_payload())
+        self.tail = tail.value
+        self.seq = seq.value
+        ledger.host_copy(got)
+        _MSGS_OUT.inc()
+        _BYTES_OUT.inc(got)
+        _LENS_SR_BYTES.inc(got)
+        _LENS_SR_NS.inc(dt)
+        _LENS_SR_COPY.inc(got)
+        return got
 
 
 class RingFull(RuntimeError):

@@ -30,8 +30,9 @@ balancing (grpclb): a balancer streams server lists and a watcher moves
 the channel's membership with them; ``xds:///service`` targets
 (``tpurpc_torch/rpc/xds.py``) follow an xDS control plane's EDS updates.
 
-``H2Channel`` (``tpurpc_torch/wire/h2_client.py``) is exported lazily, as
-the reference does: an eager import here would make a program that imports
+``H2Channel`` (``tpurpc_torch/wire/h2_client.py``) and ``NativeChannel``
+(``tpurpc_torch/rpc/native_client.py``, the C core's client) are exported
+lazily, as the reference does: an eager import here would make a program that imports
 ``tpurpc_torch.wire.grpc_h2`` first meet this package mid-cycle. ``aio``
 (the asyncio surface, ``grpc.aio``'s analog) is lazy too and stays out of
 ``__all__``, so the sync path never pays the asyncio import.
@@ -86,6 +87,7 @@ __all__ = [
     "insecure_for_testing_channel_credentials",
     "enable_server_reflection", "enable_channelz",
     "LoadBalancerServicer", "enable_lookaside",
+    "NativeChannel",
 ]
 
 
@@ -94,6 +96,10 @@ def __getattr__(name):
         from tpurpc_torch.wire.h2_client import H2Channel
 
         return H2Channel
+    if name == "NativeChannel":
+        from tpurpc_torch.rpc.native_client import NativeChannel
+
+        return NativeChannel
     if name == "aio":
         import tpurpc_torch.rpc.aio as aio
 

@@ -19,9 +19,10 @@ is unchanged, and the asyncio layer adapts at the call boundary:
 
 Four call shapes on both sides, secure ports and channels included.
 
-Not here: the reference's ``NativeChannel`` (its async face of the C
-core's client, which comes with the port of the C core). Unlike the
-reference's, :func:`server` passes ``interceptors`` to the server.
+:class:`NativeChannel` is the async face of the C core's client
+(``rpc/native_client.py``): unary calls submit through its completion
+queue. Unlike the reference's, :func:`server` passes ``interceptors`` to
+the server.
 """
 
 from __future__ import annotations
@@ -504,3 +505,62 @@ def insecure_channel(target: str, **kw) -> Channel:
 def secure_channel(target: str, credentials, **kw) -> Channel:
     return Channel(target, credentials=credentials, **kw)
 
+
+class NativeChannel:
+    """grpc.aio-shaped wrapper over :class:`tpurpc_torch.rpc.native_client.
+    NativeChannel`: unary calls submit through the channel's completion
+    queue and await the completion — N coroutines = N calls in flight on
+    one connection with ONE puller thread, no executor thread per call
+    (the async face of the ctypes fast path; GRPC_PLATFORM_TYPE is
+    honored inside the .so). The executor is used only for close/ping
+    and for calls with a non-identity serializer (serialization stays
+    off the event loop)."""
+
+    def __init__(self, host: str, port: int, connect_timeout: float = 10.0):
+        from tpurpc_torch.rpc.native_client import NativeChannel as _Sync
+
+        self._sync = _Sync(host, port, connect_timeout)
+
+    async def __aenter__(self):
+        return self
+
+    async def __aexit__(self, *exc):
+        await self.close()
+
+    async def close(self) -> None:
+        loop = asyncio.get_running_loop()
+        await loop.run_in_executor(None, self._sync.close)
+
+    async def ping(self, timeout: float = 5.0) -> float:
+        loop = asyncio.get_running_loop()
+        return await loop.run_in_executor(
+            None, lambda: self._sync.ping(timeout))
+
+    def unary_unary(self, method: str, request_serializer=_identity,
+                    response_deserializer=_identity):
+        # Raw-bytes multicallable: the response deserializer must NOT run
+        # on the channel's single CQ puller thread (it would serialize all
+        # in-flight completions behind each decode) — it runs per-call
+        # below, off-loop when non-trivial.
+        mc = self._sync.unary_unary(method, request_serializer, None)
+
+        async def call(request, timeout=None):
+            # Submit through the channel's completion queue and await the
+            # wrapped Future: N coroutines = N calls in flight on ONE
+            # connection with one puller thread — no executor thread per
+            # call. Heavy codecs run on the executor so neither the event
+            # loop (serializer) nor the puller (deserializer) stalls;
+            # bare-bytes calls never touch the executor at all.
+            loop = asyncio.get_running_loop()
+            if request_serializer is _identity:
+                fut = mc.future(request, timeout=timeout)
+            else:
+                fut = await loop.run_in_executor(
+                    None, lambda: mc.future(request, timeout=timeout))
+            body = await asyncio.wrap_future(fut)
+            if response_deserializer is _identity:
+                return body
+            return await loop.run_in_executor(
+                None, response_deserializer, body)
+
+        return call

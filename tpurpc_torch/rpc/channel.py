@@ -1,7 +1,6 @@
 """Client channel: multiplexed calls over one endpoint, with reconnect.
 
-A trimmed copy of ``tpurpc/rpc/channel.py`` (no native fast path, which
-comes with the C core):
+A trimmed copy of ``tpurpc/rpc/channel.py``:
 
 * ``Channel`` resolves its target into subchannels (one per address), each
   (re)connecting with exponential backoff, over TLS when given
@@ -33,6 +32,17 @@ comes with the C core):
 * ``UnaryUnary`` / ``UnaryStream`` / ``StreamUnary`` / ``StreamStream``
   mirror grpcio's multicallables; ``Call.device_ring`` is the ring of the
   connection the call ran on;
+* the native fast path (:meth:`Channel._native_fast`): on a shm-ring
+  platform (``RDMA_BP``, ``RDMA_EVENT``, ``RDMA_BPEV``; never ``TPU``) a
+  plain single-address channel runs its eligible calls inside the C core's
+  loop through a cached ``NativeChannel`` (``rpc/native_client.py``):
+  unary calls without metadata, wait-for-ready, hedging or a live trace
+  sample, under the retry policy, and the three streaming shapes
+  (:class:`_NativeStreamCall`). ``TPURPC_NATIVE_FAST_UNARY`` (``0`` off,
+  ``1`` on TCP too) and a factory's ``tpurpc_native=False`` opt out; an
+  open copy-ledger window or live profiling keeps calls on the Python
+  plane, whose copies the instruments count. A failure that provably
+  happened before the request left replays on the Python plane;
 * the call plane: a service config (``rpc/service_config.py``) delivered
   by the resolver, by ``update_service_config`` or by the
   ``grpc.service_config`` option gives per-method timeouts,
@@ -1023,6 +1033,12 @@ class Channel:
         self._closed = False
         #: the background dial a get_state(try_to_connect=True) started
         self._kicker: Optional[threading.Thread] = None
+        #: the native fast path (lazy, see _native_fast): the cached
+        #: NativeChannel, and a throttle so that an absent or down native
+        #: path costs one probe per 5 s
+        self._native_lock = threading.Lock()
+        self._native_ch = None
+        self._native_retry_at = 0.0
         from tpurpc_torch.rpc import channelz as _channelz
 
         #: channelz ChannelData counters (started/succeeded/failed)
@@ -1116,6 +1132,17 @@ class Channel:
         # survive a membership size change: balanced sets get round_robin
         spec = (self._lb_spec if isinstance(self._lb_spec, str)
                 else "round_robin")
+        # dynamic membership is routing the Python transport owns: the
+        # single-address native fast path would pin traffic to the original
+        # backend, so it is off for this channel from now on
+        with self._native_lock:
+            nch, self._native_ch = self._native_ch, None
+            self._native_retry_at = float("inf")
+        if nch is not None:
+            try:
+                nch.close()
+            except Exception:
+                pass
         with self._lock:
             if self._closed:
                 raise RpcError(StatusCode.UNAVAILABLE, "channel closed")
@@ -1230,6 +1257,12 @@ class Channel:
             if self._closed:
                 return CC.SHUTDOWN
             subs = list(self._subchannels)
+        with self._native_lock:
+            nch = self._native_ch
+        if nch is not None and nch._ch:
+            # calls flow through the native fast path: the channel is READY
+            # though no Python-transport connection exists
+            return CC.READY
         now = time.monotonic()
         backing_off = False
         for sc in subs:
@@ -1279,6 +1312,14 @@ class Channel:
         with self._lock:
             self._closed = True
             subs = list(self._subchannels)
+        with self._native_lock:
+            nch, self._native_ch = self._native_ch, None
+            self._native_retry_at = float("inf")  # closed: never re-dial
+        if nch is not None:
+            try:
+                nch.close()
+            except Exception:
+                pass
         for sc in subs:
             sc.close()
 
@@ -1288,36 +1329,106 @@ class Channel:
     def __exit__(self, *exc):
         self.close()
 
+    # -- native fast path ----------------------------------------------------
+
+    def _native_fast(self):
+        """The channel's NativeChannel (calls run inside the C core's
+        inline-read loop), or None when ineligible.
+
+        Eligibility is the common drop-in case, checked once: a plain
+        single address, pick_first with static membership, no TLS, no
+        compression, a shm-ring platform (plain-TCP channels keep the
+        Python transport), the library present.
+        ``TPURPC_NATIVE_FAST_UNARY=1`` forces it for TCP too; ``=0`` opts
+        out entirely. Everything else stays on the Python transport: the
+        same wire, the same server."""
+        with self._native_lock:
+            if self._native_ch is not None:
+                return self._native_ch
+            now = time.monotonic()
+            if now < self._native_retry_at or self._closed:
+                return None
+            self._native_retry_at = now + 5.0  # throttle failed probes
+            mode = os.environ.get("TPURPC_NATIVE_FAST_UNARY",
+                                  "auto").lower()
+            if mode in ("0", "off", "false"):
+                self._native_retry_at = float("inf")
+                return None
+            if (self._compress_flag or self._addrs is None
+                    or len(self._addrs) != 1 or self._lb_spec != "pick_first"
+                    or self._conn_kw.get("ssl_context") is not None):
+                self._native_retry_at = float("inf")
+                return None
+            cfg = get_config()
+            ring_ok = (cfg.platform.is_ring and cfg.platform.name != "TPU"
+                       and cfg.ring_domain == "shm")
+            if not (ring_ok or (mode in ("1", "on", "true")
+                                and not cfg.platform.is_ring)):
+                self._native_retry_at = float("inf")
+                return None
+            try:
+                from tpurpc_torch.rpc.native_client import NativeChannel
+
+                host, port = self._addrs[0]
+                # inline_read: the fast path issues only BLOCKING entries
+                # (unary calls and NativeCall streams), so it takes the
+                # lowest-latency discipline: callers pump the ring, no
+                # reader-thread wakeup per round trip
+                self._native_ch = NativeChannel(
+                    host, port, connect_timeout=self._conn_kw["timeout"],
+                    inline_read=True)
+            except Exception:
+                return None  # library absent or server down: retry in 5 s
+            return self._native_ch
+
+    def _native_invalidate(self, nch) -> None:
+        """Drop a dead fast-path channel; the next eligible call re-dials."""
+        with self._native_lock:
+            if self._native_ch is nch:
+                self._native_ch = None
+        try:
+            nch.close()
+        except Exception:
+            pass
+
     # The factories take and ignore the extra keywords grpcio-generated
     # stubs pass (``_registered_method=True`` since grpcio 1.60) and read
     # None codecs as identity, as grpcio does, so a stock
-    # ``*_pb2_grpc.FooStub(channel)`` runs on this channel unchanged. The
-    # reference's ``tpurpc_native`` switch is taken too; the port has no
-    # native plane, so it changes nothing.
+    # ``*_pb2_grpc.FooStub(channel)`` runs on this channel unchanged.
+    # ``tpurpc_native=False`` opts a method out of the native fast paths
+    # (to keep a bulk stream on the fully instrumented Python plane, say).
 
     def unary_unary(self, method: str, request_serializer: Serializer = _identity,
                     response_deserializer: Deserializer = _identity,
                     **_grpcio_kwargs) -> "UnaryUnary":
         return UnaryUnary(self, method, request_serializer or _identity,
-                          response_deserializer or _identity)
+                          response_deserializer or _identity,
+                          allow_native=_grpcio_kwargs.pop(
+                              "tpurpc_native", True))
 
     def unary_stream(self, method: str, request_serializer: Serializer = _identity,
                      response_deserializer: Deserializer = _identity,
                      **_grpcio_kwargs) -> "UnaryStream":
         return UnaryStream(self, method, request_serializer or _identity,
-                           response_deserializer or _identity)
+                           response_deserializer or _identity,
+                           allow_native=_grpcio_kwargs.pop(
+                               "tpurpc_native", True))
 
     def stream_unary(self, method: str, request_serializer: Serializer = _identity,
                      response_deserializer: Deserializer = _identity,
                      **_grpcio_kwargs) -> "StreamUnary":
         return StreamUnary(self, method, request_serializer or _identity,
-                           response_deserializer or _identity)
+                           response_deserializer or _identity,
+                           allow_native=_grpcio_kwargs.pop(
+                               "tpurpc_native", True))
 
     def stream_stream(self, method: str, request_serializer: Serializer = _identity,
                       response_deserializer: Deserializer = _identity,
                       **_grpcio_kwargs) -> "StreamStream":
         return StreamStream(self, method, request_serializer or _identity,
-                            response_deserializer or _identity)
+                            response_deserializer or _identity,
+                            allow_native=_grpcio_kwargs.pop(
+                                "tpurpc_native", True))
 
 
 class Call:
@@ -1599,11 +1710,15 @@ class HedgingPolicy:
 
 class _MultiCallable:
     def __init__(self, channel: Channel, method: str,
-                 serializer: Serializer, deserializer: Deserializer):
+                 serializer: Serializer, deserializer: Deserializer,
+                 allow_native: bool = True):
         self._channel = channel
         self._method = method
         self._ser = serializer
         self._deser = deserializer
+        #: the factory's ``tpurpc_native``: False keeps this method off the
+        #: native fast paths
+        self._allow_native = allow_native
 
     def _dial(self, wait_for_ready: bool, deadline: Optional[float],
               exclude=None, picked=None) -> _Connection:
@@ -1722,6 +1837,45 @@ class _MultiCallable:
         return conn, st, Call(conn, st, self._deser, deadline,
                               counters=counters, channel=self._channel)
 
+    @staticmethod
+    def _instruments_live() -> bool:
+        """An open copy-ledger window or live profiling spans measure the
+        INSTRUMENTED Python data plane: do not route around them."""
+        from tpurpc_torch.tpu import ledger as _ledger
+
+        return _ledger.tracking() or _stats.profiling_on()
+
+    def _try_native_stream(self, request_iterator: Iterable,
+                           timeout: Optional[float],
+                           pre_serialized: bool = False):
+        """The shared native-stream entry of the three streaming shapes: an
+        eager :class:`_NativeStreamCall` through the channel's fast path,
+        or None to use the Python transport (an ineligible channel, a live
+        measurement window, or a dead cached fast channel, which is
+        invalidated so the next call re-dials; nothing was sent, so the
+        Python path is always safe)."""
+        if self._instruments_live():
+            return None
+        nch = self._channel._native_fast()
+        if nch is None:
+            return None
+        # a sampled stream carries its trace context through
+        # tpr_call_start's metadata: the same wire key and the same
+        # server-side extraction as the Python plane
+        md = None
+        if _tracing.LIVE:
+            tctx = _tracing.maybe_sample()
+            if tctx is not None:
+                md = [(_tracing.HEADER, tctx.child().encode())]
+        try:
+            nc = nch.start_call(self._method, timeout, metadata=md)
+        except RpcError:
+            self._channel._native_invalidate(nch)
+            return None
+        ser = (lambda x: x) if pre_serialized else self._ser
+        return _NativeStreamCall(self._channel, nc, ser, self._deser,
+                                 request_iterator, timeout)
+
     def _send_stream(self, conn: _Connection, st: _ClientStream,
                      request_iterator: Iterable) -> None:
         try:
@@ -1760,15 +1914,110 @@ def _reject_call_credentials(grpcio_kw: dict) -> None:
 
 
 class UnaryUnary(_MultiCallable):
+    #: (NativeChannel, native multicallable) cache, rebuilt when the channel
+    #: re-dials its fast path after a failure
+    _native_mc: "Optional[tuple]" = None
+
     def __call__(self, request, timeout: Optional[float] = None,
                  metadata: Optional[Metadata] = None, **grpcio_kw):
+        _reject_call_credentials(grpcio_kw)
         # one sampling decision per call, drawn here and handed down to
         # every retry and hedge attempt, which share its trace id
         tctx = _tracing.maybe_sample() if _tracing.LIVE else None
+        # the native fast path: a plain response-only unary call with no
+        # per-call extras runs inside the C core's inline-read loop. Per-
+        # call metadata, wait-for-ready (per call or from the service
+        # config), hedging and a sampled trace (the unary native entry has
+        # no metadata to carry it) stay on the Python transport; a
+        # tail-provisional context does not, and _native_call records a
+        # post-hoc span iff the call turns out slow or failed
+        plan = self._channel._call_plan(self._method, None)
+        if ((tctx is None or getattr(tctx, "provisional", False))
+                and self._allow_native and not metadata
+                and not grpcio_kw.get("wait_for_ready")
+                and not plan[3]
+                and plan[4] is None
+                and not self._instruments_live()):
+            nch = self._channel._native_fast()
+            if nch is not None:
+                done, resp = self._native_call(nch, request, timeout, tctx)
+                if done:
+                    return resp
         response, _ = self.with_call(request, timeout=timeout,
                                      metadata=metadata, _trace_ctx=tctx,
                                      **grpcio_kw)
         return response
+
+    def _native_call(self, nch, request, timeout: Optional[float],
+                     tctx=None):
+        """One unary call inside the native loop: ``(True, resp)``, or
+        ``(False, None)`` to fall back to the Python transport, which is
+        allowed only for failures that PROVE no handler ran (refused or
+        connect-time), so a fallback never re-executes a committed call.
+        The retry policy runs over it as over the Python path."""
+        cached = self._native_mc
+        if cached is None or cached[0] is not nch:
+            cached = (nch, nch.unary_unary(self._method))
+            self._native_mc = cached
+        mc = cached[1]
+        counters = self._channel.call_counters
+        policy, timeout, throttle, _, _hedging = self._channel._call_plan(
+            self._method, timeout)
+        deadline = None if timeout is None else time.monotonic() + timeout
+        recv_limit = self._channel.max_receive_message_length
+
+        def attempt():
+            remaining = (None if deadline is None
+                         else max(0.0, deadline - time.monotonic()))
+            counters.on_start()
+            try:
+                body = mc(self._ser(request), timeout=remaining)
+                if recv_limit is not None and len(body) > recv_limit:
+                    # the native loop does not enforce the receive limit,
+                    # so the contract holds here
+                    raise RpcError(
+                        StatusCode.RESOURCE_EXHAUSTED,
+                        "received message larger than "
+                        "max_receive_message_length")
+            except RpcError:
+                counters.on_finish(False)
+                raise
+            counters.on_finish(True)
+            return _deserialize(self._deser, body)
+
+        t0 = time.monotonic_ns() if tctx is not None else 0
+
+        def _tail(error: bool) -> None:
+            if tctx is None:
+                return
+            dur = time.monotonic_ns() - t0
+            if _tracing.tail_decide(tctx, dur, error=error,
+                                    method=self._method):
+                _tracing.record("native-unary", tctx, t0, dur,
+                                method=self._method)
+
+        try:
+            if policy is None:
+                result = attempt()
+            else:
+                result = policy.run(deadline, attempt, throttle=throttle)
+            _tail(error=False)
+            return True, result
+        except RpcError as exc:
+            _tail(error=True)
+            if _status_of(exc) is StatusCode.UNAVAILABLE:
+                # a dead fast-path connection: drop it so the next call
+                # re-dials, and replay on the Python transport only when
+                # the C loop's machine-readable verdict (_tpurpc_preexec)
+                # says the server never saw a complete request. A post-send
+                # death surfaces as the Python transport's mid-call death
+                # does. The draining wording is the one compat signal left
+                # (a refusal sent without FLAG_REFUSED).
+                self._channel._native_invalidate(nch)
+                if (getattr(exc, "_tpurpc_preexec", False)
+                        or "connection draining" in (exc.details() or "")):
+                    return False, None
+            raise
 
     def with_call(self, request, timeout: Optional[float] = None,
                   metadata: Optional[Metadata] = None,
@@ -2485,6 +2734,20 @@ class UnaryStream(_MultiCallable):
         _reject_call_credentials(grpcio_kw)
         policy, timeout, throttle, wfr, _hedging = self._channel._call_plan(
             self._method, timeout, bool(grpcio_kw.get("wait_for_ready")))
+        # the native fast path (retrying and wait-for-ready calls stay on
+        # the Python transport); cheap eligibility first, so a call headed
+        # for the Python path is not serialized twice
+        if (policy is None and self._allow_native and not metadata
+                and not wfr
+                and not self._instruments_live()
+                and self._channel._native_fast() is not None):
+            # serialize EAGERLY: the Python path raises serializer errors
+            # at call time, and the native path must not defer them
+            raw = self._ser(request)
+            nsc = self._try_native_stream(iter([raw]), timeout,
+                                          pre_serialized=True)
+            if nsc is not None:
+                return nsc
         if policy is None:
             _, _, call = self._start(metadata, timeout, first_request=request,
                                      wait_for_ready=wfr)
@@ -2500,6 +2763,10 @@ class StreamUnary(_MultiCallable):
         _reject_call_credentials(grpcio_kw)
         _, timeout, _, wfr, _hedging = self._channel._call_plan(
             self._method, timeout, bool(grpcio_kw.get("wait_for_ready")))
+        if self._allow_native and not metadata and not wfr:
+            nsc = self._try_native_stream(request_iterator, timeout)
+            if nsc is not None:
+                return _drain_single_response(nsc)
         conn, st, call = self._start(metadata, timeout, wait_for_ready=wfr)
         sender = threading.Thread(
             target=self._send_stream, args=(conn, st, request_iterator),
@@ -2510,6 +2777,138 @@ class StreamUnary(_MultiCallable):
         return response
 
 
+class _NativeStreamCall:
+    """A call-shaped stream over a native ``NativeCall``. The RPC starts
+    EAGERLY (requests flow before the first response is consumed, as on
+    the Python transport), ``cancel()`` is safe from any thread (a plain C
+    call), responses honor the channel's receive limit, and completions
+    feed the channel's call counters."""
+
+    def __init__(self, channel: "Channel", nc, serializer, deserializer,
+                 request_iterator, timeout: Optional[float]):
+        self._nc = nc
+        self._deser = deserializer
+        self._code: Optional[StatusCode] = None
+        self._details = ""
+        self._deadline = (None if timeout is None
+                          else time.monotonic() + timeout)
+        self._recv_limit = channel.max_receive_message_length
+        self._counters = channel.call_counters
+        self._counters.on_start()
+        self._finished = False
+        self._finish_lock = threading.Lock()
+        self._callbacks: list = []
+        self._app_exc: list = []
+        self._sender = threading.Thread(
+            target=self._pump_requests, args=(request_iterator, serializer),
+            daemon=True, name="tpurpc-native-sender")
+        self._sender.start()
+
+    def _pump_requests(self, request_iterator, serializer) -> None:
+        try:
+            for item in request_iterator:
+                self._nc.write(serializer(item))
+            self._nc.writes_done()
+        except RpcError:
+            pass  # the read side surfaces the status
+        except BaseException as exc:  # the app's iterator or serializer
+            self._app_exc.append(exc)
+            self._nc.cancel()  # both sides unblock; the reader sees CANCELLED
+
+    def _finish(self) -> None:
+        with self._finish_lock:
+            if self._finished:
+                return
+            self._finished = True
+        if self._sender.is_alive():
+            # early consumer exit with requests still flowing: RST first so
+            # the blocked writer fails fast, THEN join (destroying the call
+            # under a live writer is a native use-after-free)
+            self._nc.cancel()
+        self._sender.join()
+        code, details = self._nc.finish()
+        self._code, self._details = code, details
+        self._nc.close()
+        self._counters.on_finish(code is StatusCode.OK)
+        for cb in self._callbacks:
+            try:
+                cb()
+            except Exception:
+                pass
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        msg = self._nc.read()
+        if msg is None:
+            self._finish()
+            if self._app_exc:
+                raise self._app_exc[0]
+            if self._code is not StatusCode.OK:
+                raise RpcError(self._code, self._details)
+            raise StopIteration
+        if self._recv_limit is not None and len(msg) > self._recv_limit:
+            self._nc.cancel()
+            self._finish()
+            self._code = StatusCode.RESOURCE_EXHAUSTED
+            self._details = ("received message larger than "
+                             "max_receive_message_length")
+            raise RpcError(self._code, self._details)
+        return _deserialize(self._deser, msg)
+
+    def __del__(self):
+        # an abandoned stream: RST and teardown so the server stops
+        try:
+            if not self._finished:
+                self._nc.cancel()
+                self._finish()
+        except Exception:
+            pass
+
+    # -- grpc Call surface ---------------------------------------------------
+
+    def cancel(self) -> None:
+        self._nc.cancel()  # thread-safe: a plain C call; the reader unblocks
+
+    def code(self) -> Optional[StatusCode]:
+        return self._code
+
+    def details(self) -> str:
+        return self._details
+
+    def is_active(self) -> bool:
+        return not self._finished
+
+    def time_remaining(self) -> Optional[float]:
+        if self._deadline is None:
+            return None
+        return max(0.0, self._deadline - time.monotonic())
+
+    def add_callback(self, callback) -> bool:
+        with self._finish_lock:
+            if not self._finished:
+                self._callbacks.append(callback)
+                return True
+        return False
+
+    def initial_metadata(self):
+        return []
+
+    def trailing_metadata(self):
+        return []
+
+    def messages(self) -> Iterator[object]:
+        """The response iterator (``UnaryStream`` callers use this name; on
+        this wrapper it IS the iterator)."""
+        return self
+
+    def device_ring(self):
+        """The native loop has no device-ring seam (the ``TPU`` platform is
+        never fast-path eligible): callers decode on the host."""
+        return None
+
+
 class StreamStream(_MultiCallable):
     def __call__(self, request_iterator: Iterable,
                  timeout: Optional[float] = None,
@@ -2517,6 +2916,12 @@ class StreamStream(_MultiCallable):
         _reject_call_credentials(grpcio_kw)
         _, timeout, _, wfr, _hedging = self._channel._call_plan(
             self._method, timeout, bool(grpcio_kw.get("wait_for_ready")))
+        # the native bidi fast path: plain calls on eligible channels
+        # stream through the C core's loop (the duplex and tensor path)
+        if self._allow_native and not metadata and not wfr:
+            nsc = self._try_native_stream(request_iterator, timeout)
+            if nsc is not None:
+                return nsc
         conn, st, call = self._start(metadata, timeout, wait_for_ready=wfr)
         threading.Thread(target=self._send_stream,
                          args=(conn, st, request_iterator),

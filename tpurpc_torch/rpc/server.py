@@ -1,7 +1,12 @@
 """Server: listener → per-connection demux → handler dispatch on a pool.
 
-A trimmed copy of ``tpurpc/rpc/server.py`` (no native plane, which comes
-with the C core). One port serves both wire protocols and the scrape
+A trimmed copy of ``tpurpc/rpc/server.py``. On the shm-ring platforms an
+eligible server hands its accepted ring connections to the native data
+plane (``rpc/native_server.py``: the C core's shared-poller loop with the
+Python handlers trampolined back; ``Server(native_dataplane=False)`` or
+``TPURPC_NATIVE_SERVER=0`` keeps them on the Python plane, and TLS
+listeners, device-ring connections, interceptors and connection-management
+knobs always do). One port serves both wire protocols and the scrape
 plane: the first 8 bytes of a connection route the native framing's magic
 to :class:`_ServerConnection`, the HTTP/2 preface to
 ``tpurpc_torch/wire/grpc_h2.py``, so stock gRPC clients call the same
@@ -1182,7 +1187,15 @@ class Server:
 
     def __init__(self, max_workers: int = 32, interceptors: Sequence = (),
                  max_receive_message_length: Optional[int] = None,
+                 native_dataplane: Optional[bool] = None,
                  admission: Optional[AdmissionGate] = None):
+        #: None = auto (adopt ring connections onto the native shared-poller
+        #: loop when eligible); False = always the Python plane (fully
+        #: instrumented: the copy ledger counts its passes); True behaves
+        #: like auto (the eligibility gates are correctness gates)
+        self._native_dataplane_opt = native_dataplane
+        self._native_dp = None
+        self._started = False
         #: server interceptors (``tpurpc_torch.rpc.interceptors``), applied
         #: at every handler lookup on both wire planes
         self.interceptors = list(interceptors)
@@ -1329,7 +1342,9 @@ class Server:
         listener = EndpointListener(host, port, self.serve_endpoint,
                                     ready=self._serving, reuseport=reuseport,
                                     ssl_context=ssl_context,
-                                    admission=self._accept_pushback)
+                                    admission=self._accept_pushback,
+                                    raw_hook=None if ssl_context is not None
+                                    else self._try_native_adopt)
         self._listeners.append(listener)
         self.bound_ports.append(listener.port)
         return listener.port
@@ -1346,12 +1361,18 @@ class Server:
     def adopt_socket(self, sock: socket.socket) -> None:
         """Serve a connection that was ACCEPTED ELSEWHERE (the shard
         supervisor's accept loop, delivered over SCM_RIGHTS) as this
-        server's own listener would: the platform's endpoint factory (the
-        device ring on ``TPU``), then the protocol sniff. Runs off the
-        caller's thread: a ring bootstrap blocks, and the worker's control
-        loop must not stall behind one silent client."""
+        server's own listener would: the native-plane adoption probe first,
+        then the platform's endpoint factory (the device ring on ``TPU``),
+        then the protocol sniff. Runs off the caller's thread: a ring
+        bootstrap blocks, and the worker's control loop must not stall
+        behind one silent client."""
 
         def _adopt():
+            try:
+                if self._try_native_adopt(sock):
+                    return  # the native data plane owns the socket now
+            except Exception as exc:
+                trace_server.log("handoff native probe failed (%s)", exc)
             try:
                 peer = sock.getpeername()
                 host = peer[0] if isinstance(peer, tuple) else str(peer)
@@ -1370,6 +1391,22 @@ class Server:
                          name="tpurpc-handoff").start()
 
     def start(self) -> "Server":
+        if self._started:
+            return self
+        # the native data plane: an eligible server hands accepted ring
+        # connections to the C core's shared-poller loop with the Python
+        # handlers trampolined back. Built here, so every registered method
+        # exists; listeners accept only once _serving is set.
+        self._native_dp = None
+        try:
+            from tpurpc_torch.rpc.native_server import (NativeDataplane,
+                                                        adoption_eligible)
+
+            if adoption_eligible(self):
+                self._native_dp = NativeDataplane(self)
+        except Exception as exc:  # library unbuildable etc.: Python plane
+            trace_server.log("native dataplane unavailable: %s", exc)
+        self._started = True
         # continuous stage profiling starts with the server (idempotent;
         # no-op under TPURPC_LENS=0)
         try:
@@ -1391,6 +1428,40 @@ class Server:
             pass
         self._serving.set()
         return self
+
+    def _try_native_adopt(self, sock) -> bool:
+        """Raw-socket listener hook: peek the protocol magic and hand RING
+        connections (the ``TRB1`` bootstrap) to the native data plane.
+        The peek (``MSG_PEEK``) consumes nothing, so a False return leaves
+        the socket exactly as accepted for the Python path."""
+        dp = self._native_dp
+        if dp is None:
+            return False
+        deadline = time.monotonic() + 30
+        first = b""
+        try:
+            sock.settimeout(2)
+            while len(first) < 4 and time.monotonic() < deadline:
+                try:
+                    first = sock.recv(4, socket.MSG_PEEK)
+                except (TimeoutError, socket.timeout):
+                    continue
+                if not first:
+                    return False  # peer closed before the preface
+                if len(first) < 4:
+                    time.sleep(0.002)
+        except OSError:
+            return False
+        finally:
+            # every False return hands the socket to the Python plane,
+            # which expects it blocking, as accepted
+            try:
+                sock.settimeout(None)
+            except OSError:
+                pass  # already closed or reset: the caller's read sees it
+        if first != b"TRB1":
+            return False
+        return dp.adopt(sock)
 
     def serve_endpoint(self, endpoint: Endpoint) -> None:
         """Adopt a connected endpoint; the preface is read on its own thread
@@ -1493,6 +1564,13 @@ class Server:
                 time.sleep(0.01)
         for conn in conns:
             conn.close()
+        dp = self._native_dp
+        if dp is not None:
+            self._native_dp = None
+            try:
+                dp.close()  # tears down adopted connections and pollers
+            except Exception:
+                pass
         self._pool.shutdown(wait=False)
         self._stopped.set()
         return self._stopped

@@ -28,8 +28,9 @@ stages) spans under the trace context its handler thread carried at
 enqueue, :class:`DeviceMerger`'s ``merge_subbatches``,
 ``merge_dispatches`` and ``merge_isolated_failures``, the ``batcher`` and
 ``device-dispatch`` profiler stages, and the ``jaxshim`` trace flag (the
-reference's name). Not here: the native channel's pipeline (ROADMAP A7
-(a)).
+reference's name). :class:`TensorClient` runs over a port ``Channel`` or a
+``NativeChannel`` (the C core's client); ``duplex(..., native=True)``
+takes the channel's native fast path where the channel is eligible.
 """
 
 from __future__ import annotations
@@ -230,13 +231,19 @@ class TensorClient:
         return mc(tree, timeout=timeout)
 
     def pipeline(self, name: str, depth: Optional[int] = None):
-        """A bounded multi-in-flight caller for ``name``: a
-        :class:`~tpurpc_torch.rpc.channel.PipelinedUnary`, whose
-        ``call_async(tree, timeout=None)`` returns a Future."""
+        """A bounded multi-in-flight caller for ``name``: an object whose
+        ``call_async(tree, timeout=None)`` returns a Future. On the Python
+        channel a :class:`~tpurpc_torch.rpc.channel.PipelinedUnary`; on a
+        ``NativeChannel`` its ``.future()`` (the completion queue, or the
+        bounded worker window on inline-read channels) behind the same
+        bounded window."""
         depth = self.depth if depth is None else max(1, depth)
         mc = self._channel.unary_unary(
             _method_path(name), codec.tree_serializer, codec.tree_deserializer)
-        return mc.pipeline(depth)
+        pl = getattr(mc, "pipeline", None)
+        if pl is not None:  # Python channel: stream-id-demuxed window
+            return pl(depth)
+        return _NativePipeline(mc.future, depth)
 
     def call_async(self, name: str, tree: Any,
                    timeout: Optional[float] = None):
@@ -276,10 +283,42 @@ class TensorClient:
         return mc(tree, timeout=timeout)
 
     def duplex(self, name: str, trees: Iterator[Any],
-               timeout: Optional[float] = None) -> Iterator[Any]:
+               timeout: Optional[float] = None,
+               native: bool = True) -> Iterator[Any]:
+        """Bidi tensor stream. ``native=True`` (the default) rides the C
+        core's loop on eligible channels; ineligible ones (the ``TPU``
+        device-ring platform, TLS, compression, several addresses) take
+        the Python transport by themselves. ``native=False`` forces the
+        instrumented Python plane: the native plane bills no copies to
+        the copy ledger."""
         mc = self._channel.stream_stream(
-            _method_path(name), codec.tree_serializer, codec.tree_deserializer)
+            _method_path(name), codec.tree_serializer,
+            codec.tree_deserializer, tpurpc_native=native)
         return mc(trees, timeout=timeout)
+
+
+class _NativePipeline:
+    """A window-bounded wrapper over a native ``.future``: the native side
+    already pipelines (the completion queue or the inline worker window);
+    this adds the caller-facing backpressure ``PipelinedUnary`` has, so
+    serving code treats the two planes alike."""
+
+    def __init__(self, future_fn, depth: int):
+        self._future_fn = future_fn
+        self._window = threading.BoundedSemaphore(max(1, depth))
+
+    def call_async(self, tree: Any, timeout: Optional[float] = None):
+        self._window.acquire()
+        try:
+            fut = self._future_fn(tree, timeout=timeout)
+        except BaseException:
+            self._window.release()
+            raise
+        fut.add_done_callback(lambda _f: self._window.release())
+        return fut
+
+    def close(self) -> None:
+        pass
 
 
 # ---------------------------------------------------------------------------

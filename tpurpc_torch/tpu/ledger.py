@@ -93,11 +93,27 @@ class Window:
         return self.delta[k]
 
 
+_active_windows = 0
+
+
+def tracking() -> bool:
+    """True while any ``track()`` window is open. Fast paths that bypass
+    the instrumented Python data plane (the channel's native fast paths)
+    consult this and step aside: a copy-ledger measurement must measure
+    the path whose copies the ledger counts."""
+    return _active_windows > 0
+
+
 @contextlib.contextmanager
 def track():
     """``with ledger.track() as w: ...`` → ``w["host_copy"]`` etc."""
+    global _active_windows
     w = Window(snapshot())
+    with _lock:
+        _active_windows += 1
     try:
         yield w
     finally:
+        with _lock:
+            _active_windows -= 1
         w.close(snapshot())

@@ -656,9 +656,12 @@ class H2Channel:
             return
 
     # -- grpcio-shaped surface ------------------------------------------------
+    # The factories take and ignore extra keywords (grpcio stubs'
+    # ``_registered_method``, the tensor service's ``tpurpc_native``): this
+    # channel has no native plane to opt out of.
 
     def unary_unary(self, method: str, request_serializer=None,
-                    response_deserializer=None):
+                    response_deserializer=None, **_grpcio_kwargs):
         ser = request_serializer or (lambda x: x)
         deser = response_deserializer or (lambda x: x)
 
@@ -684,7 +687,7 @@ class H2Channel:
         return call_fn
 
     def unary_stream(self, method: str, request_serializer=None,
-                     response_deserializer=None):
+                     response_deserializer=None, **_grpcio_kwargs):
         ser = request_serializer or (lambda x: x)
         deser = response_deserializer or (lambda x: x)
 
@@ -707,7 +710,7 @@ class H2Channel:
         return call_fn
 
     def stream_unary(self, method: str, request_serializer=None,
-                     response_deserializer=None):
+                     response_deserializer=None, **_grpcio_kwargs):
         ser = request_serializer or (lambda x: x)
         deser = response_deserializer or (lambda x: x)
 
@@ -734,7 +737,7 @@ class H2Channel:
         return call_fn
 
     def stream_stream(self, method: str, request_serializer=None,
-                      response_deserializer=None):
+                      response_deserializer=None, **_grpcio_kwargs):
         ser = request_serializer or (lambda x: x)
         deser = response_deserializer or (lambda x: x)
 
